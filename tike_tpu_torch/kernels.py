@@ -1,0 +1,122 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, then loaded with
+:mod:`ctypes`. The build happens at first use, never at import, into
+``_build/`` beside this file, under a name keyed by a hash of the source
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused within a checkout. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+
+# C signatures of each library's entry points: (argtypes, restype).
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "patch": {
+        # (src, positions, dst, n, h, w, p, channels, stream) -> cudaError_t
+        "tike_patch_fwd": ([_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR], _INT),
+        "tike_patch_adj": ([_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR], _INT),
+    },
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+BUILD_INFO: dict[str, dict] = {}
+"""Per library: ``seconds`` spent building (0.0 if reused), ``path`` of
+the shared library, and the compiler's ``log`` (register and spill counts
+from ``-Xptxas=-v``)."""
+
+
+def find_nvcc() -> str:
+    """Return the path of ``nvcc``: on PATH, else under CUDA_HOME."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(home) / "bin" / "nvcc"
+        if candidate.exists():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc was not found on PATH or under CUDA_HOME; the CUDA "
+            "toolkit is required to build the tike_tpu_torch kernels."
+        )
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    """Where the built library for ``csrc/<name>.cu`` lives."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the keyed library already exists."""
+    target = library_path(name)
+    if target.exists():
+        BUILD_INFO[name] = {"seconds": 0.0, "path": str(target), "log": ""}
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    start = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build csrc/{name}.cu "
+                f"(exit {proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_INFO[name] = {
+        "seconds": time.perf_counter() - start,
+        "path": str(target),
+        "log": proc.stdout + proc.stderr,
+    }
+    return target
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``; cached per process."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(name)))
+    for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _LOADED[name] = lib
+    return lib

@@ -1,0 +1,172 @@
+"""Object and probe preconditioners (single slice).
+
+Counterpart of :mod:`tike_tpu.ptycho.solvers._preconditioner`:
+
+- psi preconditioner = sum over positions of |probe|^2 added into the
+  object frame at each position;
+- probe preconditioner = sum over positions of |object patch|^2.
+
+Each has two exact formulations, as in the JAX package: a gather one that
+runs the patch operators per position (``_psi_precond_math``,
+``_probe_precond_math``), and an FFT one that scatters bilinear point
+densities at integer pixels and convolves/correlates them with full-object
+fields (``_psi_precond_fft_math``, ``_probe_precond_fft_math``).
+:func:`fft_precond_profitable` picks between them with the JAX package's
+own rule, so both packages take the same formulation.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...ops.patch import patch_adj, patch_fwd
+from ...ops.ptycho import PtychoConfig, _require_single_slice
+
+# The (8, 128) tile the JAX gather formulation works in; only the cost
+# model below reads it.
+_SUB, _LANE = 8, 128
+
+
+def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
+    """Return (1, H, W) float32 sum of |illumination|^2 at each pixel.
+
+    ``mask`` (N,) optionally zeroes padded batch slots.
+    """
+    _require_single_slice(cfg)
+    n = scan.shape[0]
+    w = torch.ones(n, device=scan.device) if mask is None else mask
+    probe_amp = torch.sum((probe[0, 0] * probe[0, 0].conj()).real, dim=0)
+    return patch_adj(
+        (probe_amp[None] * w[:, None, None]).contiguous(),
+        scan,
+        (cfg.nz, cfg.n),
+    )[None]
+
+
+def _probe_precond_math(cfg: PtychoConfig, psi, scan, mask=None):
+    """Return (1, P, P) float32 sum of |object patches|^2."""
+    _require_single_slice(cfg)
+    w = torch.ones(scan.shape[0], device=scan.device) if mask is None else mask
+    patches = patch_fwd(psi[0], scan, cfg.probe_shape)
+    return torch.sum(
+        (patches * patches.conj()).real * w[:, None, None], dim=0
+    )[None]
+
+
+def fft_precond_profitable(
+    n_positions: int, probe_shape: int, nz: int, n: int
+) -> bool:
+    """Whether the FFT formulation is chosen over the per-position gather.
+
+    The JAX package's cost model, kept unchanged so both packages take the
+    same formulation: the gather touches one aligned (th x tw) tile per
+    position, the FFT pays a few full-object FFTs. Its crossover constant
+    3.0 was fitted to TPU timings and has not been refitted for this port.
+    """
+    th = -(-(probe_shape + _SUB) // 8) * 8
+    tw = -(-(probe_shape + _LANE) // _LANE) * _LANE
+    s1 = _fft_len(nz + probe_shape + 1)
+    s2 = _fft_len(n + probe_shape + 1)
+    return n_positions * th * tw > 3.0 * s1 * s2 * np.log2(s1 * s2)
+
+
+def _fft_len(n: int) -> int:
+    """Smallest 5-smooth length >= n."""
+    m = n
+    while True:
+        k = m
+        for p in (2, 3, 5):
+            while k % p == 0:
+                k //= p
+        if k == 1:
+            return m
+        m += 1
+
+
+def _bilinear_split(scan):
+    corner = torch.floor(scan)
+    fy = scan[:, 0] - corner[:, 0]
+    fx = scan[:, 1] - corner[:, 1]
+    Y = corner[:, 0].to(torch.int64)
+    X = corner[:, 1].to(torch.int64)
+    return Y, X, (1 - fy, fy), (1 - fx, fx)
+
+
+def _psi_precond_fft_math(cfg: PtychoConfig, scan, probe, w):
+    """Single-slice psi preconditioner as density-conv-|probe|^2.
+
+    Exactly :func:`_psi_precond_math` (by linearity of the patch adjoint):
+    the same |probe|^2 is spread at every position, so the sum is the
+    4-corner bilinear point density convolved with |probe|^2.
+    """
+    _require_single_slice(cfg)
+    h, wd, p = cfg.nz, cfg.n, cfg.probe_shape
+    Y, X, wy, wx = _bilinear_split(scan)
+    d = torch.zeros((h + 1, wd + 1), dtype=torch.float32, device=scan.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            d.index_put_((Y + a, X + b), w * wy[a] * wx[b], accumulate=True)
+    probe_amp = torch.sum((probe[0, 0] * probe[0, 0].conj()).real, dim=0)
+    s = (_fft_len(h + p + 1), _fft_len(wd + p + 1))
+    out = torch.fft.irfft2(
+        torch.fft.rfft2(d, s=s) * torch.fft.rfft2(probe_amp, s=s), s=s
+    )[:h, :wd]
+    return out[None].to(torch.float32)
+
+
+def _probe_precond_fft_math(cfg: PtychoConfig, psi, scan, w):
+    """Single-slice probe preconditioner via 5 density-correlations.
+
+    Expands sum_s |bilinear-interp patch_s|^2 into its 16 bilinear cross
+    terms, grouped by pixel offset delta (0,0), (0,1), (1,0), (1,1) and
+    (1,-1); the other half follows by conjugate symmetry.
+    """
+    _require_single_slice(cfg)
+    h, wd, p = cfg.nz, cfg.n, cfg.probe_shape
+    psi0 = psi[0]
+    Y, X, wy, wx = _bilinear_split(scan)
+    rho = torch.zeros(
+        (5, h + 2, wd + 2), dtype=torch.float32, device=scan.device
+    )
+    for a in (0, 1):
+        for b in (0, 1):
+            rho[0].index_put_(
+                (Y + a, X + b), w * (wy[a] * wx[b]) ** 2, accumulate=True
+            )
+    for a in (0, 1):  # delta = (0, 1)
+        rho[1].index_put_(
+            (Y + a, X), w * wy[a] ** 2 * wx[0] * wx[1], accumulate=True
+        )
+    for b in (0, 1):  # delta = (1, 0)
+        rho[2].index_put_(
+            (Y, X + b), w * wx[b] ** 2 * wy[0] * wy[1], accumulate=True
+        )
+    wq = w * wy[0] * wy[1] * wx[0] * wx[1]
+    rho[3].index_put_((Y, X), wq, accumulate=True)  # delta = (1, 1)
+    rho[4].index_put_((Y, X + 1), wq, accumulate=True)  # delta = (1, -1)
+
+    def shifted(dy, dx):
+        """psi0 shifted by (dy, dx), zero where the shift leaves the image."""
+        out = torch.zeros_like(psi0)
+        src = psi0[dy:, max(dx, 0) : wd + min(dx, 0)]
+        out[: h - dy, max(-dx, 0) : wd - max(dx, 0)] = src
+        return out
+
+    # Only the real part of each correlation is used, and rho is real, so
+    # take the real part of Z first and use half-spectrum real FFTs.
+    Z = torch.stack(
+        [
+            (psi0 * psi0.conj()).real,
+            (psi0 * shifted(0, 1).conj()).real,
+            (psi0 * shifted(1, 0).conj()).real,
+            (psi0 * shifted(1, 1).conj()).real,
+            (psi0 * shifted(1, -1).conj()).real,
+        ]
+    ).to(torch.float32)
+    s = (_fft_len(h + p + 2), _fft_len(wd + p + 2))
+    corr = torch.fft.irfft2(
+        torch.fft.rfft2(rho, s=s).conj() * torch.fft.rfft2(Z, s=s), s=s
+    )[:, :p, :p]
+    out = corr[0] + 2 * torch.sum(corr[1:], dim=0)
+    return out[None].to(torch.float32)
