@@ -16,16 +16,27 @@ without printing the final ``ok`` line:
    kernel against its plain PyTorch version, with times from CUDA events;
 4. forward model: the port's ``simulate`` on the card against a numpy
    forward model (the math of ``bench.py``'s ``_simulate_numpy``) on 256
-   positions;
-5. small slice: a 3-epoch LSQML reconstruction on the card against the
-   port's plain-PyTorch path on the CPU, on the same seeded input;
+   positions, with one probe mode, 3 modes, and 3 modes with an eigen
+   probe and per-position weights;
+5. small slices: 3-epoch LSQML reconstructions on the card against the
+   port's plain-PyTorch path on the CPU, on the same seeded input: one
+   probe mode, then config 2's features (3 modes, eigen probe and weights,
+   position correction);
 6. main path: 10,000 simulated 128^2 patterns of a 1500^2 object, LSQML
    with compact batching (num_batch=10), ``iterate(1)`` then a timed
    ``iterate(3)``; costs must be finite and decreasing, and both patch
-   kernels must have been launched by it.
+   kernels must have been launched by it;
+7. config 2 (``bench_all.py``'s ``lsqml_opr_pos``, BASELINE.md config 2):
+   the same scan and object with 3 probe modes, one eigen probe with
+   per-position weights and position correction, data simulated on the
+   card; ``iterate(1)`` then a timed ``iterate(3)``; costs finite and
+   decreasing, both patch kernels launched, eigen probe and weights
+   finite and moved, positions moved inside the allowed window and by at
+   most twice the update limit per epoch.
 
-The line before the last lists each kernel (its launches in phase 6, its
-error against the plain version and both times); the last line is
+The line before the last lists each kernel (its launches in phase 6 as
+``launches`` and in phase 7 as ``launches_config2``, its error against the
+plain version and both times); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,6 +70,12 @@ SIM_RTOL, SIM_ATOL = 1e-4, 1e-6
 # Small slice, card vs CPU: atomics reorder the adjoint's sums, and 3
 # epochs of LSQML carry that rounding forward.
 SLICE_TOL = 1e-4
+# The same for positions, in pixels: the position step divides the summed
+# gradient terms by their own magnitudes, which carries their rounding.
+SLICE_SCAN_TOL = 1e-3
+# Config 2 (bench_all.py:134-176): 3 probe modes, one eigen probe,
+# position correction with this per-epoch update limit (pixels).
+MODES, POS_LIMIT = 3, 2.0
 
 KERNELS = {
     "patch_fwd": "tike_tpu/ops/patch_pallas.py:110",  # also :181
@@ -248,11 +265,20 @@ def make_inputs(n_patterns, probe_shape=PROBE, hw=HW):
     return scan, psi, probe
 
 
-def simulate_numpy(det, probe, scan, psi):
+def simulate_numpy(det, probe, scan, psi, eigen_probe=None, eigen_weights=None):
     """Numpy forward model: bilinear patch, probe product, zero-pad, ortho
-    FFT, intensity summed over probe modes (bench.py's _simulate_numpy)."""
+    FFT, intensity summed over probe modes (bench.py's _simulate_numpy).
+
+    With eigen weights, the probe at position k is ``w[k, 0] * probe +
+    sum_e w[k, 1 + e] * eigen_probe[e]``, mode by mode."""
     p = probe.shape[-1]
-    probe2d = probe[0, 0]
+    probe2d = probe[0, 0][None]  # (1, M, P, P)
+    if eigen_weights is not None:
+        w = eigen_weights[:, :, :, None, None]
+        probe2d = w[:, 0] * probe[0, 0]
+        if eigen_probe is not None:
+            m = eigen_probe.shape[-3]
+            probe2d[:, :m] += np.sum(w[:, 1:, :m] * eigen_probe[0][None, :, :m], axis=1)
     corner = np.floor(scan).astype(np.int64)
     frac = scan - corner
     pats = np.empty((len(scan), p, p), np.complex64)
@@ -265,7 +291,7 @@ def simulate_numpy(det, probe, scan, psi):
             + fy * (1 - fx) * win[1:, :-1]
             + fy * fx * win[1:, 1:]
         )
-    near = pats[:, None] * probe2d[None]
+    near = pats[:, None] * probe2d
     pad = (det - p) // 2
     if pad or det != p:
         near = np.pad(near, ((0, 0), (0, 0), (pad, det - p - pad), (pad, det - p - pad)))
@@ -274,17 +300,33 @@ def simulate_numpy(det, probe, scan, psi):
 
 
 def phase_forward_model(device, scan, psi, probe, n=256) -> None:
-    got = tp.simulate(DET, probe, scan[:n], psi, device=device)
-    torch.cuda.synchronize()
-    want = simulate_numpy(DET, probe, scan[:n], psi)
-    atol = SIM_ATOL * float(np.max(want))
-    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=SIM_RTOL, atol=atol)
-    err = float(np.max(np.abs(got.cpu().numpy() - want)))
-    log(f"[forward] simulate {n}x{DET}^2 on {device} vs numpy: max|err| "
-        f"{err:.3e} (rtol {SIM_RTOL:g}, atol {atol:.3e})")
+    probe3 = tp.add_modes_cartesian_hermite(probe, MODES)
+    eigen_probe, weights = config2_eigen(probe3, n)
+    # Weights that differ per position, so the blend is exercised.
+    weights[:, 1] = np.linspace(-50, 50, n, dtype=np.float32)[:, None]
+    for name, probe_k, eig, w in (
+        ("1 mode", probe, None, None),
+        (f"{MODES} modes", probe3, None, None),
+        (f"{MODES} modes + eigen probe", probe3, eigen_probe, weights),
+    ):
+        got = tp.simulate(
+            DET, probe_k, scan[:n], psi, eigen_probe=eig, eigen_weights=w,
+            device=device,
+        )
+        torch.cuda.synchronize()
+        want = simulate_numpy(DET, probe_k, scan[:n], psi, eig, w)
+        atol = SIM_ATOL * float(np.max(want))
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=SIM_RTOL, atol=atol)
+        err = float(np.max(np.abs(got.cpu().numpy() - want)))
+        log(f"[forward] simulate {name}, {n}x{DET}^2 on {device} vs numpy: "
+            f"max|err| {err:.3e} (rtol {SIM_RTOL:g}, atol {atol:.3e})")
 
 
-def _small_slice_parameters(scan, probe, psi0, det):
+def _small_slice_parameters(scan, probe, psi0, det, config2=False):
+    extra = {}
+    if config2:
+        probe = tp.add_modes_cartesian_hermite(probe, MODES)
+        extra = config2_extra(scan, probe)
     return tp.PtychoParameters(
         probe=probe,
         psi=psi0,
@@ -297,11 +339,14 @@ def _small_slice_parameters(scan, probe, psi0, det):
         exitwave_options=tp.ExitWaveOptions(
             measured_pixels=np.ones((det, det), bool)
         ),
+        **extra,
     )
 
 
-def phase_small_slice(device) -> None:
-    """3 LSQML epochs at 160^2 / P=16 / 24^2 detector, card vs CPU."""
+def phase_small_slice(device, config2=False) -> None:
+    """3 LSQML epochs at 160^2 / P=16 / 24^2 detector, card vs CPU; with
+    ``config2`` the probe has 3 modes, an eigen probe and weights, and the
+    positions are corrected."""
     gen = np.random.default_rng(1)
     h, p, det, n = 160, 16, 24, 120
     scan = gen.uniform(2, h - p - 3, (n, 2)).astype(np.float32)
@@ -317,7 +362,7 @@ def phase_small_slice(device) -> None:
     data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
     results = {}
     for dev in ("cpu", device):
-        params = _small_slice_parameters(scan, probe, psi0, det)
+        params = _small_slice_parameters(scan, probe, psi0, det, config2)
         with tp.Reconstruction(data, params, device=dev, random_seed=0) as context:
             context.iterate(3)
             results[str(dev)] = context.get_result()
@@ -325,22 +370,45 @@ def phase_small_slice(device) -> None:
     c_ref = np.asarray(ref.algorithm_options.costs)
     c_got = np.asarray(got.algorithm_options.costs)
     np.testing.assert_allclose(c_got, c_ref, rtol=SLICE_TOL)
-    for key in ("psi", "probe"):
+    keys = ("psi", "probe") + (("eigen_probe", "eigen_weights") if config2 else ())
+    for key in keys:
         a, b = getattr(got, key), getattr(ref, key)
         np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
-    log(f"[slice] 3 epochs {n}x{det}^2 on {device} vs cpu: costs "
-        f"{c_got.ravel().tolist()} vs {c_ref.ravel().tolist()} (rtol {SLICE_TOL:g})")
+    scan_err = float(np.max(np.abs(got.scan - ref.scan)))
+    np.testing.assert_allclose(got.scan, ref.scan, rtol=0, atol=SLICE_SCAN_TOL)
+    if config2 and not np.max(np.abs(got.scan - scan)) > 0.1:
+        raise AssertionError("config-2 slice: the positions did not move")
+    name = "config-2 slice (3 modes, eigen probe, positions)" if config2 else "slice"
+    log(f"[slice] {name}: 3 epochs {n}x{det}^2 on {device} vs cpu: costs "
+        f"{c_got.ravel().tolist()} vs {c_ref.ravel().tolist()} (rtol {SLICE_TOL:g}); "
+        f"scan max|err| {scan_err:.3e} px (tol {SLICE_SCAN_TOL:g})")
 
 
-def phase_main_path(device, scan, psi, probe, card: str) -> dict:
-    start = time.perf_counter()
-    data = tp.simulate(DET, probe, scan, psi, device=device)
-    torch.cuda.synchronize()
-    log(f"[main] simulated {tuple(data.shape)} {data.dtype} on {device} in "
-        f"{time.perf_counter() - start:.2f} s")
-    if not bool(torch.isfinite(data).all()):
-        raise AssertionError("simulated data is not finite")
-    params = tp.PtychoParameters(
+def config2_eigen(probe, n_positions):
+    """bench_all.py's config-2 eigen state: one eigen probe, 0.01 of the
+    shared modes, and weights of 1 on the shared component and 0 on it."""
+    eigen_probe = (0.01 * probe[:, :1]).astype(np.complex64)
+    weights = np.zeros((n_positions, 2, probe.shape[-3]), np.float32)
+    weights[:, 0, :] = 1.0
+    return eigen_probe, weights
+
+
+def config2_extra(scan, probe) -> dict:
+    """The PtychoParameters fields config 2 adds to the main path."""
+    eigen_probe, weights = config2_eigen(probe, len(scan))
+    return dict(
+        eigen_probe=eigen_probe,
+        eigen_weights=weights,
+        position_options=tp.PositionOptions(
+            initial_scan=scan, update_magnitude_limit=POS_LIMIT
+        ),
+    )
+
+
+def path_parameters(scan, psi, probe, config2=False):
+    """The main path's parameters (bench.py), or config 2's
+    (bench_all.py:134-176) for a probe that already has its 3 modes."""
+    return tp.PtychoParameters(
         probe=probe,
         psi=np.full_like(psi, 0.5),
         scan=scan,
@@ -349,7 +417,22 @@ def phase_main_path(device, scan, psi, probe, card: str) -> dict:
         ),
         object_options=tp.ObjectOptions(),
         probe_options=tp.ProbeOptions(),
+        **(config2_extra(scan, probe) if config2 else {}),
     )
+
+
+def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
+    """Simulate the data on the card, then enter a Reconstruction and run
+    ``iterate(1)`` and a timed ``iterate(3)``, with the kernel counts set to
+    0 just before and read just after. Checks what both paths share."""
+    start = time.perf_counter()
+    data = tp.simulate(DET, probe, scan, psi, device=device)
+    torch.cuda.synchronize()
+    log(f"[{tag}] simulated {tuple(data.shape)} {data.dtype} on {device} with "
+        f"{probe.shape[-3]} probe mode(s) in {time.perf_counter() - start:.2f} s")
+    if not bool(torch.isfinite(data).all()):
+        raise AssertionError("simulated data is not finite")
+    params = path_parameters(scan, psi, probe, config2)
 
     for name in patch.LAUNCHES:
         patch.LAUNCHES[name] = 0
@@ -358,14 +441,16 @@ def phase_main_path(device, scan, psi, probe, card: str) -> dict:
     context = tp.Reconstruction(data, params, device=device, random_seed=0)
     context.__enter__()
     torch.cuda.synchronize()
-    log(f"[main] Reconstruction entered in {time.perf_counter() - start:.2f} s "
+    setup_s = time.perf_counter() - start
+    log(f"[{tag}] Reconstruction entered in {setup_s:.2f} s "
         f"(compact batches {context.batches[0].shape}, fft_precond "
-        f"{bool(context._make_plan().fft_precond)})")
+        f"{bool(context._make_plan().fft_precond)}) ({card})")
     before = dict(patch.LAUNCHES)
     start = time.perf_counter()
     context.iterate(1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - start
+    scan1 = context.get_scan()
     start = time.perf_counter()
     context.iterate(3)
     torch.cuda.synchronize()
@@ -376,7 +461,7 @@ def phase_main_path(device, scan, psi, probe, card: str) -> dict:
     costs = [c[0] for c in context.get_convergence()[0]]
     result = context.get_result()
     context.__exit__(None, None, None)
-    log(f"[main] per-epoch costs {costs}")
+    log(f"[{tag}] per-epoch costs {costs}")
     if len(costs) != 4 or not np.all(np.isfinite(costs)):
         raise AssertionError(f"costs are not 4 finite values: {costs}")
     if not costs[-1] < costs[0]:
@@ -389,13 +474,55 @@ def phase_main_path(device, scan, psi, probe, card: str) -> dict:
     if result.probe.shape != probe.shape or not np.all(np.isfinite(result.probe)):
         raise AssertionError("reconstructed probe is not finite or has the wrong shape")
     per_epoch = timed_s / 3
-    log(f"[main] iterate(1) {first_s:.3f} s; iterate(3) {timed_s:.3f} s = "
+    log(f"[{tag}] iterate(1) {first_s:.3f} s; iterate(3) {timed_s:.3f} s = "
         f"{per_epoch:.4f} s/epoch, {N_PATTERNS / per_epoch:.1f} patterns/s "
         f"({card})")
-    log(f"[main] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) ({card})")
-    log(f"[main] kernel launches {launches} (iterate alone: "
+    log(f"[{tag}] set-up {setup_s:.2f} s; peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB) ({card})")
+    log(f"[{tag}] kernel launches {launches} (iterate alone: "
         f"{ {k: launches[k] - before[k] for k in launches} })")
-    return launches
+    return dict(launches=launches, result=result, scan1=scan1)
+
+
+def phase_main_path(device, scan, psi, probe, card: str) -> dict:
+    return _drive("main", device, probe, scan, psi, card, config2=False)["launches"]
+
+
+def phase_config2(device, scan, psi, probe, card: str) -> dict:
+    """Config 2 at full width: 3 modes, one eigen probe, positions."""
+    probe3 = tp.add_modes_cartesian_hermite(probe, MODES)
+    out = _drive("config2", device, probe3, scan, psi, card, config2=True)
+    result = out["result"]
+    eigen_probe, weights = config2_eigen(probe3, len(scan))
+    for key, start in (("eigen_probe", eigen_probe), ("eigen_weights", weights)):
+        value = getattr(result, key)
+        if value.shape != start.shape or not np.all(np.isfinite(value)):
+            raise AssertionError(f"{key} is not finite or has the wrong shape")
+        moved = float(np.max(np.abs(value - start)))
+        if not moved > 0:
+            raise AssertionError(f"{key} did not move from its start")
+        log(f"[config2] {key} {value.shape}: finite, max|change| {moved:.3e}")
+    # The host-side affine fit that ends every iterate call with position
+    # correction, timed alone: it is inside each iterate's wall time.
+    start = time.perf_counter()
+    tp.affine_position_regularization(
+        result.scan, result.position_options, rng=np.random.default_rng(0)
+    )
+    log(f"[config2] host affine position fit at {len(scan)} positions: "
+        f"{time.perf_counter() - start:.4f} s")
+    tp.check_allowed_positions(result.scan, psi, probe3.shape)
+    # Each epoch's step is clipped to the limit, then the trimmed mean
+    # (itself within the limit) is subtracted.
+    for before, after, epochs in ((scan, out["scan1"], 1), (out["scan1"], result.scan, 3)):
+        step = float(np.max(np.abs(after - before)))
+        if not 0 < step <= 2 * POS_LIMIT * epochs:
+            raise AssertionError(
+                f"positions moved by {step} px in {epochs} epoch(s); expected "
+                f"(0, {2 * POS_LIMIT * epochs}]"
+            )
+        log(f"[config2] positions moved up to {step:.4f} px in {epochs} epoch(s) "
+            f"(bound {2 * POS_LIMIT * epochs:g}); all inside the allowed window")
+    return out["launches"]
 
 
 def main() -> None:
@@ -406,7 +533,9 @@ def main() -> None:
     scan, psi, probe = make_inputs(N_PATTERNS)
     phase_forward_model(device, scan, psi, probe)
     phase_small_slice(device)
+    phase_small_slice(device, config2=True)
     launches = phase_main_path(device, scan, psi, probe, env["nvidia_smi"])
+    launches2 = phase_config2(device, scan, psi, probe, env["nvidia_smi"])
     report = [
         {
             "name": name,
@@ -414,6 +543,7 @@ def main() -> None:
             "source": "tike_tpu_torch/csrc/patch.cu",
             "replaces": KERNELS[name],
             "launches": launches[name],
+            "launches_config2": launches2[name],
             **timings[name],
         }
         for name in KERNELS

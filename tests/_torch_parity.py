@@ -113,3 +113,27 @@ def one_ulp(gen: np.random.Generator, x: np.ndarray) -> np.ndarray:
     return (
         np.where(real, up(x.real), x.real) + 1j * np.where(real, x.imag, up(x.imag))
     ).astype(np.complex64)
+
+
+def opr_inputs(seed: int = 0, h: int = 160, p: int = 16, det: int = 24, npos: int = 120):
+    """Seeded inputs of the small config-2 slice: :func:`slice_inputs` with
+    the probe split into 3 incoherent modes by ``add_modes_cartesian_hermite``
+    (the JAX package's numpy helper, as ``bench_all.py`` builds config 2).
+
+    Returns scan, true psi, the (1, 1, 3, P, P) probe and the perturbed
+    starting psi.
+    """
+    from tike_tpu.ptycho.probe import add_modes_cartesian_hermite
+
+    scan, psi, probe, psi0 = slice_inputs(seed, h, p, det, npos)
+    return scan, psi, add_modes_cartesian_hermite(probe, 3), psi0
+
+
+def bench_eigen(probe: np.ndarray, npos: int):
+    """``bench_all.py``'s config-2 eigen state: one eigen probe, 0.01 of the
+    shared modes, and weights of 1 on the shared component and 0 on the
+    eigen probe."""
+    eigen_probe = (0.01 * probe[:, :1]).astype(np.complex64)
+    weights = np.zeros((npos, 2, probe.shape[-3]), np.float32)
+    weights[:, 0, :] = 1.0
+    return eigen_probe, weights

@@ -99,27 +99,32 @@ def test_masked_mean_each_pattern_matches_jax():
 @pytest.mark.parametrize(
     "change, match",
     [
-        (dict(eigen_probe=torch.zeros(1)), "eigen"),
-        (dict(recover_positions=True), "position"),
-        (dict(noise_model="poisson"), "poisson"),
+        pytest.param(dict(eigen_probe=True), "poisson", id="change0-eigen"),
+        pytest.param(dict(recover_positions=True), "poisson", id="change1-position"),
+        pytest.param(dict(), "poisson", id="change2-poisson"),
     ],
 )
 def test_unported_options_raise(state, change, match):
+    """The Poisson step is not ported: it raises alone, with eigen probes
+    and weights, and with position correction on."""
     _, tc, arrays, mp, pre = state
     targs = [H.t(a) for a in arrays]
     targs[2] = targs[2].long()
     kw = dict(
-        eigen_probe=None,
+        eigen_probe=False,
         num_batch=3.0,
-        noise_model="gaussian",
+        noise_model="poisson",
         steplength_usemodes="all_modes",
         recover_psi=True,
         recover_probe=True,
         recover_positions=False,
     )
     kw.update(change)
-    eigen = kw.pop("eigen_probe")
+    eigen, weights = None, None
+    if kw.pop("eigen_probe"):
+        eigen = torch.zeros(1, 1, 1, P, P, dtype=torch.complex64)
+        weights = torch.ones(N, 2, 1)
     with pytest.raises(NotImplementedError, match=match):
         tlstsq._lstsq_batch_math(
-            tc, *targs, eigen, None, H.t(mp), H.t(pre), 0.5, 0.5, 1.0, **kw
+            tc, *targs, eigen, weights, H.t(mp), H.t(pre), 0.5, 0.5, 1.0, **kw
         )

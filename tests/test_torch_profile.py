@@ -41,3 +41,45 @@ def test_device_breakdown_counts_overlap_once():
     assert b["classes"]["patch_fwd_kernel (ours)"] == [10.0, 1]
     assert b["classes"]["reductions (sum, mean, amax)"] == [10.0, 1]
     assert b["classes"]["sort, index, cat, memset, memcpy"] == [10.0, 1]
+
+
+@pytest.mark.parametrize("argv, config", [([], "main"), (["--config", "config2"], "config2")])
+def test_parse_args_picks_the_configuration(argv, config):
+    args = profile_epoch.parse_args(argv)
+    assert args.config == config
+    assert args.trace.endswith(f"_build/epoch_trace_{config}.json")
+    assert profile_epoch.parse_args(argv + ["--trace", "t.json"]).trace == "t.json"
+
+
+def test_parse_args_rejects_an_unknown_configuration():
+    with pytest.raises(SystemExit):
+        profile_epoch.parse_args(["--config", "config3"])
+
+
+@pytest.mark.parametrize("config2", [False, True])
+def test_profiled_parameters_are_accepted(config2):
+    """The parameters the profiler and chip_smoke.py build for each path,
+    at a small size, pass Reconstruction's checks and run an epoch on the
+    CPU with the state each path carries."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import tike_tpu_torch.ptycho as tp
+
+    from . import _torch_parity  # noqa: F401  (one torch thread)
+
+    scan, psi, probe = cs.make_inputs(60, probe_shape=16, hw=80)
+    if config2:
+        probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
+    data = tp.simulate(16, probe, scan, psi, device="cpu")
+    params = cs.path_parameters(scan, psi, probe, config2)
+    with tp.Reconstruction(data, params, device="cpu", random_seed=0) as context:
+        assert context.batches[0].shape == (cs.NUM_BATCH, 6)
+        context.iterate(1)
+        result = context.get_result()
+    assert np.isfinite(result.algorithm_options.costs[-1][0])
+    assert (result.eigen_weights is not None) == config2
+    assert (result.position_options is not None) == config2
+    if config2:
+        assert result.probe.shape[-3] == cs.MODES
+        assert result.eigen_probe.shape == (1, 1, cs.MODES, 16, 16)

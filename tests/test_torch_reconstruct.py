@@ -172,9 +172,15 @@ def test_device_tensor_data_matches_host_data(slice_data):
 def _unported(scan, probe, psi0):
     yield "rpie", dict(algorithm_options=tp.RpieOptions(batch_method="compact"))
     yield "batch_method", dict(algorithm_options=tp.LstsqOptions())
-    yield "multi-mode", dict(probe=np.concatenate([probe, probe], axis=2))
-    yield "position correction", dict(
-        position_options=tp.PositionOptions(initial_scan=scan)
+    yield "convergence_window", dict(
+        algorithm_options=tp.LstsqOptions(
+            batch_method="compact", convergence_window=4
+        )
+    )
+    yield "use_position_regularization", dict(
+        position_options=tp.PositionOptions(
+            initial_scan=scan, use_position_regularization=True
+        )
     )
     yield "Poisson", dict(
         exitwave_options=tp.ExitWaveOptions(

@@ -16,7 +16,7 @@ import numpy as np
 from .precision import cfloating, floating, to_numpy
 from .ptycho.exitwave import ExitWaveOptions
 from .ptycho.object import ObjectOptions
-from .ptycho.position import PositionOptions
+from .ptycho.position import AffineTransform, PositionOptions
 from .ptycho.probe import ProbeOptions
 from .ptycho.solvers.options import LstsqOptions, PtychoParameters, RpieOptions
 
@@ -34,6 +34,19 @@ def _convert_options(obj, cls):
     for f in fields:
         if not f.init:
             setattr(out, f.name, copy.deepcopy(getattr(obj, f.name)))
+    return out
+
+
+def _convert_position_options(popt) -> PositionOptions | None:
+    """Build the port's PositionOptions from a tike_tpu one, its affine
+    transform, momentum, initial scan and confidence included."""
+    out = _convert_options(popt, PositionOptions)
+    if out is not None:
+        out.transform = AffineTransform(*popt.transform.astuple())
+        for name in ("initial_scan", "confidence", "_momentum"):
+            value = getattr(out, name)
+            if value is not None:
+                setattr(out, name, np.asarray(value).astype(floating))
     return out
 
 
@@ -62,7 +75,7 @@ def parameters_from_jax(p) -> PtychoParameters:
         exitwave_options=_convert_options(p.exitwave_options, ExitWaveOptions),
         probe_options=_convert_options(p.probe_options, ProbeOptions),
         object_options=_convert_options(p.object_options, ObjectOptions),
-        position_options=_convert_options(p.position_options, PositionOptions),
+        position_options=_convert_position_options(p.position_options),
     )
 
 
@@ -70,10 +83,17 @@ def parameters_to_numpy(p) -> dict:
     """Return the arrays and histories of either package's parameters.
 
     Keys: ``probe``, ``psi``, ``scan``, ``eigen_probe``, ``eigen_weights``
-    (numpy arrays or None) and ``costs``, ``times`` (lists), for comparing
-    a ``tike_tpu`` result with a ``tike_tpu_torch`` one.
+    (numpy arrays or None), ``costs``, ``times`` (lists), and from the
+    position options ``initial_scan``, ``confidence``, ``position_momentum``
+    (arrays or None) and ``transform`` (the affine transform's 6-tuple, or
+    None), for comparing a ``tike_tpu`` result with a ``tike_tpu_torch`` one.
     """
+    popt = p.position_options
     return {
+        "initial_scan": None if popt is None else to_numpy(popt.initial_scan),
+        "confidence": None if popt is None else to_numpy(popt.confidence),
+        "position_momentum": None if popt is None else to_numpy(popt._momentum),
+        "transform": None if popt is None else tuple(popt.transform.astuple()),
         "probe": to_numpy(p.probe),
         "psi": to_numpy(p.psi),
         "scan": to_numpy(p.scan),

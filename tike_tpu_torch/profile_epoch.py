@@ -2,11 +2,13 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python -m tike_tpu_torch.profile_epoch [--trace PATH]
+    python -m tike_tpu_torch.profile_epoch [--config {main,config2}] [--trace PATH]
 
-It builds the main path of ``chip_smoke.py`` (10,000 simulated 128^2
-patterns of a 1500^2 object, LSQML, ``num_batch=10``, compact batches,
-``random_seed=0``), then
+It builds a path of ``chip_smoke.py`` (10,000 simulated 128^2 patterns of
+a 1500^2 object, LSQML, ``num_batch=10``, compact batches,
+``random_seed=0``): by default the main path (one probe mode), or with
+``--config config2`` BASELINE config 2 (3 probe modes, one eigen probe
+with per-position weights, position correction). Then it
 
 1. times ``iterate(3)`` once with each psi preconditioner formulation
    (FFT and gather), after one warm-up epoch each;
@@ -14,8 +16,8 @@ patterns of a 1500^2 object, LSQML, ``num_batch=10``, compact batches,
    launch count and share of each kernel class, the device's busy and idle
    share of the epoch's wall time, and the profiler's table of operators.
 
-The chrome trace goes to PATH (by default ``tike_tpu_torch/_build/``,
-which git ignores). Every time printed stands beside the card's name and
+The chrome trace goes to PATH (by default
+``tike_tpu_torch/_build/epoch_trace_<config>.json``, which git ignores). Every time printed stands beside the card's name and
 power limit.
 """
 
@@ -68,35 +70,47 @@ def device_breakdown(trace_events: list, wall_us: float) -> dict:
     return {"activities": len(acts), "busy_us": busy, "wall_us": wall_us, "classes": dict(by_class)}
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line; ``trace`` defaults to a file named after the
+    configuration."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--config",
+        choices=("main", "config2"),
+        default="main",
+        help="the main path (one probe mode) or BASELINE config 2",
+    )
+    parser.add_argument(
+        "--trace",
+        default=None,
+        help="where to write the chrome trace",
+    )
+    args = parser.parse_args(argv)
+    if args.trace is None:
+        args.trace = os.path.join(
+            os.path.dirname(__file__), "_build", f"epoch_trace_{args.config}.json"
+        )
+    return args
+
+
 def main() -> None:
     import chip_smoke as cs
     import tike_tpu_torch.ptycho as tp
     from tike_tpu_torch.ptycho.solvers import _preconditioner
     from torch.profiler import ProfilerActivity, profile
 
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument(
-        "--trace",
-        default=os.path.join(os.path.dirname(__file__), "_build", "epoch_trace.json"),
-        help="where to write the chrome trace",
-    )
-    args = parser.parse_args()
+    args = parse_args()
+    trace = args.trace
 
     card = cs.nvidia_smi_line()
-    print("card:", card)
+    print("card:", card, "config:", args.config)
     device = torch.device("cuda", 0)
     scan, psi, probe = cs.make_inputs(cs.N_PATTERNS)
+    config2 = args.config == "config2"
+    if config2:
+        probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
     data = tp.simulate(cs.DET, probe, scan, psi, device=device)
-    params = tp.PtychoParameters(
-        probe=probe,
-        psi=np.full_like(psi, 0.5),
-        scan=scan,
-        algorithm_options=tp.LstsqOptions(
-            num_batch=cs.NUM_BATCH, num_iter=1, batch_method="compact"
-        ),
-        object_options=tp.ObjectOptions(),
-        probe_options=tp.ProbeOptions(),
-    )
+    params = cs.path_parameters(scan, psi, probe, config2)
     context = tp.Reconstruction(data, params, device=device, random_seed=0)
     context.__enter__()
     chosen = _preconditioner.fft_precond_profitable
@@ -119,9 +133,9 @@ def main() -> None:
         context.iterate(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    with open(args.trace) as f:
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
         events = json.load(f)["traceEvents"]
     b = device_breakdown(events, wall * 1e6)
     device_us = sum(v[0] for v in b["classes"].values())

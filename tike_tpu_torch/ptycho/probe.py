@@ -1,9 +1,16 @@
-"""Probe options and helpers.
+"""Probe options, eigen (variable) probes and the mode set-up helpers.
 
 Counterpart of :mod:`tike_tpu.ptycho.probe`. Probes are (1, 1, SHARED, W, H)
-complex64. Eigen (variable) probes and the per-epoch probe constraints are
-not ported yet: :meth:`ProbeOptions.unsupported` names the options that ask
-for them, and ``Reconstruction`` raises ``NotImplementedError`` for each.
+complex64; eigen probes are (1, EIGEN, SHARED, W, H) and eigen weights are
+(POSI, EIGEN + 1, SHARED) float32. The unique probe at a position is
+``weights[0] * probe + sum(weights[1:] * eigen_probe)`` (orthogonal probe
+relaxation, OPR).
+
+The per-epoch probe constraints are not ported yet:
+:meth:`ProbeOptions.unsupported` names the options that ask for them, and
+``Reconstruction`` raises ``NotImplementedError`` for each. The set-up
+helpers (``add_modes_*``, ``init_varying_probe``) are host numpy, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -12,8 +19,10 @@ import dataclasses
 import typing
 
 import numpy as np
+import torch
 
-from ..precision import floating
+from .. import linalg
+from ..precision import cfloating, floating
 
 
 @dataclasses.dataclass
@@ -87,6 +96,12 @@ class ProbeOptions:
     )
     """The power of the primary probe modes at each iteration."""
 
+    def recover_probe(self, epoch: int) -> bool:
+        """Return whether to update probe at this epoch."""
+        return (epoch >= self.update_start) and (
+            epoch % self.update_period == 0
+        )
+
     def unsupported(self) -> typing.List[str]:
         """Names of the set options that the port does not run yet."""
         checks = {
@@ -103,13 +118,90 @@ class ProbeOptions:
 
 
 def get_varying_probe(shared_probe, eigen_probe=None, weights=None):
-    """Per-position probes: the shared probe when there are no eigen probes.
+    """Combine shared and eigen probes with weights into per-position probes.
 
-    The eigen-probe (OPR) blend is not ported yet.
+    shared_probe (1, 1, SHARED, W, H); eigen_probe (1, EIGEN, SHARED, W, H)
+    or None; weights (POSI, EIGEN+1, SHARED). Returns (POSI, 1, SHARED, W,
+    H) unique probes, or the shared probe itself when weights is None.
+    Eigen probes may cover only the first modes (``eigen_probe.shape[-3]``
+    <= SHARED); the other modes are only scaled by ``weights[:, 0]``.
     """
-    if weights is not None or eigen_probe is not None:
-        raise NotImplementedError("eigen probes are not ported yet")
-    return shared_probe
+    if weights is None:
+        return shared_probe
+    unique = weights[..., 0:1, :, None, None] * shared_probe
+    if eigen_probe is not None:
+        m = eigen_probe.shape[-3]
+        contrib = torch.sum(
+            weights[..., 1:, :m, None, None] * eigen_probe[..., 0:, :m, :, :],
+            dim=-4,
+            keepdim=True,
+        ).to(unique.dtype)
+        if m == unique.shape[-3]:
+            unique = unique + contrib
+        else:
+            unique = torch.cat(
+                [unique[..., :m, :, :] + contrib, unique[..., m:, :, :]], dim=-3
+            )
+    return unique
+
+
+def update_eigen_probe(
+    R, eigen_probe, weights, patches, diff, valid=None, *, β=0.1, c=1, m=0
+):
+    """Update one eigen probe and its weights from a batch's residuals.
+
+    R (B, 1, 1, W, H) residual probe updates; patches (B, 1, 1, W, H);
+    diff (B, 1, SHARED, W, H); eigen_probe (1, EIGEN, SHARED, W, H);
+    weights (B, EIGEN+1, SHARED), the batch's rows of the full weights.
+    ``valid`` is an optional (B,) 0/1 mask of real (unpadded) slots.
+    Returns new ``(eigen_probe, weights)``; the inputs are not modified.
+    The ``1e-32`` guards are the JAX package's, kept so both round alike.
+    """
+    v = (
+        torch.ones(R.shape[0], dtype=R.real.dtype, device=R.device)
+        if valid is None
+        else valid
+    )
+    v5 = v[:, None, None, None, None]
+    w = weights[:, c : c + 1, m : m + 1, None, None]
+    norm_weights = torch.sum(torch.square(w) * v5, dim=0, keepdim=True) + 1e-32
+
+    proj = (
+        torch.real(R.conj() * eigen_probe[:, c - 1 : c, m : m + 1, :, :]) + w
+    ) / norm_weights
+    nvalid = torch.sum(v) + 1e-32
+    update = (
+        torch.sum(
+            R * torch.mean(proj, dim=(-2, -1), keepdim=True) * v5,
+            dim=0,
+            keepdim=True,
+        )
+        / nvalid
+    )
+
+    update_norm = linalg.mnorm(update, dim=(-2, -1), keepdim=True) + 1e-32
+    new_eigen = eigen_probe[:, c - 1 : c, m : m + 1, :, :] + (
+        β * update / update_norm
+    )
+    new_eigen = new_eigen / (
+        linalg.mnorm(new_eigen, dim=(-2, -1), keepdim=True) + 1e-32
+    )
+    eigen_probe = eigen_probe.clone()
+    eigen_probe[:, c - 1 : c, m : m + 1, :, :] = new_eigen
+
+    # New weights for the updated eigen probe.
+    phi = patches * new_eigen
+    n = torch.mean(
+        torch.real(diff[:, :, m : m + 1, :, :] * phi.conj()), dim=(-1, -2)
+    )
+    d = torch.mean(torch.square(torch.abs(phi)), dim=(-1, -2))
+    d_mean = torch.sum(d * v[:, None, None], dim=0, keepdim=True) / nvalid
+    weight_update = (n / (d + 0.1 * d_mean)) * v[:, None, None]
+    weights = weights.clone()
+    weights[:, c : c + 1, m : m + 1] += weight_update.reshape(
+        weights[:, c : c + 1, m : m + 1].shape
+    )
+    return eigen_probe, weights
 
 
 def gaussian(size, rin=0.8, rout=1.0):
@@ -124,3 +216,132 @@ def gaussian(size, rin=0.8, rout=1.0):
     zone = np.logical_and(rs > rmin, rs < rmax)
     img[zone] = np.divide(rmax - rs[zone], rmax - rmin)
     return img
+
+
+def add_modes_random_phase(probe, nmodes, rng=None):
+    """Add probe modes by random linear phase shifts of the first mode.
+
+    Host numpy, a verbatim copy of the JAX package's helper.
+    """
+    rng = np.random.default_rng() if rng is None else rng
+    probe = np.asarray(probe)
+    all_modes = np.empty(
+        (*probe.shape[:-3], nmodes, *probe.shape[-2:]), dtype=probe.dtype
+    )
+    pw = probe.shape[-1]
+    for m in range(nmodes):
+        if m < probe.shape[-3]:
+            all_modes[..., m, :, :] = probe[..., m, :, :]
+        else:
+            shift = np.exp(
+                -2j
+                * np.pi
+                * (rng.random((2, 1)) - 0.5)
+                * ((np.arange(0, pw) + 0.5) / pw - 0.5)
+            )
+            all_modes[..., m, :, :] = (
+                probe[..., 0, :, :] * shift[0][None] * shift[1][:, None]
+            )
+    return all_modes
+
+
+def add_modes_cartesian_hermite(probe, nmodes: int):
+    """Create probe modes from 2D Cartesian Hermite basis functions.
+
+    Host numpy, a verbatim copy of the JAX package's helper (Odstrcil et
+    al. 2018): multiply the probe by polynomial-times-gaussian envelopes,
+    Gram-Schmidt as you go.
+    """
+    if nmodes < 1:
+        raise ValueError(f"nmodes cannot be less than 1. It was {nmodes}.")
+    probe = np.asarray(probe)
+    if probe.ndim < 3:
+        raise ValueError(
+            "probe should be (..., 1, W, H) not " + str(probe.shape)
+        )
+
+    M = int(np.ceil(np.sqrt(nmodes)))
+    N = int(np.ceil(nmodes / M))
+    X, Y = np.meshgrid(
+        np.arange(probe.shape[-2]) - (probe.shape[-2] // 2 - 1),
+        np.arange(probe.shape[-1]) - (probe.shape[-2] // 2 - 1),
+        indexing="xy",
+    )
+    p2 = np.abs(probe) ** 2
+    tot = np.sum(p2, axis=(-2, -1), keepdims=True)
+    cenx = np.sum(X * p2, axis=(-2, -1), keepdims=True) / tot
+    ceny = np.sum(Y * p2, axis=(-2, -1), keepdims=True) / tot
+    varx = np.sum((X - cenx) ** 2 * p2, axis=(-2, -1), keepdims=True) / tot
+    vary = np.sum((Y - ceny) ** 2 * p2, axis=(-2, -1), keepdims=True) / tot
+
+    def _norm(x):
+        return np.sqrt(np.sum(np.abs(x) ** 2, axis=(-2, -1), keepdims=True))
+
+    new_probes = []
+    for nii in range(N):
+        for mii in range(M):
+            basis = ((X - cenx) ** mii) * ((Y - ceny) ** nii) * probe
+            if not (mii == 0 and nii == 0):
+                basis = basis * np.exp(
+                    -((X - cenx) ** 2) / (2 * varx)
+                    - ((Y - ceny) ** 2) / (2 * vary)
+                )
+            basis = basis / _norm(basis)
+            for H in new_probes:
+                basis = basis - H * np.sum(
+                    np.conj(H) * basis, axis=(-2, -1), keepdims=True
+                )
+            basis = basis / _norm(basis)
+            new_probes.append(basis)
+            if len(new_probes) == nmodes:
+                return np.concatenate(new_probes, axis=-3)[
+                    ..., :nmodes, :, :
+                ].astype(cfloating)
+    raise RuntimeError("add_modes_cartesian_hermite never reached a return.")
+
+
+def init_varying_probe(
+    scan, shared_probe, num_eigen_probes, probes_with_modes=1, rng=None
+):
+    """Initialize eigen probe and weight arrays (host numpy).
+
+    Returns ``(eigen_probe, weights)``: ``(None, None)`` for fewer than one
+    eigen probe, ``(None, weights)`` for exactly one (the shared component's
+    weights alone).
+    """
+    rng = np.random.default_rng() if rng is None else rng
+    probes_with_modes = max(probes_with_modes, 0)
+    if probes_with_modes > shared_probe.shape[-3]:
+        raise ValueError(
+            f"probes_with_modes ({probes_with_modes}) cannot be more than "
+            f"the number of probes ({shared_probe.shape[-3]})!"
+        )
+    if num_eigen_probes < 1:
+        return None, None
+
+    weights = 1e-6 * rng.random(
+        (*scan.shape[:-1], num_eigen_probes, shared_probe.shape[-3])
+    ).astype(floating)
+    weights -= np.mean(weights, axis=-3, keepdims=True)
+    weights[..., 0, :] = 1.0
+    weights[..., 1:, probes_with_modes:] = 0
+
+    if num_eigen_probes == 1:
+        return None, weights
+
+    shape = (
+        *shared_probe.shape[:-4],
+        num_eigen_probes - 1,
+        probes_with_modes,
+        *shared_probe.shape[-2:],
+    )
+    eigen_probe = (
+        rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    ).astype(cfloating)
+    # The root-mean-square magnitude in float32, as tike_tpu.linalg.mnorm.
+    eigen_probe /= np.sqrt(
+        np.mean(
+            (eigen_probe * eigen_probe.conj()).real, axis=(-2, -1), keepdims=True
+        )
+    )
+    return eigen_probe, weights

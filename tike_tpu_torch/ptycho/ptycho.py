@@ -7,7 +7,9 @@ Data stays on that device for the whole reconstruction; there is no host
 streaming yet.
 
 Ported: LSQML (``LstsqOptions``) with compact batching, one object slice,
-one probe mode, object and probe recovery with the default constraints,
+any number of shared probe modes, eigen probes and weights (OPR), position
+correction (with or without adaptive moments, and the affine fit after
+each ``iterate``), object and probe recovery with the default constraints,
 the Gaussian noise model, and the mean-abs object rescale. Any option
 outside that raises ``NotImplementedError`` when the Reconstruction is
 created.
@@ -16,7 +18,6 @@ created.
 from __future__ import annotations
 
 import copy
-import dataclasses
 import logging
 import time
 import typing
@@ -33,9 +34,10 @@ from ..ops.ptycho import (
     simulate_intensity,
 )
 from ..precision import as_tensor, to_numpy
+from .position import affine_position_regularization
 from .probe import get_varying_probe
 from .solvers import _preconditioner
-from .solvers.epoch import EpochPlan, _epoch_math
+from .solvers.epoch import EpochPlan, EpochState, _epoch_math
 from .solvers.options import PtychoParameters
 
 __all__ = [
@@ -107,10 +109,12 @@ def simulate(
 ) -> torch.Tensor:
     """Propagate the wavefront to the detector and return intensities.
 
-    probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), as arrays or
-    tensors. Returns an (N, detector, detector) float32 tensor on
-    ``device``, summed over probe modes. ``device`` is required; a tensor
-    input on another device raises.
+    probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), and optionally
+    eigen_probe (1, EIGEN, S', P, P) and eigen_weights (N, EIGEN+1, S), as
+    arrays or tensors. Returns an (N, detector, detector) float32 tensor on
+    ``device``: per probe mode, the varying probe's far-field intensity,
+    summed over modes. ``device`` is required; a tensor input on another
+    device raises.
     """
     if fly != 1:
         raise NotImplementedError("fly-scan grouping is not ported yet")
@@ -125,6 +129,10 @@ def simulate(
     probe = as_tensor(probe, torch.complex64, device)
     psi = as_tensor(psi, torch.complex64, device)
     scan = as_tensor(scan, torch.float32, device)
+    if eigen_probe is not None:
+        eigen_probe = as_tensor(eigen_probe, torch.complex64, device)
+    if eigen_weights is not None:
+        eigen_weights = as_tensor(eigen_weights, torch.float32, device)
     cfg = PtychoConfig(
         probe_shape=probe.shape[-1],
         detector_shape=detector_shape,
@@ -142,8 +150,19 @@ def simulate(
             )
         },
     )
-    unique = get_varying_probe(probe, eigen_probe, eigen_weights)
-    return simulate_intensity(cfg, psi, scan, unique[:, 0])
+    # One mode at a time, so only one mode's far field is held at once.
+    intensity = None
+    for m in range(probe.shape[-3]):
+        unique = get_varying_probe(
+            probe[..., m : m + 1, :, :],
+            None if eigen_probe is None else eigen_probe[..., m : m + 1, :, :],
+            None if eigen_weights is None else eigen_weights[..., m : m + 1],
+        )
+        mode_intensity = simulate_intensity(cfg, psi, scan, unique[:, 0])
+        intensity = (
+            mode_intensity if intensity is None else intensity + mode_intensity
+        )
+    return intensity
 
 
 # There is no relay between host and device here, so the device-resident
@@ -167,12 +186,10 @@ def _unsupported(parameters: PtychoParameters) -> typing.List[str]:
         "convergence_window >= 2": algo.convergence_window >= 2,
         "a finite time_limit": np.isfinite(algo.time_limit),
         "multislice objects": parameters.psi.shape[0] != 1,
-        "multi-mode probes": parameters.probe.shape[-3] != 1,
-        "eigen probes": (
-            parameters.eigen_probe is not None
-            or parameters.eigen_weights is not None
+        "position_options.use_position_regularization": (
+            parameters.position_options is not None
+            and parameters.position_options.use_position_regularization
         ),
-        "position correction": parameters.position_options is not None,
         "the Poisson noise model": (
             parameters.exitwave_options.noise_model != "gaussian"
         ),
@@ -254,6 +271,11 @@ class Reconstruction:
             ),
         )
         self._rng = np.random.default_rng(random_seed)
+        # The affine position fit draws from its own stream, so that it
+        # leaves the batch draws of self._rng as they were.
+        self._fit_rng = np.random.default_rng(
+            np.random.SeedSequence(random_seed).spawn(1)[0]
+        )
 
     def __enter__(self):
         data = self.data_host
@@ -284,6 +306,12 @@ class Reconstruction:
             batch_idx, dtype=torch.int64, device=self.device
         )
         self._batch_mask = torch.as_tensor(batch_mask, device=self.device)
+        # The real (unpadded) slots of each batch: eigen weights are
+        # written back through these alone.
+        self._batch_real = [
+            torch.as_tensor(np.flatnonzero(m > 0), device=self.device)
+            for m in batch_mask
+        ]
 
         self.parameters = PtychoParameters.split(
             self.order, x=self.parameters_host
@@ -313,6 +341,7 @@ class Reconstruction:
         p = self.parameters
         popts = p.probe_options
         oopts = p.object_options
+        posopts = p.position_options
         algo = p.algorithm_options
         return EpochPlan(
             cfg=self.operator,
@@ -333,6 +362,17 @@ class Reconstruction:
                 nz=self.operator.nz,
                 n=self.operator.n,
             ),
+            has_eigen=p.eigen_weights is not None,
+            recover_positions=posopts is not None,
+            pos_update_start=posopts.update_start if posopts else 0,
+            pos_use_adaptive_moment=(
+                posopts.use_adaptive_moment if posopts else False
+            ),
+            pos_vdecay=posopts.vdecay if posopts else 0.999,
+            pos_mdecay=posopts.mdecay if posopts else 0.9,
+            pos_update_magnitude_limit=(
+                posopts.update_magnitude_limit if posopts else 0.0
+            ),
         )
 
     def iterate(self, num_iter: int) -> None:
@@ -340,33 +380,60 @@ class Reconstruction:
 
         The per-epoch costs and probe powers stay on the device until all
         epochs have run, then come to the host in one transfer; each epoch
-        is recorded with the mean wall time of the call.
+        is recorded with the mean wall time of the call. With position
+        correction the global affine transform is fitted once afterwards,
+        as in the JAX package's fused path.
         """
         if num_iter < 1:
             return
         p = self.parameters
         algo = p.algorithm_options
+        popt = p.position_options
         plan = self._make_plan()
         epoch0 = len(algo.times)
+        state = EpochState(
+            psi=p.psi,
+            probe=p.probe,
+            scan=p.scan,
+            eigen_probe=p.eigen_probe,
+            eigen_weights=p.eigen_weights,
+        )
+        if popt is not None and popt.use_adaptive_moment:
+            if popt._momentum is None:
+                state.pos_v = torch.zeros_like(p.scan)
+                state.pos_m = torch.zeros_like(p.scan)
+            else:
+                state.pos_v = popt._momentum[..., 0:2]
+                state.pos_m = popt._momentum[..., 2:4]
         costs, powers = [], []
         start = time.perf_counter()
         for e in range(num_iter):
-            p.psi, p.probe, cost, pwr = _epoch_math(
+            cost, pwr = _epoch_math(
                 plan,
                 self.data,
-                p.scan,
                 self._batch_idx,
                 self._batch_mask,
-                p.psi,
-                p.probe,
+                self._batch_real,
+                state,
                 p.exitwave_options,
                 epoch0 + e,
             )
             costs.append(cost)
             powers.append(pwr)
+            # Drop the last epoch's tensors as soon as the next exist.
+            p.psi, p.probe, p.scan = state.psi, state.probe, state.scan
+            p.eigen_probe = state.eigen_probe
+            p.eigen_weights = state.eigen_weights
+        if popt is not None and popt.use_adaptive_moment:
+            popt._momentum = torch.cat([state.pos_v, state.pos_m], dim=-1)
         costs_host = to_numpy(torch.stack(costs))  # waits for the device
         powers_host = to_numpy(torch.stack(powers))
         elapsed = time.perf_counter() - start
+        if popt is not None:
+            # Outside the recorded epoch times, as in the JAX package.
+            p.scan, p.position_options = affine_position_regularization(
+                p.scan, popt, rng=self._fit_rng
+            )
         for e in range(num_iter):
             algo.costs.append([float(costs_host[e])])
             algo.times.append(elapsed / num_iter)
@@ -379,11 +446,28 @@ class Reconstruction:
             num_iter,
         )
 
+    def get_scan(self) -> np.ndarray:
+        """Return the current scan positions in the user's order."""
+        return to_numpy(self.parameters.scan)[np.argsort(self.order)]
+
     def get_result(self) -> PtychoParameters:
-        """Return the current parameter estimates as host copies."""
-        result = self.parameters.copy_to_host()
-        return dataclasses.replace(
-            result, scan=result.scan[np.argsort(self.order)]
+        """Return the current parameter estimates as host copies, with the
+        per-position arrays (scan, eigen weights, position options) in the
+        user's order."""
+        return PtychoParameters.join(
+            [self.parameters.copy_to_host()], np.argsort(self.order)
+        )
+
+    def get_probe(self):
+        """Return (probe, eigen_probe, eigen_weights) as numpy arrays, the
+        eigen weights in the user's order."""
+        p = self.parameters
+        return (
+            to_numpy(p.probe),
+            to_numpy(p.eigen_probe),
+            None
+            if p.eigen_weights is None
+            else to_numpy(p.eigen_weights)[np.argsort(self.order)],
         )
 
     def get_convergence(self):

@@ -3,23 +3,41 @@
 Counterpart of :mod:`tike_tpu.ptycho.solvers.lstsq` (Odstrcil, Menzel,
 Guizar-Sicairos 2018, Optics Express): object and probe updated together
 with jointly-optimal step sizes from a per-position 2x2 least-squares
-solve. Single slice, Gaussian noise model, no eigen probes and no position
-correction; each of those raises ``NotImplementedError``.
+solve, plus the eigen-probe (OPR) updates and the gradient terms of
+position correction. Single slice and the Gaussian noise model; the
+Poisson step raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import linalg
 from ...ops.objective import ELEMENTWISE, GRAD
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import propagation_adj, propagation_fwd
 from ...ops.ptycho import PtychoConfig, _crop_from_detector, _pad_to_detector
+from ..position import gaussian_gradient
+from ..probe import get_varying_probe, update_eigen_probe
+
+# Largest float margin below the valid-position limit dim - P: positions
+# clamp to dim - P - _POS_EDGE, whose floor is dim - P - 1, the exact upper
+# corner check_allowed_positions accepts. Exactly representable in float32
+# (2^-8) and large enough to survive rounding at realistic dims.
+_POS_EDGE = 1.0 / 256.0
 
 
 def _fz(x: torch.Tensor) -> torch.Tensor:
     """Replace non-finite entries with 0 (degenerate-batch 0/0 guards)."""
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+
+def _trim_mean(x, proportion=0.05, dim=0):
+    """Mean with the extreme ``proportion`` trimmed from both ends."""
+    n = x.shape[dim]
+    k = int(n * proportion)
+    s = torch.sort(x, dim=dim).values
+    return torch.mean(s.narrow(dim, k, n - 2 * k), dim=dim, keepdim=True)
 
 
 def _masked_mean_each_pattern(elem, pixel_mask):
@@ -65,28 +83,32 @@ def _lstsq_batch_math(
     recover_probe: bool,
     recover_positions: bool,
 ):
-    """One LSQML mini-batch: gradients and optimal step sizes.
+    """One LSQML mini-batch: gradients, optimal step sizes, OPR and
+    position terms.
 
-    Same signature and returned dict as the JAX function, for the
-    ``recover_psi``/``recover_probe`` branches: ``costs`` (B,),
+    Same signature and returned dict as the JAX function: ``costs`` (B,),
     ``object_upd_sum`` (1, H, W), ``object_update_precond``,
     ``m_probe_update`` (1, 1, M, P, P), ``beta_object`` (1,),
-    ``beta_object_solo`` (1,) and ``beta_probe`` (1, 1, 1, 1).
+    ``beta_object_solo`` (1,) and ``beta_probe`` (1, 1, 1, 1); with eigen
+    weights and probe recovery also ``eigen_probe`` (None without eigen
+    probes) and ``w_b`` (B, EIGEN+1, M), the batch's new weight rows; with
+    ``recover_positions`` also ``pos_num`` and ``pos_den`` (B, 2), masked.
     ``step_length_*`` belong to the Poisson model and are unused here.
     """
-    if eigen_probe is not None or eigen_weights is not None:
-        raise NotImplementedError("eigen probes are not ported yet")
-    if recover_positions:
-        raise NotImplementedError("position correction is not ported yet")
     if noise_model != "gaussian":
         raise NotImplementedError(
             f"the {noise_model!r} LSQML step is not ported yet"
         )
     nmodes = probe.shape[-3]
-    m = 0  # the mode used for the step-size solves
+    m = 0  # the mode used for the step-size, eigen and position solves
     scan_b = scan[idx]
     p = cfg.probe_shape
-    unique_probe = probe.expand(scan_b.shape[0], 1, nmodes, p, p)
+    if eigen_weights is not None:
+        w_b = eigen_weights[idx]
+        unique_probe = get_varying_probe(probe, eigen_probe, w_b)  # (B,1,M,P,P)
+    else:
+        w_b = None
+        unique_probe = probe.expand(scan_b.shape[0], 1, nmodes, p, p)
 
     # Forward model (single slice).
     patches2d = patch_fwd(psi[0], scan_b, p)  # (B, P, P)
@@ -124,6 +146,70 @@ def _lstsq_batch_math(
             torch.sum(bprobe_update, dim=0, keepdim=True) / num_batch
         )  # (1, 1, M, P, P)
         out["m_probe_update"] = m_probe_update
+
+    # Eigen probe (OPR) updates.
+    if recover_probe and eigen_weights is not None:
+        # The weight of the shared probe component.
+        OP = bpatches * probe[:, :, m : m + 1]
+        num = torch.sum(
+            torch.real(torch.conj(OP) * chi[:, :, m : m + 1]), dim=(-1, -2)
+        )
+        den = torch.sum(torch.abs(OP) ** 2, dim=(-1, -2)) + 1e-32
+        w_b = w_b.clone()
+        w_b[:, 0:1, m : m + 1] += 0.1 * (num / den) * bmask[:, None, None]
+
+        if w_b.shape[-2] > 1 and eigen_probe is not None:
+            R = (
+                bprobe_update[..., m : m + 1, :, :]
+                - m_probe_update[..., m : m + 1, :, :]
+            )
+            for c in range(1, eigen_probe.shape[-4] + 1):
+                if m < eigen_probe.shape[-3]:
+                    eigen_probe, w_b = update_eigen_probe(
+                        R,
+                        eigen_probe,
+                        w_b,
+                        bpatches,
+                        chi,
+                        valid=bmask,
+                        β=min(0.1, 1.0 / num_batch),
+                        c=c,
+                        m=m,
+                    )
+                    if c + 1 < w_b.shape[-2]:
+                        R = R - linalg.projection(
+                            R,
+                            eigen_probe[:, c - 1 : c, m : m + 1],
+                            dim=(-2, -1),
+                        )
+        out["eigen_probe"] = eigen_probe
+        out["w_b"] = w_b
+
+    # Position gradient terms.
+    if recover_positions:
+        grad_x, grad_y = gaussian_gradient(bpatches, sigma=0.333)
+        crop = probe.shape[-1] // 4
+        up = unique_probe[..., m : m + 1, crop:-crop, crop:-crop]
+        cc = chi[..., m : m + 1, crop:-crop, crop:-crop]
+        gx = grad_x[..., crop:-crop, crop:-crop] * up
+        gy = grad_y[..., crop:-crop, crop:-crop] * up
+        dims = (-4, -3, -2, -1)
+        pos_num = torch.stack(
+            [
+                torch.sum(torch.real(torch.conj(gx) * cc), dim=dims),
+                torch.sum(torch.real(torch.conj(gy) * cc), dim=dims),
+            ],
+            dim=-1,
+        )
+        pos_den = torch.stack(
+            [
+                torch.sum(torch.abs(gx) ** 2, dim=dims),
+                torch.sum(torch.abs(gy) ** 2, dim=dims),
+            ],
+            dim=-1,
+        )
+        out["pos_num"] = pos_num * bmask[:, None]
+        out["pos_den"] = pos_den * bmask[:, None]
 
     # Optimal step sizes.
     eps = 1e-9 / (p * p)

@@ -103,10 +103,10 @@ class PtychoParameters:
     """(POSI, 2) float32 probe min-corner positions (y, x)."""
 
     eigen_probe: typing.Any = None
-    """(1, EIGEN, SHARED, WIDE, HIGH) complex64 eigen probes (not ported)."""
+    """(1, EIGEN, SHARED, WIDE, HIGH) complex64 eigen probes."""
 
     eigen_weights: typing.Any = None
-    """(POSI, EIGEN+1, SHARED) float32 eigen-probe weights (not ported)."""
+    """(POSI, EIGEN+1, SHARED) float32 eigen-probe weights."""
 
     algorithm_options: IterativeOptions = dataclasses.field(
         default_factory=RpieOptions
@@ -123,7 +123,7 @@ class PtychoParameters:
     """Settings related to object updates."""
 
     position_options: typing.Union[PositionOptions, None] = None
-    """Settings related to position correction (not ported)."""
+    """Settings related to position correction."""
 
     def __post_init__(self):
         scan, probe, psi = _shape(self.scan), _shape(self.probe), _shape(self.psi)
@@ -175,6 +175,9 @@ class PtychoParameters:
             exitwave_options=self.exitwave_options.copy_to_device(device),
             probe_options=copy.copy(self.probe_options),
             object_options=copy.copy(self.object_options),
+            position_options=None
+            if self.position_options is None
+            else self.position_options.copy_to_device(device),
         )
 
     def copy_to_host(self) -> "PtychoParameters":
@@ -189,13 +192,14 @@ class PtychoParameters:
             exitwave_options=self.exitwave_options.copy_to_host(),
             probe_options=copy.copy(self.probe_options),
             object_options=copy.copy(self.object_options),
+            position_options=None
+            if self.position_options is None
+            else self.position_options.copy_to_host(),
         )
 
     @staticmethod
     def split(indices, *, x: "PtychoParameters") -> "PtychoParameters":
         """Return new host parameters with only the positions in indices."""
-        if x.position_options is not None:
-            raise NotImplementedError("position correction is not ported yet")
         return PtychoParameters(
             probe=to_numpy(x.probe).astype(cfloating),
             psi=to_numpy(x.psi).astype(cfloating),
@@ -210,4 +214,37 @@ class PtychoParameters:
             exitwave_options=x.exitwave_options,
             probe_options=x.probe_options,
             object_options=x.object_options,
+            position_options=None
+            if x.position_options is None
+            else x.position_options.split(indices),
+        )
+
+    @staticmethod
+    def join(
+        x: typing.Sequence["PtychoParameters"], reorder
+    ) -> "PtychoParameters":
+        """Return host parameters with the per-position arrays (scan, eigen
+        weights, position options) put back in the order ``reorder``.
+
+        ``x`` holds the parameters of each device; the port runs on one, so
+        ``x`` has one element (joining object stripes is not ported).
+        """
+        if len(x) != 1:
+            raise NotImplementedError("joining object stripes is not ported yet")
+        (p,) = x
+        return PtychoParameters(
+            probe=to_numpy(p.probe),
+            psi=to_numpy(p.psi),
+            scan=to_numpy(p.scan)[reorder],
+            eigen_probe=to_numpy(p.eigen_probe),
+            eigen_weights=None
+            if p.eigen_weights is None
+            else to_numpy(p.eigen_weights)[reorder],
+            algorithm_options=p.algorithm_options,
+            exitwave_options=p.exitwave_options,
+            probe_options=p.probe_options,
+            object_options=p.object_options,
+            position_options=PositionOptions.join(
+                [p.position_options], reorder
+            ),
         )
