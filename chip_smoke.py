@@ -32,16 +32,35 @@ without printing the final ``ok`` line:
    card; ``iterate(1)`` then a timed ``iterate(3)``; costs finite and
    decreasing, both patch kernels launched, eigen probe and weights
    finite and moved, positions moved inside the allowed window and by at
-   most twice the update limit per epoch.
+   most twice the update limit per epoch;
+8. rPIE at full width (BASELINE.md config 1's solver): the same scan and
+   object with 3 probe modes, ``RpieOptions(num_batch=5)`` (wobbly-center
+   batches, alpha 0.05), object AdaM and magnitude clipping, probe
+   orthogonalization, centering and AdaM; ``iterate(1)`` then a timed
+   ``iterate(3)``; costs finite and decreasing, both patch kernels
+   launched, the mode powers in descending order after each
+   orthogonalization, and ``|psi| <= 1``;
+9. rPIE on the measured siemens-star data (``bench_all.py``'s
+   ``rpie_siemens``: 516 patterns of 128^2, ``num_batch=5``, compact),
+   3 epochs on the card against the port's CPU path, costs finite and
+   decreasing.
+
+Phase 5 also runs two more small slices card against CPU (5c): rPIE with
+wobbly-center batches, 3 modes, an eigen probe and weights, every probe
+constraint, the object smoothness and positivity constraints, object and
+probe AdaM and ``constant_probe_photons``; and one-mode LSQML with Poisson
+noise and wobbly-center batches.
 
 The line before the last lists each kernel (its launches in phase 6 as
-``launches`` and in phase 7 as ``launches_config2``, its error against the
-plain version and both times); the last line is
-``{"ok": true, "device": {...}}``.
+``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
+``launches_rpie``, its error against the plain version and both times);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import bz2
 import importlib.metadata
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -76,6 +95,23 @@ SLICE_SCAN_TOL = 1e-3
 # Config 2 (bench_all.py:134-176): 3 probe modes, one eigen probe,
 # position correction with this per-epoch update limit (pixels).
 MODES, POS_LIMIT = 3, 2.0
+# rPIE at full width: RpieOptions' own default number of batches, and the
+# photon count of the probe's modes together. Non-compact rPIE with object
+# AdaM adds a scale-free step divided by the illumination (ROADMAP.md
+# section 3), so the unit-scale model of phases 6 and 7 (under one photon
+# per detector pixel) blows the object up; the probe is scaled to counts
+# like measured data's instead.
+RPIE_NUM_BATCH, RPIE_PHOTONS = 5, 1e7
+# The rPIE slice's data and probe are this much brighter than the model's
+# (intensity x BRIGHT^2): non-compact rPIE with object AdaM adds a
+# scale-free step divided by the illumination, and at the model's own
+# brightness the object blows up (ROADMAP.md section 3).
+BRIGHT = 100.0
+# bench_all.py's measured siemens-star data (516 patterns of 128^2).
+SIEMENS = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "tests", "data", "siemens-star-small.npz.bz2",
+)
 
 KERNELS = {
     "patch_fwd": "tike_tpu/ops/patch_pallas.py:110",  # also :181
@@ -343,45 +379,147 @@ def _small_slice_parameters(scan, probe, psi0, det, config2=False):
     )
 
 
-def phase_small_slice(device, config2=False) -> None:
-    """3 LSQML epochs at 160^2 / P=16 / 24^2 detector, card vs CPU; with
-    ``config2`` the probe has 3 modes, an eigen probe and weights, and the
-    positions are corrected."""
-    gen = np.random.default_rng(1)
-    h, p, det, n = 160, 16, 24, 120
+def _slice_inputs(gen, probe_fn, h=160, p=16, n=120):
+    """The small slices' scan, true object, starting probe (``probe_fn(gen,
+    p)``) and perturbed starting object, drawn from ``gen`` in that
+    order."""
     scan = gen.uniform(2, h - p - 3, (n, 2)).astype(np.float32)
     _, psi, _ = make_inputs(1, probe_shape=p, hw=h)
-    amp = tp.gaussian(p)
-    probe = (amp * np.exp(1j * gen.uniform(-np.pi, np.pi, (p, p))))[
-        None, None, None
-    ].astype(np.complex64)
+    probe = probe_fn(gen, p)
     psi0 = (
         0.5
         + 0.05 * (gen.standard_normal(psi.shape) + 1j * gen.standard_normal(psi.shape))
     ).astype(np.complex64)
-    data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
+    return scan, psi, probe, psi0
+
+
+def _random_phase_probe(gen, p):
+    """The soft-edged aperture with a random phase, one mode."""
+    return (tp.gaussian(p) * np.exp(1j * gen.uniform(-np.pi, np.pi, (p, p))))[
+        None, None, None
+    ].astype(np.complex64)
+
+
+def _card_vs_cpu(name, device, data, make_params, keys=("psi", "probe"), phase=False):
+    """3 epochs of ``make_params()`` on the card and on the CPU from the
+    same data and seed; costs and ``keys`` must agree to SLICE_TOL (probes
+    up to one phase per mode with ``phase``). Returns both results."""
     results = {}
     for dev in ("cpu", device):
-        params = _small_slice_parameters(scan, probe, psi0, det, config2)
-        with tp.Reconstruction(data, params, device=dev, random_seed=0) as context:
+        with tp.Reconstruction(data, make_params(), device=dev, random_seed=0) as context:
             context.iterate(3)
             results[str(dev)] = context.get_result()
     ref, got = results["cpu"], results[str(device)]
     c_ref = np.asarray(ref.algorithm_options.costs)
     c_got = np.asarray(got.algorithm_options.costs)
+    if not (np.all(np.isfinite(c_got)) and c_got[-1, 0] < c_got[0, 0]):
+        raise AssertionError(f"{name}: costs not finite and decreasing: {c_got.ravel()}")
     np.testing.assert_allclose(c_got, c_ref, rtol=SLICE_TOL)
-    keys = ("psi", "probe") + (("eigen_probe", "eigen_weights") if config2 else ())
+    errs = {}
     for key in keys:
         a, b = getattr(got, key), getattr(ref, key)
+        if phase and key == "probe":
+            inner = np.sum(np.conj(a) * b, axis=(-2, -1), keepdims=True)
+            a = a * np.exp(1j * np.angle(inner))
         np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+        errs[key] = float(np.max(np.abs(a - b)) / np.abs(b).max())
+    log(f"[slice] {name}: 3 epochs on {device} vs cpu: costs {c_got.ravel().tolist()} "
+        f"vs {c_ref.ravel().tolist()} (rtol {SLICE_TOL:g}); max|err| / max|value| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {SLICE_TOL:g})")
+    return got, ref
+
+
+def phase_small_slice(device, config2=False) -> None:
+    """3 LSQML epochs at 160^2 / P=16 / 24^2 detector, card vs CPU; with
+    ``config2`` the probe has 3 modes, an eigen probe and weights, and the
+    positions are corrected."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
+    name = "config-2 slice (3 modes, eigen probe, positions)" if config2 else "slice"
+    keys = ("psi", "probe") + (("eigen_probe", "eigen_weights") if config2 else ())
+    got, ref = _card_vs_cpu(
+        name, device, data,
+        lambda: _small_slice_parameters(scan, probe, psi0, det, config2), keys,
+    )
     scan_err = float(np.max(np.abs(got.scan - ref.scan)))
     np.testing.assert_allclose(got.scan, ref.scan, rtol=0, atol=SLICE_SCAN_TOL)
     if config2 and not np.max(np.abs(got.scan - scan)) > 0.1:
         raise AssertionError("config-2 slice: the positions did not move")
-    name = "config-2 slice (3 modes, eigen probe, positions)" if config2 else "slice"
-    log(f"[slice] {name}: 3 epochs {n}x{det}^2 on {device} vs cpu: costs "
-        f"{c_got.ravel().tolist()} vs {c_ref.ravel().tolist()} (rtol {SLICE_TOL:g}); "
-        f"scan max|err| {scan_err:.3e} px (tol {SLICE_SCAN_TOL:g})")
+    log(f"[slice] {name}: scan max|err| {scan_err:.3e} px (tol {SLICE_SCAN_TOL:g})")
+
+
+def _distinct_modes_probe(gen, p):
+    """3 Hermite modes of a random-phase blob, at distinct powers, centered
+    off the half-integers: equal powers make the orthogonalization's
+    eigenvectors ill-conditioned, and a half-integer center is a rounding
+    tie for the centering constraint."""
+    r, c = np.mgrid[:p, :p] + 0.5
+    amp = np.exp(-((r - 0.52 * p) ** 2 + (c - 0.46 * p) ** 2) / (0.3 * p) ** 2)
+    base = (amp * np.exp(1j * gen.uniform(-np.pi, np.pi, (p, p))))[None, None, None]
+    modes = tp.add_modes_cartesian_hermite(base.astype(np.complex64), MODES)
+    return (modes * np.linspace(1.0, 0.4, MODES)[:, None, None]).astype(np.complex64)
+
+
+def phase_rpie_slices(device) -> None:
+    """5c: the rPIE slice with every constraint and moment of this path,
+    then one-mode LSQML with Poisson noise, card vs CPU."""
+    gen = np.random.default_rng(2)
+    scan, psi, probe, psi0 = _slice_inputs(gen, _distinct_modes_probe)
+    det = 24
+    ones = np.ones((det, det), bool)
+    probe = (BRIGHT * probe).astype(np.complex64)
+    data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
+    eigen_probe, weights = config2_eigen(probe, len(scan))
+
+    def rpie_params():
+        return tp.PtychoParameters(
+            probe=probe,
+            psi=psi0,
+            scan=scan,
+            eigen_probe=eigen_probe,
+            eigen_weights=weights,
+            algorithm_options=tp.RpieOptions(
+                num_batch=3, rescale_method="constant_probe_photons", rescale_period=2
+            ),
+            object_options=tp.ObjectOptions(
+                smoothness_constraint=0.01,
+                positivity_constraint=0.05,
+                use_adaptive_moment=True,
+            ),
+            probe_options=tp.ProbeOptions(
+                force_orthogonality=True,
+                force_centered_intensity=True,
+                probe_support=0.05,
+                median_filter_abs_probe=True,
+                median_filter_abs_probe_px=(3.0, 3.0),
+                force_sparsity=0.05,
+                use_adaptive_moment=True,
+            ),
+            exitwave_options=tp.ExitWaveOptions(measured_pixels=ones),
+        )
+
+    _card_vs_cpu(
+        "rPIE slice (wobbly center, 3 modes, eigen probe, every probe "
+        "constraint, object constraints, AdaM, constant_probe_photons)",
+        device, data, rpie_params,
+        ("psi", "probe", "eigen_probe", "eigen_weights"), phase=True,
+    )
+    probe1 = _random_phase_probe(gen, 16)
+    data1 = tp.simulate(det, probe1, scan, psi, device="cpu").numpy()
+    _card_vs_cpu(
+        "LSQML slice (1 mode, Poisson, wobbly center)",
+        device, data1,
+        lambda: tp.PtychoParameters(
+            probe=probe1,
+            psi=psi0,
+            scan=scan,
+            algorithm_options=tp.LstsqOptions(num_batch=3, rescale_period=2),
+            object_options=tp.ObjectOptions(),
+            probe_options=tp.ProbeOptions(),
+            exitwave_options=tp.ExitWaveOptions(measured_pixels=ones, noise_model="poisson"),
+        ),
+    )
 
 
 def config2_eigen(probe, n_positions):
@@ -421,10 +559,11 @@ def path_parameters(scan, psi, probe, config2=False):
     )
 
 
-def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
-    """Simulate the data on the card, then enter a Reconstruction and run
-    ``iterate(1)`` and a timed ``iterate(3)``, with the kernel counts set to
-    0 just before and read just after. Checks what both paths share."""
+def _drive(tag, device, probe, scan, psi, card, params) -> dict:
+    """Simulate the data on the card, then enter a Reconstruction of
+    ``params`` and run ``iterate(1)`` and a timed ``iterate(3)``, with the
+    kernel counts set to 0 just before and read just after. Checks what
+    every path shares."""
     start = time.perf_counter()
     data = tp.simulate(DET, probe, scan, psi, device=device)
     torch.cuda.synchronize()
@@ -432,7 +571,6 @@ def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
         f"{probe.shape[-3]} probe mode(s) in {time.perf_counter() - start:.2f} s")
     if not bool(torch.isfinite(data).all()):
         raise AssertionError("simulated data is not finite")
-    params = path_parameters(scan, psi, probe, config2)
 
     for name in patch.LAUNCHES:
         patch.LAUNCHES[name] = 0
@@ -443,7 +581,8 @@ def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
     log(f"[{tag}] Reconstruction entered in {setup_s:.2f} s "
-        f"(compact batches {context.batches[0].shape}, fft_precond "
+        f"({params.algorithm_options.batch_method} batches "
+        f"{context.batches[0].shape}, fft_precond "
         f"{bool(context._make_plan().fft_precond)}) ({card})")
     before = dict(patch.LAUNCHES)
     start = time.perf_counter()
@@ -475,7 +614,7 @@ def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
         raise AssertionError("reconstructed probe is not finite or has the wrong shape")
     per_epoch = timed_s / 3
     log(f"[{tag}] iterate(1) {first_s:.3f} s; iterate(3) {timed_s:.3f} s = "
-        f"{per_epoch:.4f} s/epoch, {N_PATTERNS / per_epoch:.1f} patterns/s "
+        f"{per_epoch:.4f} s/epoch, {len(scan) / per_epoch:.1f} patterns/s "
         f"({card})")
     log(f"[{tag}] set-up {setup_s:.2f} s; peak device memory {peak} bytes "
         f"({peak / 2**30:.3f} GiB) ({card})")
@@ -485,13 +624,15 @@ def _drive(tag, device, probe, scan, psi, card, config2) -> dict:
 
 
 def phase_main_path(device, scan, psi, probe, card: str) -> dict:
-    return _drive("main", device, probe, scan, psi, card, config2=False)["launches"]
+    params = path_parameters(scan, psi, probe)
+    return _drive("main", device, probe, scan, psi, card, params)["launches"]
 
 
 def phase_config2(device, scan, psi, probe, card: str) -> dict:
     """Config 2 at full width: 3 modes, one eigen probe, positions."""
     probe3 = tp.add_modes_cartesian_hermite(probe, MODES)
-    out = _drive("config2", device, probe3, scan, psi, card, config2=True)
+    params = path_parameters(scan, psi, probe3, config2=True)
+    out = _drive("config2", device, probe3, scan, psi, card, params)
     result = out["result"]
     eigen_probe, weights = config2_eigen(probe3, len(scan))
     for key, start in (("eigen_probe", eigen_probe), ("eigen_weights", weights)):
@@ -525,6 +666,91 @@ def phase_config2(device, scan, psi, probe, card: str) -> dict:
     return out["launches"]
 
 
+def rpie_probe(probe):
+    """Phase 8's probe: 3 Hermite modes of ``probe`` holding RPIE_PHOTONS
+    photons together."""
+    probe3 = tp.add_modes_cartesian_hermite(probe, MODES)
+    return (probe3 * np.sqrt(RPIE_PHOTONS / np.sum(np.abs(probe3) ** 2))).astype(
+        np.complex64
+    )
+
+
+def rpie_parameters(scan, psi, probe):
+    """Phase 8's parameters: rPIE with its defaults (wobbly-center batches,
+    alpha 0.05) and the constraints and moments users add to it."""
+    return tp.PtychoParameters(
+        probe=probe,
+        psi=np.full_like(psi, 0.5),
+        scan=scan,
+        algorithm_options=tp.RpieOptions(num_batch=RPIE_NUM_BATCH),
+        object_options=tp.ObjectOptions(use_adaptive_moment=True, clip_magnitude=True),
+        probe_options=tp.ProbeOptions(
+            force_orthogonality=True,
+            force_centered_intensity=True,
+            use_adaptive_moment=True,
+        ),
+    )
+
+
+def phase_rpie(device, scan, psi, probe, card: str) -> dict:
+    """rPIE at full width: 3 modes holding RPIE_PHOTONS photons,
+    wobbly-center batches, orthogonal and centered probe modes, AdaM,
+    magnitude clipping."""
+    probe3 = rpie_probe(probe)
+    out = _drive("rpie", device, probe3, scan, psi, card, rpie_parameters(scan, psi, probe3))
+    result = out["result"]
+    powers = np.asarray(result.probe_options.power)
+    log(f"[rpie] probe mode powers after each epoch's orthogonalization "
+        f"{powers.tolist()}")
+    if not np.all(np.diff(powers, axis=-1) <= 0):
+        raise AssertionError(f"mode powers not in descending order: {powers}")
+    final = np.sum(np.abs(result.probe) ** 2, axis=(-2, -1)).ravel()
+    log(f"[rpie] final probe mode powers {final.tolist()}")
+    top = float(np.max(np.abs(result.psi)))
+    if not top <= 1.0 + 1e-6:
+        raise AssertionError(f"max |psi| {top} > 1 with clip_magnitude")
+    log(f"[rpie] max |psi| {top:.7f} <= 1 (clip_magnitude)")
+    return out["launches"]
+
+
+def siemens():
+    """bench_all.py's _siemens(): the measured data, scan and probe, and a
+    constant object covering the scan with a 20-pixel margin."""
+    with bz2.open(SIEMENS, "rb") as f:
+        a = np.load(f)
+        scan = a["scan"][0].astype(np.float32)
+        data = a["data"][0].astype(np.float32)
+        probe = a["probe"][0].astype(np.complex64)
+    scan = scan - np.amin(scan, axis=-2) + 20
+    w = probe.shape[-1]
+    h = int(np.ceil(scan[:, 0].max())) + w + 21
+    ww = int(np.ceil(scan[:, 1].max())) + w + 21
+    return data, scan, probe, np.full((1, h, ww), 0.5 + 0j, dtype=np.complex64)
+
+
+def phase_siemens(device, card: str) -> None:
+    """bench_all.py's rpie_siemens on the card against the CPU path."""
+    data, scan, probe, psi = siemens()
+
+    def params():
+        return tp.PtychoParameters(
+            probe=probe,
+            psi=psi,
+            scan=scan,
+            algorithm_options=tp.RpieOptions(num_batch=5, batch_method="compact"),
+            object_options=tp.ObjectOptions(),
+            probe_options=tp.ProbeOptions(),
+        )
+
+    got, _ = _card_vs_cpu(
+        f"rpie_siemens ({data.shape[0]} measured {data.shape[-1]}^2 patterns)",
+        device, data, params,
+    )
+    epoch_s = float(np.mean(got.algorithm_options.times))
+    log(f"[siemens] {epoch_s:.4f} s/epoch on the card (mean of 3, first epoch "
+        f"included), {data.shape[0] / epoch_s:.1f} patterns/s ({card})")
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -534,8 +760,11 @@ def main() -> None:
     phase_forward_model(device, scan, psi, probe)
     phase_small_slice(device)
     phase_small_slice(device, config2=True)
+    phase_rpie_slices(device)
     launches = phase_main_path(device, scan, psi, probe, env["nvidia_smi"])
     launches2 = phase_config2(device, scan, psi, probe, env["nvidia_smi"])
+    launches3 = phase_rpie(device, scan, psi, probe, env["nvidia_smi"])
+    phase_siemens(device, env["nvidia_smi"])
     report = [
         {
             "name": name,
@@ -544,6 +773,7 @@ def main() -> None:
             "replaces": KERNELS[name],
             "launches": launches[name],
             "launches_config2": launches2[name],
+            "launches_rpie": launches3[name],
             **timings[name],
         }
         for name in KERNELS

@@ -162,9 +162,11 @@ def test_compact_batches_match_jax(num_batch):
 
 
 def test_unported_batch_method_raises():
-    with pytest.raises(NotImplementedError, match="wobbly_center"):
+    """Every batch method of tike_tpu is ported; another name raises."""
+    assert sorted(tcluster.BATCH_METHODS) == sorted(jcluster.BATCH_METHODS)
+    with pytest.raises(NotImplementedError, match="no_such_method"):
         tcluster.by_scan_stripes_contiguous(
-            H.positions(H.rng(8), 10, 64, 64, 8), 1, "wobbly_center", 2
+            H.positions(H.rng(8), 10, 64, 64, 8), 1, "no_such_method", 2
         )
 
 

@@ -315,13 +315,16 @@ def test_positions_stay_in_the_allowed_window(slice_data):
 
 @pytest.mark.parametrize("which", ["use_position_regularization", "poisson"])
 def test_unported_config2_options_raise(slice_data, which):
+    """Position regularization is still refused; config 2 with Poisson
+    noise, refused before, now runs."""
     scan, probe, psi0, data = slice_data
     params = _parameters(tp, scan, probe, psi0, True, False)
     if which == "poisson":
         params.exitwave_options.noise_model = "poisson"
-        match = "Poisson"
-    else:
-        params.position_options.use_position_regularization = True
-        match = which
-    with pytest.raises(NotImplementedError, match=match):
+        with tp.Reconstruction(data, params, device="cpu", random_seed=0) as c:
+            c.iterate(1)
+            assert np.isfinite(c.get_convergence()[0][-1][0])
+        return
+    params.position_options.use_position_regularization = True
+    with pytest.raises(NotImplementedError, match=which):
         tp.Reconstruction(data, params, device="cpu")

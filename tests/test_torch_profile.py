@@ -43,7 +43,10 @@ def test_device_breakdown_counts_overlap_once():
     assert b["classes"]["sort, index, cat, memset, memcpy"] == [10.0, 1]
 
 
-@pytest.mark.parametrize("argv, config", [([], "main"), (["--config", "config2"], "config2")])
+@pytest.mark.parametrize(
+    "argv, config",
+    [([], "main"), (["--config", "config2"], "config2"), (["--config", "rpie"], "rpie")],
+)
 def test_parse_args_picks_the_configuration(argv, config):
     args = profile_epoch.parse_args(argv)
     assert args.config == config
@@ -83,3 +86,29 @@ def test_profiled_parameters_are_accepted(config2):
     if config2:
         assert result.probe.shape[-3] == cs.MODES
         assert result.eigen_probe.shape == (1, 1, cs.MODES, 16, 16)
+
+
+def test_rpie_parameters_are_accepted():
+    """Phase 8's rPIE parameters and probe, at a small size: wobbly-center
+    batches, the probe at RPIE_PHOTONS photons, and one epoch whose mode
+    powers come out orthogonalized and sorted, and whose |psi| is clipped."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import tike_tpu_torch.ptycho as tp
+
+    from . import _torch_parity  # noqa: F401  (one torch thread)
+
+    scan, psi, probe = cs.make_inputs(60, probe_shape=16, hw=80)
+    probe = cs.rpie_probe(probe)
+    np.testing.assert_allclose(np.sum(np.abs(probe) ** 2), cs.RPIE_PHOTONS, rtol=1e-5)
+    data = tp.simulate(16, probe, scan, psi, device="cpu")
+    params = cs.rpie_parameters(scan, psi, probe)
+    assert params.algorithm_options.batch_method == "wobbly_center"
+    with tp.Reconstruction(data, params, device="cpu", random_seed=0) as context:
+        assert context.batches[0].shape == (cs.RPIE_NUM_BATCH, 12)
+        context.iterate(1)
+        result = context.get_result()
+    assert np.isfinite(result.algorithm_options.costs[-1][0])
+    assert np.all(np.diff(result.probe_options.power[-1]) <= 0)
+    assert np.max(np.abs(result.psi)) <= 1 + 1e-6

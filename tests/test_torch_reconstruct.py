@@ -170,26 +170,25 @@ def test_device_tensor_data_matches_host_data(slice_data):
 
 
 def _unported(scan, probe, psi0):
-    yield "rpie", dict(algorithm_options=tp.RpieOptions(batch_method="compact"))
-    yield "batch_method", dict(algorithm_options=tp.LstsqOptions())
+    """What the port still refuses, after rPIE, the batch methods, Poisson
+    and the probe and object constraints were ported."""
     yield "convergence_window", dict(
-        algorithm_options=tp.LstsqOptions(
-            batch_method="compact", convergence_window=4
-        )
+        algorithm_options=tp.LstsqOptions(convergence_window=4)
     )
+    yield "time_limit", dict(algorithm_options=tp.RpieOptions(time_limit=60.0))
     yield "use_position_regularization", dict(
         position_options=tp.PositionOptions(
             initial_scan=scan, use_position_regularization=True
         )
     )
-    yield "Poisson", dict(
-        exitwave_options=tp.ExitWaveOptions(
-            measured_pixels=np.ones((DET, DET), bool), noise_model="poisson"
-        )
+    yield "position correction with rpie", dict(
+        algorithm_options=tp.RpieOptions(),
+        position_options=tp.PositionOptions(initial_scan=scan),
     )
-    yield "probe_support", dict(probe_options=tp.ProbeOptions(probe_support=0.1))
-    yield "positivity", dict(
-        object_options=tp.ObjectOptions(positivity_constraint=0.1)
+    yield "host streaming", dict(store_data_on_device=False)
+    yield "multislice", dict(psi=np.concatenate([psi0, psi0]))
+    yield "rescale_method", dict(
+        algorithm_options=tp.LstsqOptions(rescale_method="no_such_method")
     )
 
 
@@ -197,6 +196,7 @@ def _unported(scan, probe, psi0):
 def test_unported_options_raise(slice_data, which):
     scan, _, probe, psi0, data = slice_data
     match, change = list(_unported(scan, probe, psi0))[which]
+    store = change.pop("store_data_on_device", True)
     kw = dict(
         probe=probe,
         psi=psi0,
@@ -210,7 +210,9 @@ def test_unported_options_raise(slice_data, which):
     )
     kw.update(change)
     with pytest.raises(NotImplementedError, match=match):
-        tp.Reconstruction(data, tp.PtychoParameters(**kw), device="cpu")
+        tp.Reconstruction(
+            data, tp.PtychoParameters(**kw), device="cpu", store_data_on_device=store
+        )
 
 
 def test_cuda_device_without_cuda_raises(slice_data, monkeypatch):

@@ -1,13 +1,12 @@
 """Host-side scan-position partitioning into mini-batches (numpy).
 
-A verbatim copy of the parts of :mod:`tike_tpu.cluster` that the LSQML
-compact path runs: ``compact``, ``stripes_equal_count``,
+A verbatim copy of the parts of :mod:`tike_tpu.cluster` that the
+single-device solvers run: the batch methods ``compact``,
+``wobbly_center``, ``wobbly_center_random_bootstrap`` and
+``random_batches``, and ``stripes_equal_count``,
 ``by_scan_stripes_contiguous`` and ``batches_padded``. It is copied rather
 than imported because importing ``tike_tpu`` imports jax. The same
 ``numpy.random.Generator`` state gives the same batches in both packages.
-
-Only the ``"compact"`` batch method is ported; the others (wobbly center,
-random) wait for the ports that run them.
 """
 
 from __future__ import annotations
@@ -32,6 +31,104 @@ def stripes_equal_count(
     if num_cluster == 1 or num_cluster >= len(population):
         return np.array_split(np.arange(population.shape[0]), num_cluster)
     return np.array_split(np.argsort(population[:, dim]), num_cluster)
+
+
+def wobbly_center(
+    population: npt.ArrayLike,
+    num_cluster: int,
+) -> typing.List[np.ndarray]:
+    """Divide the population into heterogeneous clusters.
+
+    Contrarian clustering (Mishra et al. 2017, arXiv:1709.01423): each cluster
+    greedily takes the unassigned point farthest from its centroid so every
+    cluster spans the whole field of view. Mirrors `cluster.py:302-...` but
+    vectorized with an incremental centroid update instead of recomputing
+    means per step.
+    """
+    population = np.asarray(population, dtype=np.float64)
+    if not 0 < num_cluster < 0xFFFF:
+        raise ValueError(
+            f"The number of clusters must be 0 < {num_cluster} < 65536."
+        )
+    m = len(population)
+    if num_cluster == 1 or num_cluster >= m:
+        return np.array_split(np.arange(m), num_cluster)
+
+    # Start with the num_cluster observations closest to the global centroid.
+    center_dist = np.linalg.norm(
+        population - population.mean(axis=0, keepdims=True), axis=1
+    )
+    seeds = np.argpartition(center_dist, num_cluster)[:num_cluster]
+
+    unassigned = np.ones(m, dtype=bool)
+    unassigned[seeds] = False
+    members: typing.List[typing.List[int]] = [[s] for s in seeds]
+    sums = population[seeds].copy()  # running per-cluster coordinate sums
+    counts = np.ones(num_cluster)
+
+    remaining_idx = np.flatnonzero(unassigned)
+    # Round-robin: cluster c takes the remaining point farthest from its mean.
+    for step in range(len(remaining_idx)):
+        c = step % num_cluster
+        rem = np.flatnonzero(unassigned)
+        centroid = sums[c] / counts[c]
+        far = rem[
+            np.argmax(np.linalg.norm(population[rem] - centroid, axis=1))
+        ]
+        members[c].append(far)
+        unassigned[far] = False
+        sums[c] += population[far]
+        counts[c] += 1
+    return [np.sort(np.asarray(c)) for c in members]
+
+
+def wobbly_center_random_bootstrap(
+    population: npt.ArrayLike,
+    num_cluster: int,
+    boot_fraction: float = 0.95,
+    rng: np.random.Generator | None = None,
+) -> typing.List[np.ndarray]:
+    """Heterogeneous clusters with random bootstrap initialization.
+
+    A fraction of the population is assigned randomly (round-robin over a
+    shuffled subset), then the wobbly-center rule distributes the remainder.
+    Mirrors the reference variant with the same name.
+    """
+    population = np.asarray(population, dtype=np.float64)
+    if not 0 < num_cluster < 0xFFFF:
+        raise ValueError(
+            f"The number of clusters must be 0 < {num_cluster} < 65536."
+        )
+    m = len(population)
+    if num_cluster == 1 or num_cluster >= m:
+        return np.array_split(np.arange(m), num_cluster)
+    rng = np.random.default_rng() if rng is None else rng
+
+    num_bootstrap = int(m * boot_fraction)
+    num_bootstrap -= num_bootstrap % num_cluster
+    seed = rng.choice(m, size=num_bootstrap, replace=False)
+
+    unassigned = np.ones(m, dtype=bool)
+    members: typing.List[typing.List[int]] = [[] for _ in range(num_cluster)]
+    for c in range(num_cluster):
+        sel = seed[c::num_cluster]
+        members[c] = list(sel)
+        unassigned[sel] = False
+    sums = np.stack([population[mem].sum(axis=0) for mem in members])
+    counts = np.asarray([len(mem) for mem in members], dtype=np.float64)
+
+    for step in range(m - num_bootstrap):
+        c = step % num_cluster
+        rem = np.flatnonzero(unassigned)
+        centroid = sums[c] / counts[c]
+        far = rem[
+            np.argmax(np.linalg.norm(population[rem] - centroid, axis=1))
+        ]
+        members[c].append(far)
+        unassigned[far] = False
+        sums[c] += population[far]
+        counts[c] += 1
+    return [np.sort(np.asarray(c)) for c in members]
 
 
 def compact(
@@ -101,8 +198,28 @@ def compact(
     return clusters
 
 
+def random_batches(
+    population, num_cluster: int, rng: np.random.Generator | None = None
+) -> typing.List[np.ndarray]:
+    """Split indices into num_cluster equal random batches (O(N)).
+
+    The clustering methods are O(N * num_cluster) or worse per epoch setup;
+    at production scale (millions of scan positions, the reference's MPI/
+    streaming regime) a plain random partition is the only affordable
+    layout, matching the reference's `opt.batch_indicies(use_random=True)`
+    (`opt.py:46-54`).
+    """
+    n = len(population)
+    rng = np.random.default_rng() if rng is None else rng
+    perm = rng.permutation(n)
+    return np.array_split(perm, num_cluster)
+
+
 BATCH_METHODS = {
     "compact": compact,
+    "wobbly_center": wobbly_center,
+    "wobbly_center_random_bootstrap": wobbly_center_random_bootstrap,
+    "random": random_batches,
 }
 
 
@@ -125,7 +242,7 @@ def by_scan_stripes_contiguous(
     """
     if batch_method not in BATCH_METHODS:
         raise NotImplementedError(
-            f"batch_method={batch_method!r} is not ported yet; "
+            f"batch_method={batch_method!r} is not a batch method; "
             f"available: {sorted(BATCH_METHODS)}"
         )
     scan = np.asarray(scan)

@@ -37,6 +37,16 @@ def _convert_options(obj, cls):
     return out
 
 
+def _convert_moment_options(opts, cls):
+    """Build the port's ObjectOptions or ProbeOptions from a tike_tpu one,
+    its moment states (``v``, ``m``; device arrays after a fused call)
+    as numpy arrays."""
+    out = _convert_options(opts, cls)
+    if out is not None:
+        out.v, out.m = to_numpy(opts.v), to_numpy(opts.m)
+    return out
+
+
 def _convert_position_options(popt) -> PositionOptions | None:
     """Build the port's PositionOptions from a tike_tpu one, its affine
     transform, momentum, initial scan and confidence included."""
@@ -54,9 +64,11 @@ def parameters_from_jax(p) -> PtychoParameters:
     """Return the port's PtychoParameters holding the state of ``p``.
 
     ``p`` is a ``tike_tpu`` PtychoParameters whose arrays are on the host
-    (after its ``copy_to_host()``). The result holds numpy arrays; pass it
-    to :class:`tike_tpu_torch.ptycho.Reconstruction`, which moves it to a
-    device.
+    (after its ``copy_to_host()``). The result holds numpy arrays, the
+    object and probe moment states included; pass it to
+    :class:`tike_tpu_torch.ptycho.Reconstruction`, which moves it to a
+    device. Every field of the algorithm options is carried, ``RpieOptions.alpha``
+    among them.
     """
     algo = p.algorithm_options
     if algo.name not in _ALGORITHMS:
@@ -73,8 +85,8 @@ def parameters_from_jax(p) -> PtychoParameters:
         else np.asarray(p.eigen_weights).astype(floating),
         algorithm_options=_convert_options(algo, _ALGORITHMS[algo.name]),
         exitwave_options=_convert_options(p.exitwave_options, ExitWaveOptions),
-        probe_options=_convert_options(p.probe_options, ProbeOptions),
-        object_options=_convert_options(p.object_options, ObjectOptions),
+        probe_options=_convert_moment_options(p.probe_options, ProbeOptions),
+        object_options=_convert_moment_options(p.object_options, ObjectOptions),
         position_options=_convert_position_options(p.position_options),
     )
 
@@ -85,11 +97,18 @@ def parameters_to_numpy(p) -> dict:
     Keys: ``probe``, ``psi``, ``scan``, ``eigen_probe``, ``eigen_weights``
     (numpy arrays or None), ``costs``, ``times`` (lists), and from the
     position options ``initial_scan``, ``confidence``, ``position_momentum``
-    (arrays or None) and ``transform`` (the affine transform's 6-tuple, or
-    None), for comparing a ``tike_tpu`` result with a ``tike_tpu_torch`` one.
+    (arrays or None), ``transform`` (the affine transform's 6-tuple, or
+    None), and the moment states ``object_v``, ``object_m``, ``probe_v``,
+    ``probe_m`` (arrays or None), for comparing a ``tike_tpu`` result with
+    a ``tike_tpu_torch`` one.
     """
     popt = p.position_options
+    oopt, prb = p.object_options, p.probe_options
     return {
+        "object_v": None if oopt is None else to_numpy(oopt.v),
+        "object_m": None if oopt is None else to_numpy(oopt.m),
+        "probe_v": None if prb is None else to_numpy(prb.v),
+        "probe_m": None if prb is None else to_numpy(prb.m),
         "initial_scan": None if popt is None else to_numpy(popt.initial_scan),
         "confidence": None if popt is None else to_numpy(popt.confidence),
         "position_momentum": None if popt is None else to_numpy(popt._momentum),

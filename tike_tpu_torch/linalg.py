@@ -1,6 +1,6 @@
 """Complex linear algebra helpers (PyTorch).
 
-Counterpart of :mod:`tike_tpu.linalg`; only what the LSQML path uses.
+Counterpart of :mod:`tike_tpu.linalg`; only what the solvers use.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""Profile the port's main path on one CUDA card: where an LSQML epoch's time goes.
+"""Profile a path of the port on one CUDA card: where an epoch's time goes.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python -m tike_tpu_torch.profile_epoch [--config {main,config2}] [--trace PATH]
+    python -m tike_tpu_torch.profile_epoch [--config {main,config2,rpie}] [--trace PATH]
 
 It builds a path of ``chip_smoke.py`` (10,000 simulated 128^2 patterns of
-a 1500^2 object, LSQML, ``num_batch=10``, compact batches,
-``random_seed=0``): by default the main path (one probe mode), or with
-``--config config2`` BASELINE config 2 (3 probe modes, one eigen probe
-with per-position weights, position correction). Then it
+a 1500^2 object, ``random_seed=0``): by default the main path (LSQML, one
+probe mode, ``num_batch=10``, compact batches); with ``--config config2``
+BASELINE config 2 (the same with 3 probe modes, one eigen probe with
+per-position weights, position correction); with ``--config rpie``
+phase 8's rPIE (3 probe modes, ``num_batch=5`` wobbly-center batches,
+probe orthogonalization and centering, object and probe AdaM, magnitude
+clipping). Then it
 
 1. times ``iterate(3)`` once with each psi preconditioner formulation
    (FFT and gather), after one warm-up epoch each;
@@ -76,9 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--config",
-        choices=("main", "config2"),
+        choices=("main", "config2", "rpie"),
         default="main",
-        help="the main path (one probe mode) or BASELINE config 2",
+        help="the main path (one probe mode), BASELINE config 2, or rPIE",
     )
     parser.add_argument(
         "--trace",
@@ -106,11 +109,15 @@ def main() -> None:
     print("card:", card, "config:", args.config)
     device = torch.device("cuda", 0)
     scan, psi, probe = cs.make_inputs(cs.N_PATTERNS)
-    config2 = args.config == "config2"
-    if config2:
-        probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
+    if args.config == "rpie":
+        probe = cs.rpie_probe(probe)
+        params = cs.rpie_parameters(scan, psi, probe)
+    else:
+        config2 = args.config == "config2"
+        if config2:
+            probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
+        params = cs.path_parameters(scan, psi, probe, config2)
     data = tp.simulate(cs.DET, probe, scan, psi, device=device)
-    params = cs.path_parameters(scan, psi, probe, config2)
     context = tp.Reconstruction(data, params, device=device, random_seed=0)
     context.__enter__()
     chosen = _preconditioner.fft_precond_profitable

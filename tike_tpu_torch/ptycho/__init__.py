@@ -1,4 +1,4 @@
-"""Ptychography: the LSQML solver, parameter model and options.
+"""Ptychography: the rPIE and LSQML solvers, parameter model and options.
 
 Public API mirrors :mod:`tike_tpu.ptycho` for what is ported.
 """

@@ -1,9 +1,7 @@
 """Object (psi) options and helpers.
 
-Counterpart of :mod:`tike_tpu.ptycho.object`. The object constraints
-(positivity, smoothness, magnitude clipping) are not ported yet;
-``Reconstruction`` raises ``NotImplementedError`` when an option asks for
-one.
+Counterpart of :mod:`tike_tpu.ptycho.object`, with the per-epoch object
+constraints (positivity, smoothness, magnitude clipping) on tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +10,7 @@ import dataclasses
 import typing
 
 import numpy as np
+import torch
 
 from ..precision import cfloating, floating, integer
 
@@ -29,13 +28,13 @@ class ObjectOptions:
     """A record of the previous mnorms of the object update."""
 
     positivity_constraint: float = 0
-    """Weight of the positivity constraint (not ported yet)."""
+    """Weight of the positivity constraint, in [0, 1]."""
 
     smoothness_constraint: float = 0
-    """Weight of the smoothness constraint (not ported yet)."""
+    """Weight of the smoothness constraint, in [0, 1/8)."""
 
     use_adaptive_moment: bool = False
-    """Whether or not to use adaptive moment (not ported yet)."""
+    """Whether or not to use adaptive moment."""
 
     vdecay: float = 0.999
     """Second-moment decay for adaptive moment."""
@@ -53,23 +52,10 @@ class ObjectOptions:
     """Magnitude of the illumination used to condition object updates."""
 
     clip_magnitude: bool = False
-    """Whether to force the object magnitude to remain <= 1 (not ported)."""
+    """Whether to force the object magnitude to remain <= 1."""
 
     multislice_propagation_distance: float = 1.0e-9
     """Slice-to-slice propagation distance (meters) for multislice."""
-
-    def unsupported(self) -> typing.List[str]:
-        """Names of the set options that the port does not run yet."""
-        out = []
-        if self.positivity_constraint:
-            out.append("object_options.positivity_constraint")
-        if self.smoothness_constraint:
-            out.append("object_options.smoothness_constraint")
-        if self.clip_magnitude:
-            out.append("object_options.clip_magnitude")
-        if self.use_adaptive_moment:
-            out.append("object_options.use_adaptive_moment")
-        return out
 
 
 def get_padded_object(scan, probe, extra: int = 0):
@@ -86,3 +72,42 @@ def get_padded_object(scan, probe, extra: int = 0):
     )
     psi = np.full(tuple(span), 0.5 + 0j, dtype=cfloating)
     return psi, (scan + 1 - min_corner + extra).astype(floating)
+
+
+def positivity_constraint(x: torch.Tensor, r: float) -> torch.Tensor:
+    """Blend x toward its own magnitude: ``r * |x| + (1 - r) * x``."""
+    if r > 0:
+        if r > 1:
+            raise ValueError(
+                f"Positivity constraint must be in the range [0, 1] not {r}."
+            )
+        return r * torch.abs(x) + (1 - r) * x
+    return x
+
+
+def smoothness_constraint(x: torch.Tensor, a: float) -> torch.Tensor:
+    """Convolve the last two axes with the 3x3 kernel
+    [[a, a, a], [a, 1 - 8a, a], [a, a, a]], edges replicated."""
+    if not (0 <= a < 1.0 / 8.0):
+        raise ValueError(
+            f"Smoothness constraint must be in range [0, 1/8) not {a}."
+        )
+    h, w = x.shape[-2], x.shape[-1]
+    rows = torch.clamp(torch.arange(-1, h + 1, device=x.device), 0, h - 1)
+    cols = torch.clamp(torch.arange(-1, w + 1, device=x.device), 0, w - 1)
+    xp = torch.index_select(torch.index_select(x, -2, rows), -1, cols)
+    neighborhood = (
+        xp[..., :-2, :-2] + xp[..., :-2, 1:-1] + xp[..., :-2, 2:]
+        + xp[..., 1:-1, :-2] + xp[..., 1:-1, 2:]
+        + xp[..., 2:, :-2] + xp[..., 2:, 1:-1] + xp[..., 2:, 2:]
+    )
+    return a * neighborhood + (1.0 - 8.0 * a) * x
+
+
+def clip_magnitude(x: torch.Tensor, a_max: float = 1.0) -> torch.Tensor:
+    """Clip the complex magnitude to ``a_max`` without changing the phase."""
+    magnitude = torch.abs(x)
+    scale = torch.where(
+        magnitude > a_max, a_max / magnitude, torch.ones_like(magnitude)
+    )
+    return x * scale

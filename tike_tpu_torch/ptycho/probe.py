@@ -6,11 +6,10 @@ complex64; eigen probes are (1, EIGEN, SHARED, W, H) and eigen weights are
 ``weights[0] * probe + sum(weights[1:] * eigen_probe)`` (orthogonal probe
 relaxation, OPR).
 
-The per-epoch probe constraints are not ported yet:
-:meth:`ProbeOptions.unsupported` names the options that ask for them, and
-``Reconstruction`` raises ``NotImplementedError`` for each. The set-up
-helpers (``add_modes_*``, ``init_varying_probe``) are host numpy, as in the
-JAX package.
+The per-epoch probe constraints (finite support, median filter of the
+magnitude, centering, sparsity, orthogonalization) and the photon-count
+rescale run on tensors on any device. The set-up helpers (``add_modes_*``,
+``init_varying_probe``) are host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +21,13 @@ import numpy as np
 import torch
 
 from .. import linalg
-from ..precision import cfloating, floating
+from ..precision import cfloating, floating, to_numpy
+from ..utils.ndimage import (
+    center_of_mass2d,
+    gaussian_filter2d,
+    integer_shift2d,
+    median_filter2d,
+)
 
 
 @dataclasses.dataclass
@@ -101,20 +106,6 @@ class ProbeOptions:
         return (epoch >= self.update_start) and (
             epoch % self.update_period == 0
         )
-
-    def unsupported(self) -> typing.List[str]:
-        """Names of the set options that the port does not run yet."""
-        checks = {
-            "probe_support": self.probe_support > 0,
-            "additional_probe_penalty": self.additional_probe_penalty > 0,
-            "median_filter_abs_probe": self.median_filter_abs_probe,
-            "force_centered_intensity": self.force_centered_intensity,
-            # A zero fraction is a no-op in the JAX package as well.
-            "force_sparsity": self.force_sparsity != 0,
-            "force_orthogonality": self.force_orthogonality,
-            "use_adaptive_moment": self.use_adaptive_moment,
-        }
-        return [f"probe_options.{k}" for k, on in checks.items() if on]
 
 
 def get_varying_probe(shared_probe, eigen_probe=None, weights=None):
@@ -345,3 +336,127 @@ def init_varying_probe(
         )
     )
     return eigen_probe, weights
+
+
+def power(probe: torch.Tensor) -> torch.Tensor:
+    """Return the power of each probe mode, flattened, on the probe's
+    device."""
+    return torch.sum((probe * probe.conj()).real, dim=(-2, -1)).reshape(-1)
+
+
+def _orthogonalize_eig_body(x: torch.Tensor):
+    """Orthogonalize the modes of ``x`` through the eigenvectors of their
+    pairwise dot products, then sort them by power, descending.
+
+    ``A_ij = <x_i, x_j>`` and the modes become ``V^T x``, as in the JAX
+    package. An eigenvector is defined only up to a unit phase, and LAPACK,
+    the JAX package's LAPACK and cuSOLVER pick it differently; here each
+    eigenvector is turned so that its first component is real and
+    non-negative. LAPACK's first component is already real (its Householder
+    reduction leaves it so), so this port differs from the JAX package by
+    at most a sign per mode. Returns ``(modes, power)``, the power (M,)
+    sorted. ``torch.linalg.eigh`` synchronizes a CUDA device with the host.
+    """
+    flat = x.reshape(*x.shape[:-2], -1)
+    A = torch.conj(flat) @ flat.transpose(-1, -2)
+    _, vectors = torch.linalg.eigh(A)
+    first = vectors[..., 0:1, :]
+    mag = torch.abs(first)
+    phase = torch.where(mag > 0, first.conj() / torch.clamp(mag, min=1e-30), 1)
+    vectors = vectors * phase
+    result = (vectors.transpose(-1, -2) @ flat).reshape(x.shape)
+    pwr = power(result)
+    order = torch.argsort(-pwr, stable=True)
+    modes = result.reshape(pwr.shape[0], -1)[order]
+    return modes.reshape(x.shape), pwr[order]
+
+
+def orthogonalize_eig(x: torch.Tensor):
+    """Orthogonalize the probe modes (see :func:`_orthogonalize_eig_body`).
+
+    Returns the orthogonal modes, sorted by power descending, and their
+    power as a numpy array.
+    """
+    result, pwr = _orthogonalize_eig_body(x)
+    return result, to_numpy(pwr)
+
+
+def constrain_center_peak(probe: torch.Tensor) -> torch.Tensor:
+    """Shift the probe by at most one pixel per axis so that its blurred
+    intensity is centered.
+
+    The shift stays a device integer (``torch.round``, half to even, as
+    ``jnp.round``) and moves the modes by an index gather.
+    """
+    half = probe.shape[-2] // 2, probe.shape[-1] // 2
+    stack = probe.reshape((-1, *probe.shape[-2:]))
+    intensity = gaussian_filter2d(
+        torch.sum(torch.square(torch.abs(stack)), dim=0),
+        sigma=(half[0] / 3, half[1] / 3),
+        mode="constant",
+        truncate=6.0,
+    )
+    cy, cx = center_of_mass2d(intensity)
+    dy = torch.clamp(torch.round(half[0] - cy), -1, 1).to(torch.int64)
+    dx = torch.clamp(torch.round(half[1] - cx), -1, 1).to(torch.int64)
+    return integer_shift2d(stack, (dy, dx)).reshape(probe.shape)
+
+
+def apply_median_filter_abs_probe(probe: torch.Tensor, med_filt_px=(1.0, 1.0)):
+    """Median filter each shared probe mode's magnitude, keeping its phase."""
+    abs_probe = torch.abs(probe[0, 0])
+    filt = median_filter2d(
+        abs_probe, (max(int(med_filt_px[0]), 1), max(int(med_filt_px[1]), 1))
+    )
+    out = probe.clone()
+    out[0, 0] = (filt * torch.exp(1j * torch.angle(probe[0, 0]))).to(probe.dtype)
+    return out
+
+
+def constrain_probe_sparsity(probe: torch.Tensor, f: float) -> torch.Tensor:
+    """Zero the ``f`` fraction of pixels with the least blurred intensity.
+
+    The threshold is the k-th smallest blurred intensity, counting from 0
+    (``jnp.sort(flat)[k]``), with ``k = int(f * P * P)``.
+    """
+    if f == 0:
+        return probe
+    stack = probe.reshape((-1, *probe.shape[-2:]))
+    intensity = torch.sum(torch.square(torch.abs(stack)), dim=0)
+    sigma = (probe.shape[-2] / 8, probe.shape[-1] / 8)
+    intensity = gaussian_filter2d(intensity, sigma, mode="wrap")
+    k = int(f * probe.shape[-1] * probe.shape[-2])
+    flat = intensity.reshape(-1)
+    kth = torch.sort(flat).values[k]
+    keep = (flat >= kth).reshape(intensity.shape)
+    return probe * keep
+
+
+def finite_probe_support(probe, *, radius=0.5, degree=5.0, p=1.0):
+    """Supergaussian penalty mask for finite probe support:
+    ``p - p * exp(-((x/radius)^2 + (y/radius)^2)^degree)``, a (P, P)
+    float32 tensor on the probe's device, or 0.0 when ``p <= 0``."""
+    if p <= 0:
+        return 0.0
+    N = probe.shape[-1]
+    centers = (
+        torch.arange(N, dtype=torch.float32, device=probe.device) / N - 0.5
+    ) + 0.5 / N
+    j, i = torch.meshgrid(centers, centers, indexing="ij")
+    mask = 1 - torch.exp(
+        -((torch.square(i / radius) + torch.square(j / radius)) ** degree)
+    )
+    return p * mask
+
+
+def rescale_probe_using_fixed_intensity_photons(
+    probe: torch.Tensor, Nphotons, probe_power_fraction=None
+):
+    """Rescale the shared probe modes so that their intensity sums to
+    ``Nphotons``, keeping each mode's share (or ``probe_power_fraction``)."""
+    probe_photons = torch.sum(torch.abs(probe) ** 2, dim=(-1, -2))
+    if probe_power_fraction is None:
+        probe_power_fraction = probe_photons / torch.sum(probe_photons)
+    return probe * torch.sqrt(
+        probe_power_fraction * Nphotons / (probe_photons + 1e-32)
+    )[..., None, None]

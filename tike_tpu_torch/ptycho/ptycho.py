@@ -6,11 +6,13 @@ name) to :class:`Reconstruction`, :func:`reconstruct` and :func:`simulate`.
 Data stays on that device for the whole reconstruction; there is no host
 streaming yet.
 
-Ported: LSQML (``LstsqOptions``) with compact batching, one object slice,
-any number of shared probe modes, eigen probes and weights (OPR), position
-correction (with or without adaptive moments, and the affine fit after
-each ``iterate``), object and probe recovery with the default constraints,
-the Gaussian noise model, and the mean-abs object rescale. Any option
+Ported: what the JAX package's fused single-device program runs for one
+object slice. That is rPIE (``RpieOptions``) and LSQML (``LstsqOptions``)
+with any batch method (compact batches in order, the others in a
+permutation drawn per epoch), any number of shared probe modes, eigen
+probes and weights (OPR), position correction for LSQML, the per-epoch
+probe and object constraints, object and probe adaptive moments, the
+Gaussian and Poisson noise models, and both rescale methods. Any option
 outside that raises ``NotImplementedError`` when the Reconstruction is
 created.
 """
@@ -37,7 +39,7 @@ from ..precision import as_tensor, to_numpy
 from .position import affine_position_regularization
 from .probe import get_varying_probe
 from .solvers import _preconditioner
-from .solvers.epoch import EpochPlan, EpochState, _epoch_math
+from .solvers.epoch import EpochPlan, EpochState, _epoch_math, seed_err_hist
 from .solvers.options import PtychoParameters
 
 __all__ = [
@@ -170,18 +172,23 @@ def simulate(
 simulate_device = simulate
 
 
-def _unsupported(parameters: PtychoParameters) -> typing.List[str]:
+_RESCALE_METHODS = ("mean_of_abs_object", "constant_probe_photons")
+
+
+def _unsupported(
+    parameters: PtychoParameters, store_data_on_device: bool = True
+) -> typing.List[str]:
     """What in ``parameters`` asks for something not ported yet."""
     algo = parameters.algorithm_options
     checks = {
-        f"algorithm {algo.name!r} (only 'lstsq_grad')": (
-            algo.name != "lstsq_grad"
+        f"algorithm {algo.name!r} (only 'lstsq_grad' and 'rpie')": (
+            algo.name not in ("lstsq_grad", "rpie")
         ),
-        f"batch_method {algo.batch_method!r} (only 'compact')": (
-            algo.batch_method != "compact"
+        f"batch_method {algo.batch_method!r}": (
+            algo.batch_method not in cluster.BATCH_METHODS
         ),
         f"rescale_method {algo.rescale_method!r}": (
-            algo.rescale_method != "mean_of_abs_object"
+            algo.rescale_method not in _RESCALE_METHODS
         ),
         "convergence_window >= 2": algo.convergence_window >= 2,
         "a finite time_limit": np.isfinite(algo.time_limit),
@@ -190,15 +197,12 @@ def _unsupported(parameters: PtychoParameters) -> typing.List[str]:
             parameters.position_options is not None
             and parameters.position_options.use_position_regularization
         ),
-        "the Poisson noise model": (
-            parameters.exitwave_options.noise_model != "gaussian"
+        "position correction with rpie (only with lstsq_grad)": (
+            parameters.position_options is not None and algo.name == "rpie"
         ),
+        "host streaming (store_data_on_device=False)": not store_data_on_device,
     }
-    out = [k for k, on in checks.items() if on]
-    for opts in (parameters.object_options, parameters.probe_options):
-        if opts is not None:
-            out += opts.unsupported()
-    return out
+    return [k for k, on in checks.items() if on]
 
 
 class Reconstruction:
@@ -209,7 +213,9 @@ class Reconstruction:
     :meth:`iterate` can be called repeatedly and :meth:`get_result`
     mid-run. The same ``random_seed`` gives the same mini-batches as the
     JAX package. ``device`` is required; a tensor in ``data`` or
-    ``parameters`` that lies on another device raises.
+    ``parameters`` that lies on another device raises. The data always
+    lives on ``device``: ``store_data_on_device=False`` (host streaming)
+    is not ported and raises.
     """
 
     def __init__(
@@ -218,6 +224,7 @@ class Reconstruction:
         parameters: PtychoParameters,
         device,
         random_seed: typing.Optional[int] = None,
+        store_data_on_device: bool = True,
     ):
         if (
             data.ndim != 3
@@ -242,7 +249,7 @@ class Reconstruction:
                 f"and data shape {tuple(data.shape)} are incompatible. "
                 "The probe width/height must be <= the data width/height."
             )
-        missing = _unsupported(parameters)
+        missing = _unsupported(parameters, store_data_on_device)
         if missing:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
@@ -335,6 +342,16 @@ class Reconstruction:
                 self._batch_mask,
                 self.parameters,
             )
+        algo = self.parameters.algorithm_options
+        if algo.rescale_method == "constant_probe_photons" and (
+            popts is None or not np.isfinite(popts.probe_photons)
+        ):
+            raise ValueError(
+                "rescale_method='constant_probe_photons' requires "
+                "probe_options.probe_photons (set it explicitly, or enable "
+                "init_rescale_from_measurements to derive it from the "
+                "rescaled probe)"
+            )
         return self
 
     def _make_plan(self) -> EpochPlan:
@@ -343,19 +360,56 @@ class Reconstruction:
         oopts = p.object_options
         posopts = p.position_options
         algo = p.algorithm_options
+        compact = algo.batch_method == "compact"
+        rpie = algo.name == "rpie"
+        # The moment kinds of the JAX package's fused program: rPIE takes
+        # per-batch AdaM (epoch-end checked momentum when compact); LSQML
+        # per-batch classical momentum (checked when compact) for the
+        # object and the epoch-end checked momentum for the probe.
+        obj_moment = "none"
+        if oopts is not None and oopts.use_adaptive_moment:
+            obj_moment = "checked" if compact else ("adam" if rpie else "momentum")
+        probe_moment = "none"
+        if popts is not None and popts.use_adaptive_moment:
+            probe_moment = "adam" if rpie and not compact else "checked"
         return EpochPlan(
             cfg=self.operator,
+            solver="rpie" if rpie else "lstsq",
+            compact=compact,
             noise_model=p.exitwave_options.noise_model,
             steplength_usemodes=p.exitwave_options.step_length_usemodes,
             recover_psi=oopts is not None,
             recover_probe=popts is not None,
             update_start=popts.update_start if popts else 0,
             update_period=popts.update_period if popts else 1,
+            probe_support=popts.probe_support if popts else 0.0,
+            probe_support_radius=popts.probe_support_radius if popts else 0.35,
+            probe_support_degree=popts.probe_support_degree if popts else 2.5,
+            additional_probe_penalty=(
+                popts.additional_probe_penalty if popts else 0.0
+            ),
+            median_filter=popts.median_filter_abs_probe if popts else False,
+            median_filter_px=(
+                tuple(popts.median_filter_abs_probe_px) if popts else (1.0, 1.0)
+            ),
+            force_center=popts.force_centered_intensity if popts else False,
+            force_sparsity=popts.force_sparsity if popts else 0.0,
+            force_orthogonality=popts.force_orthogonality if popts else False,
+            positivity=float(oopts.positivity_constraint) if oopts else 0.0,
+            smoothness=float(oopts.smoothness_constraint) if oopts else 0.0,
+            clip_magnitude=bool(oopts.clip_magnitude) if oopts else False,
             rescale_mean_abs=(
                 oopts is not None
                 and algo.rescale_method == "mean_of_abs_object"
             ),
+            rescale_photons=(
+                float(popts.probe_photons)
+                if popts is not None
+                and algo.rescale_method == "constant_probe_photons"
+                else 0.0
+            ),
             rescale_period=algo.rescale_period,
+            alpha=float(getattr(algo, "alpha", 0.05)),
             fft_precond=_preconditioner.fft_precond_profitable(
                 n_positions=p.scan.shape[0],
                 probe_shape=self.operator.probe_shape,
@@ -363,6 +417,12 @@ class Reconstruction:
                 n=self.operator.n,
             ),
             has_eigen=p.eigen_weights is not None,
+            obj_moment=obj_moment,
+            probe_moment=probe_moment,
+            obj_vdecay=oopts.vdecay if oopts else 0.999,
+            obj_mdecay=oopts.mdecay if oopts else 0.9,
+            probe_vdecay=popts.vdecay if popts else 0.999,
+            probe_mdecay=popts.mdecay if popts else 0.9,
             recover_positions=posopts is not None,
             pos_update_start=posopts.update_start if posopts else 0,
             pos_use_adaptive_moment=(
@@ -375,14 +435,53 @@ class Reconstruction:
             ),
         )
 
+    def _moment_states(self, plan: EpochPlan, state: EpochState) -> None:
+        """Put the object and probe moment states into ``state``: those
+        kept in the options by an earlier call (``ObjectOptions.v/m``,
+        ``ProbeOptions.v/m``), or zeros of the plan's moment kinds; and the
+        cost tail the checked momenta read, from the host cost history."""
+        p = self.parameters
+        dev = self.device
+
+        def start(value, shape, dtype):
+            if value is None:
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            return as_tensor(value, dtype, dev)
+
+        if plan.obj_moment != "none":
+            oopts = p.object_options
+            shape = tuple(p.psi.shape)
+            state.obj_m = start(oopts.m, shape, torch.complex64)
+            if plan.obj_moment == "adam":
+                state.obj_v = start(oopts.v, shape, torch.float32)
+            elif plan.obj_moment == "checked":
+                state.obj_v = start(oopts.v, (3, *shape), torch.complex64)
+        if plan.probe_moment != "none":
+            popts = p.probe_options
+            pw = p.probe.shape[-1]
+            shape = (pw, pw) if plan.solver == "rpie" else (1, 1, pw, pw)
+            state.probe_m = start(popts.m, shape, torch.complex64)
+            if plan.probe_moment == "adam":
+                state.probe_v = start(popts.v, shape, torch.float32)
+            else:
+                state.probe_v = start(popts.v, (3, *shape), torch.complex64)
+        if "checked" in (plan.obj_moment, plan.probe_moment):
+            costs = [float(c[0]) for c in p.algorithm_options.costs]
+            state.err_hist = torch.as_tensor(seed_err_hist(costs), device=dev)
+
     def iterate(self, num_iter: int) -> None:
         """Advance the reconstruction by ``num_iter`` epochs.
 
-        The per-epoch costs and probe powers stay on the device until all
-        epochs have run, then come to the host in one transfer; each epoch
-        is recorded with the mean wall time of the call. With position
-        correction the global affine transform is fitted once afterwards,
-        as in the JAX package's fused path.
+        Compact batching runs the batches in order; the other batch
+        methods in a permutation per epoch, all drawn from the
+        reconstruction's generator when the call starts, as the JAX
+        package's fused path draws them. The per-epoch costs and probe
+        powers stay on the device until all epochs have run, then come to
+        the host in one transfer; each epoch is recorded with the mean wall
+        time of the call. Moment states are kept in the object, probe and
+        position options between calls. With position correction the
+        global affine transform is fitted once afterwards, as in the JAX
+        package's fused path.
         """
         if num_iter < 1:
             return
@@ -391,6 +490,11 @@ class Reconstruction:
         popt = p.position_options
         plan = self._make_plan()
         epoch0 = len(algo.times)
+        nb = self.data.shape[0]
+        if plan.compact:
+            orders = [range(nb)] * num_iter
+        else:
+            orders = [self._rng.permutation(nb).tolist() for _ in range(num_iter)]
         state = EpochState(
             psi=p.psi,
             probe=p.probe,
@@ -405,6 +509,7 @@ class Reconstruction:
             else:
                 state.pos_v = popt._momentum[..., 0:2]
                 state.pos_m = popt._momentum[..., 2:4]
+        self._moment_states(plan, state)
         costs, powers = [], []
         start = time.perf_counter()
         for e in range(num_iter):
@@ -414,6 +519,7 @@ class Reconstruction:
                 self._batch_idx,
                 self._batch_mask,
                 self._batch_real,
+                orders[e],
                 state,
                 p.exitwave_options,
                 epoch0 + e,
@@ -426,6 +532,13 @@ class Reconstruction:
             p.eigen_weights = state.eigen_weights
         if popt is not None and popt.use_adaptive_moment:
             popt._momentum = torch.cat([state.pos_v, state.pos_m], dim=-1)
+        if plan.obj_moment != "none":
+            p.object_options.m = state.obj_m
+            if plan.obj_moment != "momentum":
+                p.object_options.v = state.obj_v
+        if plan.probe_moment != "none":
+            p.probe_options.v = state.probe_v
+            p.probe_options.m = state.probe_m
         costs_host = to_numpy(torch.stack(costs))  # waits for the device
         powers_host = to_numpy(torch.stack(powers))
         elapsed = time.perf_counter() - start

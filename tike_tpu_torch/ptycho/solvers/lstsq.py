@@ -4,8 +4,7 @@ Counterpart of :mod:`tike_tpu.ptycho.solvers.lstsq` (Odstrcil, Menzel,
 Guizar-Sicairos 2018, Optics Express): object and probe updated together
 with jointly-optimal step sizes from a per-position 2x2 least-squares
 solve, plus the eigen-probe (OPR) updates and the gradient terms of
-position correction. Single slice and the Gaussian noise model; the
-Poisson step raises ``NotImplementedError``.
+position correction. Single slice; Gaussian or Poisson noise model.
 """
 
 from __future__ import annotations
@@ -17,6 +16,10 @@ from ...ops.objective import ELEMENTWISE, GRAD
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import propagation_adj, propagation_fwd
 from ...ops.ptycho import PtychoConfig, _crop_from_detector, _pad_to_detector
+from ..exitwave import (
+    poisson_steplength_all_modes,
+    poisson_steplength_dominant_mode,
+)
 from ..position import gaussian_gradient
 from ..probe import get_varying_probe, update_eigen_probe
 
@@ -93,12 +96,8 @@ def _lstsq_batch_math(
     weights and probe recovery also ``eigen_probe`` (None without eigen
     probes) and ``w_b`` (B, EIGEN+1, M), the batch's new weight rows; with
     ``recover_positions`` also ``pos_num`` and ``pos_den`` (B, 2), masked.
-    ``step_length_*`` belong to the Poisson model and are unused here.
+    ``step_length_*`` are read by the Poisson model alone.
     """
-    if noise_model != "gaussian":
-        raise NotImplementedError(
-            f"the {noise_model!r} LSQML step is not ported yet"
-        )
     nmodes = probe.shape[-3]
     m = 0  # the mode used for the step-size, eigen and position solves
     scan_b = scan[idx]
@@ -119,7 +118,28 @@ def _lstsq_batch_math(
     costs = _masked_mean_each_pattern(
         ELEMENTWISE[noise_model](data_b, intensity), measured_pixels
     )
-    update = -GRAD[noise_model](data_b, farplane, intensity)
+    if noise_model == "poisson":
+        xi = (1 - data_b / (intensity + 1e-9))[:, None, None]
+        grad_cost = farplane * xi
+        step_length = torch.full(
+            (farplane.shape[0], 1, nmodes, 1, 1),
+            step_length_start,
+            dtype=intensity.dtype,
+            device=intensity.device,
+        )
+        if steplength_usemodes == "dominant_mode":
+            step_length = poisson_steplength_dominant_mode(
+                xi, intensity, data_b, measured_pixels, step_length,
+                step_length_weight,
+            )
+        else:
+            step_length = poisson_steplength_all_modes(
+                xi, torch.square(torch.abs(farplane)), intensity, data_b,
+                measured_pixels, step_length, step_length_weight,
+            )
+        update = -step_length * grad_cost
+    else:
+        update = -GRAD[noise_model](data_b, farplane, intensity)
     chi_far = torch.where(
         measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
     )

@@ -65,10 +65,7 @@ class IterativeOptions(abc.ABC):
 
 @dataclasses.dataclass
 class RpieOptions(IterativeOptions):
-    """Options for the regularized ptychographic iterative engine.
-
-    The rPIE update itself is not ported yet.
-    """
+    """Options for the regularized ptychographic iterative engine."""
 
     name: str = dataclasses.field(default="rpie", init=False)
 
@@ -87,6 +84,16 @@ class LstsqOptions(IterativeOptions):
 
 def _shape(x) -> tuple:
     return tuple(x.shape)
+
+
+def _moments_to_host(options):
+    """A shallow copy of object or probe ``options`` whose moment states
+    (``v``, ``m``) are host numpy arrays."""
+    if options is None:
+        return None
+    out = copy.copy(options)
+    out.v, out.m = to_numpy(options.v), to_numpy(options.m)
+    return out
 
 
 @dataclasses.dataclass
@@ -190,8 +197,8 @@ class PtychoParameters:
             eigen_probe=to_numpy(self.eigen_probe),
             eigen_weights=to_numpy(self.eigen_weights),
             exitwave_options=self.exitwave_options.copy_to_host(),
-            probe_options=copy.copy(self.probe_options),
-            object_options=copy.copy(self.object_options),
+            probe_options=_moments_to_host(self.probe_options),
+            object_options=_moments_to_host(self.object_options),
             position_options=None
             if self.position_options is None
             else self.position_options.copy_to_host(),
