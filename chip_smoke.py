@@ -13,7 +13,17 @@ without printing the final ``ok`` line:
 2. build: compile ``tike_tpu_torch/csrc/patch.cu`` for sm_90a;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
    positions, P=128, some windows past the bottom/right edges): each CUDA
-   kernel against its plain PyTorch version, with times from CUDA events;
+   kernel against its plain PyTorch version, two launches of each on the
+   same inputs bitwise equal, and the edge cases of
+   ``tests/_torch_patch_cases.py`` (negative corners, windows wholly
+   outside the image, N = 0 and 1, P = 100, an odd P, float32 with an odd
+   W, 5,000 windows on one tile), and the positions of one compact batch
+   of the main path; times of each kernel, its plain version and one
+   PyTorch call that computes the same function (``grid_sample`` and its
+   input gradient), from CUDA events, beside the kernel's bound for those
+   positions (the bytes they need at the card's HBM rate), and the
+   kernel's and the library call's on the compact batch beside its own
+   bound;
 4. forward model: the port's ``simulate`` on the card against a numpy
    forward model (the math of ``bench.py``'s ``_simulate_numpy``) on 256
    positions, with one probe mode, 3 modes, and 3 modes with an eigen
@@ -53,8 +63,12 @@ noise and wobbly-center batches.
 
 The line before the last lists each kernel (its launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
-``launches_rpie``, its error against the plain version and both times);
-the last line is ``{"ok": true, "device": {...}}``.
+``launches_rpie``, its error against the plain version, its time, the
+plain version's and the library call's, its bound in bytes and ms and its
+share of that bound, the same on the compact batch, whether it is
+deterministic); each full-width path also logs each kernel's bound per
+launch over its batches. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import bz2
@@ -70,6 +84,7 @@ import numpy as np
 import torch
 
 import tike_tpu_torch.ptycho as tp
+from tests import _torch_patch_cases as cases
 from tike_tpu_torch import kernels
 from tike_tpu_torch.ops import patch
 
@@ -78,16 +93,12 @@ from tike_tpu_torch.ops import patch
 N_PATTERNS, DET, PROBE, HW, NUM_BATCH = 10_000, 128, 128, 1500, 10
 BATCH = N_PATTERNS // NUM_BATCH
 
-# patch_fwd: a float32 4-term blend in both versions (the kernel uses FMA).
-FWD_TOL = 1e-5
-# patch_adj: float32 atomics add overlapping windows in an order that varies
-# from run to run; error relative to the largest |value| of the image.
-ADJ_TOL = 1e-5
 # simulate vs numpy: float32 FFTs from two libraries; near-zero far-field
 # pixels get an absolute floor relative to the largest intensity.
 SIM_RTOL, SIM_ATOL = 1e-4, 1e-6
-# Small slice, card vs CPU: atomics reorder the adjoint's sums, and 3
-# epochs of LSQML carry that rounding forward.
+# Small slice, card vs CPU: the card's kernels, cuFFT and reductions sum in
+# other orders than the CPU's plain versions, and 3 epochs of LSQML carry
+# that rounding forward.
 SLICE_TOL = 1e-4
 # The same for positions, in pixels: the position step divides the summed
 # gradient terms by their own magnitudes, which carries their rounding.
@@ -188,96 +199,159 @@ def _ms_per_call(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def median_ms_in_turns(kernel, plain, reps: int = 20, rounds: int = 3):
-    """Median ms per call of each, in turns: plain, kernel, kernel, plain."""
-    kernel()
-    plain()
+def median_ms_in_turns(fns: dict, reps: int = 20, rounds: int = 3) -> dict:
+    """Median ms per call of each function of ``fns``, timed in turns: in
+    their order, then in the reverse order, ``rounds`` times (plain,
+    library, kernel, kernel, library, plain)."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    t_kernel, t_plain = [], []
+    times = {name: [] for name in fns}
+    order = list(fns)
     for _ in range(rounds):
-        t_plain.append(_ms_per_call(plain, reps))
-        t_kernel.append(_ms_per_call(kernel, reps))
-        t_kernel.append(_ms_per_call(kernel, reps))
-        t_plain.append(_ms_per_call(plain, reps))
-    return statistics.median(t_kernel), statistics.median(t_plain)
+        for name in order + order[::-1]:
+            times[name].append(_ms_per_call(fns[name], reps))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def _max_abs(a, b) -> float:
-    return float(torch.max(torch.abs(a - b)))
+def compact_batch_positions(device):
+    """1,000 positions as one compact batch of the main path holds them: of
+    10,000 drawn as ``make_inputs`` draws them, the 1,000 nearest the scan's
+    centre (a disc of a tenth of its area), in ascending index. Their windows
+    pile up about ten deep, where uniform ones are seven deep, and touch only
+    the disc and a window's width around it."""
+    scan, _, _ = make_inputs(N_PATTERNS)
+    dist = np.linalg.norm(scan - np.mean(scan, axis=0), axis=1)
+    nearest = np.sort(np.argsort(dist)[:BATCH])
+    return torch.tensor(scan[nearest], device=device)
 
 
-def phase_kernel_parity(device) -> dict:
-    gen = np.random.default_rng(0)
-    image = torch.tensor(
-        (gen.standard_normal((HW, HW)) + 1j * gen.standard_normal((HW, HW))).astype(
-            np.complex64
+def _library_calls(image, patches, positions):
+    """One PyTorch call for each kernel that computes the same function on
+    these inputs (``grid_sample`` and its input gradient, on a planar copy
+    of the image made here), and the calls' outputs checked against the
+    kernels' to ``cases.LIBRARY_TOL``: the calls and their errors."""
+    planar, grid = cases.grid_sample_inputs(image, positions, PROBE)
+    grad = torch.view_as_real(patches).permute(3, 0, 1, 2).reshape(
+        1, 2, BATCH * PROBE, PROBE
+    ).contiguous()
+    calls = {
+        "patch_fwd": lambda: torch.nn.functional.grid_sample(
+            planar, grid, mode="bilinear", padding_mode="zeros", align_corners=True
         ),
-        device=device,
-    )
-    pos = np.stack(
-        [gen.uniform(1, HW - PROBE - 2, BATCH), gen.uniform(1, HW - PROBE - 2, BATCH)],
-        -1,
-    )
-    # Windows past the bottom and right edges (those pixels read 0).
-    pos[:10, 0] = gen.uniform(HW - PROBE - 1, HW - 1, 10)
-    pos[10:20, 1] = gen.uniform(HW - PROBE - 1, HW - 1, 10)
-    pos[20:25] = gen.uniform(HW - PROBE - 1, HW - 1, (5, 2))
-    positions = torch.tensor(pos.astype(np.float32), device=device)
-    patches = torch.tensor(
-        (
-            gen.standard_normal((BATCH, PROBE, PROBE))
-            + 1j * gen.standard_normal((BATCH, PROBE, PROBE))
-        ).astype(np.complex64),
-        device=device,
-    )
-    out = {}
+        "patch_adj": lambda: torch.ops.aten.grid_sampler_2d_backward(
+            grad, planar, grid, 0, 0, True, [True, False]
+        )[0],
+    }
+    errs = {
+        "patch_fwd": cases.check_library(
+            "patch_fwd",
+            cases.planar_to_complex(calls["patch_fwd"](), (BATCH, PROBE, PROBE)),
+            patch.patch_fwd_cuda(image, positions, PROBE),
+        ),
+        "patch_adj": cases.check_library(
+            "patch_adj",
+            cases.planar_to_complex(calls["patch_adj"](), (HW, HW)),
+            patch.patch_adj_cuda(patches, positions, (HW, HW)),
+        ),
+    }
+    return calls, errs
 
+
+LIBRARY = {
+    "patch_fwd": "torch.nn.functional.grid_sample (bilinear, zeros, align_corners)",
+    "patch_adj": "torch.ops.aten.grid_sampler_2d_backward (input gradient)",
+}
+
+
+def phase_kernel_parity(device, card: str) -> dict:
+    image, positions, patches = cases.main_path_patch_inputs(device)
     # complex64 on the main path; float32 is the kernels' other
     # instantiation (the gather psi preconditioner spreads |probe|^2).
-    err = 0.0
-    for img in (image, image.real.contiguous()):
-        got = patch.patch_fwd_cuda(img, positions, PROBE)
-        torch.cuda.synchronize()
-        want = patch.patch_fwd_plain(img, positions, PROBE)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=FWD_TOL, atol=FWD_TOL)
-        err = max(err, _max_abs(got, want))
-    ms, plain_ms = median_ms_in_turns(
-        lambda: patch.patch_fwd_cuda(image, positions, PROBE),
-        lambda: patch.patch_fwd_plain(image, positions, PROBE),
+    errs = cases.check_patch_kernels(image, positions, patches, PROBE, "complex64")
+    real = cases.check_patch_kernels(
+        image.real.contiguous(), positions, torch.square(torch.abs(patches)),
+        PROBE, "float32",
     )
-    out["patch_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"[parity] patch_fwd {BATCH}x{PROBE}^2 from {HW}^2: max|err| {err:.3e} "
-        f"(tol {FWD_TOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for name in errs:
+        errs[name] = max(errs[name], real[name])
+    log(f"[parity] {BATCH}x{PROBE}^2 at {HW}^2, complex64 and float32: "
+        f"patch_fwd max|err| {errs['patch_fwd']:.3e} (tol {cases.FWD_TOL:g}), "
+        f"patch_adj {errs['patch_adj']:.3e} (tol {cases.ADJ_TOL:g} x max|value|); "
+        "two launches of each bitwise equal")
+    compact = compact_batch_positions(device)
+    errs_compact = cases.check_patch_kernels(image, compact, patches, PROBE, "compact batch")
+    log(f"[parity] one compact batch: patch_fwd max|err| "
+        f"{errs_compact['patch_fwd']:.3e}, patch_adj {errs_compact['patch_adj']:.3e}; "
+        "two launches of each bitwise equal")
+    for name in cases.EDGE_CASES:
+        edge = cases.check_patch_kernels(*cases.edge_case(name, device), name)
+        log(f"[parity] edge case {name}: patch_fwd max|err| "
+            f"{edge['patch_fwd']:.3e}, patch_adj {edge['patch_adj']:.3e}; "
+            "two launches of each bitwise equal")
 
-    errs = []
-    real = torch.square(torch.abs(patches))
-    for name, pat, init in (
-        ("complex64", patches, None),
-        ("complex64 + initial image", patches, image),
-        ("float32", real, None),
-    ):
-        got = patch.patch_adj_cuda(pat, positions, (HW, HW), init)
-        torch.cuda.synchronize()
-        want = patch.patch_adj_plain(pat, positions, (HW, HW), init)
-        torch.cuda.synchronize()
-        err = _max_abs(got, want)
-        scale = float(torch.max(torch.abs(want)))
-        if not err <= ADJ_TOL * scale:
-            raise AssertionError(
-                f"patch_adj ({name}) differs from its plain version by "
-                f"{err:.3e} > {ADJ_TOL:g} x {scale:.3e}"
-            )
-        errs.append(err)
-        log(f"[parity] patch_adj ({name}): max|err| {err:.3e} <= "
-            f"{ADJ_TOL:g} x max|value| {scale:.3e}")
-    ms, plain_ms = median_ms_in_turns(
-        lambda: patch.patch_adj_cuda(patches, positions, (HW, HW)),
-        lambda: patch.patch_adj_plain(patches, positions, (HW, HW)),
-    )
-    out["patch_adj"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
-    log(f"[parity] patch_adj {BATCH}x{PROBE}^2 into {HW}^2: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+    # Each kernel, its plain version and its library call on the uniform
+    # positions; then the kernel and the library call on one compact
+    # batch's, as the main path's epochs give them. Each bound counts what
+    # those positions need (cases.roofline).
+    library, lib_err = _library_calls(image, patches, positions)
+    library_compact, _ = _library_calls(image, patches, compact)
+    calls = {
+        "patch_fwd": dict(
+            plain=lambda: patch.patch_fwd_plain(image, positions, PROBE),
+            library=library["patch_fwd"],
+            kernel=lambda: patch.patch_fwd_cuda(image, positions, PROBE),
+        ),
+        "patch_adj": dict(
+            plain=lambda: patch.patch_adj_plain(patches, positions, (HW, HW)),
+            library=library["patch_adj"],
+            kernel=lambda: patch.patch_adj_cuda(patches, positions, (HW, HW)),
+        ),
+    }
+    compact_calls = {
+        "patch_fwd": dict(
+            library=library_compact["patch_fwd"],
+            kernel=lambda: patch.patch_fwd_cuda(image, compact, PROBE),
+        ),
+        "patch_adj": dict(
+            library=library_compact["patch_adj"],
+            kernel=lambda: patch.patch_adj_cuda(patches, compact, (HW, HW)),
+        ),
+    }
+    out = {}
+    for name, fns in calls.items():
+        ms = median_ms_in_turns(fns)
+        ms_compact = median_ms_in_turns(compact_calls[name])
+        bound = cases.roofline(name, positions, PROBE, (HW, HW), torch.complex64)
+        bound_compact = cases.roofline(name, compact, PROBE, (HW, HW), torch.complex64)
+        out[name] = dict(
+            max_abs_err=errs[name],
+            ms=ms["kernel"],
+            plain_ms=ms["plain"],
+            library_ms=ms["library"],
+            library=LIBRARY[name],
+            library_max_abs_err=lib_err[name],
+            **bound,
+            roofline_share=bound["bound_ms"] / ms["kernel"],
+            ms_compact_batch=ms_compact["kernel"],
+            bound_bytes_compact_batch=bound_compact["bound_bytes"],
+            bound_ms_compact_batch=bound_compact["bound_ms"],
+            roofline_share_compact_batch=bound_compact["bound_ms"] / ms_compact["kernel"],
+            library_ms_compact_batch=ms_compact["library"],
+            deterministic=True,
+            card=card,
+        )
+        log(f"[parity] {name} {BATCH}x{PROBE}^2 / {HW}^2: kernel {ms['kernel']:.4f} "
+            f"ms, plain {ms['plain']:.4f} ms, library {ms['library']:.4f} ms "
+            f"({LIBRARY[name]}; max|err| vs kernel {lib_err[name]:.3e}); bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_bytes']} bytes at "
+            f"{cases.HBM_BYTES_PER_S:g} B/s), {100 * out[name]['roofline_share']:.1f}% "
+            f"of it ({card})")
+        log(f"[parity] {name} on one compact batch: kernel "
+            f"{ms_compact['kernel']:.4f} ms, bound {bound_compact['bound_ms']:.4f} ms "
+            f"({bound_compact['bound_bytes']} bytes), "
+            f"{100 * out[name]['roofline_share_compact_batch']:.1f}% of it; "
+            f"library {ms_compact['library']:.4f} ms ({card})")
     return out
 
 
@@ -620,6 +694,22 @@ def _drive(tag, device, probe, scan, psi, card, params) -> dict:
         f"({peak / 2**30:.3f} GiB) ({card})")
     log(f"[{tag}] kernel launches {launches} (iterate alone: "
         f"{ {k: launches[k] - before[k] for k in launches} })")
+    # Each kernel's bound per launch on this path: the mean, over the
+    # batches at their starting positions, of what a batch's positions
+    # need (cases.roofline).
+    batch_scan = torch.as_tensor(scan[context.order[context.batches[0]]], device=device)
+    bounds = {
+        name: statistics.mean(
+            cases.roofline(name, b, probe.shape[-1], psi.shape[-2:], torch.complex64)[
+                "bound_ms"
+            ]
+            for b in batch_scan
+        )
+        for name in patch.LAUNCHES
+    }
+    log(f"[{tag}] bound per launch, mean over the {len(batch_scan)} batches of "
+        f"{batch_scan.shape[1]}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items())
+        + f" ({card})")
     return dict(launches=launches, result=result, scan1=scan1)
 
 
@@ -755,7 +845,7 @@ def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
     phase_build()
-    timings = phase_kernel_parity(device)
+    timings = phase_kernel_parity(device, env["nvidia_smi"])
     scan, psi, probe = make_inputs(N_PATTERNS)
     phase_forward_model(device, scan, psi, probe)
     phase_small_slice(device)

@@ -23,6 +23,7 @@ from tike_tpu.ops import patch as jpatch
 from tike_tpu_torch.ops import patch as tpatch
 
 from . import _torch_parity as H
+from . import _torch_patch_cases as cases
 
 HW, P, N = 96, 16, 11
 
@@ -194,3 +195,159 @@ def test_import_leaves_jax_out():
     )
     root = pathlib.Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+@pytest.mark.parametrize(
+    "dtype, initial, want",
+    [
+        # 1,000 x 128^2 patches + one 1500^2 image + 8,000 bytes of positions
+        (torch.complex64, False, 131_072_000 + 18_000_000 + 8_000),
+        (torch.float32, False, 65_536_000 + 9_000_000 + 8_000),
+        (torch.complex64, True, 131_072_000 + 2 * 18_000_000 + 8_000),
+    ],
+)
+def test_roofline_bytes_at_main_path_shapes(dtype, initial, want):
+    got = tpatch.roofline_bytes(1000, 128, 1500, 1500, dtype, initial)
+    assert got == want
+    if dtype == torch.complex64 and not initial:
+        assert got == 149_080_000
+
+
+def _covering_positions(n=1000, p=128, hw=1500, seed=0):
+    """n fractional positions whose windows all lie inside an hw^2 image
+    and together touch every pixel: a 12 x 12 grid of windows from edge to
+    edge, then random ones."""
+    edge = np.linspace(0, hw - p - 1, 12)
+    grid = np.stack(np.meshgrid(edge, edge, indexing="ij"), -1).reshape(-1, 2)
+    grid = grid + 0.5  # corners up to hw - p - 1: the last window ends at hw - 1
+    rest = H.positions(H.rng(seed), n - len(grid), hw, hw, p)
+    return torch.tensor(np.concatenate([grid, rest]).astype(np.float32))
+
+
+def test_chip_smoke_bound_at_main_path_shapes():
+    """The bound ``chip_smoke.py`` reports beside each kernel: with every
+    pixel touched and every window inside, 149.08 MB at 3.35 TB/s for
+    either kernel, well above the float32 flops at 67 TFLOP/s."""
+    pos = _covering_positions()
+    assert tpatch.needed_values(pos, 128, 1500, 1500) == (1500 * 1500, 1000 * 128 * 128)
+    for name in ("patch_fwd", "patch_adj"):
+        bound = cases.roofline(name, pos, 128, (1500, 1500), torch.complex64)
+        assert bound["bound_bytes"] == 149_080_000
+        assert bound["bound_by"] == "bytes"
+        assert bound["bound_ms"] == pytest.approx(149_080_000 / 3.35e12 * 1e3)
+
+
+def test_compact_batch_bound_counts_only_what_its_windows_touch():
+    """1,000 windows packed into a disc near the middle touch a fraction
+    of the image: the forward's bound reads only those pixels, while the
+    adjoint still writes the whole image and reads every patch value."""
+    gen = H.rng(1)
+    angle, radius = gen.uniform(0, 2 * np.pi, 1000), 245 * np.sqrt(gen.uniform(size=1000))
+    pos = torch.tensor(
+        (686 + radius[:, None] * np.stack([np.sin(angle), np.cos(angle)], -1)).astype(
+            np.float32
+        )
+    )
+    pixels, values = tpatch.needed_values(pos, 128, 1500, 1500)
+    # The disc of radius 245 widened by the windows: within its bounding
+    # square of (2 * 245 + 129)^2 pixels, and more than the disc itself.
+    assert np.pi * 245**2 < pixels < (2 * 245 + 129) ** 2
+    assert values == 1000 * 128 * 128
+    fwd = cases.roofline("patch_fwd", pos, 128, (1500, 1500), torch.complex64)
+    adj = cases.roofline("patch_adj", pos, 128, (1500, 1500), torch.complex64)
+    assert fwd["bound_bytes"] == 131_072_000 + 8 * pixels + 8_000
+    assert adj["bound_bytes"] == 149_080_000
+
+
+def test_roofline_bytes_counts_what_the_data_needs():
+    got = tpatch.roofline_bytes(
+        1000, 128, 1500, 1500, torch.complex64, image_pixels=330_000
+    )
+    assert got == 131_072_000 + 330_000 * 8 + 8_000
+    got = tpatch.roofline_bytes(
+        1000, 128, 1500, 1500, torch.float32, True, patch_values=16_000_000
+    )
+    assert got == 16_000_000 * 4 + 2 * 9_000_000 + 8_000
+
+
+def _needed_by_brute_force(pos, p, h, w):
+    """needed_values by looping over every window pixel and patch value."""
+    touched = np.zeros((h, w), bool)
+    values = 0
+    for y, x in np.floor(pos).astype(int):
+        for i in range(p + 1):
+            for j in range(p + 1):
+                if 0 <= y + i < h and 0 <= x + j < w:
+                    touched[y + i, x + j] = True
+        rows = [i for i in range(p) if 0 <= y + i < h or 0 <= y + i + 1 < h]
+        cols = [j for j in range(p) if 0 <= x + j < w or 0 <= x + j + 1 < w]
+        values += len(rows) * len(cols)
+    return int(touched.sum()), values
+
+
+@pytest.mark.parametrize("name", ["negative corners", "windows wholly outside",
+                                  "N = 0", "odd P = 37", "float32, odd W"])
+def test_needed_values_match_brute_force(name):
+    image, pos, _, p = cases.edge_case(name, torch.device("cpu"))
+    h, w = image.shape
+    got = tpatch.needed_values(pos, p, h, w)
+    assert got == _needed_by_brute_force(pos.numpy(), p, h, w)
+
+
+@pytest.mark.parametrize("name", ["negative corners", "windows wholly outside",
+                                  "odd P = 37", "float32, odd W"])
+def test_edge_cases_plain_pair_is_adjoint(name):
+    """The plain versions that the kernels are held to on the card stay an
+    exact adjoint pair on the kernels' edge cases (float64)."""
+    image, pos, patches, p = cases.edge_case(name, torch.device("cpu"))
+    wide = torch.complex128 if image.is_complex() else torch.float64
+    x, y = image.to(wide), patches.to(wide)
+    fx = tpatch.patch_fwd_plain(x, pos, p)
+    fty = tpatch.patch_adj_plain(y, pos, tuple(image.shape))
+    lhs = torch.vdot(fx.reshape(-1), y.reshape(-1))
+    rhs = torch.vdot(x.reshape(-1), fty.reshape(-1))
+    assert abs(complex(lhs - rhs)) <= 1e-10 * abs(complex(lhs))
+
+
+def test_edge_case_stack_overflows_one_tile():
+    """5,000 windows on one tile, with sums that are exact in float32: more
+    than the adjoint kernel's list of 1,024 holds, and any order of
+    summation gives the same image."""
+    image, pos, patches, p = cases.edge_case(
+        "5,000 windows on one tile", torch.device("cpu")
+    )
+    corner = torch.floor(pos)
+    covers = (corner <= 70) & (corner + p >= 70)  # pixel (70, 70)
+    assert int(covers.all(dim=1).sum()) == 5000
+    want = tpatch.patch_adj_plain(patches, pos, tuple(image.shape))
+    order = torch.randperm(len(pos), generator=torch.Generator().manual_seed(0))
+    got = tpatch.patch_adj_plain(patches[order], pos[order], tuple(image.shape))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("initial", [False, True])
+def test_library_yardsticks_compute_the_same_function(initial):
+    """``chip_smoke.py``'s library calls (``grid_sample`` and its input
+    gradient) agree with the plain versions, windows past the edges
+    included, to the 1e-3 relative tolerance it states."""
+    image, pos, patches = _case("edge")
+    image, pos, patches = H.t(image), H.t(pos), H.t(patches)
+    planar, grid = cases.grid_sample_inputs(image, pos, P)
+    fwd = torch.nn.functional.grid_sample(
+        planar, grid, mode="bilinear", padding_mode="zeros", align_corners=True
+    )
+    cases.check_library(
+        "patch_fwd",
+        cases.planar_to_complex(fwd, (len(pos), P, P)),
+        tpatch.patch_fwd_plain(image, pos, P),
+    )
+    grad = torch.view_as_real(patches).permute(3, 0, 1, 2).reshape(
+        1, 2, len(pos) * P, P
+    )
+    adj = torch.ops.aten.grid_sampler_2d_backward(
+        grad, planar, grid, 0, 0, True, [True, False]
+    )[0]
+    init = image if initial else None
+    want = tpatch.patch_adj_plain(patches, pos, (HW, HW), init)
+    got = cases.planar_to_complex(adj, (HW, HW)) + (0 if init is None else init)
+    cases.check_library("patch_adj", got, want)

@@ -227,15 +227,33 @@ def test_cuda_device_without_cuda_raises(slice_data, monkeypatch):
         tp.simulate(DET, probe, scan, psi, device="cuda")
 
 
-def test_device_is_required(slice_data):
+def test_device_is_required(slice_data, monkeypatch):
+    """With no device the entry points ask for the CUDA card, and raise
+    where there is none; None is not a device."""
     scan, psi, probe, psi0, data = slice_data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
-    with pytest.raises(TypeError, match="device"):
+    with pytest.raises(RuntimeError, match="cuda"):
         tp.Reconstruction(data, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tp.reconstruct(data, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tp.simulate(DET, probe, scan, psi)
     with pytest.raises(TypeError, match="device"):
         tp.reconstruct(data, params, None)
-    with pytest.raises(TypeError, match="device"):
-        tp.simulate(DET, probe, scan, psi)
+
+
+def test_cpu_device_runs_when_asked(slice_data):
+    """``device="cpu"`` still runs: one epoch, finite cost, result on the
+    host."""
+    scan, psi, probe, psi0, data = slice_data
+    params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
+    with tp.Reconstruction(data, params, device="cpu", random_seed=0) as context:
+        assert context.device == torch.device("cpu")
+        context.iterate(1)
+        result = context.get_result()
+    assert np.all(np.isfinite(np.asarray(result.algorithm_options.costs)))
+    assert result.psi.shape == psi0.shape
 
 
 @pytest.mark.parametrize("where", ["data", "psi", "simulate"])

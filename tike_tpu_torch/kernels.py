@@ -36,9 +36,11 @@ NVCC_FLAGS = (
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "patch": {
-        # (src, positions, dst, n, h, w, p, channels, stream) -> cudaError_t
+        # (image, positions, patches, n, h, w, p, channels, stream)
         "tike_patch_fwd": ([_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR], _INT),
-        "tike_patch_adj": ([_PTR, _PTR, _PTR] + [_INT] * 5 + [_PTR], _INT),
+        # (patches, positions, initial or NULL, image, n, h, w, p, channels,
+        # stream); both return a cudaError_t
+        "tike_patch_adj": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
     },
 }
 

@@ -215,8 +215,10 @@ def patch_adj_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA ``patch_adj`` kernel (``csrc/patch.cu``).
 
-    The output is a fresh tensor: a clone of ``images``, or zeros, into
-    which the kernel adds with atomics (summation order varies by run).
+    The kernel writes every pixel of a fresh output once: ``images`` (or
+    zero) plus the spread patches, summed with no atomics in an order the
+    inputs fix, so the result is the same bit for bit from run to run.
+    ``images`` is read, never written.
     """
     _check_field("patches", patches, 3)
     _check_positions(positions, patches.device)
@@ -227,17 +229,16 @@ def patch_adj_cuda(
             f"N = {positions.shape[0]} positions"
         )
     h, w = (int(s) for s in images_shape)
-    if images is None:
-        out = torch.zeros((h, w), dtype=patches.dtype, device=patches.device)
-    else:
+    if images is not None:
         _check_field("images", images, 2, patches.device)
         _check_initial_image(images, patches, h, w)
-        out = images.clone()
+    out = torch.empty((h, w), dtype=patches.dtype, device=patches.device)
     lib = kernels.load("patch")
     with torch.cuda.device(patches.device):
         rc = lib.tike_patch_adj(
             patches.data_ptr(),
             positions.data_ptr(),
+            None if images is None else images.data_ptr(),
             out.data_ptr(),
             n,
             h,
@@ -249,6 +250,58 @@ def patch_adj_cuda(
     _raise_on_error("patch_adj", rc)
     LAUNCHES["patch_adj"] += 1
     return out
+
+
+def roofline_bytes(
+    n: int,
+    p: int,
+    h: int,
+    w: int,
+    dtype: torch.dtype,
+    initial: bool = False,
+    *,
+    image_pixels: int | None = None,
+    patch_values: int | None = None,
+) -> int:
+    """The bytes either patch operator must move at the least: the N P^2
+    patch values (written by ``patch_fwd``, read by ``patch_adj``), the
+    (H, W) image once (read by the one, written by the other), the (N, 2)
+    float32 positions, and the initial image once more when ``patch_adj``
+    starts from one.
+
+    What a call's positions need (:func:`needed_values`) may replace the
+    H W image pixels (``image_pixels``: all that ``patch_fwd`` reads) or the
+    N P^2 patch values (``patch_values``: all that ``patch_adj`` reads)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    image = (h * w if image_pixels is None else image_pixels) * itemsize
+    values = n * p * p if patch_values is None else patch_values
+    return values * itemsize + image * (2 if initial else 1) + n * 2 * 4
+
+
+def needed_values(
+    positions: torch.Tensor, p: int, h: int, w: int
+) -> typing.Tuple[int, int]:
+    """What the windows at ``positions`` need of an (H, W) image and of
+    their (N, P, P) patches: the image pixels that some (P+1)^2 window
+    touches, which is all ``patch_fwd`` must read, and the patch values with
+    a bilinear tap inside the image, which is all ``patch_adj`` must read.
+    Counted on the positions' device."""
+    corner = torch.floor(positions).to(torch.int64)
+    cy, cx = corner[:, 0], corner[:, 1]
+    # The union of the windows' rows [cy, cy + P] x columns [cx, cx + P],
+    # clipped to the image: +1 and -1 at the corners of each, summed along
+    # both axes, is how many windows cover each pixel.
+    r0, r1 = cy.clamp(0, h), (cy + p + 1).clamp(0, h)
+    c0, c1 = cx.clamp(0, w), (cx + p + 1).clamp(0, w)
+    edges = torch.zeros((h + 1, w + 1), dtype=torch.int64, device=positions.device)
+    for rows, cols, sign in ((r0, c0, 1), (r0, c1, -1), (r1, c0, -1), (r1, c1, 1)):
+        edges.index_put_((rows, cols), torch.full_like(rows, sign), accumulate=True)
+    pixels = int((edges.cumsum(0).cumsum(1)[:h, :w] > 0).sum())
+    # Patch row i taps window rows cy + i and cy + i + 1; it is needed when
+    # one of them lies in [0, H). Columns alike.
+    rows = ((h - 1 - cy).clamp(max=p - 1) - (-1 - cy).clamp(min=0) + 1).clamp(min=0)
+    cols = ((w - 1 - cx).clamp(max=p - 1) - (-1 - cx).clamp(min=0) + 1).clamp(min=0)
+    return pixels, int((rows * cols).sum())
 
 
 def _on_cpu(*tensors: torch.Tensor | None) -> bool:

@@ -1,10 +1,11 @@
 """User-facing ptychography entry points: reconstruct, Reconstruction, simulate.
 
 Counterpart of :mod:`tike_tpu.ptycho.ptycho` for one device and the
-replicated layout. The device is explicit: pass a ``torch.device`` (or its
-name) to :class:`Reconstruction`, :func:`reconstruct` and :func:`simulate`.
-Data stays on that device for the whole reconstruction; there is no host
-streaming yet.
+replicated layout. :class:`Reconstruction`, :func:`reconstruct` and
+:func:`simulate` run on the CUDA card (``device="cuda"``) unless the caller
+passes another ``torch.device`` (or its name), such as ``"cpu"``; with no
+card they raise rather than fall back to the CPU. Data stays on that
+device for the whole reconstruction; there is no host streaming yet.
 
 Ported: what the JAX package's fused single-device program runs for one
 object slice. That is rPIE (``RpieOptions``) and LSQML (``LstsqOptions``)
@@ -61,8 +62,8 @@ def _resolve_device(device, **inputs) -> torch.device:
     """
     if device is None:
         raise TypeError(
-            "device is required: pass a torch.device or its name, "
-            "such as 'cuda' or 'cpu'"
+            "device must be a torch.device or its name, such as 'cuda' "
+            "(the default) or 'cpu'"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -106,7 +107,7 @@ def simulate(
     eigen_probe=None,
     eigen_weights=None,
     *,
-    device,
+    device="cuda",
     **kwargs,
 ) -> torch.Tensor:
     """Propagate the wavefront to the detector and return intensities.
@@ -114,9 +115,9 @@ def simulate(
     probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), and optionally
     eigen_probe (1, EIGEN, S', P, P) and eigen_weights (N, EIGEN+1, S), as
     arrays or tensors. Returns an (N, detector, detector) float32 tensor on
-    ``device``: per probe mode, the varying probe's far-field intensity,
-    summed over modes. ``device`` is required; a tensor input on another
-    device raises.
+    ``device`` (the CUDA card unless the caller asks for another): per
+    probe mode, the varying probe's far-field intensity, summed over modes.
+    A tensor input on another device raises.
     """
     if fly != 1:
         raise NotImplementedError("fly-scan grouping is not ported yet")
@@ -212,8 +213,9 @@ class Reconstruction:
     parameters stay on ``device`` while the context is open, so
     :meth:`iterate` can be called repeatedly and :meth:`get_result`
     mid-run. The same ``random_seed`` gives the same mini-batches as the
-    JAX package. ``device`` is required; a tensor in ``data`` or
-    ``parameters`` that lies on another device raises. The data always
+    JAX package. ``device`` is the CUDA card unless the caller asks for
+    another, such as ``"cpu"``; a tensor in ``data`` or ``parameters`` that
+    lies on another device raises. The data always
     lives on ``device``: ``store_data_on_device=False`` (host streaming)
     is not ported and raises.
     """
@@ -222,7 +224,7 @@ class Reconstruction:
         self,
         data,
         parameters: PtychoParameters,
-        device,
+        device="cuda",
         random_seed: typing.Optional[int] = None,
         store_data_on_device: bool = True,
     ):
@@ -598,10 +600,11 @@ class Reconstruction:
 def reconstruct(
     data,
     parameters: PtychoParameters,
-    device,
+    device="cuda",
     random_seed: typing.Optional[int] = None,
 ) -> PtychoParameters:
-    """Solve the ptychography problem (functional API) on ``device``."""
+    """Solve the ptychography problem (functional API) on ``device``, the
+    CUDA card unless the caller asks for another."""
     with Reconstruction(
         data, parameters, device=device, random_seed=random_seed
     ) as context:
