@@ -10,7 +10,8 @@ of JAX. Phases, in order; any failure raises and the script exits non-zero
 without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
-2. build: compile ``tike_tpu_torch/csrc/patch.cu`` for sm_90a;
+2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu`` and
+   ``probe.cu`` for sm_90a, one nvcc each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
    positions, P=128, some windows past the bottom/right edges): each CUDA
    kernel against its plain PyTorch version, two launches of each on the
@@ -61,9 +62,37 @@ constraint, the object smoothness and positivity constraints, object and
 probe AdaM and ``constant_probe_photons``; and one-mode LSQML with Poisson
 noise and wobbly-center batches.
 
+Phase 3 is followed by the KB kernels' parity (3b): ``kb_gather`` and
+``kb_scatter`` against their plain versions and against adjointness
+(<gather(G), f> = <G, scatter(f)>) on laminography's points at
+``bench_all.py``'s 128^3 / 64 angles (upsample 1, m = 1; upsample 2, a
+256^3 grid, m = 2), on flat random points of which a third wrap (m = 1, 2
+and 4) and on a 256^3 / 128-angle transform (8,388,608 points); two
+gathers bitwise equal, two scatters (atomics) within tolerance; times
+(a CUDA graph of the kernel's launches, and eager calls) beside each bound
+and the plain version's, and at 128^3 / 64 angles the einsum chain of
+``tike_tpu``'s ``gather_kb_rows``/``scatter_kb_rows`` as the yardstick.
+
+After phase 9:
+
+10. a laminography slice, card against CPU: ``simulate``, then cgrad and
+    CGLS, 3 outer iterations on a 16^3 volume at 8 angles, upsample 2;
+11. laminography at full width (``bench_all.py``'s ``lamino_cgrad`` and
+    ``lamino_cgls``: a 128^3 volume, 64 angles, tilt pi/3, eps 1e-3,
+    upsample 1, ``cg_iter=4``): ``simulate`` on the card against the CPU,
+    then for each solver one warm-up outer iteration and 5 timed ones, with
+    the kernel counts set to 0 before and read after; costs finite and
+    decreasing, both KB kernels launched; s/iteration, set-up, peak memory
+    and the line search's host reads;
+12. the seven feature probes (``tike_tpu_torch/toolchain_probe.py``): each
+    launched once on ``arange``-valued inputs and equal to its plain
+    version bit for bit, then timed beside its bound.
+
 The line before the last lists each kernel (its launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
-``launches_rpie``, its error against the plain version, its time, the
+``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
+``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
+probes' in phase 12; its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic); each full-width path also logs each kernel's bound per
@@ -83,10 +112,12 @@ import time
 import numpy as np
 import torch
 
+import tike_tpu_torch.lamino as tl
 import tike_tpu_torch.ptycho as tp
 from tests import _torch_patch_cases as cases
-from tike_tpu_torch import kernels
-from tike_tpu_torch.ops import patch
+from tests import _torch_usfft_cases as cases_usfft
+from tike_tpu_torch import kernels, opt, toolchain_probe
+from tike_tpu_torch.ops import patch, usfft
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
 # object, LSQML, num_batch=10, compact batches).
@@ -128,6 +159,41 @@ KERNELS = {
     "patch_fwd": "tike_tpu/ops/patch_pallas.py:110",  # also :181
     "patch_adj": "tike_tpu/ops/patch_pallas.py:283",
 }
+# The KB kernels replace XLA code with no Pallas kernel: the row-structured
+# einsum chains laminography runs (also the tap scans gather_kb :214 and
+# scatter_kb :244).
+USFFT_KERNELS = {
+    "usfft_gather_kb": "tike_tpu/ops/usfft.py:330",
+    "usfft_scatter_kb": "tike_tpu/ops/usfft.py:364",
+}
+# The feature probes' pl.pallas_call lines.
+PROBE_KERNELS = {
+    "trivial": "scripts/pallas_probe.py:45",
+    "gridded": "scripts/pallas_probe.py:56",
+    "prefetch": "scripts/pallas_probe.py:84",
+    "static_dma": "scripts/pallas_probe.py:102",
+    "dynamic_dma": "scripts/pallas_probe.py:146",
+    "element_static": "scripts/pallas_probe.py:161",
+    "element_prefetch": "scripts/pallas_probe.py:199",
+}
+SOURCES = ("patch", "usfft", "probe")
+
+# Laminography (bench_all.py's lamino_cgrad and lamino_cgls): a 128^3
+# volume, 64 angles, tilt pi/3, eps 1e-3, upsample 1, one warm-up outer
+# iteration, then 5 timed, cg_iter 4 inner steps each.
+LAMINO_CG_ITER, LAMINO_TIMED = 4, 5
+# The small laminography slice, card against CPU: n = 16, 8 angles,
+# upsample 2, 3 outer iterations; cgrad with one CG step per outer
+# iteration, so that no line-search trial is a tie (tests/
+# test_torch_lamino_solvers.py), CGLS with 4. The card's scatter adds with
+# atomics and cuFFT rounds otherwise than pocketfft; CGLS carries that
+# forward (relative, costs and volume).
+LAMINO_SLICE = dict(n=16, ntheta=8, upsample=2, num_iter=3)
+LAMINO_SLICE_CG_ITER = {"cgrad": 1, "cgls": 4}
+LAMINO_SLICE_TOL = 1e-4
+# simulate at full width, card against CPU, relative to the largest value:
+# the same taps (make_grids is the same bits on both), other FFT libraries.
+LAMINO_SIM_TOL = 1e-5
 
 
 def log(*args):
@@ -179,12 +245,17 @@ def phase_environment() -> dict:
 
 
 def phase_build() -> None:
-    kernels.load("patch")
-    info = kernels.BUILD_INFO["patch"]
-    log(f"[build] csrc/patch.cu -> {info['path']} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    """Build every source with one nvcc each, all started together."""
+    start = time.perf_counter()
+    kernels.build_all(SOURCES)
+    log(f"[build] {len(SOURCES)} sources in {time.perf_counter() - start:.2f} s")
+    for name in SOURCES:
+        kernels.load(name)
+        info = kernels.BUILD_INFO[name]
+        log(f"[build] csrc/{name}.cu -> {info['path']} in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {line.strip()}")
 
 
 def _ms_per_call(fn, reps: int) -> float:
@@ -197,6 +268,21 @@ def _ms_per_call(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms_per_call(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Device ms per call of ``fn``, captured ``reps`` times into one CUDA
+    graph and replayed ``rounds`` times (median): the kernels' own time,
+    without the host's launch overhead between eager calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return statistics.median(_ms_per_call(graph.replay, 1) / reps for _ in range(rounds))
 
 
 def median_ms_in_turns(fns: dict, reps: int = 20, rounds: int = 3) -> dict:
@@ -841,11 +927,304 @@ def phase_siemens(device, card: str) -> None:
         f"included), {data.shape[0] / epoch_s:.1f} patterns/s ({card})")
 
 
+def _usfft_cases(device):
+    """The KB kernels' parity cases: name -> (grid size, m, beta, points):
+    laminography's rows at bench_all.py's 128^3 / 64 angles (upsample 1 and
+    2), flat random points of which about a third wrap, at m = 1, 2 and 4,
+    and the rows of a 256^3 / 128-angle transform."""
+    gen = np.random.default_rng(0)
+    rows = cases_usfft.lamino_rows(128, 64, device).reshape(-1, 3)
+    flat = cases_usfft.flat_points(gen, 200_000, device)
+    eps = cases_usfft.LAMINO_EPS
+    return {
+        "128^3 / 64 angles, upsample 1": (*cases_usfft.window_for(128, eps, 1), rows),
+        "128^3 / 64 angles, upsample 2": (*cases_usfft.window_for(128, eps, 2), rows),
+        "flat wrapped points, m = 1": (*cases_usfft.window_for(64, eps, 1), flat),
+        "flat wrapped points, m = 2": (*cases_usfft.window_for(32, eps, 2), flat),
+        "flat wrapped points, m = 4": (*cases_usfft.window_for(32, 1e-6, 2), flat),
+        "256^3 / 128 angles, upsample 1": (
+            *cases_usfft.window_for(256, eps, 1),
+            cases_usfft.lamino_rows(256, 128, device).reshape(-1, 3),
+        ),
+    }
+
+
+def phase_usfft_parity(device, card: str) -> dict:
+    """The KB kernels against their plain versions and adjointness on every
+    case of ``_usfft_cases``; times beside the bounds, with the einsum
+    formulation of tike_tpu (cuBLAS, TF32 off) as the yardstick at 128^3 /
+    64 angles."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    inputs, errs = {}, {}
+    for name, (n, m, beta, x) in _usfft_cases(device).items():
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=gen)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=gen)
+        e = cases_usfft.check_kb_kernels(grid, x, f, n, m, beta, name)
+        inputs[name], errs[name] = (grid, x, f, n, m, beta), e
+        log(f"[usfft] {name}: grid {n}^3, m = {m}, {x.shape[0]} points: gather "
+            f"max|err| {e['usfft_gather_kb_abs']:.3e} ({e['usfft_gather_kb']:.2e} of "
+            f"max|value|), scatter {e['usfft_scatter_kb_abs']:.3e} "
+            f"({e['usfft_scatter_kb']:.2e}; tol {cases_usfft.KB_TOL:g}); adjointness "
+            f"{e['adjoint']:.2e} (tol {cases_usfft.ADJOINT_TOL:g}); two gathers bitwise "
+            f"equal; two scatters differ by {e['scatter_repeat']:.2e} (bitwise equal: "
+            f"{e['scatter_bitwise_repeat']})")
+
+    main = "128^3 / 64 angles, upsample 1"
+    grid, x, f, n, m, beta = inputs[main]
+    rows = x.reshape(64 * 128, 128, 3)
+    f_rows = f.reshape(64 * 128, 128)
+    einsum = {
+        "usfft_gather_kb": lambda: cases_usfft.gather_rows_einsum(grid, rows, n, m, beta),
+        "usfft_scatter_kb": lambda: cases_usfft.scatter_rows_einsum(f_rows, rows, n, m, beta),
+    }
+    einsum_err = {
+        "usfft_gather_kb": cases_usfft.max_rel(
+            einsum["usfft_gather_kb"]().reshape(-1), usfft.gather_kb_cuda(grid, x, n, m, beta)
+        ),
+        "usfft_scatter_kb": cases_usfft.max_rel(
+            einsum["usfft_scatter_kb"](), usfft.scatter_kb_cuda(f, x, n, m, beta)
+        ),
+    }
+    for name, err in einsum_err.items():
+        if not err <= cases_usfft.EINSUM_TOL:
+            raise AssertionError(f"{name}: the einsum yardstick differs by {err:.3e}")
+
+    def calls(case, name):
+        grid, x, f, n, m, beta = inputs[case]
+        if name == "usfft_gather_kb":
+            return dict(
+                plain=lambda: usfft.gather_kb_plain(grid, x, n, m, beta),
+                kernel=lambda: usfft.gather_kb_cuda(grid, x, n, m, beta),
+            )
+        return dict(
+            plain=lambda: usfft.scatter_kb_plain(f, x, n, m, beta),
+            kernel=lambda: usfft.scatter_kb_cuda(f, x, n, m, beta),
+        )
+
+    out = {}
+    for name in USFFT_KERNELS:
+        ms = median_ms_in_turns({**calls(main, name), "library": einsum[name]})
+        graph_ms = graph_ms_per_call(calls(main, name)["kernel"])
+        bound = cases_usfft.roofline(name, x, n, m)
+        flops = cases_usfft.einsum_flops(64 * 128, 128, n)
+        out[name] = dict(
+            max_abs_err=errs[main][f"{name}_abs"],
+            max_rel_err_all_cases=max(e[name] for e in errs.values()),
+            ms=graph_ms,
+            ms_eager_call=ms["kernel"],
+            plain_ms=ms["plain"],
+            library_ms=ms["library"],
+            library="the einsum chain of tike_tpu's "
+            + ("gather_kb_rows" if name == "usfft_gather_kb" else "scatter_kb_rows")
+            + " (torch.einsum, cuBLAS, TF32 off)",
+            library_flops=flops,
+            library_max_rel_err=einsum_err[name],
+            bound_bytes=bound["bound_bytes"],
+            bound_ms=bound["bound_ms"],
+            bound_by=bound["bound_by"],
+            roofline_share=bound["bound_ms"] / graph_ms,
+            deterministic=name == "usfft_gather_kb",
+            card=card,
+        )
+        log(f"[usfft] {name} at {main} ({x.shape[0]} points): kernel "
+            f"{graph_ms:.4f} ms (CUDA graph; eager call {ms['kernel']:.4f} ms), "
+            f"plain {ms['plain']:.4f} ms, einsum {ms['library']:.4f} "
+            f"ms ({flops:.3e} flops); bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_bytes']} bytes at {cases_usfft.HBM_BYTES_PER_S:g} B/s"
+            + (f", {bound['touched_cells']} grid values touched" if bound["touched_cells"] else "")
+            + f"), {100 * out[name]['roofline_share']:.1f}% of it ({card})")
+        for case in ("128^3 / 64 angles, upsample 2", "256^3 / 128 angles, upsample 1"):
+            grid_c, x_c, _, n_c, m_c, _ = inputs[case]
+            ms_c = median_ms_in_turns(calls(case, name), reps=5)
+            ms_c["kernel"] = graph_ms_per_call(calls(case, name)["kernel"], reps=5)
+            bound_c = cases_usfft.roofline(name, x_c, n_c, m_c)
+            key = "256" if case.startswith("256") else "upsample2"
+            out[name].update({
+                f"ms_{key}": ms_c["kernel"],
+                f"plain_ms_{key}": ms_c["plain"],
+                f"bound_ms_{key}": bound_c["bound_ms"],
+                f"bound_bytes_{key}": bound_c["bound_bytes"],
+            })
+            log(f"[usfft] {name} at {case} ({x_c.shape[0]} points, grid {n_c}^3, m = "
+                f"{m_c}): kernel {ms_c['kernel']:.4f} ms (CUDA graph), plain "
+                f"{ms_c['plain']:.4f} ms; "
+                f"bound {bound_c['bound_ms']:.4f} ms ({bound_c['bound_bytes']} bytes), "
+                f"{100 * bound_c['bound_ms'] / ms_c['kernel']:.1f}% of it ({card})")
+    return out
+
+
+def lamino_volume(n: int) -> np.ndarray:
+    """bench_all.py's laminography volume (seed 0): a Gaussian-windowed
+    random complex n^3 volume."""
+    rng = np.random.default_rng(0)
+    obj = (
+        rng.standard_normal((n, n, n)) + 1j * rng.standard_normal((n, n, n))
+    ).astype(np.complex64) * np.exp(
+        -((np.mgrid[0:n, 0:n, 0:n] - n / 2) ** 2).sum(0) / (n / 3) ** 2
+    )
+    return obj.astype(np.complex64)
+
+
+def lamino_problem(device, n=cases_usfft.LAMINO_N, ntheta=cases_usfft.LAMINO_NTHETA,
+                   upsample=1):
+    """(volume, theta, data) numpy: bench_all.py's volume and angles, the
+    data simulated on ``device``."""
+    volume = lamino_volume(n)
+    theta = cases_usfft.lamino_theta(ntheta).numpy()
+    data = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
+                       upsample=upsample, device=device)
+    return volume, theta, data
+
+
+def _max_rel(a, b) -> float:
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def phase_lamino_slices(device) -> None:
+    """cgrad and CGLS on a small problem, card against CPU."""
+    c = LAMINO_SLICE
+    volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], c["upsample"])
+    data_card = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
+                            upsample=c["upsample"], device=device)
+    err = _max_rel(data_card, data)
+    if not err <= LAMINO_SIM_TOL:
+        raise AssertionError(f"lamino slice: simulate on the card differs by {err:.3e}")
+    for algorithm, cg_iter in LAMINO_SLICE_CG_ITER.items():
+        results = {
+            str(dev): tl.reconstruct(
+                data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=c["num_iter"],
+                eps=cases_usfft.LAMINO_EPS, upsample=c["upsample"], cg_iter=cg_iter, device=dev,
+            )
+            for dev in ("cpu", device)
+        }
+        ref, got = results["cpu"], results[str(device)]
+        if not (np.all(np.isfinite(got["cost"])) and np.all(np.diff(got["cost"]) < 0)):
+            raise AssertionError(f"lamino slice {algorithm}: costs {got['cost']}")
+        np.testing.assert_allclose(got["cost"], ref["cost"], rtol=LAMINO_SLICE_TOL)
+        obj_err = _max_rel(got["obj"], ref["obj"])
+        if not obj_err <= LAMINO_SLICE_TOL:
+            raise AssertionError(f"lamino slice {algorithm}: volume differs by {obj_err:.3e}")
+        log(f"[lamino-slice] {algorithm} (cg_iter {cg_iter}), {c['n']}^3, {c['ntheta']} "
+            f"angles, upsample {c['upsample']}, {c['num_iter']} outer iterations on {device} "
+            f"vs cpu: costs {got['cost'].tolist()} vs {ref['cost'].tolist()} (rtol "
+            f"{LAMINO_SLICE_TOL:g}); volume max|err| / max|value| {obj_err:.2e}; simulate "
+            f"{err:.2e}")
+
+
+def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
+    """bench_all.py's lamino_cgrad or lamino_cgls at full width: one
+    warm-up outer iteration, then LAMINO_TIMED timed ones from the start,
+    with the kernel counts set to 0 just before and read just after."""
+    volume, theta, data = problem
+    kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device)
+    tag = f"lamino-{algorithm}"
+    for name in usfft.LAUNCHES:
+        usfft.LAUNCHES[name] = 0
+    opt.HOST_READS["line_search"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    warm = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=1, **kwargs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    start = time.perf_counter()
+    result = tl.reconstruct(
+        data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=LAMINO_TIMED, **kwargs
+    )
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - start
+    launches = dict(usfft.LAUNCHES)
+    reads = opt.HOST_READS["line_search"]
+    peak = torch.cuda.max_memory_allocated()
+    costs = result["cost"]
+    log(f"[{tag}] costs per outer iteration {costs.tolist()} (warm-up {warm['cost'].tolist()})")
+    if len(costs) != LAMINO_TIMED or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"costs are not {LAMINO_TIMED} finite values: {costs}")
+    if not (costs[-1] < costs[0] and np.all(np.diff(costs) <= 1e-6 * costs[:-1])):
+        raise AssertionError(f"costs do not decrease: {costs}")
+    for name in usfft.LAUNCHES:
+        if not launches[name] > 0:
+            raise AssertionError(f"{tag} launched no {name} kernel: {launches}")
+    obj = result["obj"]
+    if obj.shape != volume.shape or not np.all(np.isfinite(obj)):
+        raise AssertionError("reconstructed volume is not finite or has the wrong shape")
+    per_iter = timed_s / LAMINO_TIMED
+    log(f"[{tag}] {LAMINO_TIMED} outer iterations (cg_iter {LAMINO_CG_ITER}) in {timed_s:.3f} s "
+        f"= {per_iter:.4f} s/iteration; first call (1 iteration) {first_s:.3f} s, so set-up "
+        f"{first_s - per_iter:.3f} s ({card})")
+    log(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches "
+        f"{launches}; line-search host reads {reads} ({card})")
+    return launches
+
+
+def phase_probes(device, card: str):
+    """The seven feature probes: run each once through its entry point
+    (counted), each output equal to its plain version bit for bit, then
+    times beside the bounds."""
+    inp = toolchain_probe.inputs(device)
+    for name in toolchain_probe.LAUNCHES:
+        toolchain_probe.LAUNCHES[name] = 0
+    outputs = toolchain_probe.run(inp)
+    torch.cuda.synchronize()
+    launches = dict(toolchain_probe.LAUNCHES)
+    toolchain_probe.check(outputs, inp)
+    for name, count in launches.items():
+        if count != 1:
+            raise AssertionError(f"probe {name} launched {count} times: {launches}")
+    x0, x, big = inp["x"][0], inp["x"], inp["big"]
+    rows, cols = toolchain_probe.ROWS, toolchain_probe.WINDOW_COLS
+
+    width = big.shape[1]
+
+    def windows(offset, step):
+        return big.as_strided((8, rows, cols), (step, width, 1), offset)
+
+    library = {
+        "trivial": lambda: torch.mul(x0, 2.0),
+        "gridded": lambda: torch.mul(x, 2.0),
+        "prefetch": None,
+        "static_dma": lambda: x0[0:rows, 0:toolchain_probe.COLS].clone(),
+        "dynamic_dma": lambda: windows(0, 8 * width + 16).clone(),
+        "element_static": lambda: torch.mul(windows(0, 8 * width + 16), 2.0),
+        "element_prefetch": lambda: torch.mul(windows(3 * width + 5, 9 * width + 17), 2.0),
+    }
+    out = {}
+    for name, fn in toolchain_probe.FUNCTIONS.items():
+        args = toolchain_probe._args(name, inp)
+        fns = {"plain": lambda: toolchain_probe.PLAIN[name](*args), "kernel": lambda: fn(*args)}
+        if library[name] is not None:
+            if not torch.equal(library[name](), outputs[name]):
+                raise AssertionError(f"probe {name}: the library call differs")
+            fns["library"] = library[name]
+        ms = median_ms_in_turns(fns)
+        nbytes = toolchain_probe.bound_bytes(name, inp, outputs[name])
+        bound_ms = 1e3 * nbytes / cases.HBM_BYTES_PER_S
+        out[name] = dict(
+            max_abs_err=0.0,
+            ms=ms["kernel"],
+            plain_ms=ms["plain"],
+            library_ms=ms.get("library"),
+            bound_bytes=nbytes,
+            bound_ms=bound_ms,
+            bound_by="bytes",
+            roofline_share=bound_ms / ms["kernel"],
+            deterministic=True,
+            card=card,
+        )
+        lib = f"{ms['library']:.4f} ms" if "library" in ms else "none"
+        log(f"[probe] {name} ({toolchain_probe.PROBES[name][0]}): equal to its plain version "
+            f"bit for bit; kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library "
+            f"{lib}; bound {bound_ms:.5f} ms ({nbytes} bytes) ({card})")
+    return launches, out
+
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
+    card = env["nvidia_smi"]
     phase_build()
-    timings = phase_kernel_parity(device, env["nvidia_smi"])
+    timings = phase_kernel_parity(device, card)
+    timings.update(phase_usfft_parity(device, card))
     scan, psi, probe = make_inputs(N_PATTERNS)
     phase_forward_model(device, scan, psi, probe)
     phase_small_slice(device)
@@ -855,6 +1234,18 @@ def main() -> None:
     launches2 = phase_config2(device, scan, psi, probe, env["nvidia_smi"])
     launches3 = phase_rpie(device, scan, psi, probe, env["nvidia_smi"])
     phase_siemens(device, env["nvidia_smi"])
+    phase_lamino_slices(device)
+    problem = lamino_problem(device)
+    volume, theta, data = problem
+    data_cpu = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
+                           upsample=1, device="cpu")
+    err = _max_rel(data, data_cpu)
+    if not err <= LAMINO_SIM_TOL:
+        raise AssertionError(f"lamino: simulate on the card differs from the CPU's by {err:.3e}")
+    log(f"[lamino] simulate {tuple(data.shape)} at {volume.shape[0]}^3 on the card vs the "
+        f"CPU: max|err| / max|value| {err:.2e} (tol {LAMINO_SIM_TOL:g})")
+    lamino_launches = {alg: phase_lamino(device, alg, card, problem) for alg in ("cgrad", "cgls")}
+    probe_launches, probe_timings = phase_probes(device, card)
     report = [
         {
             "name": name,
@@ -867,6 +1258,28 @@ def main() -> None:
             **timings[name],
         }
         for name in KERNELS
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/usfft.cu",
+            "replaces": USFFT_KERNELS[name],
+            "launches": lamino_launches["cgrad"][name],
+            "launches_lamino_cgrad": lamino_launches["cgrad"][name],
+            "launches_lamino_cgls": lamino_launches["cgls"][name],
+            **timings[name],
+        }
+        for name in USFFT_KERNELS
+    ] + [
+        {
+            "name": f"probe_{name}",
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/probe.cu",
+            "replaces": PROBE_KERNELS[name],
+            "launches": probe_launches[name],
+            **probe_timings[name],
+        }
+        for name in PROBE_KERNELS
     ]
     log(env["nvidia_smi"])
     log(json.dumps({"kernels": report}))

@@ -188,7 +188,10 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_import_leaves_jax_out():
     code = (
         "import sys, tike_tpu_torch, tike_tpu_torch.ptycho, "
-        "tike_tpu_torch.convert, tike_tpu_torch.kernels, tike_tpu_torch.ops; "
+        "tike_tpu_torch.convert, tike_tpu_torch.kernels, tike_tpu_torch.ops, "
+        "tike_tpu_torch.ops.usfft, tike_tpu_torch.ops.lamino, tike_tpu_torch.lamino, "
+        "tike_tpu_torch.lamino.solvers, tike_tpu_torch.toolchain_probe, "
+        "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, chip_smoke; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu')); "
         "assert not bad, bad"

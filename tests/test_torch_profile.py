@@ -11,6 +11,8 @@ from tike_tpu_torch import profile_epoch
 @pytest.mark.parametrize(
     "cat, name, want",
     [
+        ("kernel", "void (anonymous namespace)::kb_gather_kernel<1>(float2 const*, ...)", "kb_gather_kernel (ours)"),
+        ("kernel", "void (anonymous namespace)::kb_scatter_kernel<2>(float2 const*, ...)", "kb_scatter_kernel (ours)"),
         ("kernel", "patch_fwd_kernel(float2 const*, ...)", "patch_fwd_kernel (ours)"),
         ("kernel", "patch_adj_kernel(float2 const*, ...)", "patch_adj_kernel (ours)"),
         ("kernel", "void vector_2d_fft<128u, 128u, EPT<16u>>(...)", "cuFFT"),
@@ -45,7 +47,13 @@ def test_device_breakdown_counts_overlap_once():
 
 @pytest.mark.parametrize(
     "argv, config",
-    [([], "main"), (["--config", "config2"], "config2"), (["--config", "rpie"], "rpie")],
+    [
+        ([], "main"),
+        (["--config", "config2"], "config2"),
+        (["--config", "rpie"], "rpie"),
+        (["--config", "lamino_cgrad"], "lamino_cgrad"),
+        (["--config", "lamino_cgls"], "lamino_cgls"),
+    ],
 )
 def test_parse_args_picks_the_configuration(argv, config):
     args = profile_epoch.parse_args(argv)

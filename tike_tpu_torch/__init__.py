@@ -1,12 +1,16 @@
-"""tike-tpu on PyTorch: ptychography for NVIDIA Hopper GPUs.
+"""tike-tpu on PyTorch: ptychography and laminography for NVIDIA Hopper GPUs.
 
 A port of :mod:`tike_tpu` (the JAX package beside this one, which stays the
 reference) to eager PyTorch. Module paths mirror ``tike_tpu``'s, so each
 function's counterpart sits at the same relative path. The bilinear patch
 gather and scatter, which ``tike_tpu`` wrote as Pallas kernels for the TPU,
-are hand-written CUDA kernels here (``csrc/patch.cu``), built with ``nvcc``
-at first use on a CUDA tensor. On CPU tensors every function runs its plain
-PyTorch version, which the tests hold against ``tike_tpu``.
+and the USFFT's Kaiser-Bessel gather and scatter, which it wrote as XLA
+einsums for the TPU's matrix unit, are hand-written CUDA kernels here
+(``csrc/patch.cu``, ``csrc/usfft.cu``), built with ``nvcc`` at first use on
+a CUDA tensor; ``toolchain_probe`` holds the kernels of ``csrc/probe.cu``,
+the counterparts of the JAX package's Pallas feature probes. On CPU tensors
+every function runs its plain PyTorch version, which the tests hold against
+``tike_tpu``.
 
 This package never imports ``jax`` or ``tike_tpu``.
 """

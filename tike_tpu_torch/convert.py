@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from .ops.lamino import LaminoConfig
 from .precision import cfloating, floating, to_numpy
 from .ptycho.exitwave import ExitWaveOptions
 from .ptycho.object import ObjectOptions
@@ -121,3 +122,11 @@ def parameters_to_numpy(p) -> dict:
         "costs": [list(c) for c in p.algorithm_options.costs],
         "times": list(p.algorithm_options.times),
     }
+
+
+def lamino_config_from_jax(cfg) -> LaminoConfig:
+    """Return the port's LaminoConfig with the fields of a ``tike_tpu`` one.
+    Laminography's state (volume, data, theta) crosses as numpy arrays."""
+    return LaminoConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LaminoConfig)}
+    )

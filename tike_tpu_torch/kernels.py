@@ -6,6 +6,7 @@ into a shared library with a plain C interface, then loaded with
 ``_build/`` beside this file, under a name keyed by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused within a checkout. A missing ``nvcc`` or a failed build raises.
+:func:`build_all` starts one ``nvcc`` per source, all together.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 # C signatures of each library's entry points: (argtypes, restype).
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "patch": {
         # (image, positions, patches, n, h, w, p, channels, stream)
@@ -41,6 +42,26 @@ SIGNATURES = {
         # (patches, positions, initial or NULL, image, n, h, w, p, channels,
         # stream); both return a cudaError_t
         "tike_patch_adj": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+    },
+    "usfft": {
+        # (grid, x, out, npoints, n, m, beta, i0(beta), stream)
+        "tike_kb_gather": ([_PTR] * 3 + [_LL, _INT, _INT, _F, _F, _PTR], _INT),
+        # (values, x, grid, npoints, n, m, beta, i0(beta), stream)
+        "tike_kb_scatter": ([_PTR] * 3 + [_LL, _INT, _INT, _F, _F, _PTR], _INT),
+    },
+    "probe": {
+        # (x, o, count, stream)
+        "tike_probe_trivial": ([_PTR, _PTR, _INT, _PTR], _INT),
+        # (x, o, planes, rows, cols, stream)
+        "tike_probe_gridded": ([_PTR, _PTR] + [_INT] * 3 + [_PTR], _INT),
+        # (idx, x, o, planes, plane, stream)
+        "tike_probe_prefetch": ([_PTR] * 3 + [_INT] * 2 + [_PTR], _INT),
+        # (x, o, pitch, stream)
+        "tike_probe_static_dma": ([_PTR, _PTR, _INT, _PTR], _INT),
+        # (corners, big, o, planes, rows, width, stream)
+        "tike_probe_dynamic_dma": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+        # (corners or NULL, big, o, planes, rows, width, stream)
+        "tike_probe_element": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
     },
 }
 
@@ -76,38 +97,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def build_all(names) -> dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` whose keyed library does not exist
+    yet, one ``nvcc`` per source, all started together."""
+    targets = {name: library_path(name) for name in names}
+    jobs = {}
+    try:
+        for name, target in targets.items():
+            if target.exists():
+                BUILD_INFO[name] = {"seconds": 0.0, "path": str(target), "log": ""}
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = [tmp, time.perf_counter(), None]  # cleaned up below
+            jobs[name][2] = subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE,
+                text=True,
+            )
+        for name, (tmp, start, proc) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build csrc/{name}.cu "
+                    f"(exit {proc.returncode}):\n{err}"
+                )
+            os.replace(tmp, targets[name])
+            BUILD_INFO[name] = {
+                "seconds": time.perf_counter() - start,
+                "path": str(targets[name]),
+                "log": out + err,
+            }
+    finally:
+        for tmp, _, proc in jobs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return targets
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the keyed library already exists."""
-    target = library_path(name)
-    if target.exists():
-        BUILD_INFO[name] = {"seconds": 0.0, "path": str(target), "log": ""}
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-    start = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build csrc/{name}.cu "
-                f"(exit {proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO[name] = {
-        "seconds": time.perf_counter() - start,
-        "path": str(target),
-        "log": proc.stdout + proc.stderr,
-    }
-    return target
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

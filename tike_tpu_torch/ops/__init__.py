@@ -1,6 +1,7 @@
 """Tensor operators: the compute core of tike_tpu_torch.
 
-Counterpart of :mod:`tike_tpu.ops`; the patch gather/scatter run as
+Counterpart of :mod:`tike_tpu.ops`; the patch gather/scatter and the
+USFFT's KB gather/scatter (:mod:`.usfft`, under :mod:`.lamino`) run as
 hand-written CUDA kernels on CUDA tensors.
 """
 

@@ -1,14 +1,19 @@
-"""Adaptive-moment step directions (PyTorch).
+"""Step directions and conjugate-gradient loops (PyTorch).
 
 Counterpart of :mod:`tike_tpu.opt`: ``adam`` (the position step, and rPIE's
 per-batch object and probe moments), ``momentum`` (LSQML's per-batch
 object momentum) and ``momentum_checked_traced`` (the epoch-end moment of
-compact runs). Every decision stays on the device: nothing here reads a
-value back to the host.
+compact runs), whose decisions stay on the device; and the laminography
+solvers' loops, ``line_search``, ``direction_dy``, ``conjugate_gradient``
+(``tike_tpu``'s ``conjugate_gradient_traced``) and ``cgls``
+(``cgls_traced``). ``tike_tpu`` traces those loops into one device program;
+here they are eager, and each trial of the backtracking line search reads
+one comparison back to the host (counted in ``HOST_READS``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import linalg
@@ -82,3 +87,95 @@ def momentum_checked_traced(
     m_new = torch.where(take, (1 - friction) * m + g, m / 2)
     d = torch.where(take, mdecay * m_new, torch.zeros_like(g))
     return d, previous_g, m_new
+
+
+HOST_READS = {"line_search": 0}
+"""How many values the line search has read back to the host in this
+process: one per trial step. Callers may reset it to 0."""
+
+
+def line_search(f, x, d, step_length, cost, linesearch_iterations=4):
+    """Backtracking line search along ``d`` from ``x``.
+
+    The semantics of ``tike_tpu.opt.line_search_traced``: try
+    ``x + step * d``; stop at the first trial whose cost does not exceed
+    ``cost``, else halve the step, at most ``linesearch_iterations`` times.
+    A total failure keeps ``x`` with a zero step; a success on the first
+    trial doubles the step for next time. ``step_length`` is a float32
+    value and ``cost`` a 0-d float32 tensor. Returns ``(next_step_length,
+    cost_at_new_x, new_x)``.
+    """
+    step0 = float(np.float32(step_length))
+    step = step0
+    for _ in range(linesearch_iterations):
+        xsd = x + step * d
+        fxsd = f(xsd).to(torch.float32)
+        HOST_READS["line_search"] += 1
+        if bool(fxsd <= cost):
+            break
+        step *= 0.5
+    else:
+        step, fxsd, xsd = 0.0, cost, x
+    next_step = step0 / 0.5 if step == step0 else step
+    return next_step, fxsd, xsd
+
+
+def direction_dy(grad0, grad1, dir_):
+    """Dai-Yuan conjugate gradient direction."""
+    numer = linalg.inner(grad1, grad1)
+    denom = torch.sum((grad1.conj() * dir_).real) - torch.sum(
+        (grad0.conj() * dir_).real
+    )
+    gamma = numer / torch.where(denom == 0, 1e-32, denom)
+    return -grad1 + gamma * dir_
+
+
+def conjugate_gradient(x, cost_function, grad, num_iter=1, step_length=1,
+                       linesearch_iterations=4):
+    """Dai-Yuan CG with a backtracking line search on every iteration.
+
+    The loop of ``tike_tpu.opt.conjugate_gradient_traced``, run eagerly.
+    Returns ``(x, cost, next_step_length)``, the cost a 0-d float32 tensor.
+    """
+    grad1 = grad(x)
+    dir_ = -grad1
+    step = float(np.float32(step_length))
+    cost = cost_function(x).to(torch.float32)
+    for i in range(num_iter):
+        if i > 0:
+            grad0 = grad1
+            grad1 = grad(x)
+            dir_ = direction_dy(grad0, grad1, dir_)
+        step, cost, x = line_search(
+            cost_function, x, dir_, step, cost, linesearch_iterations
+        )
+    return x, cost, step
+
+
+def cgls(fwd, adj, b, x0, num_iter=4):
+    """CGLS, conjugate gradients on the normal equations of a LINEAR
+    ``fwd``: one ``fwd`` and one ``adj`` per iteration with optimal step
+    lengths, the residual kept incrementally. The loop of
+    ``tike_tpu.opt.cgls_traced``; every decision stays on the device.
+
+    Returns ``(x, cost)``, cost = |fwd(x) - b|^2 as a 0-d tensor.
+    """
+    r = b - fwd(x0)
+    s = adj(r)
+    p = s
+    gamma = torch.sum((s * torch.conj(s)).real)
+    x = x0
+    for _ in range(num_iter):
+        q = fwd(p)
+        qq = torch.sum((q * torch.conj(q)).real)
+        # A zero q means p is in the null space measured by the data: no
+        # step can help, so freeze.
+        alpha = torch.where(qq == 0, 0.0, gamma / torch.where(qq == 0, 1.0, qq))
+        x = x + alpha * p
+        r = r - alpha * q
+        s = adj(r)
+        gamma_new = torch.sum((s * torch.conj(s)).real)
+        beta = torch.where(gamma == 0, 0.0, gamma_new / torch.where(gamma == 0, 1.0, gamma))
+        gamma = gamma_new
+        p = s + beta * p
+    return x, torch.sum((r * torch.conj(r)).real)

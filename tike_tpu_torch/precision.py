@@ -21,7 +21,10 @@ def as_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     """Return ``x`` (array or tensor) as a tensor of ``dtype`` on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    a = np.asarray(x)
+    if not a.flags.writeable:  # e.g. a JAX array's numpy view
+        a = a.copy()
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def to_numpy(x) -> np.ndarray | None:

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python -m tike_tpu_torch.profile_epoch [--config {main,config2,rpie}] [--trace PATH]
+    python -m tike_tpu_torch.profile_epoch [--config CONFIG] [--trace PATH]
 
 It builds a path of ``chip_smoke.py`` (10,000 simulated 128^2 patterns of
 a 1500^2 object, ``random_seed=0``): by default the main path (LSQML, one
@@ -18,6 +18,11 @@ clipping). Then it
 2. traces one epoch with ``torch.profiler`` and prints the device time,
    launch count and share of each kernel class, the device's busy and idle
    share of the epoch's wall time, and the profiler's table of operators.
+
+With ``--config lamino_cgrad`` or ``lamino_cgls`` it builds
+``chip_smoke.py``'s laminography path instead (``bench_all.py``'s 128^3
+volume, 64 angles, upsample 1, ``cg_iter=4``), runs two outer iterations
+of the solver on device tensors and traces the third the same way.
 
 The chrome trace goes to PATH (by default
 ``tike_tpu_torch/_build/epoch_trace_<config>.json``, which git ignores). Every time printed stands beside the card's name and
@@ -37,6 +42,8 @@ import torch
 
 # Kernel classes, tried in order on the lower-cased kernel name.
 CLASSES = (
+    ("kb_gather_kernel (ours)", ("kb_gather_kernel",)),
+    ("kb_scatter_kernel (ours)", ("kb_scatter_kernel",)),
     ("patch_fwd_kernel (ours)", ("patch_fwd_kernel",)),
     ("patch_adj_kernel (ours)", ("patch_adj_kernel",)),
     ("cuFFT", ("fft",)),
@@ -79,9 +86,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--config",
-        choices=("main", "config2", "rpie"),
+        choices=("main", "config2", "rpie", "lamino_cgrad", "lamino_cgls"),
         default="main",
-        help="the main path (one probe mode), BASELINE config 2, or rPIE",
+        help="the main path (one probe mode), BASELINE config 2, rPIE, or "
+        "laminography with cgrad or CGLS",
     )
     parser.add_argument(
         "--trace",
@@ -96,24 +104,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main() -> None:
-    import chip_smoke as cs
+def _profile_ptycho(cs, config, card, device):
+    """Time both psi preconditioners, then trace one epoch of a ptycho
+    path; returns (profiler, wall seconds, what to close)."""
     import tike_tpu_torch.ptycho as tp
     from tike_tpu_torch.ptycho.solvers import _preconditioner
     from torch.profiler import ProfilerActivity, profile
 
-    args = parse_args()
-    trace = args.trace
-
-    card = cs.nvidia_smi_line()
-    print("card:", card, "config:", args.config)
-    device = torch.device("cuda", 0)
     scan, psi, probe = cs.make_inputs(cs.N_PATTERNS)
-    if args.config == "rpie":
+    if config == "rpie":
         probe = cs.rpie_probe(probe)
         params = cs.rpie_parameters(scan, psi, probe)
     else:
-        config2 = args.config == "config2"
+        config2 = config == "config2"
         if config2:
             probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
         params = cs.path_parameters(scan, psi, probe, config2)
@@ -140,6 +143,48 @@ def main() -> None:
         context.iterate(1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+    return prof, wall, lambda: context.__exit__(None, None, None)
+
+
+def _profile_lamino(cs, config, card, device):
+    """Trace the third outer iteration of a laminography solver on device
+    tensors (the first two, which estimate the step from a zero and then a
+    first volume, warm up); returns (profiler, wall seconds, what to
+    close). ``reconstruct``'s own uploads and download are left out."""
+    from tike_tpu_torch.lamino import solvers
+    from tike_tpu_torch.ops.lamino import LaminoConfig
+    from tike_tpu_torch.precision import as_tensor
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = getattr(solvers, config.split("_")[1])
+    _, theta, data = cs.lamino_problem(device)
+    lam = cs.cases_usfft
+    cfg = LaminoConfig(n=lam.LAMINO_N, tilt=float(lam.LAMINO_TILT), eps=lam.LAMINO_EPS, upsample=1)
+    data = as_tensor(data, torch.complex64, device)
+    theta = as_tensor(theta, torch.float32, device)
+    result = {"obj": torch.zeros((cfg.n,) * 3, dtype=torch.complex64, device=device)}
+    for _ in range(2):
+        result = solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, **result)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, **result)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return prof, wall, lambda: None
+
+
+def main() -> None:
+    import chip_smoke as cs
+
+    args = parse_args()
+    trace = args.trace
+
+    card = cs.nvidia_smi_line()
+    print("card:", card, "config:", args.config)
+    device = torch.device("cuda", 0)
+    profiler = _profile_lamino if args.config.startswith("lamino") else _profile_ptycho
+    prof, wall, close = profiler(cs, args.config, card, device)
     os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
     prof.export_chrome_trace(trace)
     with open(trace) as f:
@@ -147,7 +192,8 @@ def main() -> None:
     b = device_breakdown(events, wall * 1e6)
     device_us = sum(v[0] for v in b["classes"].values())
     print(
-        f"profiled epoch: wall {wall * 1e3:.2f} ms, device busy "
+        f"profiled {'outer iteration' if args.config.startswith('lamino') else 'epoch'}: "
+        f"wall {wall * 1e3:.2f} ms, device busy "
         f"{b['busy_us'] / 1e3:.2f} ms ({100 * b['busy_us'] / b['wall_us']:.1f}%), "
         f"idle {100 * (1 - b['busy_us'] / b['wall_us']):.1f}%, "
         f"{b['activities']} device activities ({card})"
@@ -163,7 +209,7 @@ def main() -> None:
         else "self_cuda_time_total"
     )
     print(averages.table(sort_by=key, row_limit=25, max_name_column_width=60))
-    context.__exit__(None, None, None)
+    close()
 
 
 if __name__ == "__main__":
