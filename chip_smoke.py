@@ -66,12 +66,14 @@ Phase 3 is followed by the KB kernels' parity (3b): ``kb_gather`` and
 ``kb_scatter`` against their plain versions and against adjointness
 (<gather(G), f> = <G, scatter(f)>) on laminography's points at
 ``bench_all.py``'s 128^3 / 64 angles (upsample 1, m = 1; upsample 2, a
-256^3 grid, m = 2), on flat random points of which a third wrap (m = 1, 2
-and 4) and on a 256^3 / 128-angle transform (8,388,608 points); two
-gathers bitwise equal, two scatters (atomics) within tolerance; times
-(a CUDA graph of the kernel's launches, and eager calls) beside each bound
-and the plain version's, and at 128^3 / 64 angles the einsum chain of
-``tike_tpu``'s ``gather_kb_rows``/``scatter_kb_rows`` as the yardstick.
+256^3 grid, m = 2), on flat random points of which a third wrap (m = 1, 2,
+4 and 7) and on a 256^3 / 128-angle transform (8,388,608 points); two
+launches of each kernel on one geometry plan, and a third that builds its
+own, bitwise equal on every case; times (the plan's build; a CUDA graph of
+the kernel's launches on a plan built beforehand; eager calls with that
+plan and building their own) beside each bound and the plain version's,
+and at 128^3 / 64 angles the einsum chain of ``tike_tpu``'s
+``gather_kb_rows``/``scatter_kb_rows`` as the yardstick.
 
 After phase 9:
 
@@ -82,11 +84,15 @@ After phase 9:
     upsample 1, ``cg_iter=4``): ``simulate`` on the card against the CPU,
     then for each solver one warm-up outer iteration and 5 timed ones, with
     the kernel counts set to 0 before and read after; costs finite and
-    decreasing, both KB kernels launched; s/iteration, set-up, peak memory
-    and the line search's host reads;
+    decreasing, both KB kernels launched; s/iteration (and that of two more
+    timed runs, for the spread), set-up, peak memory and the line search's
+    host reads; then the warm-up once more from the same start, whose cost
+    and volume must equal the first one's bit for bit;
 12. the seven feature probes (``tike_tpu_torch/toolchain_probe.py``): each
     launched once on ``arange``-valued inputs and equal to its plain
-    version bit for bit, then timed beside its bound.
+    version bit for bit, then timed beside its bound: in a CUDA graph with
+    the index check left out (the kernel's own time) and as an eager call
+    with it, and the library call likewise.
 
 The line before the last lists each kernel (its launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
@@ -182,12 +188,15 @@ SOURCES = ("patch", "usfft", "probe")
 # volume, 64 angles, tilt pi/3, eps 1e-3, upsample 1, one warm-up outer
 # iteration, then 5 timed, cg_iter 4 inner steps each.
 LAMINO_CG_ITER, LAMINO_TIMED = 4, 5
+# Timed runs of each solver: the first is the counted one, the others show
+# the spread of the host's clock.
+LAMINO_ROUNDS = 3
 # The small laminography slice, card against CPU: n = 16, 8 angles,
 # upsample 2, 3 outer iterations; cgrad with one CG step per outer
 # iteration, so that no line-search trial is a tie (tests/
-# test_torch_lamino_solvers.py), CGLS with 4. The card's scatter adds with
-# atomics and cuFFT rounds otherwise than pocketfft; CGLS carries that
-# forward (relative, costs and volume).
+# test_torch_lamino_solvers.py), CGLS with 4. The card's kernels sum in
+# another order than the plain versions and cuFFT rounds otherwise than
+# pocketfft; CGLS carries that forward (relative, costs and volume).
 LAMINO_SLICE = dict(n=16, ntheta=8, upsample=2, num_iter=3)
 LAMINO_SLICE_CG_ITER = {"cgrad": 1, "cgls": 4}
 LAMINO_SLICE_TOL = 1e-4
@@ -509,11 +518,12 @@ def phase_forward_model(device, scan, psi, probe, n=256) -> None:
             DET, probe_k, scan[:n], psi, eigen_probe=eig, eigen_weights=w,
             device=device,
         )
-        torch.cuda.synchronize()
+        if not (isinstance(got, np.ndarray) and got.dtype == np.float32):
+            raise AssertionError(f"simulate returned {type(got)}, not a float32 numpy array")
         want = simulate_numpy(DET, probe_k, scan[:n], psi, eig, w)
         atol = SIM_ATOL * float(np.max(want))
-        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=SIM_RTOL, atol=atol)
-        err = float(np.max(np.abs(got.cpu().numpy() - want)))
+        np.testing.assert_allclose(got, want, rtol=SIM_RTOL, atol=atol)
+        err = float(np.max(np.abs(got - want)))
         log(f"[forward] simulate {name}, {n}x{DET}^2 on {device} vs numpy: "
             f"max|err| {err:.3e} (rtol {SIM_RTOL:g}, atol {atol:.3e})")
 
@@ -595,7 +605,7 @@ def phase_small_slice(device, config2=False) -> None:
     positions are corrected."""
     scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
     det = 24
-    data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
     name = "config-2 slice (3 modes, eigen probe, positions)" if config2 else "slice"
     keys = ("psi", "probe") + (("eigen_probe", "eigen_weights") if config2 else ())
     got, ref = _card_vs_cpu(
@@ -629,7 +639,7 @@ def phase_rpie_slices(device) -> None:
     det = 24
     ones = np.ones((det, det), bool)
     probe = (BRIGHT * probe).astype(np.complex64)
-    data = tp.simulate(det, probe, scan, psi, device="cpu").numpy()
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
     eigen_probe, weights = config2_eigen(probe, len(scan))
 
     def rpie_params():
@@ -666,7 +676,7 @@ def phase_rpie_slices(device) -> None:
         ("psi", "probe", "eigen_probe", "eigen_weights"), phase=True,
     )
     probe1 = _random_phase_probe(gen, 16)
-    data1 = tp.simulate(det, probe1, scan, psi, device="cpu").numpy()
+    data1 = tp.simulate(det, probe1, scan, psi, device="cpu")
     _card_vs_cpu(
         "LSQML slice (1 mode, Poisson, wobbly center)",
         device, data1,
@@ -725,7 +735,7 @@ def _drive(tag, device, probe, scan, psi, card, params) -> dict:
     kernel counts set to 0 just before and read just after. Checks what
     every path shares."""
     start = time.perf_counter()
-    data = tp.simulate(DET, probe, scan, psi, device=device)
+    data = tp.simulate_device(DET, probe, scan, psi, device=device)
     torch.cuda.synchronize()
     log(f"[{tag}] simulated {tuple(data.shape)} {data.dtype} on {device} with "
         f"{probe.shape[-3]} probe mode(s) in {time.perf_counter() - start:.2f} s")
@@ -930,8 +940,9 @@ def phase_siemens(device, card: str) -> None:
 def _usfft_cases(device):
     """The KB kernels' parity cases: name -> (grid size, m, beta, points):
     laminography's rows at bench_all.py's 128^3 / 64 angles (upsample 1 and
-    2), flat random points of which about a third wrap, at m = 1, 2 and 4,
-    and the rows of a 256^3 / 128-angle transform."""
+    2), flat random points of which about a third wrap, at m = 1, 2, 4 and
+    7 (the generic path; upsample 2 at eps 1e-12), and the rows of a 256^3
+    / 128-angle transform."""
     gen = np.random.default_rng(0)
     rows = cases_usfft.lamino_rows(128, 64, device).reshape(-1, 3)
     flat = cases_usfft.flat_points(gen, 200_000, device)
@@ -942,6 +953,7 @@ def _usfft_cases(device):
         "flat wrapped points, m = 1": (*cases_usfft.window_for(64, eps, 1), flat),
         "flat wrapped points, m = 2": (*cases_usfft.window_for(32, eps, 2), flat),
         "flat wrapped points, m = 4": (*cases_usfft.window_for(32, 1e-6, 2), flat),
+        "flat wrapped points, m = 7": (*cases_usfft.window_for(32, 1e-12, 2), flat),
         "256^3 / 128 angles, upsample 1": (
             *cases_usfft.window_for(256, eps, 1),
             cases_usfft.lamino_rows(256, 128, device).reshape(-1, 3),
@@ -949,11 +961,24 @@ def _usfft_cases(device):
     }
 
 
+def _timed_plan(x, n, m, beta, tile=None, rounds=3):
+    """A KB plan of these points and the median host ms of building it
+    (synchronised before and after)."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        plan = usfft.kb_plan(x, n, m, beta, tile)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - start))
+    return plan, statistics.median(times)
+
+
 def phase_usfft_parity(device, card: str) -> dict:
     """The KB kernels against their plain versions and adjointness on every
-    case of ``_usfft_cases``; times beside the bounds, with the einsum
-    formulation of tike_tpu (cuBLAS, TF32 off) as the yardstick at 128^3 /
-    64 angles."""
+    case of ``_usfft_cases``, every repeated launch bitwise equal; times
+    beside the bounds, with the einsum formulation of tike_tpu (cuBLAS,
+    TF32 off) as the yardstick at 128^3 / 64 angles."""
     gen = torch.Generator(device=device).manual_seed(0)
     inputs, errs = {}, {}
     for name, (n, m, beta, x) in _usfft_cases(device).items():
@@ -965,11 +990,21 @@ def phase_usfft_parity(device, card: str) -> dict:
             f"max|err| {e['usfft_gather_kb_abs']:.3e} ({e['usfft_gather_kb']:.2e} of "
             f"max|value|), scatter {e['usfft_scatter_kb_abs']:.3e} "
             f"({e['usfft_scatter_kb']:.2e}; tol {cases_usfft.KB_TOL:g}); adjointness "
-            f"{e['adjoint']:.2e} (tol {cases_usfft.ADJOINT_TOL:g}); two gathers bitwise "
-            f"equal; two scatters differ by {e['scatter_repeat']:.2e} (bitwise equal: "
-            f"{e['scatter_bitwise_repeat']})")
+            f"{e['adjoint']:.2e} (tol {cases_usfft.ADJOINT_TOL:g}); three gathers and "
+            "three scatters (two on one plan, one building its own) bitwise equal")
 
     main = "128^3 / 64 angles, upsample 1"
+    timed = (main, "128^3 / 64 angles, upsample 2", "256^3 / 128 angles, upsample 1")
+    # Each kernel's plan as laminography builds it (the gather's own order
+    # at m = 1), with the time of building it.
+    plans = {}
+    for case in timed:
+        _, x, _, n, m, beta = inputs[case]
+        plans[case] = {
+            "usfft_gather_kb": _timed_plan(x, n, m, beta, usfft.gather_tile(m)),
+            "usfft_scatter_kb": _timed_plan(x, n, m, beta),
+        }
+
     grid, x, f, n, m, beta = inputs[main]
     rows = x.reshape(64 * 128, 128, 3)
     f_rows = f.reshape(64 * 128, 128)
@@ -991,18 +1026,22 @@ def phase_usfft_parity(device, card: str) -> dict:
 
     def calls(case, name):
         grid, x, f, n, m, beta = inputs[case]
+        plan = plans[case][name][0]
         if name == "usfft_gather_kb":
             return dict(
                 plain=lambda: usfft.gather_kb_plain(grid, x, n, m, beta),
-                kernel=lambda: usfft.gather_kb_cuda(grid, x, n, m, beta),
+                kernel=lambda: usfft.gather_kb_cuda(grid, x, n, m, beta, plan),
+                own_plan=lambda: usfft.gather_kb_cuda(grid, x, n, m, beta),
             )
         return dict(
             plain=lambda: usfft.scatter_kb_plain(f, x, n, m, beta),
-            kernel=lambda: usfft.scatter_kb_cuda(f, x, n, m, beta),
+            kernel=lambda: usfft.scatter_kb_cuda(f, x, n, m, beta, plan),
+            own_plan=lambda: usfft.scatter_kb_cuda(f, x, n, m, beta),
         )
 
     out = {}
     for name in USFFT_KERNELS:
+        plan, plan_ms = plans[main][name]
         ms = median_ms_in_turns({**calls(main, name), "library": einsum[name]})
         graph_ms = graph_ms_per_call(calls(main, name)["kernel"])
         bound = cases_usfft.roofline(name, x, n, m)
@@ -1012,6 +1051,9 @@ def phase_usfft_parity(device, card: str) -> dict:
             max_rel_err_all_cases=max(e[name] for e in errs.values()),
             ms=graph_ms,
             ms_eager_call=ms["kernel"],
+            ms_eager_call_own_plan=ms["own_plan"],
+            plan_ms=plan_ms,
+            plan_bytes=plan.nbytes,
             plain_ms=ms["plain"],
             library_ms=ms["library"],
             library="the einsum chain of tike_tpu's "
@@ -1023,33 +1065,39 @@ def phase_usfft_parity(device, card: str) -> dict:
             bound_ms=bound["bound_ms"],
             bound_by=bound["bound_by"],
             roofline_share=bound["bound_ms"] / graph_ms,
-            deterministic=name == "usfft_gather_kb",
+            deterministic=True,
             card=card,
         )
         log(f"[usfft] {name} at {main} ({x.shape[0]} points): kernel "
-            f"{graph_ms:.4f} ms (CUDA graph; eager call {ms['kernel']:.4f} ms), "
-            f"plain {ms['plain']:.4f} ms, einsum {ms['library']:.4f} "
-            f"ms ({flops:.3e} flops); bound {bound['bound_ms']:.4f} ms "
+            f"{graph_ms:.4f} ms (CUDA graph, plan built beforehand; eager call "
+            f"{ms['kernel']:.4f} ms, building its own plan {ms['own_plan']:.4f} ms; the plan "
+            f"{plan_ms:.3f} ms, {plan.nbytes} bytes), plain {ms['plain']:.4f} ms, einsum "
+            f"{ms['library']:.4f} ms ({flops:.3e} flops); bound {bound['bound_ms']:.4f} ms "
             f"({bound['bound_bytes']} bytes at {cases_usfft.HBM_BYTES_PER_S:g} B/s"
             + (f", {bound['touched_cells']} grid values touched" if bound["touched_cells"] else "")
             + f"), {100 * out[name]['roofline_share']:.1f}% of it ({card})")
-        for case in ("128^3 / 64 angles, upsample 2", "256^3 / 128 angles, upsample 1"):
-            grid_c, x_c, _, n_c, m_c, _ = inputs[case]
+        for case in timed[1:]:
+            _, x_c, _, n_c, m_c, _ = inputs[case]
+            plan_c, plan_ms_c = plans[case][name]
             ms_c = median_ms_in_turns(calls(case, name), reps=5)
-            ms_c["kernel"] = graph_ms_per_call(calls(case, name)["kernel"], reps=5)
+            graph_c = graph_ms_per_call(calls(case, name)["kernel"], reps=5)
             bound_c = cases_usfft.roofline(name, x_c, n_c, m_c)
             key = "256" if case.startswith("256") else "upsample2"
             out[name].update({
-                f"ms_{key}": ms_c["kernel"],
+                f"ms_{key}": graph_c,
+                f"ms_eager_call_own_plan_{key}": ms_c["own_plan"],
+                f"plan_ms_{key}": plan_ms_c,
+                f"plan_bytes_{key}": plan_c.nbytes,
                 f"plain_ms_{key}": ms_c["plain"],
                 f"bound_ms_{key}": bound_c["bound_ms"],
                 f"bound_bytes_{key}": bound_c["bound_bytes"],
             })
             log(f"[usfft] {name} at {case} ({x_c.shape[0]} points, grid {n_c}^3, m = "
-                f"{m_c}): kernel {ms_c['kernel']:.4f} ms (CUDA graph), plain "
-                f"{ms_c['plain']:.4f} ms; "
+                f"{m_c}): kernel {graph_c:.4f} ms (CUDA graph, plan built beforehand; eager "
+                f"call building its own plan {ms_c['own_plan']:.4f} ms; the plan "
+                f"{plan_ms_c:.3f} ms, {plan_c.nbytes} bytes), plain {ms_c['plain']:.4f} ms; "
                 f"bound {bound_c['bound_ms']:.4f} ms ({bound_c['bound_bytes']} bytes), "
-                f"{100 * bound_c['bound_ms'] / ms_c['kernel']:.1f}% of it ({card})")
+                f"{100 * bound_c['bound_ms'] / graph_c:.1f}% of it ({card})")
     return out
 
 
@@ -1114,24 +1162,27 @@ def phase_lamino_slices(device) -> None:
 def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
     """bench_all.py's lamino_cgrad or lamino_cgls at full width: one
     warm-up outer iteration, then LAMINO_TIMED timed ones from the start,
-    with the kernel counts set to 0 just before and read just after."""
+    with the kernel counts set to 0 just before and read just after. Then
+    LAMINO_ROUNDS - 1 more timed runs for the spread, and the warm-up once
+    more: the same start must give the same cost and volume bit for bit."""
     volume, theta, data = problem
     kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device)
     tag = f"lamino-{algorithm}"
+
+    def run(num_iter):
+        start = time.perf_counter()
+        result = tl.reconstruct(
+            data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=num_iter, **kwargs
+        )
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
     for name in usfft.LAUNCHES:
         usfft.LAUNCHES[name] = 0
     opt.HOST_READS["line_search"] = 0
     torch.cuda.reset_peak_memory_stats()
-    start = time.perf_counter()
-    warm = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=1, **kwargs)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - start
-    start = time.perf_counter()
-    result = tl.reconstruct(
-        data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=LAMINO_TIMED, **kwargs
-    )
-    torch.cuda.synchronize()
-    timed_s = time.perf_counter() - start
+    warm, first_s = run(1)
+    result, timed_s = run(LAMINO_TIMED)
     launches = dict(usfft.LAUNCHES)
     reads = opt.HOST_READS["line_search"]
     peak = torch.cuda.max_memory_allocated()
@@ -1148,18 +1199,42 @@ def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
     if obj.shape != volume.shape or not np.all(np.isfinite(obj)):
         raise AssertionError("reconstructed volume is not finite or has the wrong shape")
     per_iter = timed_s / LAMINO_TIMED
+    more = [run(LAMINO_TIMED) for _ in range(LAMINO_ROUNDS - 1)]
+    rounds = [per_iter] + [seconds / LAMINO_TIMED for _, seconds in more]
     log(f"[{tag}] {LAMINO_TIMED} outer iterations (cg_iter {LAMINO_CG_ITER}) in {timed_s:.3f} s "
         f"= {per_iter:.4f} s/iteration; first call (1 iteration) {first_s:.3f} s, so set-up "
         f"{first_s - per_iter:.3f} s ({card})")
+    log(f"[{tag}] s/iteration of {LAMINO_ROUNDS} timed runs {[round(r, 5) for r in rounds]}, "
+        f"median {statistics.median(rounds):.5f} ({card})")
     log(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches "
         f"{launches}; line-search host reads {reads} ({card})")
+    # Nothing on this path adds in an order that varies: the same start
+    # gives the same bits, run after run.
+    again, _ = run(1)
+    repeats = [(again, warm, "the warm-up run twice")] + [
+        (r, result, f"timed run {i + 2} against the first") for i, (r, _) in enumerate(more)
+    ]
+    for got, want, what in repeats:
+        for key in ("cost", "obj"):
+            if not np.array_equal(got[key], want[key]):
+                diff = float(np.max(np.abs(got[key] - want[key])) / np.max(np.abs(want[key])))
+                raise AssertionError(
+                    f"{tag}: {what}: {key} differs by {diff:.3e} of the largest value from the "
+                    "same start"
+                )
+    if not np.array_equal(costs[:1], warm["cost"]):
+        raise AssertionError(f"{tag}: first timed cost {costs[0]} != warm-up's {warm['cost'][0]}")
+    log(f"[{tag}] the warm-up run twice and the {LAMINO_ROUNDS} timed runs from the same start: "
+        "costs and volumes bitwise equal")
     return launches
 
 
 def phase_probes(device, card: str):
     """The seven feature probes: run each once through its entry point
     (counted), each output equal to its plain version bit for bit, then
-    times beside the bounds."""
+    times beside the bounds: the kernel in a CUDA graph with its index
+    check (a host read) left out, the eager call with it, and the library
+    call both ways."""
     inp = toolchain_probe.inputs(device)
     for name in toolchain_probe.LAUNCHES:
         toolchain_probe.LAUNCHES[name] = 0
@@ -1190,32 +1265,43 @@ def phase_probes(device, card: str):
     out = {}
     for name, fn in toolchain_probe.FUNCTIONS.items():
         args = toolchain_probe._args(name, inp)
+        # The run above checked these indices.
+        unchecked = {"check_indices": False} if name in toolchain_probe.INDEXED else {}
         fns = {"plain": lambda: toolchain_probe.PLAIN[name](*args), "kernel": lambda: fn(*args)}
         if library[name] is not None:
             if not torch.equal(library[name](), outputs[name]):
                 raise AssertionError(f"probe {name}: the library call differs")
             fns["library"] = library[name]
         ms = median_ms_in_turns(fns)
+        if not torch.equal(fn(*args, **unchecked), outputs[name]):
+            raise AssertionError(f"probe {name}: the call without the index check differs")
+        graph_ms = graph_ms_per_call(lambda: fn(*args, **unchecked))
+        library_graph_ms = graph_ms_per_call(library[name]) if library[name] else None
         nbytes = toolchain_probe.bound_bytes(name, inp, outputs[name])
         bound_ms = 1e3 * nbytes / cases.HBM_BYTES_PER_S
         out[name] = dict(
             max_abs_err=0.0,
-            ms=ms["kernel"],
+            ms=graph_ms,
+            ms_eager_call=ms["kernel"],
             plain_ms=ms["plain"],
-            library_ms=ms.get("library"),
+            library_ms=library_graph_ms,
+            library_ms_eager_call=ms.get("library"),
             bound_bytes=nbytes,
             bound_ms=bound_ms,
             bound_by="bytes",
-            roofline_share=bound_ms / ms["kernel"],
+            roofline_share=bound_ms / graph_ms,
             deterministic=True,
             card=card,
         )
-        lib = f"{ms['library']:.4f} ms" if "library" in ms else "none"
+        lib = (
+            f"{library_graph_ms:.4f} ms (CUDA graph; eager call {ms['library']:.4f} ms)"
+            if "library" in ms else "none"
+        )
         log(f"[probe] {name} ({toolchain_probe.PROBES[name][0]}): equal to its plain version "
-            f"bit for bit; kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library "
-            f"{lib}; bound {bound_ms:.5f} ms ({nbytes} bytes) ({card})")
+            f"bit for bit; kernel {graph_ms:.4f} ms (CUDA graph, index check outside; eager call "
+            f"{ms['kernel']:.4f} ms), plain {ms['plain']:.4f} ms, library {lib}; bound "
+            f"{bound_ms:.5f} ms ({nbytes} bytes) ({card})")
     return launches, out
-
 
 
 def main() -> None:

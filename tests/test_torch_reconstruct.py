@@ -14,6 +14,8 @@ less closely, and so does the reference with itself: see
 ``test_slice_from_bench_start_matches_jax``.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -56,9 +58,95 @@ def _jax_parameters(scan, probe, psi0, **algo):
 def test_simulate_matches_jax(slice_data):
     scan, psi, probe, _, data = slice_data
     got = tp.simulate(DET, probe, scan, psi, device="cpu")
-    assert got.dtype == torch.float32 and got.shape == data.shape
+    assert isinstance(got, np.ndarray)
+    assert got.dtype == np.float32 and got.shape == data.shape
     H.assert_close(got, data, rtol=1e-5, atol=1e-5, scale=True)
-    assert tp.simulate_device is tp.simulate
+
+
+def test_simulate_returns_numpy_and_simulate_device_the_tensor(slice_data):
+    """As in the JAX package: ``simulate`` gives the host array (a caller
+    may ``.astype`` it), ``simulate_device`` the same values on the device,
+    which ``Reconstruction`` takes as they are."""
+    scan, psi, probe, psi0, data = slice_data
+    want = jp.simulate(DET, probe, scan, psi)
+    got = tp.simulate(DET, probe, scan, psi, device="cpu")
+    assert type(got) is type(want) is np.ndarray
+    assert got.dtype == want.dtype == np.float32
+    assert got.astype(np.float64).shape == want.shape
+    on_device = tp.simulate_device(DET, probe, scan, psi, device="cpu")
+    assert isinstance(on_device, torch.Tensor)
+    assert on_device.dtype == torch.float32 and on_device.device.type == "cpu"
+    np.testing.assert_array_equal(on_device.numpy(), got)
+    assert tp.simulate_device is not tp.simulate
+    params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
+    with tp.Reconstruction(on_device, params, device="cpu", random_seed=0) as c:
+        c.iterate(1)
+        assert np.isfinite(c.get_convergence()[0][-1][0])
+
+
+def _leading(signature, count):
+    return [
+        (p.name, p.kind, p.default)
+        for p in list(signature.parameters.values())[:count]
+    ]
+
+
+@pytest.mark.parametrize(
+    "name, skip_self, carried",
+    [("Reconstruction", 1, 8), ("reconstruct", 0, 6)],
+)
+def test_entry_point_signatures_match_jax(name, skip_self, carried):
+    """The leading parameters of the port's entry points are the JAX
+    package's: names, order, kinds and defaults (the private
+    ``_force_stripes`` is not carried). What the port adds follows as
+    keyword-only, ``device`` first."""
+    target = lambda mod: getattr(mod, name).__init__ if skip_self else getattr(mod, name)
+    want = inspect.signature(target(jp))
+    got = inspect.signature(target(tp))
+    n = skip_self + carried
+    assert _leading(got, n) == _leading(want, n)
+    assert [p.name for p in want.parameters.values()][n:] in ([], ["_force_stripes"])
+    added = list(got.parameters.values())[n:]
+    assert added[0].name == "device" and added[0].default == "cuda"
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in added)
+
+
+def test_num_gpu_in_third_place_is_not_a_device(slice_data, monkeypatch):
+    """``Reconstruction(data, params, 1)`` is the reference's ``num_gpu=1``:
+    it runs on the requested device, and is not read as ``cuda:1``."""
+    scan, psi, probe, psi0, data = slice_data
+    params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
+    with tp.Reconstruction(data, params, 1, device="cpu", random_seed=0) as context:
+        assert context.device == torch.device("cpu")
+        context.iterate(1)
+        assert np.isfinite(context.get_convergence()[0][-1][0])
+    result = tp.reconstruct(data, params, (1,), False, None, "replicated", device="cpu")
+    assert isinstance(result.psi, np.ndarray)
+    # With no device named it asks for the card, whatever num_gpu says.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device cuda was requested"):
+        tp.Reconstruction(data, params, 1)
+
+
+@pytest.mark.parametrize(
+    "match, kwargs",
+    [
+        ("num_gpu = 2", dict(num_gpu=2)),
+        ("num_gpu = \\(1, 1\\)", dict(num_gpu=(1, 1))),
+        ("use_mpi", dict(use_mpi=True)),
+        ("a mesh", dict(mesh=object())),
+        ("object_sharding='striped'", dict(object_sharding="striped", mesh=object())),
+    ],
+)
+def test_unported_entry_point_arguments_raise(slice_data, match, kwargs):
+    scan, _, probe, psi0, data = slice_data
+    params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
+    with pytest.raises(NotImplementedError, match=match):
+        tp.Reconstruction(data, params, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        tp.reconstruct(data, params, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="object_sharding"):
+        tp.Reconstruction(data, params, device="cpu", object_sharding="rows")
 
 
 @pytest.mark.parametrize("fft_precond", [False, True])
@@ -240,7 +328,12 @@ def test_device_is_required(slice_data, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         tp.simulate(DET, probe, scan, psi)
     with pytest.raises(TypeError, match="device"):
-        tp.reconstruct(data, params, None)
+        tp.reconstruct(data, params, device=None)
+    # device is keyword-only: the reference's parameters fill the places.
+    with pytest.raises(TypeError, match="positional"):
+        tp.reconstruct(data, params, 1, False, None, "replicated", "cpu")
+    with pytest.raises(TypeError, match="positional"):
+        tp.Reconstruction(data, params, 1, False, None, None, None, "replicated", "cpu")
 
 
 def test_cpu_device_runs_when_asked(slice_data):

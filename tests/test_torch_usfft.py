@@ -169,8 +169,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_m():
         tu.gather_kb_cuda(Fe, x, N_GRID, 1, 2.0)
     with pytest.raises(ValueError, match="CUDA"):
         tu.scatter_kb_cuda(f, x, N_GRID, 1, 2.0)
-    with pytest.raises(ValueError, match="m = 7"):
+    # Any half-support runs that fits the grid (2 m <= n); m = 7 did not once.
+    with pytest.raises(ValueError, match="CUDA"):
         tu.gather_kb_cuda(Fe, x, N_GRID, 7, 2.0)
+    for m in (0, 9):
+        with pytest.raises(ValueError, match=f"m = {m}"):
+            tu.gather_kb_cuda(Fe, x, N_GRID, m, 2.0)
+        with pytest.raises(ValueError, match=f"m = {m}"):
+            tu.kb_plan(x, N_GRID, m, 2.0)
     assert tu.LAUNCHES == {"usfft_gather_kb": 0, "usfft_scatter_kb": 0}
 
 
@@ -200,3 +206,18 @@ def test_bench_bounds():
     for bound in (gather, scatter):
         assert bound["bound_by"] == "bytes"
         assert bound["bound_ms"] == 1e3 * bound["bound_bytes"] / cases.HBM_BYTES_PER_S
+
+
+def test_kernel_sweep_variants_apply_to_the_source():
+    """Every variant of the development sweep still finds the text it
+    replaces in ``csrc/usfft.cu``, and a substitution that finds nothing
+    raises instead of timing the unchanged source."""
+    from tike_tpu_torch import kernel_sweep
+
+    with open(kernel_sweep.SOURCE) as f:
+        source = f.read()
+    for name, substitutions in kernel_sweep.VARIANTS.items():
+        changed = kernel_sweep.variant_source(source, substitutions)
+        assert (changed != source) == bool(substitutions), name
+    with pytest.raises(ValueError, match="not in the source"):
+        kernel_sweep.variant_source(source, [("no such text", "")])

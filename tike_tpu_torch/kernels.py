@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 # C signatures of each library's entry points: (argtypes, restype).
-_PTR, _INT, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "patch": {
         # (image, positions, patches, n, h, w, p, channels, stream)
@@ -44,10 +44,10 @@ SIGNATURES = {
         "tike_patch_adj": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
     },
     "usfft": {
-        # (grid, x, out, npoints, n, m, beta, i0(beta), stream)
-        "tike_kb_gather": ([_PTR] * 3 + [_LL, _INT, _INT, _F, _F, _PTR], _INT),
-        # (values, x, grid, npoints, n, m, beta, i0(beta), stream)
-        "tike_kb_scatter": ([_PTR] * 3 + [_LL, _INT, _INT, _F, _F, _PTR], _INT),
+        # (grid, bins, order, weights, out, npoints, n, m, stream)
+        "tike_kb_gather": ([_PTR] * 5 + [_LL, _INT, _INT, _PTR], _INT),
+        # (values, bins, order, bin_start, weights, grid, npoints, n, m, stream)
+        "tike_kb_scatter": ([_PTR] * 6 + [_LL, _INT, _INT, _PTR], _INT),
     },
     "probe": {
         # (x, o, count, stream)

@@ -13,7 +13,7 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.lamino import LaminoConfig, lamino_fwd
+from ..ops.lamino import LaminoConfig, LaminoPlan, lamino_fwd
 from ..precision import as_tensor, to_numpy
 from . import solvers
 
@@ -30,10 +30,9 @@ def simulate(obj, theta, tilt, eps=1e-3, upsample=1, kernel="kb", device="cuda",
         n=obj.shape[-1], tilt=float(tilt), eps=float(eps), upsample=upsample,
         kernel=kernel,
     )
+    theta = as_tensor(theta, torch.float32, device)
     data = lamino_fwd(
-        cfg,
-        as_tensor(obj, torch.complex64, device),
-        as_tensor(theta, torch.float32, device),
+        cfg, as_tensor(obj, torch.complex64, device), theta, LaminoPlan(cfg, theta)
     )
     return to_numpy(data)
 
@@ -87,12 +86,15 @@ def reconstruct(
         "iterations.".format(algorithm, *obj.shape, num_iter)
     )
 
+    # The geometry never changes within the call: one plan for every
+    # transform of every iteration.
+    plan = LaminoPlan(cfg, theta_d)
     result = {"obj": obj_d}
     costs = []
     for i in range(num_iter):
         kwargs.update(result)
         result = getattr(solvers, algorithm)(
-            cfg, data=data_d, theta=theta_d, **kwargs
+            cfg, data=data_d, theta=theta_d, plan=plan, **kwargs
         )
         if result.get("cost") is not None:
             costs.append(float(result["cost"]))

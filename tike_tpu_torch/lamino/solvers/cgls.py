@@ -11,7 +11,7 @@ from __future__ import annotations
 import logging
 
 from ... import opt
-from ...ops.lamino import LaminoConfig, lamino_adj_exact, lamino_fwd
+from ...ops.lamino import LaminoConfig, LaminoPlan, lamino_adj_exact, lamino_fwd
 
 logger = logging.getLogger(__name__)
 
@@ -22,15 +22,19 @@ def cgls(
     theta,
     obj,
     cg_iter=4,
+    plan=None,
     **kwargs,
 ):
     """One outer iteration (``cg_iter`` CGLS steps). Returns ``{"obj",
-    "cost"}``, the cost a float."""
+    "cost"}``, the cost a float. ``plan`` is the geometry's
+    :class:`~tike_tpu_torch.ops.lamino.LaminoPlan`, if the caller keeps
+    one."""
+    plan = LaminoPlan(cfg, theta) if plan is None else plan
     # CGLS requires the true adjoint: lamino_adj drifts ~20% from
     # adjointness at upsample=1, which makes optimal-step CG diverge.
     obj, cost = opt.cgls(
-        fwd=lambda u: lamino_fwd(cfg, u, theta),
-        adj=lambda r: lamino_adj_exact(cfg, r, theta),
+        fwd=lambda u: lamino_fwd(cfg, u, theta, plan),
+        adj=lambda r: lamino_adj_exact(cfg, r, theta, plan),
         b=data,
         x0=obj,
         num_iter=cg_iter,

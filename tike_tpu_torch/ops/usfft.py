@@ -12,21 +12,28 @@ The Kaiser-Bessel interpolation has two implementations:
   tap scan of ``tike_tpu``'s ``gather_kb``/``scatter_kb``, one indexed
   gather (or ``index_add_``) of all points per 3-D tap;
 - hand-written CUDA kernels (``csrc/usfft.cu``, ``gather_kb_cuda``,
-  ``scatter_kb_cuda``), one thread per point, as the original tike's
-  ``usfft.cu``. ``tike_tpu`` has no Pallas kernel here: its
-  ``gather_kb_rows``/``scatter_kb_rows`` are einsum chains over dense rows,
-  shaped for the TPU's matrix unit, and the kernels replace them too.
+  ``scatter_kb_cuda``) that read a geometry plan (:func:`kb_plan`): the
+  points sorted by the grid cell they fall in, with their axis weights in a
+  table. The gather walks the points in that order; the scatter gives each
+  row of the grid one block that adds the points reaching it in a fixed
+  order, with no atomics, so two launches agree to the bit. ``tike_tpu`` has no
+  Pallas kernel here: its ``gather_kb_rows``/``scatter_kb_rows`` are einsum
+  chains over dense rows, shaped for the TPU's matrix unit, and the kernels
+  replace them too.
 
 ``gather_kb`` and ``scatter_kb`` dispatch on the device of the tensors they
 are given: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise. The row-structured layout (``(R, C, 3)`` points,
-``gather_kb_rows``/``scatter_kb_rows``) is the flat one reshaped: the
-kernels compute all three axes per point. The Gaussian window
-(``gather``/``scatter``) is the reference's cross-check and stays plain
-PyTorch on every device.
+kernel or raise. Both take an optional ``plan=``; without one they build it
+for the call. A plan depends on the points and the window alone, so a
+caller whose points stay (laminography) builds it once. The row-structured
+layout (``(R, C, 3)`` points, ``gather_kb_rows``/``scatter_kb_rows``) is the
+flat one reshaped. The Gaussian window (``gather``/``scatter``) is the
+reference's cross-check and stays plain PyTorch on every device.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,8 +45,8 @@ LAUNCHES = {"usfft_gather_kb": 0, "usfft_scatter_kb": 0}
 """How many times each CUDA kernel has been launched in this process.
 Incremented only by a successful launch; callers may reset them to 0."""
 
-MAX_M = 6
-"""The largest half-support the kernels take (csrc/usfft.cu, kMaxM)."""
+MAX_N = 1290
+"""The largest grid the kernels take: they index its n^3 cells in int32."""
 
 
 def usfft_parameters(n: int, eps: float, upsample: float = 1):
@@ -225,6 +232,100 @@ def scatter_kb_plain(f, x, n: int, m: int, beta: float):
     return torch.view_as_complex(G).reshape(n, n, n)
 
 
+GATHER_TILE = (8, 8)
+"""The tile of cells, on axes 1 and 2, that the gather's own plan sorts the
+points by at m = 1 (see :func:`gather_tile`)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class KBPlan:
+    """What a KB gather or scatter needs of its points, built once by
+    :func:`kb_plan` and read by the kernels of ``csrc/usfft.cu``.
+
+    A point's bin is its base cell ``(n // 2 + floor(n x)) % n`` on each
+    axis, linearised with axis 2 fastest. ``order`` (N,) int32 lists the
+    points sorted by bin (or by ``tile``), ties in ascending point index;
+    ``bins`` (N,) int32 is the bin of each sorted point; ``weights``
+    (3, 2m, N) float32 holds each sorted point's axis weights (the point
+    index last, so that a warp's loads of one tap are contiguous);
+    ``bin_start`` (n^3 + 1,) int32 is where each bin's points start in the
+    sorted list. A plan sorted by tiles has no ``bin_start`` and serves the
+    gather alone.
+    """
+
+    n: int
+    m: int
+    beta: float
+    order: torch.Tensor
+    bins: torch.Tensor
+    weights: torch.Tensor
+    bin_start: torch.Tensor | None = None
+    tile: tuple | None = None
+
+    @property
+    def npoints(self) -> int:
+        return self.order.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the plan's tensors."""
+        tensors = (self.order, self.bins, self.weights, self.bin_start)
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _check_window(n: int, m: int) -> None:
+    if not (m >= 1 and 2 * m <= n <= MAX_N):
+        raise ValueError(
+            f"the KB window needs m >= 1 and 2 m <= n <= {MAX_N}; got m = {m}, n = {n}"
+        )
+
+
+def gather_tile(m: int):
+    """The order a gather's own plan takes: tiles of ``GATHER_TILE`` cells
+    at m = 1, where neighbouring points of laminography's lines then store
+    neighbouring outputs (a quarter faster at 256^3 / 128 angles on the
+    H100); bin order above, where the (2m)^3 taps dominate and bin order
+    packs them best (a tenth faster at m = 2)."""
+    return GATHER_TILE if m == 1 else None
+
+
+def kb_plan(x, n: int, m: int, beta: float, tile=None) -> KBPlan:
+    """The geometry plan of the points x (N, 3) float32 on an n^3 grid with
+    the 2m-tap window of parameter beta, on x's device.
+
+    Set-up, like an FFT plan: a stable sort of the points by bin, a count of
+    each bin, and the axis weights of :func:`_kb_axis_weights` (so the
+    kernels blend with the plain version's weights, and ``n x`` and its
+    floor round as they do there). Plain PyTorch calls on either device.
+    With ``tile = (t1, t2)`` the points are sorted by the t1 x t2 tile of
+    cells (axes 1 and 2) their base cell lies in, and no bins are counted:
+    a plan for the gather alone.
+    """
+    _check_window(n, m)
+    if x.ndim != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (N, 3) float32; got {x.dtype} {tuple(x.shape)}")
+    cell = torch.remainder(n // 2 + torch.floor(n * x).to(torch.int64), n)
+    bins = (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]
+    bin_start = None
+    if tile is None:
+        bins, order = torch.sort(bins, stable=True)
+        bin_start = torch.zeros(n**3 + 1, dtype=torch.int32, device=x.device)
+        bin_start[1:] = torch.cumsum(torch.bincount(bins, minlength=n**3), 0)
+    else:
+        key = (cell[:, 0] * n + cell[:, 1] // tile[0]) * n + cell[:, 2] // tile[1]
+        order = torch.sort(key, stable=True)[1]
+        bins = bins[order]
+    xs = x[order]
+    weights = torch.stack(
+        [_kb_axis_weights(xs[:, a], torch.floor(n * xs[:, a]), m, beta, n).T for a in range(3)]
+    )
+    return KBPlan(
+        n=n, m=m, beta=float(beta), order=order.to(torch.int32),
+        bins=bins.to(torch.int32), weights=weights.contiguous(), bin_start=bin_start,
+        tile=None if tile is None else tuple(tile),
+    )
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, not on {t.device}")
@@ -237,89 +338,107 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be 8-byte aligned")
 
 
-def _check_m(m: int) -> None:
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"the KB kernels take 1 <= m <= {MAX_M}; got m = {m}")
+def _plan_for(plan, x, n: int, m: int, beta: float, tile=None, build=True):
+    """``plan`` checked against the call it is given to, or (with
+    ``build``) a new one, sorted by ``tile``."""
+    if plan is None:
+        return kb_plan(x, n, m, beta, tile) if build else None
+    if (plan.n, plan.m, plan.beta, plan.npoints) != (n, m, float(beta), x.shape[0]):
+        raise ValueError(
+            f"the plan is for n = {plan.n}, m = {plan.m}, beta = {plan.beta}, "
+            f"{plan.npoints} points; the call has n = {n}, m = {m}, beta = {beta}, "
+            f"{x.shape[0]} points"
+        )
+    if plan.order.device != x.device:
+        raise ValueError(f"the plan is on {plan.order.device}, x on {x.device}")
+    return plan
 
 
-def _i0(beta: float) -> float:
-    """I0(beta) in float64 from the host fit; the kernels divide by it."""
-    return float(_i0e_host(beta) * np.exp(beta))
-
-
-def gather_kb_cuda(Fe, x, n: int, m: int, beta: float):
-    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``)."""
-    _check_m(m)
+def gather_kb_cuda(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
+    points of ``plan`` (built here from x if not given)."""
+    _check_window(n, m)
     npoints = x.shape[0]
     _check("Fe", Fe, torch.complex64, (n, n, n))
     _check("x", x, torch.float32, (npoints, 3))
     if Fe.device != x.device:
         raise ValueError(f"Fe is on {Fe.device}, x on {x.device}")
+    plan = _plan_for(plan, x, n, m, beta, gather_tile(m))
     out = torch.empty(npoints, dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
         rc = lib.tike_kb_gather(
-            Fe.data_ptr(), x.data_ptr(), out.data_ptr(), npoints, n, m,
-            beta, _i0(beta), torch.cuda.current_stream().cuda_stream,
+            Fe.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            plan.weights.data_ptr(), out.data_ptr(), npoints, n, m,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("kb_gather", rc)
-    LAUNCHES["usfft_gather_kb"] += 1
+    if npoints:
+        LAUNCHES["usfft_gather_kb"] += 1
     return out
 
 
-def scatter_kb_cuda(f, x, n: int, m: int, beta: float):
-    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``).
+def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``) on the
+    points of ``plan`` (built here from x if not given).
 
-    The kernel zeroes a fresh grid and adds with atomics, so the sum order
-    into one grid value, and its last bits, vary from run to run.
+    The kernel writes every value of a fresh grid once, each the sum of
+    its points in the plan's order: two launches agree to the bit.
     """
-    _check_m(m)
+    _check_window(n, m)
     npoints = x.shape[0]
     _check("f", f, torch.complex64, (npoints,))
     _check("x", x, torch.float32, (npoints, 3))
     if f.device != x.device:
         raise ValueError(f"f is on {f.device}, x on {x.device}")
+    plan = _plan_for(plan, x, n, m, beta)
+    if plan.bin_start is None:
+        raise ValueError("the scatter needs a plan in bin order (kb_plan with tile=None)")
     G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
         rc = lib.tike_kb_scatter(
-            f.data_ptr(), x.data_ptr(), G.data_ptr(), npoints, n, m,
-            beta, _i0(beta), torch.cuda.current_stream().cuda_stream,
+            f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            plan.bin_start.data_ptr(), plan.weights.data_ptr(), G.data_ptr(), npoints, n, m,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("kb_scatter", rc)
     LAUNCHES["usfft_scatter_kb"] += 1
     return G
 
 
-def gather_kb(Fe, x, n: int, m: int, beta: float):
+def gather_kb(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
     """KB-window interpolation of Fe (n,n,n) at frequencies x (N,3).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    on ``plan`` (:func:`kb_plan` of the same x and window) if given."""
     if _on_cpu(Fe, x):
+        _plan_for(plan, x, n, m, beta, build=False)
         return gather_kb_plain(Fe, x, n, m, beta)
-    return gather_kb_cuda(Fe, x, n, m, beta)
+    return gather_kb_cuda(Fe, x, n, m, beta, plan)
 
 
-def scatter_kb(f, x, n: int, m: int, beta: float):
+def scatter_kb(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
     """Adjoint of :func:`gather_kb`: spread f (N,) onto an (n,n,n) grid."""
     if _on_cpu(f, x):
+        _plan_for(plan, x, n, m, beta, build=False)
         return scatter_kb_plain(f, x, n, m, beta)
-    return scatter_kb_cuda(f, x, n, m, beta)
+    return scatter_kb_cuda(f, x, n, m, beta, plan)
 
 
-def gather_kb_rows(Fe, x, n: int, m: int, beta: float):
+def gather_kb_rows(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
     """KB interpolation of Fe (n,n,n) at row-structured points x (R, C, 3).
 
     Returns (R, C). ``tike_tpu`` contracts dense rows on the matrix unit
     here; the port runs :func:`gather_kb` on the flattened points.
     """
     R, C, _ = x.shape
-    return gather_kb(Fe, x.reshape(R * C, 3), n, m, beta).reshape(R, C)
+    return gather_kb(Fe, x.reshape(R * C, 3), n, m, beta, plan).reshape(R, C)
 
 
-def scatter_kb_rows(f, x, n: int, m: int, beta: float):
+def scatter_kb_rows(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
     """Adjoint of :func:`gather_kb_rows`: spread f (R, C) onto (n,n,n)."""
     R, C = f.shape
-    return scatter_kb(f.reshape(R * C), x.reshape(R * C, 3), n, m, beta)
+    return scatter_kb(f.reshape(R * C), x.reshape(R * C, 3), n, m, beta, plan)
 
 
 def _tap_offsets(m: int, device=None):
@@ -381,44 +500,52 @@ def deapodization(n: int, eps: float, upsample: float, kernel: str, dtype, devic
     return _get_kernel(n, param, dtype, device) * upsampled**3
 
 
-def spread(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb"):
+def spread(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb", plan=None):
     """f (N,) at x (N, 3), or f (R, C) at rows x (R, C, 3), spread onto the
-    centred (upsampled,)^3 grid: the first step of :func:`us2eq`."""
+    centred (upsampled,)^3 grid: the first step of :func:`us2eq`. ``plan``
+    is the KB window's :func:`kb_plan` of x, if the caller keeps one."""
     upsampled, _, m, param = _parameters(n, eps, upsample, kernel)
-    fn = scatter_kb if kernel == "kb" else scatter
-    return fn(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param)
+    if kernel == "kb":
+        return scatter_kb(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param, plan)
+    return scatter(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param)
 
 
-def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb"):
+def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
+          plan=None, deapod=None):
     """USFFT from an equally-spaced grid to an unequally-spaced grid.
 
     f (n,n,n) complex64; x (N,3), or row-structured (R, C, 3), float32.
     Returns (N,), or (R, C). ``kernel`` is "kb" (Kaiser-Bessel) or
-    "gaussian" (the reference's window).
+    "gaussian" (the reference's window). A caller that keeps them hands in
+    the :func:`kb_plan` of x and the :func:`deapodization` array.
     """
     upsampled, pad, m, param = _parameters(n, eps, upsample, kernel)
     end = pad + n
+    if deapod is None:
+        deapod = deapodization(n, eps, upsample, kernel, f.real.dtype, f.device)
     fe = torch.zeros((upsampled,) * 3, dtype=f.dtype, device=f.device)
-    fe[pad:end, pad:end, pad:end] = f / deapodization(
-        n, eps, upsample, kernel, f.real.dtype, f.device
-    )
+    fe[pad:end, pad:end, pad:end] = f / deapod
     Fe = _centered_fftn(fe)
-    interp = gather_kb if kernel == "kb" else gather
-    return interp(Fe, x.reshape(-1, 3), upsampled, m, param).reshape(x.shape[:-1])
+    if kernel == "kb":
+        out = gather_kb(Fe, x.reshape(-1, 3), upsampled, m, param, plan)
+    else:
+        out = gather(Fe, x.reshape(-1, 3), upsampled, m, param)
+    return out.reshape(x.shape[:-1])
 
 
-def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb"):
+def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
+          plan=None, deapod=None):
     """USFFT from an unequally-spaced grid to an equally-spaced grid.
 
     f (N,) complex64 at x (N,3), or f (R, C) at row-structured x (R, C, 3).
-    Returns (n, n, n).
+    Returns (n, n, n). ``plan`` and ``deapod`` as in :func:`eq2us`.
     """
     _, pad, _, _ = _parameters(n, eps, upsample, kernel)
-    F = _centered_fftn(spread(f, x, n, eps, upsample, kernel))
+    F = _centered_fftn(spread(f, x, n, eps, upsample, kernel, plan))
     end = pad + n
-    return F[pad:end, pad:end, pad:end] / deapodization(
-        n, eps, upsample, kernel, f.real.dtype, f.device
-    )
+    if deapod is None:
+        deapod = deapodization(n, eps, upsample, kernel, f.real.dtype, f.device)
+    return F[pad:end, pad:end, pad:end] / deapod
 
 
 def touched_cells(x, n: int, m: int) -> int:

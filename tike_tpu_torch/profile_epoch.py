@@ -120,7 +120,7 @@ def _profile_ptycho(cs, config, card, device):
         if config2:
             probe = tp.add_modes_cartesian_hermite(probe, cs.MODES)
         params = cs.path_parameters(scan, psi, probe, config2)
-    data = tp.simulate(cs.DET, probe, scan, psi, device=device)
+    data = tp.simulate_device(cs.DET, probe, scan, psi, device=device)
     context = tp.Reconstruction(data, params, device=device, random_seed=0)
     context.__enter__()
     chosen = _preconditioner.fft_precond_profitable
@@ -150,9 +150,11 @@ def _profile_lamino(cs, config, card, device):
     """Trace the third outer iteration of a laminography solver on device
     tensors (the first two, which estimate the step from a zero and then a
     first volume, warm up); returns (profiler, wall seconds, what to
-    close). ``reconstruct``'s own uploads and download are left out."""
+    close). The solver gets one ``LaminoPlan`` for every iteration, as
+    ``reconstruct`` gives it; ``reconstruct``'s own uploads and download
+    are left out."""
     from tike_tpu_torch.lamino import solvers
-    from tike_tpu_torch.ops.lamino import LaminoConfig
+    from tike_tpu_torch.ops.lamino import LaminoConfig, LaminoPlan
     from tike_tpu_torch.precision import as_tensor
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,13 +164,14 @@ def _profile_lamino(cs, config, card, device):
     cfg = LaminoConfig(n=lam.LAMINO_N, tilt=float(lam.LAMINO_TILT), eps=lam.LAMINO_EPS, upsample=1)
     data = as_tensor(data, torch.complex64, device)
     theta = as_tensor(theta, torch.float32, device)
+    plan = LaminoPlan(cfg, theta)
     result = {"obj": torch.zeros((cfg.n,) * 3, dtype=torch.complex64, device=device)}
     for _ in range(2):
-        result = solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, **result)
+        result = solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, plan=plan, **result)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, **result)
+        solver(cfg, data, theta, cg_iter=cs.LAMINO_CG_ITER, plan=plan, **result)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     return prof, wall, lambda: None

@@ -98,7 +98,7 @@ def _parameter_tensors(parameters: PtychoParameters) -> dict:
     }
 
 
-def simulate(
+def simulate_device(
     detector_shape: int,
     probe,
     scan,
@@ -110,14 +110,15 @@ def simulate(
     device="cuda",
     **kwargs,
 ) -> torch.Tensor:
-    """Propagate the wavefront to the detector and return intensities.
+    """:func:`simulate`, but the intensities stay on ``device``.
 
     probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), and optionally
     eigen_probe (1, EIGEN, S', P, P) and eigen_weights (N, EIGEN+1, S), as
     arrays or tensors. Returns an (N, detector, detector) float32 tensor on
-    ``device`` (the CUDA card unless the caller asks for another): per
-    probe mode, the varying probe's far-field intensity, summed over modes.
-    A tensor input on another device raises.
+    ``device`` (the CUDA card unless the caller asks for another), which
+    :class:`Reconstruction` takes as it is: per probe mode, the varying
+    probe's far-field intensity, summed over modes. A tensor input on
+    another device raises.
     """
     if fly != 1:
         raise NotImplementedError("fly-scan grouping is not ported yet")
@@ -168,20 +169,51 @@ def simulate(
     return intensity
 
 
-# There is no relay between host and device here, so the device-resident
-# variant of the JAX package is the same function.
-simulate_device = simulate
+def simulate(
+    detector_shape: int,
+    probe,
+    scan,
+    psi,
+    fly: int = 1,
+    eigen_probe=None,
+    eigen_weights=None,
+    *,
+    device="cuda",
+    **kwargs,
+) -> np.ndarray:
+    """Propagate the wavefront to the detector and return intensities: an
+    (N, detector, detector) float32 numpy array, as
+    :func:`tike_tpu.ptycho.simulate` returns. Computed on ``device`` by
+    :func:`simulate_device`, which returns the tensor there instead."""
+    return to_numpy(
+        simulate_device(
+            detector_shape, probe, scan, psi, fly, eigen_probe, eigen_weights,
+            device=device, **kwargs,
+        )
+    )
 
 
 _RESCALE_METHODS = ("mean_of_abs_object", "constant_probe_photons")
 
 
 def _unsupported(
-    parameters: PtychoParameters, store_data_on_device: bool = True
+    parameters: PtychoParameters,
+    num_gpu=1,
+    use_mpi: bool = False,
+    mesh=None,
+    store_data_on_device: typing.Optional[bool] = None,
+    object_sharding: str = "replicated",
 ) -> typing.List[str]:
-    """What in ``parameters`` asks for something not ported yet."""
+    """What in ``parameters`` or in the entry point's other arguments asks
+    for something not ported yet."""
     algo = parameters.algorithm_options
     checks = {
+        f"num_gpu = {num_gpu!r} (one device only: 1 or (1,))": (
+            num_gpu not in (1, (1,))
+        ),
+        "use_mpi": bool(use_mpi),
+        "a mesh": mesh is not None,
+        "object_sharding='striped'": object_sharding == "striped",
         f"algorithm {algo.name!r} (only 'lstsq_grad' and 'rpie')": (
             algo.name not in ("lstsq_grad", "rpie")
         ),
@@ -201,7 +233,9 @@ def _unsupported(
         "position correction with rpie (only with lstsq_grad)": (
             parameters.position_options is not None and algo.name == "rpie"
         ),
-        "host streaming (store_data_on_device=False)": not store_data_on_device,
+        "host streaming (store_data_on_device=False)": (
+            store_data_on_device is not None and not store_data_on_device
+        ),
     }
     return [k for k, on in checks.items() if on]
 
@@ -215,19 +249,34 @@ class Reconstruction:
     mid-run. The same ``random_seed`` gives the same mini-batches as the
     JAX package. ``device`` is the CUDA card unless the caller asks for
     another, such as ``"cpu"``; a tensor in ``data`` or ``parameters`` that
-    lies on another device raises. The data always
-    lives on ``device``: ``store_data_on_device=False`` (host streaming)
-    is not ported and raises.
+    lies on another device raises.
+
+    The parameters before ``device`` are the JAX package's, in its order.
+    Of those, what is not ported raises ``NotImplementedError``: ``num_gpu``
+    other than 1 or ``(1,)``, ``use_mpi``, a ``mesh``,
+    ``object_sharding="striped"`` and ``store_data_on_device=False`` (host
+    streaming; ``None``, the default, means on the device). ``device`` is
+    keyword-only.
     """
 
     def __init__(
         self,
         data,
         parameters: PtychoParameters,
-        device="cuda",
+        num_gpu: typing.Union[int, typing.Tuple[int, ...]] = 1,
+        use_mpi: bool = False,
+        mesh=None,
+        store_data_on_device: typing.Optional[bool] = None,
         random_seed: typing.Optional[int] = None,
-        store_data_on_device: bool = True,
+        object_sharding: str = "replicated",
+        *,
+        device="cuda",
     ):
+        if object_sharding not in ("replicated", "striped"):
+            raise ValueError(
+                "object_sharding must be 'replicated' or 'striped', "
+                f"not {object_sharding!r}"
+            )
         if (
             data.ndim != 3
             or data.shape[0] < 1
@@ -251,7 +300,10 @@ class Reconstruction:
                 f"and data shape {tuple(data.shape)} are incompatible. "
                 "The probe width/height must be <= the data width/height."
             )
-        missing = _unsupported(parameters, store_data_on_device)
+        missing = _unsupported(
+            parameters, num_gpu, use_mpi, mesh, store_data_on_device,
+            object_sharding,
+        )
         if missing:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
@@ -600,13 +652,22 @@ class Reconstruction:
 def reconstruct(
     data,
     parameters: PtychoParameters,
+    num_gpu: typing.Union[int, typing.Tuple[int, ...]] = 1,
+    use_mpi: bool = False,
+    mesh=None,
+    object_sharding: str = "replicated",
+    *,
     device="cuda",
     random_seed: typing.Optional[int] = None,
 ) -> PtychoParameters:
     """Solve the ptychography problem (functional API) on ``device``, the
-    CUDA card unless the caller asks for another."""
+    CUDA card unless the caller asks for another. The parameters before
+    ``device`` are the JAX package's; see :class:`Reconstruction` for what
+    of them raises."""
     with Reconstruction(
-        data, parameters, device=device, random_seed=random_seed
+        data, parameters, num_gpu, use_mpi, mesh,
+        random_seed=random_seed, object_sharding=object_sharding,
+        device=device,
     ) as context:
         context.iterate(parameters.algorithm_options.num_iter)
         return context.get_result()

@@ -15,7 +15,10 @@ kernel does not build, launch, or equal its plain version bit for bit.
 Pass ``--device cpu`` to run the plain versions alone.
 
 Each probe function dispatches on its inputs' device: CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise.
+plain version, CUDA tensors launch the kernel or raise. The probes that take
+an index array read it on the host first (the kernels do not clip); a
+caller that has checked the indices itself passes ``check_indices=False``,
+and the call then reads nothing back, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -172,15 +175,16 @@ def gridded(x):
     return out
 
 
-def prefetch(idx, x):
+def prefetch(idx, x, check_indices: bool = True):
     """o[i] = x[idx[i]] + 1, each block reading its plane's index."""
     if not x.is_cuda:
         return PLAIN["prefetch"](idx, x)
     _check("x", x, torch.float32, x.shape)
     _check("idx", idx, torch.int32, (x.shape[0],))
-    c = idx.cpu()
-    if len(c) and (int(c.min()) < 0 or int(c.max()) >= x.shape[0]):
-        raise ValueError(f"indices {c.tolist()} out of range for {x.shape[0]} planes")
+    if check_indices:
+        c = idx.cpu()
+        if len(c) and (int(c.min()) < 0 or int(c.max()) >= x.shape[0]):
+            raise ValueError(f"indices {c.tolist()} out of range for {x.shape[0]} planes")
     out = torch.empty_like(x)
     plane = x[0].numel()
     lib = kernels.load("probe")
@@ -203,7 +207,7 @@ def static_dma(x):
     return out
 
 
-def _windows_cuda(name, fn, corners, big, rows=ROWS):
+def _windows_cuda(name, fn, corners, big, check_indices=True, rows=ROWS):
     _check("big", big, torch.float32, big.shape)
     if big.dim() != 2 or big.shape[1] % 4 or rows % BAND_ROWS:
         raise ValueError(f"{name} takes a 2-D big of a width that is a multiple of 4 "
@@ -211,36 +215,40 @@ def _windows_cuda(name, fn, corners, big, rows=ROWS):
     planes = PLANES if corners is None else corners.shape[0]
     if corners is not None:
         _check("corners", corners, torch.int32, (planes, 2))
-    _check_corners(
-        _element_static_corners(big.device) if corners is None else corners,
-        big, rows, align=name == "dynamic_dma",
-    )
+    if check_indices:
+        _check_corners(
+            _element_static_corners(big.device) if corners is None else corners,
+            big, rows, align=name == "dynamic_dma",
+        )
     out = torch.empty((planes, rows, WINDOW_COLS), dtype=big.dtype, device=big.device)
     _launch(name, fn, big.device, corners, big, out, planes, rows, big.shape[1])
     return out
 
 
-def dynamic_dma(corners, big):
+def dynamic_dma(corners, big, check_indices: bool = True):
     """o[i] = big[cy:cy+128, cx:cx+256] at the corners (planes, 2) int32,
     each row by one ``cp.async.bulk``; cx must be a multiple of 4."""
     if not big.is_cuda:
         return PLAIN["dynamic_dma"](corners, big)
-    return _windows_cuda("dynamic_dma", kernels.load("probe").tike_probe_dynamic_dma, corners, big)
+    fn = kernels.load("probe").tike_probe_dynamic_dma
+    return _windows_cuda("dynamic_dma", fn, corners, big, check_indices)
 
 
-def element_static(big):
+def element_static(big, check_indices: bool = True):
     """o[i] = 2 big[8i:8i+128, 16i:16i+256] for i < 8 (the Pallas probe's
     intended function; the probe itself fails, ROADMAP section 3)."""
     if not big.is_cuda:
         return PLAIN["element_static"](big)
-    return _windows_cuda("element_static", kernels.load("probe").tike_probe_element, None, big)
+    fn = kernels.load("probe").tike_probe_element
+    return _windows_cuda("element_static", fn, None, big, check_indices)
 
 
-def element_prefetch(corners, big):
+def element_prefetch(corners, big, check_indices: bool = True):
     """o[i] = 2 big[cy:cy+128, cx:cx+256] at any corners (planes, 2) int32."""
     if not big.is_cuda:
         return PLAIN["element_prefetch"](corners, big)
-    return _windows_cuda("element_prefetch", kernels.load("probe").tike_probe_element, corners, big)
+    fn = kernels.load("probe").tike_probe_element
+    return _windows_cuda("element_prefetch", fn, corners, big, check_indices)
 
 
 def _args(name: str, inp: dict) -> tuple:
@@ -254,6 +262,9 @@ def _args(name: str, inp: dict) -> tuple:
         "element_prefetch": (inp["element_corners"], inp["big"]),
     }[name]
 
+
+INDEXED = ("prefetch", "dynamic_dma", "element_static", "element_prefetch")
+"""The probes that read an index array on the host unless told not to."""
 
 FUNCTIONS = {
     "trivial": trivial,
