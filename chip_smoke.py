@@ -94,7 +94,41 @@ After phase 9:
     the index check left out (the kernel's own time) and as an eager call
     with it, and the library call likewise.
 
-The line before the last lists each kernel (its launches in phase 6 as
+After phase 12, the joint-ADMM and host-streamed paths:
+
+3c. (with phase 3) both patch kernels against their plain versions, two
+    launches bitwise equal, at the two new paths' shapes: 200 windows of
+    16^2 on a 64^2 image (complex64, and float32 as the ADMM coverage
+    weights spread it) and one streamed batch of 10,000 windows of 64^2 on
+    4096^2; each kernel's time beside its bound there;
+13. small slices, card against CPU: a streamed rPIE and a streamed LSQML
+    run (``store_data_on_device=False``) equal bit for bit to the resident
+    run on the card and equal to the CPU's streamed run at phase 5's
+    tolerance; a ``convergence_window`` run and a ``time_limit`` run that
+    stop after the same epoch on the card as on the CPU; one joint-ADMM
+    iteration (n = 16, 3 angles) card against CPU;
+14. ``admm_joint`` at ``bench_all.py``'s size (n = 64, P = 16, 8 angles, 200
+    positions per angle, rPIE ``num_batch=1``, ``ptycho_iter=2``,
+    ``lamino_iter=2``, upsample 2): one warm-up iteration, then three timed
+    runs of 3 iterations from the warm-up's result, the kernel counts set
+    to 0 before the first and read after it; s/iteration, set-up, peak
+    memory, finite and decreasing costs, the three runs bitwise equal, one
+    ``LaminoPlan`` built per call;
+15. ``stream_1m`` at ``bench_all.py``'s size (1,000,000 x 64^2 float32
+    patterns in pinned host memory, a 4096^2 object, rPIE,
+    ``num_batch=100``, ``batch_method="random"``, seed 0, the probe rescaled
+    from the streamed data at set-up, one epoch): patterns/s, s/epoch,
+    set-up split into clustering, pinning and rescale, peak device memory
+    (it fails above 4 GB), a finite cost, and the overlap: the copy
+    stream's busy time and the compute stream's wait on it. A host that
+    cannot pin the data makes the phase halve the number of patterns and
+    say so; nothing is copied from pageable memory. Then
+    ``bench_all.py``'s comparison at 100,000 patterns (``num_batch=10``):
+    resident against streamed s/epoch, and their results bitwise equal.
+
+The line before the last lists each kernel (its launches in phase 14's
+first timed run as ``launches_admm`` and in phase 15's epoch as
+``launches_stream``; its launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
@@ -118,12 +152,15 @@ import time
 import numpy as np
 import torch
 
+import tike_tpu_torch.admm as tadmm
 import tike_tpu_torch.lamino as tl
 import tike_tpu_torch.ptycho as tp
 from tests import _torch_patch_cases as cases
 from tests import _torch_usfft_cases as cases_usfft
 from tike_tpu_torch import kernels, opt, toolchain_probe
+from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import patch, usfft
+from tike_tpu_torch.ops.lamino import LaminoPlan
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
 # object, LSQML, num_batch=10, compact batches).
@@ -203,6 +240,30 @@ LAMINO_SLICE_TOL = 1e-4
 # simulate at full width, card against CPU, relative to the largest value:
 # the same taps (make_grids is the same bits on both), other FFT libraries.
 LAMINO_SIM_TOL = 1e-5
+
+
+# Joint ADMM (bench_all.py's admm_joint): an n^3 volume, T angles, a
+# P-pixel probe and NPOS positions per angle, 10 keV, 1e-7 cm voxels; one
+# warm-up iteration, then ADMM_TIMED iterations, ADMM_ROUNDS times.
+ADMM = dict(n=64, P=16, T=8, NPOS=200)
+ADMM_SLICE = dict(n=16, P=8, T=3, NPOS=30)
+# The KB kernels' case at the points of ADMM's volume fit and re-projection.
+ADMM_USFFT_CASE = f"{ADMM['n']}^3 / {ADMM['T']} angles at tilt pi/2, upsample 2 (admm_joint)"
+ADMM_ENERGY, ADMM_VOXEL = 10.0, 1e-7
+ADMM_TIMED, ADMM_ROUNDS = 3, 3
+# The ADMM slice, card against CPU: psi and the costs, which do not pass
+# through the volume fit within one iteration, take SLICE_TOL. The fit is
+# cgrad at cg_iter 4, whose line search decides some trials on ties that the
+# FFT library's last bits break (ROADMAP.md section 3), so the iteration's
+# own volumes may part and their gap is printed only; the fit of the same
+# phi at cg_iter 1 and its re-projection take LAMINO_SLICE_TOL.
+# Host streaming (bench_all.py's stream_1m): 1,000,000 patterns of 64^2, a
+# 4096^2 object, rPIE, 100 random batches; its comparison at 100,000
+# patterns in 10 batches. Peak device memory must stay under the limit:
+# two batches and the model, whatever the number of patterns.
+STREAM = dict(n_patterns=1_000_000, det=64, hw=4096, num_batch=100)
+STREAM_COMPARE = dict(n_patterns=100_000, det=64, hw=4096, num_batch=10)
+STREAM_PEAK_LIMIT = 4e9
 
 
 def log(*args):
@@ -941,8 +1002,10 @@ def _usfft_cases(device):
     """The KB kernels' parity cases: name -> (grid size, m, beta, points):
     laminography's rows at bench_all.py's 128^3 / 64 angles (upsample 1 and
     2), flat random points of which about a third wrap, at m = 1, 2, 4 and
-    7 (the generic path; upsample 2 at eps 1e-12), and the rows of a 256^3
-    / 128-angle transform."""
+    7 (the generic path; upsample 2 at eps 1e-12), the rows of a 256^3
+    / 128-angle transform, and the points of the joint-ADMM path (ADMM's
+    volume and angles at tilt pi/2, upsample 2: every detector row in one
+    plane of the grid)."""
     gen = np.random.default_rng(0)
     rows = cases_usfft.lamino_rows(128, 64, device).reshape(-1, 3)
     flat = cases_usfft.flat_points(gen, 200_000, device)
@@ -957,6 +1020,10 @@ def _usfft_cases(device):
         "256^3 / 128 angles, upsample 1": (
             *cases_usfft.window_for(256, eps, 1),
             cases_usfft.lamino_rows(256, 128, device).reshape(-1, 3),
+        ),
+        ADMM_USFFT_CASE: (
+            *cases_usfft.window_for(ADMM["n"], eps, 2),
+            cases_usfft.lamino_rows(ADMM["n"], ADMM["T"], device, np.pi / 2).reshape(-1, 3),
         ),
     }
 
@@ -994,7 +1061,9 @@ def phase_usfft_parity(device, card: str) -> dict:
             "three scatters (two on one plan, one building its own) bitwise equal")
 
     main = "128^3 / 64 angles, upsample 1"
-    timed = (main, "128^3 / 64 angles, upsample 2", "256^3 / 128 angles, upsample 1")
+    timed = (
+        main, "128^3 / 64 angles, upsample 2", "256^3 / 128 angles, upsample 1", ADMM_USFFT_CASE,
+    )
     # Each kernel's plan as laminography builds it (the gather's own order
     # at m = 1), with the time of building it.
     plans = {}
@@ -1082,7 +1151,10 @@ def phase_usfft_parity(device, card: str) -> dict:
             ms_c = median_ms_in_turns(calls(case, name), reps=5)
             graph_c = graph_ms_per_call(calls(case, name)["kernel"], reps=5)
             bound_c = cases_usfft.roofline(name, x_c, n_c, m_c)
-            key = "256" if case.startswith("256") else "upsample2"
+            key = (
+                "admm_shape" if case == ADMM_USFFT_CASE
+                else "256" if case.startswith("256") else "upsample2"
+            )
             out[name].update({
                 f"ms_{key}": graph_c,
                 f"ms_eager_call_own_plan_{key}": ms_c["own_plan"],
@@ -1304,12 +1376,488 @@ def phase_probes(device, card: str):
     return launches, out
 
 
+def phase_path_shapes(device, card: str) -> dict:
+    """3c: the patch kernels at the ADMM and the streamed paths' shapes,
+    against their plain versions (two launches bitwise equal), with each
+    kernel's time beside its bound for those positions."""
+    out = {}
+    for name in cases.PATH_SHAPES:
+        for dtype in (np.complex64, np.float32):
+            image, positions, patches, p = cases.path_shape_inputs(name, device, dtype)
+            label = f"{name}, {np.dtype(dtype).name}"
+            errs = cases.check_patch_kernels(image, positions, patches, p, label)
+            log(f"[parity] {label}: patch_fwd max|err| {errs['patch_fwd']:.3e}, patch_adj "
+                f"{errs['patch_adj']:.3e}; two launches of each bitwise equal")
+        image, positions, patches, p = cases.path_shape_inputs(name, device)
+        shape = tuple(image.shape)
+        fns = {
+            "patch_fwd": lambda: patch.patch_fwd_cuda(image, positions, p),
+            "patch_adj": lambda: patch.patch_adj_cuda(patches, positions, shape),
+        }
+        out[name] = {}
+        for kernel, fn in fns.items():
+            ms = graph_ms_per_call(fn, reps=10)
+            bound = cases.roofline(kernel, positions, p, shape, torch.complex64)
+            out[name][kernel] = dict(ms=ms, **bound)
+            log(f"[parity] {kernel} at {name}: kernel {ms:.4f} ms (CUDA graph), bound "
+                f"{bound['bound_ms']:.5f} ms ({bound['bound_bytes']} bytes, by "
+                f"{bound['bound_by']}), {100 * bound['bound_ms'] / ms:.1f}% of it ({card})")
+    return out
+
+
+def _stream_slice_parameters(scan, probe, psi0, det, solver, **algo):
+    options = tp.RpieOptions if solver == "rpie" else tp.LstsqOptions
+    return tp.PtychoParameters(
+        probe=probe,
+        psi=psi0,
+        scan=scan,
+        algorithm_options=options(
+            **{"num_batch": 3, "rescale_period": 2, "batch_method": "random", **algo}
+        ),
+        object_options=tp.ObjectOptions(),
+        probe_options=tp.ProbeOptions(),
+        exitwave_options=tp.ExitWaveOptions(measured_pixels=np.ones((det, det), bool)),
+    )
+
+
+def _run_slice(data, params, device, epochs, store=None, history=None):
+    """``iterate(epochs)`` on ``device``; ``history`` (costs, times) stands
+    for epochs already run. Returns the result."""
+    if history is not None:
+        params.algorithm_options.costs = [[c] for c in history[0]]
+        params.algorithm_options.times = list(history[1])
+    with tp.Reconstruction(
+        data, params, device=device, random_seed=0, store_data_on_device=store
+    ) as context:
+        context.iterate(epochs)
+        return context.get_result()
+
+
+def phase_stream_slices(device) -> None:
+    """13a: streamed rPIE and LSQML on the card, bit for bit the resident
+    run's and within SLICE_TOL of the CPU's streamed run."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(3), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
+    for solver, num_batch in (("rpie", 3), ("lstsq", 4)):
+        # The resident run takes the per-epoch path too (a finite limit),
+        # the path of a streamed run.
+        make = lambda: _stream_slice_parameters(
+            scan, probe, psi0, det, solver, num_batch=num_batch, time_limit=1e6
+        )
+        resident = _run_slice(data, make(), device, 3, store=True)
+        streamed = _run_slice(data, make(), device, 3, store=False)
+        on_cpu = _run_slice(data, make(), "cpu", 3, store=False)
+        costs = np.ravel(streamed.algorithm_options.costs)
+        if not (np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+            raise AssertionError(f"streamed {solver} slice: costs {costs}")
+        for key in ("psi", "probe"):
+            if not np.array_equal(getattr(streamed, key), getattr(resident, key)):
+                diff = _max_rel(getattr(streamed, key), getattr(resident, key))
+                raise AssertionError(
+                    f"streamed {solver} slice: {key} differs from the resident run's by "
+                    f"{diff:.3e}: the copy stream and the compute stream race"
+                )
+        if streamed.algorithm_options.costs != resident.algorithm_options.costs:
+            raise AssertionError(f"streamed {solver} slice: costs differ from the resident run's")
+        np.testing.assert_allclose(
+            costs, np.ravel(on_cpu.algorithm_options.costs), rtol=SLICE_TOL
+        )
+        errs = {}
+        for key in ("psi", "probe"):
+            a, b = getattr(streamed, key), getattr(on_cpu, key)
+            np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+            errs[key] = f"{_max_rel(a, b):.2e}"
+        log(f"[stream-slice] {solver}, {num_batch} random batches, 3 epochs streamed on "
+            f"{device}: costs {costs.tolist()}; psi, probe and costs bitwise equal to the "
+            f"resident run; vs the CPU's streamed run max|err| / max|value| {errs} "
+            f"(tol {SLICE_TOL:g})")
+
+
+def phase_stopping_slices(device) -> None:
+    """13b: the stopping rules of ``iterate``, card against CPU: a run
+    that continues three epochs of tiny recorded costs sees a rising cost
+    in its ``convergence_window`` and stops after the first chunk; a
+    ``time_limit`` below any epoch's time stops after the first epoch."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(4), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
+    history = ([1e-9, 2e-9, 3e-9], [0.1, 0.1, 0.1])
+    cases_ = (
+        ("convergence_window=4, LSQML compact, fused chunks", "lstsq",
+         dict(convergence_window=4, batch_method="compact"), history, 3 + 2),
+        ("convergence_window=4 with a time_limit, rPIE, per epoch", "rpie",
+         dict(convergence_window=4, time_limit=1e6), history, 3 + 1),
+        ("time_limit=1e-9, rPIE", "rpie", dict(time_limit=1e-9), None, 1),
+    )
+    for name, solver, algo, hist, want_epochs in cases_:
+        runs = {
+            str(dev): _run_slice(
+                data, _stream_slice_parameters(scan, probe, psi0, det, solver, **algo),
+                dev, 6, history=hist,
+            )
+            for dev in ("cpu", device)
+        }
+        got, ref = runs[str(device)], runs["cpu"]
+        n_got, n_ref = len(got.algorithm_options.costs), len(ref.algorithm_options.costs)
+        if not n_got == n_ref == want_epochs:
+            raise AssertionError(
+                f"{name}: the card stopped after {n_got} epochs, the CPU after {n_ref}; "
+                f"expected {want_epochs}"
+            )
+        np.testing.assert_allclose(
+            np.ravel(got.algorithm_options.costs), np.ravel(ref.algorithm_options.costs),
+            rtol=SLICE_TOL,
+        )
+        err = _max_rel(got.psi, ref.psi)
+        if not err <= SLICE_TOL:
+            raise AssertionError(f"{name}: psi differs from the CPU's by {err:.3e}")
+        log(f"[stop-slice] {name}: asked for 6 epochs, stopped with {n_got} recorded on "
+            f"{device} and on the cpu; psi max|err| / max|value| {err:.2e} (tol {SLICE_TOL:g})")
+
+
+def admm_problem(device, n, P, T, NPOS):
+    """bench_all.py's admm_joint problem (seed 0), made with the port: a
+    cube of refractive index in an n^3 volume, its projections at T angles
+    (tilt pi/2, upsample 2) exponentiated into transmissions, and their
+    diffraction data at NPOS positions under a P-pixel Gaussian probe.
+    Returns (data, parameters factory, theta)."""
+    rng = np.random.default_rng(0)
+    k = wavenumber(ADMM_ENERGY)
+    delta = 0.5 / (k * ADMM_VOXEL * n / 2)
+    obj = np.zeros((n, n, n), dtype=np.complex64)
+    s = slice(n // 4, 3 * n // 4)
+    obj[s, s, s] = delta * (1 + 0.1j)
+    theta = np.linspace(0, np.pi, T, endpoint=False).astype(np.float32)
+    lines = tl.simulate(obj, theta, np.pi / 2, eps=1e-3, upsample=2, device=device) * ADMM_VOXEL
+    psi_true = np.exp(1j * k * lines).astype(np.complex64)
+    probe = (tp.gaussian(P) * (1 + 0j))[None, None, None].astype(np.complex64)
+    scan = np.stack(
+        [rng.uniform(2, n - P - 3, NPOS), rng.uniform(2, n - P - 3, NPOS)], -1
+    ).astype(np.float32)
+    data = [
+        tp.simulate(P, probe, scan, psi_true[t][None], device=device).astype(np.float32)
+        for t in range(T)
+    ]
+    parameters = lambda: [
+        tp.PtychoParameters(
+            psi=np.ones((1, n, n), np.complex64),
+            probe=probe.copy(),
+            scan=scan.copy(),
+            algorithm_options=tp.RpieOptions(num_batch=1, num_iter=1),
+            object_options=tp.ObjectOptions(),
+            probe_options=tp.ProbeOptions(init_rescale_from_measurements=False),
+        )
+        for _ in range(T)
+    ]
+    return data, parameters, theta
+
+
+def _admm(data, parameters, theta, device, num_iter, obj=None):
+    return tadmm.reconstruct_joint_admm(
+        data, parameters, theta, obj=obj, voxelsize=ADMM_VOXEL, energy=ADMM_ENERGY,
+        num_iter=num_iter, ptycho_iter=2, lamino_iter=2, device=device,
+    )
+
+
+def phase_admm_slice(device) -> None:
+    """13c: one joint-ADMM iteration at n = 16, card against CPU: the
+    costs and psi after the blend of the whole iteration, then the
+    iteration's volume fit (cgrad at upsample 2, the KB kernels at m = 2
+    and tilt pi/2) and re-projection from the card's phi, with the fit at
+    one CG step an outer iteration, where no line-search trial is a tie."""
+    data, parameters, theta = admm_problem("cpu", **ADMM_SLICE)
+    runs = {str(dev): _admm(data, parameters(), theta, dev, 1) for dev in ("cpu", device)}
+    got, ref = runs[str(device)], runs["cpu"]
+    np.testing.assert_allclose(got["costs"], ref["costs"], rtol=SLICE_TOL)
+    psi_err = max(
+        _max_rel(g.psi, r.psi) for g, r in zip(got["parameters"], ref["parameters"])
+    )
+    obj_err = _max_rel(got["obj"], ref["obj"])
+    if not psi_err <= SLICE_TOL:
+        raise AssertionError(f"ADMM slice: psi after the blend differs by {psi_err:.3e}")
+    if not np.all(np.isfinite(got["obj"])):
+        raise AssertionError("ADMM slice: the volume is not finite")
+    # Step 2 of the first iteration, where the dual is still zero.
+    psi = np.stack([p.psi[0] for p in got["parameters"]])
+    phi = ((-1j / wavenumber(ADMM_ENERGY)) * np.log(psi + 1e-12) / ADMM_VOXEL).astype(np.complex64)
+    fits, lines = {}, {}
+    for dev in ("cpu", device):
+        fits[str(dev)] = tl.reconstruct(
+            phi, theta, np.pi / 2, "cgrad", num_iter=2, eps=1e-3, upsample=2,
+            cg_iter=LAMINO_SLICE_CG_ITER["cgrad"], device=dev,
+        )
+        lines[str(dev)] = tl.simulate(
+            fits["cpu"]["obj"], theta, np.pi / 2, eps=1e-3, upsample=2, device=dev
+        )
+    fit_err = _max_rel(fits[str(device)]["obj"], fits["cpu"]["obj"])
+    fwd_err = _max_rel(lines[str(device)], lines["cpu"])
+    np.testing.assert_allclose(
+        fits[str(device)]["cost"], fits["cpu"]["cost"], rtol=LAMINO_SLICE_TOL
+    )
+    if not (np.any(fits["cpu"]["obj"]) and fit_err <= LAMINO_SLICE_TOL):
+        raise AssertionError(f"ADMM slice: the volume fit of phi differs by {fit_err:.3e}")
+    if not fwd_err <= LAMINO_SLICE_TOL:
+        raise AssertionError(f"ADMM slice: the re-projection differs by {fwd_err:.3e}")
+    log(f"[admm-slice] 1 iteration at {ADMM_SLICE} on {device} vs cpu: costs {got['costs']} vs "
+        f"{ref['costs']} (rtol {SLICE_TOL:g}); psi after the blend max|err| / max|value| "
+        f"{psi_err:.2e} (tol {SLICE_TOL:g}); the volume fit of the card's phi at cg_iter "
+        f"{LAMINO_SLICE_CG_ITER['cgrad']} (2 outer iterations, upsample 2, tilt pi/2) "
+        f"{fit_err:.2e}, its costs {fits[str(device)]['cost'].tolist()} vs "
+        f"{fits['cpu']['cost'].tolist()}, and the re-projection of that volume {fwd_err:.2e} "
+        f"(tol {LAMINO_SLICE_TOL:g}); for information, the iteration's own volume at ADMM's "
+        f"cg_iter 4, where cgrad decides trials on ties, {obj_err:.2e}")
+
+
+def _reset_launches() -> None:
+    """Every kernel's count to 0: the patch, the KB and the probe kernels'."""
+    for counts in (patch.LAUNCHES, usfft.LAUNCHES, toolchain_probe.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _read_launches(tag) -> dict:
+    """The counts since ``_reset_launches``, the probes' under their
+    ``probe_`` names; no path launches a probe, and one that did fails."""
+    probes = {f"probe_{name}": count for name, count in toolchain_probe.LAUNCHES.items()}
+    if any(probes.values()):
+        raise AssertionError(f"{tag} launched probe kernels: {probes}")
+    return {**patch.LAUNCHES, **usfft.LAUNCHES, **probes}
+
+
+def phase_admm(device, card: str) -> dict:
+    """14: bench_all.py's admm_joint. One warm-up iteration, then
+    ADMM_ROUNDS runs of ADMM_TIMED iterations, each from the warm-up's
+    parameters and volume; the first run is the counted one."""
+    tag = "admm"
+    start = time.perf_counter()
+    data, parameters, theta = admm_problem(device, **ADMM)
+    log(f"[{tag}] problem {ADMM} simulated on {device} in {time.perf_counter() - start:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    warm = _admm(data, parameters(), theta, device, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    runs, seconds, plans = [], [], []
+    for r in range(ADMM_ROUNDS):
+        if r == 0:
+            _reset_launches()
+        built = LaminoPlan.built
+        start = time.perf_counter()
+        runs.append(_admm(data, warm["parameters"], theta, device, ADMM_TIMED, obj=warm["obj"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        plans.append(LaminoPlan.built - built)
+        if r == 0:
+            launches = _read_launches(tag)
+    peak = torch.cuda.max_memory_allocated()
+    costs = runs[0]["costs"]
+    log(f"[{tag}] warm-up cost {warm['costs']}; costs of the {ADMM_TIMED} timed iterations {costs}")
+    if len(costs) != ADMM_TIMED or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"{tag}: costs are not {ADMM_TIMED} finite values: {costs}")
+    if not (costs[-1] < costs[0] and costs[0] < warm["costs"][0]):
+        raise AssertionError(f"{tag}: costs do not decrease: {warm['costs']} then {costs}")
+    obj = runs[0]["obj"]
+    if obj.shape != (ADMM["n"],) * 3 or not np.all(np.isfinite(obj)):
+        raise AssertionError(f"{tag}: the volume is not finite or has the wrong shape")
+    for name in (*KERNELS, *USFFT_KERNELS):
+        if not launches[name] > 0:
+            raise AssertionError(f"{tag} launched no {name} kernel: {launches}")
+    if plans != [1] * ADMM_ROUNDS:
+        raise AssertionError(f"{tag}: LaminoPlans built per call {plans}, expected 1 each")
+    for other in runs[1:]:
+        same = (
+            np.array_equal(other["obj"], obj)
+            and other["costs"] == costs
+            and all(
+                np.array_equal(a.psi, b.psi) and np.array_equal(a.probe, b.probe)
+                for a, b in zip(other["parameters"], runs[0]["parameters"])
+            )
+        )
+        if not same:
+            raise AssertionError(
+                f"{tag}: two runs from one start differ (volume by "
+                f"{_max_rel(other['obj'], obj):.3e})"
+            )
+    per_iter = [sec / ADMM_TIMED for sec in seconds]
+    log(f"[{tag}] {ADMM_TIMED} iterations (ptycho_iter 2, lamino_iter 2, upsample 2) in "
+        f"{seconds[0]:.3f} s = {per_iter[0]:.4f} s/iteration; s/iteration of {ADMM_ROUNDS} runs "
+        f"{[round(x, 5) for x in per_iter]}, median {statistics.median(per_iter):.5f}; the "
+        f"warm-up call (1 iteration) {first_s:.3f} s, so set-up {first_s - per_iter[0]:.3f} s "
+        f"({card})")
+    log(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches of "
+        f"the first timed run {launches}; LaminoPlans built per call {plans}; the "
+        f"{ADMM_ROUNDS} runs from one start: volumes, psi, probes and costs bitwise equal ({card})")
+    return launches
+
+
+def stream_problem(n_patterns, det, hw, num_batch):
+    """bench_all.py's stream_1m inputs (seed 0): uniform scan positions on
+    an hw^2 object, a Gaussian probe with a phase, a constant object, and
+    uniform random patterns. The patterns are a CPU float32 tensor (made by
+    PyTorch's generator: 16 GB of them take numpy several times as long);
+    the probe is rescaled from the data at set-up, which streams it once
+    more than bench_all.py's run does."""
+    rng = np.random.default_rng(0)
+    scan = np.stack(
+        [rng.uniform(2, hw - det - 3, n_patterns), rng.uniform(2, hw - det - 3, n_patterns)],
+        -1,
+    ).astype(np.float32)
+    probe = (tp.gaussian(det) * np.exp(1j * 0.1 * tp.gaussian(det)))[None, None, None].astype(
+        np.complex64
+    )
+    data = torch.rand(
+        (n_patterns, det, det), dtype=torch.float32, generator=torch.Generator().manual_seed(0)
+    )
+    psi = np.full((1, hw, hw), 0.5 + 0j, np.complex64)
+    params = lambda **algo: tp.PtychoParameters(
+        probe=probe.copy(),
+        psi=psi,
+        scan=scan,
+        algorithm_options=tp.RpieOptions(
+            num_batch=num_batch, num_iter=1, batch_method="random", **algo
+        ),
+        object_options=tp.ObjectOptions(),
+        probe_options=tp.ProbeOptions(init_rescale_from_measurements=True),
+    )
+    return data, params
+
+
+def phase_stream(device, card: str) -> dict:
+    """15: bench_all.py's stream_1m, one epoch after set-up."""
+    tag = "stream"
+    cfg = dict(STREAM)
+    while True:
+        start = time.perf_counter()
+        data, params = stream_problem(**cfg)
+        made_s = time.perf_counter() - start
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        context = tp.Reconstruction(
+            data, params(), device=device, random_seed=0, store_data_on_device=False
+        )
+        start = time.perf_counter()
+        try:
+            context.__enter__()
+        except MemoryError as error:
+            # Never pageable copies: a smaller size, and said so.
+            log(f"[{tag}] this host cannot pin {cfg['n_patterns']} patterns ({error}); halving")
+            del data, context
+            cfg["n_patterns"] //= 2
+            if cfg["n_patterns"] < cfg["num_batch"]:
+                raise
+            continue
+        break
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    n = cfg["n_patterns"]
+    host = context.data.host
+    if host.is_cuda or not host.is_pinned():
+        raise AssertionError(f"{tag}: the streamed data is not in pinned host memory")
+    cut = "" if n == STREAM["n_patterns"] else f" (CUT from {STREAM['n_patterns']}: pinning failed)"
+    log(f"[{tag}] {n} x {cfg['det']}^2 float32 patterns{cut} = {host.numel() * 4} bytes pinned on "
+        f"the host as {tuple(host.shape)}; object {cfg['hw']}^2; made in {made_s:.2f} s; "
+        f"Reconstruction entered in {setup_s:.2f} s: clustering "
+        f"{context.setup_seconds['clustering']:.2f} s, pinning and filling "
+        f"{context.setup_seconds['data']:.2f} s, streamed probe rescale "
+        f"{context.setup_seconds['rescale']:.2f} s ({card})")
+    context.data.stats()
+    context.data.timing = True
+    _reset_launches()
+    start = time.perf_counter()
+    context.iterate(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - start
+    launches = _read_launches(tag)
+    stats = context.data.stats()
+    # A second epoch, which finds the allocator's blocks and cuFFT's plans
+    # in place (bench_all.py times the first alone).
+    start = time.perf_counter()
+    context.iterate(1)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - start
+    stats2 = context.data.stats()
+    peak = torch.cuda.max_memory_allocated()
+    cost, cost2 = (c[0] for c in context.get_convergence()[0])
+    psi = context.get_psi()
+    context.__exit__(None, None, None)
+    if not np.all(np.isfinite([cost, cost2])) or not np.all(np.isfinite(psi)):
+        raise AssertionError(f"{tag}: costs {cost}, {cost2} or psi are not finite")
+    for name in patch.LAUNCHES:
+        if not launches[name] > 0:
+            raise AssertionError(f"{tag} launched no {name} kernel: {launches}")
+    if stats["copies"] != cfg["num_batch"]:
+        raise AssertionError(f"{tag}: {stats['copies']} copies for {cfg['num_batch']} batches")
+    log(f"[{tag}] one epoch of {cfg['num_batch']} batches in {epoch_s:.3f} s = "
+        f"{n / epoch_s:.1f} patterns/s; cost {cost}; kernel launches {launches} ({card})")
+    rate = stats["bytes"] / (1e-3 * stats["copy_ms"]) / 1e9
+    log(f"[{tag}] overlap: copy stream busy {stats['copy_ms']:.1f} ms for {stats['bytes']} bytes "
+        f"in {stats['copies']} copies ({rate:.2f} GB/s), {100 * stats['copy_ms'] / (1e3 * epoch_s):.1f}% "
+        f"of the epoch; compute stream waited {stats['wait_ms']:.1f} ms for copies, "
+        f"{100 * stats['wait_ms'] / (1e3 * epoch_s):.1f}% of the epoch ({card})")
+    log(f"[{tag}] second epoch {second_s:.3f} s = {n / second_s:.1f} patterns/s; cost {cost2}; copy stream busy "
+        f"{stats2['copy_ms']:.1f} ms, compute stream waited {stats2['wait_ms']:.1f} ms ({card})")
+    log(f"[{tag}] peak device memory {peak} bytes ({peak / 1e9:.3f} GB, limit "
+        f"{STREAM_PEAK_LIMIT / 1e9:g} GB; the data is {host.numel() * 4 / 1e9:.1f} GB) ({card})")
+    if not peak < STREAM_PEAK_LIMIT:
+        raise AssertionError(f"{tag}: peak device memory {peak} bytes exceeds the limit")
+    del data, context, host
+    return launches
+
+
+def phase_stream_compare(device, card: str) -> None:
+    """bench_all.py's comparison at 100,000 patterns: the same problem
+    resident and streamed, one warm-up epoch and two timed ones each. Both
+    take the per-epoch path (the resident run through a finite
+    ``time_limit``), so the two run the same kernels in the same order and
+    their results must agree bit for bit. The resident run of the fused
+    path, what a user gets by default, is timed beside them."""
+    tag = "stream-compare"
+    data, params = stream_problem(**STREAM_COMPARE)
+    runs = {
+        "resident": dict(store=True, algo=dict(time_limit=1e6)),
+        "streamed": dict(store=False, algo={}),
+        "resident, fused path": dict(store=True, algo={}),
+    }
+    out = {name: [] for name in runs}
+    for name in (*runs, *reversed(runs)):
+        with tp.Reconstruction(
+            data, params(**runs[name]["algo"]), device=device, random_seed=0,
+            store_data_on_device=runs[name]["store"],
+        ) as context:
+            context.iterate(1)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            context.iterate(2)
+            torch.cuda.synchronize()
+            seconds = (time.perf_counter() - start) / 2
+            out[name].append((seconds, context.get_psi()))
+    n = STREAM_COMPARE["n_patterns"]
+    for name, results in out.items():
+        times = [round(s, 5) for s, _ in results]
+        log(f"[{tag}] {name}: {times} s/epoch (two runs), "
+            f"{n / min(times):.1f} patterns/s at best ({card})")
+        if not np.array_equal(results[0][1], results[1][1]):
+            raise AssertionError(f"{tag}: two {name} runs differ")
+    psi_r, psi_s = out["resident"][0][1], out["streamed"][0][1]
+    if not np.array_equal(psi_r, psi_s):
+        raise AssertionError(
+            f"{tag}: streamed psi differs from resident by {_max_rel(psi_s, psi_r):.3e}: "
+            "the copy stream and the compute stream race"
+        )
+    log(f"[{tag}] 3 epochs at {n} patterns, {STREAM_COMPARE['num_batch']} batches: streamed and "
+        f"resident psi (both on the per-epoch path) bitwise equal; each run twice, bitwise "
+        f"equal; the fused resident run differs from them by "
+        f"{_max_rel(out['resident, fused path'][0][1], psi_r):.2e}")
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
     card = env["nvidia_smi"]
     phase_build()
     timings = phase_kernel_parity(device, card)
+    path_shape_timings = phase_path_shapes(device, card)
     timings.update(phase_usfft_parity(device, card))
     scan, psi, probe = make_inputs(N_PATTERNS)
     phase_forward_model(device, scan, psi, probe)
@@ -1332,6 +1880,13 @@ def main() -> None:
         f"CPU: max|err| / max|value| {err:.2e} (tol {LAMINO_SIM_TOL:g})")
     lamino_launches = {alg: phase_lamino(device, alg, card, problem) for alg in ("cgrad", "cgls")}
     probe_launches, probe_timings = phase_probes(device, card)
+    phase_stream_slices(device)
+    phase_stopping_slices(device)
+    phase_admm_slice(device)
+    launches_admm = phase_admm(device, card)
+    launches_stream = phase_stream(device, card)
+    phase_stream_compare(device, card)
+    admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [
         {
             "name": name,
@@ -1341,6 +1896,12 @@ def main() -> None:
             "launches": launches[name],
             "launches_config2": launches2[name],
             "launches_rpie": launches3[name],
+            "launches_admm": launches_admm[name],
+            "launches_stream": launches_stream[name],
+            "ms_admm_shape": path_shape_timings[admm_shape][name]["ms"],
+            "bound_ms_admm_shape": path_shape_timings[admm_shape][name]["bound_ms"],
+            "ms_stream_batch": path_shape_timings[stream_shape][name]["ms"],
+            "bound_ms_stream_batch": path_shape_timings[stream_shape][name]["bound_ms"],
             **timings[name],
         }
         for name in KERNELS
@@ -1353,6 +1914,8 @@ def main() -> None:
             "launches": lamino_launches["cgrad"][name],
             "launches_lamino_cgrad": lamino_launches["cgrad"][name],
             "launches_lamino_cgls": lamino_launches["cgls"][name],
+            "launches_admm": launches_admm[name],
+            "launches_stream": launches_stream[name],
             **timings[name],
         }
         for name in USFFT_KERNELS
@@ -1363,6 +1926,8 @@ def main() -> None:
             "source": "tike_tpu_torch/csrc/probe.cu",
             "replaces": PROBE_KERNELS[name],
             "launches": probe_launches[name],
+            "launches_admm": launches_admm[f"probe_{name}"],
+            "launches_stream": launches_stream[f"probe_{name}"],
             **probe_timings[name],
         }
         for name in PROBE_KERNELS

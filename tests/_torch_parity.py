@@ -351,3 +351,77 @@ def check_fused_slice(got, want, case):
         assert_close(got[key], want[key], rtol=MOMENT_TOL, atol=MOMENT_TOL, scale=True)
     moments = any(want[k] is not None for k in ("object_m", "probe_m"))
     assert moments == any(k in case for k in ("adam", "checked", "momentum"))
+
+
+def fit_rng(seed: int = 0) -> np.random.Generator:
+    """The generator the port's ``Reconstruction(random_seed=seed)`` gives
+    its affine position fit."""
+    return np.random.default_rng(np.random.SeedSequence(seed).spawn(1)[0])
+
+
+def seed_jax_position_fit(monkeypatch, seed: int = 0) -> None:
+    """Make tike_tpu's per-epoch affine position fit draw its RANSAC
+    subsets as the port draws them. tike_tpu's ``iterate`` calls the fit
+    unseeded; this wraps the name its module looks up, for the
+    test's duration, and hands it :func:`fit_rng`."""
+    import tike_tpu.ptycho.ptycho as entry
+
+    fit, gen = entry.affine_position_regularization, fit_rng(seed)
+    monkeypatch.setattr(
+        entry,
+        "affine_position_regularization",
+        lambda updated, position_options: fit(updated, position_options, rng=gen),
+    )
+
+
+def epoch_loop_parameters(pkg, scan, probe, psi0, solver, algo, position=None, det=24):
+    """Parameters of a small slice in package ``pkg``: 3 batches, rescale
+    every 2 epochs, ``position`` the PositionOptions keywords or None."""
+    options = pkg.RpieOptions if solver == "rpie" else pkg.LstsqOptions
+    return pkg.PtychoParameters(
+        probe=probe,
+        psi=psi0,
+        scan=scan,
+        algorithm_options=options(**{"num_batch": 3, "rescale_period": 2, **algo}),
+        object_options=pkg.ObjectOptions(),
+        probe_options=pkg.ProbeOptions(),
+        position_options=None
+        if position is None
+        else pkg.PositionOptions(initial_scan=scan, **position),
+        exitwave_options=pkg.ExitWaveOptions(measured_pixels=np.ones((det, det), bool)),
+    )
+
+
+def run_both_packages(data, jparams, epochs, *, fused, store=None, history=None):
+    """``iterate(epochs)`` from ``jparams`` in tike_tpu and, through
+    ``convert``, in the port (seed 0), each asserted to take the fused
+    (``fused=True``) or the per-epoch path; ``history`` (costs, times)
+    stands for epochs already run. Returns ``(got, want)`` from
+    ``convert.parameters_to_numpy``."""
+    import tike_tpu.ptycho as jp
+    import tike_tpu_torch.ptycho as tp
+    from tike_tpu_torch import convert
+
+    if history is not None:
+        jparams.algorithm_options.costs = [[c] for c in history[0]]
+        jparams.algorithm_options.times = list(history[1])
+    tparams = convert.parameters_from_jax(jparams)
+    out = []
+    for pkg, params, kw in ((jp, jparams, {}), (tp, tparams, dict(device="cpu"))):
+        with pkg.Reconstruction(
+            data, params, random_seed=0, store_data_on_device=store, **kw
+        ) as context:
+            assert context._fused_eligible() == fused
+            context.iterate(epochs)
+            out.append(convert.parameters_to_numpy(context.get_result()))
+    return out[1], out[0]
+
+
+def check_epoch_run(got, want, scan_px: float = 1e-4):
+    """Costs and fields at SLICE_TOL, positions to ``scan_px`` pixels, the
+    same number of epochs run."""
+    assert len(got["costs"]) == len(want["costs"]) == len(got["times"])
+    np.testing.assert_allclose(got["costs"], want["costs"], rtol=SLICE_TOL)
+    for key in ("psi", "probe"):
+        assert_close(got[key], want[key], rtol=SLICE_TOL, atol=SLICE_TOL, scale=True)
+    assert_close(got["scan"], want["scan"], rtol=0, atol=scan_px)

@@ -162,6 +162,32 @@ def main_path_patch_inputs(device):
     return image, positions, patches
 
 
+# The patch shapes of the joint-ADMM and the host-streamed paths (seed 0):
+# name -> (windows, P, image side). At 16^2 the adjoint's tiles hold few and
+# unevenly many windows; at 64^2 on 4096^2 one batch is 10,000 windows.
+PATH_SHAPES = {
+    "admm_joint angle (200 x 16^2 on 64^2)": (200, 16, 64),
+    "stream_1m batch (10,000 x 64^2 on 4096^2)": (10_000, 64, 4096),
+}
+
+
+def path_shape_inputs(name, device, dtype=np.complex64):
+    """The image, positions and patches of ``PATH_SHAPES[name]`` on
+    ``device``, and P: positions drawn as ``bench_all.py`` draws its scans
+    (uniform in [2, side - P - 3]), values standard normal."""
+    n, p, hw = PATH_SHAPES[name]
+    gen = np.random.default_rng(0)
+    positions = gen.uniform(2, hw - p - 3, (n, 2)).astype(np.float32)
+
+    def values(*shape):
+        x = gen.standard_normal(shape, dtype=np.float32)
+        if dtype == np.complex64:
+            x = x + 1j * gen.standard_normal(shape, dtype=np.float32)
+        return torch.tensor(x.astype(dtype), device=device)
+
+    return values(hw, hw), torch.tensor(positions, device=device), values(n, p, p), p
+
+
 def roofline(name, positions, p, shape, dtype) -> dict:
     """The least time kernel ``name`` (``patch_fwd`` or ``patch_adj``)
     could take on this card for these positions: the bytes it must move

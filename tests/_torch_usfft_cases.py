@@ -41,11 +41,13 @@ def lamino_theta(ntheta: int, device=None) -> torch.Tensor:
     )
 
 
-def lamino_rows(n: int, ntheta: int, device=None) -> torch.Tensor:
+def lamino_rows(n: int, ntheta: int, device=None, tilt=LAMINO_TILT) -> torch.Tensor:
     """The (ntheta n, n, 3) row-structured points of a laminography
-    transform of an n^3 volume (``bench_all.py``'s tilt)."""
+    transform of an n^3 volume (``bench_all.py``'s tilt unless given; at
+    tilt pi/2, tomography, each detector row's points lie in one plane of
+    the grid, so the scatter's bins are very uneven)."""
     theta = lamino_theta(ntheta, device)
-    return lamino.make_grids(theta, n, LAMINO_TILT).reshape(ntheta * n, n, 3)
+    return lamino.make_grids(theta, n, tilt).reshape(ntheta * n, n, 3)
 
 
 def flat_points(gen: np.random.Generator, npoints: int, device=None, span=0.7):

@@ -191,7 +191,8 @@ def test_import_leaves_jax_out():
         "tike_tpu_torch.convert, tike_tpu_torch.kernels, tike_tpu_torch.ops, "
         "tike_tpu_torch.ops.usfft, tike_tpu_torch.ops.lamino, tike_tpu_torch.lamino, "
         "tike_tpu_torch.lamino.solvers, tike_tpu_torch.toolchain_probe, "
-        "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, chip_smoke; "
+        "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, tike_tpu_torch.admm, "
+        "tike_tpu_torch.constants, tike_tpu_torch.ptycho.stream, chip_smoke; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu')); "
         "assert not bad, bad"
@@ -310,6 +311,27 @@ def test_edge_cases_plain_pair_is_adjoint(name):
     lhs = torch.vdot(fx.reshape(-1), y.reshape(-1))
     rhs = torch.vdot(x.reshape(-1), fty.reshape(-1))
     assert abs(complex(lhs - rhs)) <= 1e-10 * abs(complex(lhs))
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.float32])
+def test_path_shape_inputs_of_the_admm_angle(dtype):
+    """The 16^2-window case the card holds the kernels to: seeded inputs of
+    the stated shapes, windows inside the image, and the plain pair an
+    adjoint pair on them."""
+    name = next(n for n in cases.PATH_SHAPES if n.startswith("admm"))
+    n, p, hw = cases.PATH_SHAPES[name]
+    image, pos, patches, got_p = cases.path_shape_inputs(name, torch.device("cpu"), dtype)
+    assert (got_p, tuple(image.shape), tuple(patches.shape)) == (p, (hw, hw), (n, p, p))
+    assert image.dtype == patches.dtype == torch.tensor(np.zeros(1, dtype)).dtype
+    assert float(pos.min()) >= 2 and float(pos.max()) <= hw - p - 3
+    again = cases.path_shape_inputs(name, torch.device("cpu"), dtype)
+    assert torch.equal(again[1], pos) and torch.equal(again[2], patches)
+    fx = tpatch.patch_fwd_plain(image, pos, p)
+    fty = tpatch.patch_adj_plain(patches, pos, (hw, hw))
+    lhs = torch.vdot(fx.reshape(-1), patches.reshape(-1))
+    rhs = torch.vdot(image.reshape(-1), fty.reshape(-1))
+    assert abs(complex(lhs - rhs)) <= 1e-4 * abs(complex(lhs))
+    assert sorted(cases.PATH_SHAPES.values()) == [(200, 16, 64), (10_000, 64, 4096)]
 
 
 def test_edge_case_stack_overflows_one_tile():

@@ -44,6 +44,20 @@ def test_kernels_match_plain_at_main_path_shapes(card, dtype):
     cases.check_patch_kernels(image, positions, patches, cases.MAIN_P, dtype)
 
 
+@pytest.mark.parametrize("name", list(cases.PATH_SHAPES))
+@pytest.mark.parametrize("dtype", ["complex64", "float32"])
+def test_kernels_match_plain_at_admm_and_stream_shapes(card, name, dtype):
+    """16^2 windows on 64^2 (few, unevenly many windows per adjoint tile)
+    and one streamed batch of 10,000 x 64^2 on 4096^2; float32 is what the
+    ADMM coverage weights spread."""
+    import numpy as np
+
+    image, positions, patches, p = cases.path_shape_inputs(
+        name, card, np.complex64 if dtype == "complex64" else np.float32
+    )
+    cases.check_patch_kernels(image, positions, patches, p, f"{name}, {dtype}")
+
+
 def test_adjoint_is_bitwise_repeatable(card):
     image, positions, patches = cases.main_path_patch_inputs(card)
     shape = tuple(image.shape)

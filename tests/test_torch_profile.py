@@ -19,6 +19,8 @@ from tike_tpu_torch import profile_epoch
         ("kernel", "void at::native::reduce_kernel<512, 1, ReduceOp<...>>", "reductions (sum, mean, amax)"),
         ("kernel", "void at::native::indexing_backward_kernel<...>", "sort, index, cat, memset, memcpy"),
         ("gpu_memset", "Memset (Device)", "sort, index, cat, memset, memcpy"),
+        ("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", "sort, index, cat, memset, memcpy"),
+        ("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", "copies from the host (memcpy HtoD)"),
         ("kernel", "void at::native::vectorized_elementwise_kernel<4, MulFunctor>", "elementwise (mul, copy, add, where, sqrt, abs, ...)"),
     ],
 )
@@ -53,6 +55,8 @@ def test_device_breakdown_counts_overlap_once():
         (["--config", "rpie"], "rpie"),
         (["--config", "lamino_cgrad"], "lamino_cgrad"),
         (["--config", "lamino_cgls"], "lamino_cgls"),
+        (["--config", "admm"], "admm"),
+        (["--config", "stream"], "stream"),
     ],
 )
 def test_parse_args_picks_the_configuration(argv, config):

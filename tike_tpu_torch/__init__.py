@@ -8,7 +8,10 @@ and the USFFT's Kaiser-Bessel gather and scatter, which it wrote as XLA
 einsums for the TPU's matrix unit, are hand-written CUDA kernels here
 (``csrc/patch.cu``, ``csrc/usfft.cu``), built with ``nvcc`` at first use on
 a CUDA tensor; ``toolchain_probe`` holds the kernels of ``csrc/probe.cu``,
-the counterparts of the JAX package's Pallas feature probes. On CPU tensors
+the counterparts of the JAX package's Pallas feature probes. ``admm`` joins
+ptychography and laminography into one reconstruction, and
+``ptycho.stream`` feeds a reconstruction from pinned host memory when the
+patterns exceed the card. On CPU tensors
 every function runs its plain PyTorch version, which the tests hold against
 ``tike_tpu``.
 

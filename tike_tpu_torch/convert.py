@@ -130,3 +130,30 @@ def lamino_config_from_jax(cfg) -> LaminoConfig:
     return LaminoConfig(
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LaminoConfig)}
     )
+
+
+def admm_inputs_from_jax(data, parameters):
+    """The port's joint-ADMM inputs from ``tike_tpu``'s: the per-angle data
+    as float32 numpy arrays and the per-angle parameters through
+    :func:`parameters_from_jax`."""
+    return (
+        [np.asarray(d).astype(floating) for d in data],
+        [parameters_from_jax(p) for p in parameters],
+    )
+
+
+def admm_result_to_numpy(result) -> dict:
+    """The arrays of either package's ``reconstruct_joint_admm`` result:
+    ``obj`` (N, N, N), ``psi`` (T, N, N) and ``probe`` (T, 1, 1, S, P, P)
+    stacked over the angles, ``costs`` (the ADMM iterations' mean ptycho
+    costs) and ``angle_costs`` (T, epochs), each angle's own history."""
+    params = result["parameters"]
+    return {
+        "obj": to_numpy(result["obj"]).astype(cfloating),
+        "psi": np.stack([to_numpy(p.psi)[0] for p in params]),
+        "probe": np.stack([to_numpy(p.probe) for p in params]),
+        "costs": np.asarray(result["costs"], dtype=np.float64),
+        "angle_costs": np.asarray(
+            [np.ravel(p.algorithm_options.costs) for p in params], dtype=np.float64
+        ),
+    }

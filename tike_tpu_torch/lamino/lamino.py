@@ -1,9 +1,10 @@
 """Laminography drivers: reconstruct and simulate (PyTorch).
 
 Counterpart of :mod:`tike_tpu.lamino.lamino`. The volume, data and theta
-cross in and out as numpy arrays; everything between runs on ``device``
-(the card unless the caller asks for the CPU), where the USFFT's KB
-interpolation is the hand-written kernels of ``csrc/usfft.cu``.
+cross in and out as numpy arrays (:func:`reconstruct` given tensors
+returns tensors instead); everything between runs on ``device`` (the card
+unless the caller asks for the CPU), where the USFFT's KB interpolation is
+the hand-written kernels of ``csrc/usfft.cu``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.lamino import LaminoConfig, LaminoPlan, lamino_fwd
+from ..ops.lamino import LaminoConfig, LaminoPlan, _plan, lamino_fwd
 from ..precision import as_tensor, to_numpy
 from . import solvers
 
@@ -51,44 +52,57 @@ def reconstruct(
     mesh=None,
     kernel="kb",
     device="cuda",
+    *,
+    plan=None,
     **kwargs,
 ):
     """Solve the laminography problem using the given algorithm.
 
-    The parameters of ``tike_tpu.lamino.reconstruct``, plus ``device``.
-    ``algorithm`` is ``"cgrad"`` (backtracking Dai-Yuan CG) or ``"cgls"``
-    (optimal-step CG on the normal equations). Returns a dict of numpy
-    arrays: ``obj``, ``cost`` (one per outer iteration) and what the solver
-    returns besides. ``mesh`` (several devices) is not ported.
+    The parameters of ``tike_tpu.lamino.reconstruct``, plus ``device`` and
+    the keyword-only ``plan``. ``algorithm`` is ``"cgrad"`` (backtracking
+    Dai-Yuan CG) or ``"cgls"`` (optimal-step CG on the normal equations);
+    ``"bucket"`` is not ported yet. Returns a dict: ``obj``, ``cost`` (one
+    per outer iteration, always a numpy array) and what the solver returns
+    besides. ``mesh`` (several devices) is not ported.
+
+    ``data``, ``theta`` and ``obj`` are arrays or tensors. What comes back
+    follows ``data``: numpy arrays for an array; for a tensor, tensors on
+    ``device``, and tensors already there are used as they are, so nothing
+    makes a trip through the host (joint ADMM fits its volume so). ``plan``
+    is the geometry's :class:`~tike_tpu_torch.ops.lamino.LaminoPlan`, for a
+    caller that solves many problems at one set of angles; without one, a
+    plan is built for the call.
     """
     if mesh is not None:
         raise NotImplementedError("multi-device laminography (mesh) is not ported")
-    n = data.shape[2]
-    obj = np.zeros([n, n, n], dtype="complex64") if obj is None else obj
     if algorithm == "bucket":
-        raise ValueError(
-            "Use tike_tpu.lamino.bucket.reconstruct for the bucket solver."
+        raise NotImplementedError(
+            "tike_tpu_torch.lamino.reconstruct: algorithm='bucket' is not ported yet"
         )
     if algorithm not in solvers.__all__:
         raise ValueError(
             "The '{}' algorithm is not an available.".format(algorithm)
         )
-    cfg = LaminoConfig(
-        n=obj.shape[-1], tilt=float(tilt), eps=float(eps), upsample=upsample,
-        kernel=kernel,
-    )
+    n = data.shape[2]
     data_d = as_tensor(data, torch.complex64, device)
     theta_d = as_tensor(theta, torch.float32, device)
-    obj_d = as_tensor(obj, torch.complex64, device)
+    if obj is None:
+        obj_d = torch.zeros((n, n, n), dtype=torch.complex64, device=data_d.device)
+    else:
+        obj_d = as_tensor(obj, torch.complex64, device)
+    cfg = LaminoConfig(
+        n=obj_d.shape[-1], tilt=float(tilt), eps=float(eps), upsample=upsample,
+        kernel=kernel,
+    )
 
     logger.info(
         "{} on {:,d} by {:,d} by {:,d} volume for {:,d} "
-        "iterations.".format(algorithm, *obj.shape, num_iter)
+        "iterations.".format(algorithm, *obj_d.shape, num_iter)
     )
 
     # The geometry never changes within the call: one plan for every
     # transform of every iteration.
-    plan = LaminoPlan(cfg, theta_d)
+    plan = _plan(plan, cfg, theta_d)
     result = {"obj": obj_d}
     costs = []
     for i in range(num_iter):
@@ -103,6 +117,8 @@ def reconstruct(
             break
 
     result["cost"] = np.asarray(costs)
+    if isinstance(data, torch.Tensor):
+        return result
     return {
         k: to_numpy(v) if isinstance(v, torch.Tensor) else v
         for k, v in result.items()

@@ -84,9 +84,13 @@ class LaminoPlan:
     part built at its first use and kept on theta's device: the rows of
     frequencies at +x (forward, exact adjoint) and -x (:func:`lamino_adj`),
     the KB kernels' plans for them (on CUDA tensors with the KB window;
-    ``None`` otherwise) and the deapodization array."""
+    ``None`` otherwise) and the deapodization array. ``LaminoPlan.built``
+    counts the plans made, so that a caller can show it kept one."""
+
+    built = 0
 
     def __init__(self, cfg: LaminoConfig, theta: torch.Tensor):
+        LaminoPlan.built += 1
         self.cfg = cfg
         self.theta = theta
 

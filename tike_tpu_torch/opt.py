@@ -3,7 +3,9 @@
 Counterpart of :mod:`tike_tpu.opt`: ``adam`` (the position step, and rPIE's
 per-batch object and probe moments), ``momentum`` (LSQML's per-batch
 object momentum) and ``momentum_checked_traced`` (the epoch-end moment of
-compact runs), whose decisions stay on the device; and the laminography
+compact runs), whose decisions stay on the device; ``is_converged``, the
+early-stopping test of the per-epoch loop on the host cost history; and the
+laminography
 solvers' loops, ``line_search``, ``direction_dy``, ``conjugate_gradient``
 (``tike_tpu``'s ``conjugate_gradient_traced``) and ``cgls``
 (``cgls_traced``). ``tike_tpu`` traces those loops into one device program;
@@ -13,10 +15,40 @@ one comparison back to the host (counted in ``HOST_READS``).
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
 from . import linalg
+
+logger = logging.getLogger(__name__)
+
+
+def is_converged(algorithm_options) -> bool:
+    """Return True if the cost slope is non-negative within the window.
+
+    The test runs once ``convergence_window >= 2`` costs are recorded and
+    ``len(costs) % window // 2 == 0`` (as written: the remainder by the
+    window, halved and floored, so at remainders 0 and 1), on a line fitted
+    to the last ``window`` epoch costs, each the mean of its entries.
+    """
+    window = algorithm_options.convergence_window
+    if (
+        window >= 2
+        and len(algorithm_options.costs) >= window
+        and len(algorithm_options.costs) % window // 2 == 0
+    ):
+        m = np.array(algorithm_options.costs[-window:])
+        m = np.mean(np.reshape(m, (len(m), -1)), axis=1)
+        p = np.polyfit(x=range(window), y=m, deg=1)
+        if p[0] >= 0:
+            logger.info(
+                f"Considering the last {window:d} epochs, "
+                "the cost function seems converged."
+            )
+            return True
+    return False
 
 
 def momentum(g, v, m, vdecay=None, mdecay=0.9):

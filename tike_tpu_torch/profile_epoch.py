@@ -24,6 +24,15 @@ With ``--config lamino_cgrad`` or ``lamino_cgls`` it builds
 volume, 64 angles, upsample 1, ``cg_iter=4``), runs two outer iterations
 of the solver on device tensors and traces the third the same way.
 
+With ``--config admm`` it builds ``chip_smoke.py``'s joint-ADMM problem
+(``bench_all.py``'s ``admm_joint``: n = 64, 8 angles, 200 positions each),
+runs one ADMM iteration to warm up and traces the next. With ``--config
+stream`` it builds the host-streamed comparison problem (100,000 patterns
+of 64^2 in pinned host memory, a 4096^2 object, rPIE, 10 random batches),
+runs one epoch and traces the next; the copies from the host (the
+streamed batches, on the copy stream) are a class of their own, and the copy stream's busy time and the compute stream's wait
+on it are printed beside the table.
+
 The chrome trace goes to PATH (by default
 ``tike_tpu_torch/_build/epoch_trace_<config>.json``, which git ignores). Every time printed stands beside the card's name and
 power limit.
@@ -46,6 +55,7 @@ CLASSES = (
     ("kb_scatter_kernel (ours)", ("kb_scatter_kernel",)),
     ("patch_fwd_kernel (ours)", ("patch_fwd_kernel",)),
     ("patch_adj_kernel (ours)", ("patch_adj_kernel",)),
+    ("copies from the host (memcpy HtoD)", ("memcpy htod",)),
     ("cuFFT", ("fft",)),
     ("sort, index, cat, memset, memcpy", ("sort", "index", "cat", "memset", "memcpy")),
     ("reductions (sum, mean, amax)", ("reduce_kernel",)),
@@ -86,10 +96,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--config",
-        choices=("main", "config2", "rpie", "lamino_cgrad", "lamino_cgls"),
+        choices=("main", "config2", "rpie", "lamino_cgrad", "lamino_cgls", "admm", "stream"),
         default="main",
-        help="the main path (one probe mode), BASELINE config 2, rPIE, or "
-        "laminography with cgrad or CGLS",
+        help="the main path (one probe mode), BASELINE config 2, rPIE, "
+        "laminography with cgrad or CGLS, joint ADMM, or a host-streamed epoch",
     )
     parser.add_argument(
         "--trace",
@@ -177,6 +187,53 @@ def _profile_lamino(cs, config, card, device):
     return prof, wall, lambda: None
 
 
+def _profile_admm(cs, config, card, device):
+    """Trace one joint-ADMM iteration (8 angles of rPIE, the blend, the
+    volume fit, the re-projection and the dual step) after one that warms
+    up; returns (profiler, wall seconds, what to close)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, parameters, theta = cs.admm_problem(device, **cs.ADMM)
+    warm = cs._admm(data, parameters(), theta, device, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        cs._admm(data, warm["parameters"], theta, device, 1, obj=warm["obj"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return prof, wall, lambda: None
+
+
+def _profile_stream(cs, config, card, device):
+    """Trace one host-streamed rPIE epoch at ``chip_smoke.py``'s comparison
+    size after one that warms up, with the overlap statistics of the traced
+    epoch; returns (profiler, wall seconds, what to close)."""
+    import tike_tpu_torch.ptycho as tp
+    from torch.profiler import ProfilerActivity, profile
+
+    data, params = cs.stream_problem(**cs.STREAM_COMPARE)
+    context = tp.Reconstruction(
+        data, params(), device=device, random_seed=0, store_data_on_device=False
+    )
+    context.__enter__()
+    context.iterate(1)
+    context.data.stats()
+    context.data.timing = True
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        context.iterate(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    stats = context.data.stats()
+    print(
+        f"streamed epoch of {stats['copies']} batches: wall {wall * 1e3:.2f} ms; copy stream "
+        f"busy {stats['copy_ms']:.2f} ms for {stats['bytes']} bytes "
+        f"({stats['bytes'] / (1e-3 * stats['copy_ms']) / 1e9:.2f} GB/s); compute stream "
+        f"waited {stats['wait_ms']:.2f} ms for copies ({card})"
+    )
+    return prof, wall, lambda: context.__exit__(None, None, None)
+
+
 def main() -> None:
     import chip_smoke as cs
 
@@ -186,7 +243,10 @@ def main() -> None:
     card = cs.nvidia_smi_line()
     print("card:", card, "config:", args.config)
     device = torch.device("cuda", 0)
-    profiler = _profile_lamino if args.config.startswith("lamino") else _profile_ptycho
+    profilers = {"admm": _profile_admm, "stream": _profile_stream}
+    profiler = profilers.get(
+        args.config, _profile_lamino if args.config.startswith("lamino") else _profile_ptycho
+    )
     prof, wall, close = profiler(cs, args.config, card, device)
     os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
     prof.export_chrome_trace(trace)
@@ -195,7 +255,7 @@ def main() -> None:
     b = device_breakdown(events, wall * 1e6)
     device_us = sum(v[0] for v in b["classes"].values())
     print(
-        f"profiled {'outer iteration' if args.config.startswith('lamino') else 'epoch'}: "
+        f"profiled {'epoch' if profiler in (_profile_ptycho, _profile_stream) else 'iteration'}: "
         f"wall {wall * 1e3:.2f} ms, device busy "
         f"{b['busy_us'] / 1e3:.2f} ms ({100 * b['busy_us'] / b['wall_us']:.1f}%), "
         f"idle {100 * (1 - b['busy_us'] / b['wall_us']):.1f}%, "

@@ -4,18 +4,24 @@ Counterpart of :mod:`tike_tpu.ptycho.ptycho` for one device and the
 replicated layout. :class:`Reconstruction`, :func:`reconstruct` and
 :func:`simulate` run on the CUDA card (``device="cuda"``) unless the caller
 passes another ``torch.device`` (or its name), such as ``"cpu"``; with no
-card they raise rather than fall back to the CPU. Data stays on that
-device for the whole reconstruction; there is no host streaming yet.
+card they raise rather than fall back to the CPU. The diffraction data
+stays on that device for the whole reconstruction, or, with
+``store_data_on_device=False``, in pinned host memory from which each
+batch is copied in while the batch before computes (:mod:`.stream`).
 
-Ported: what the JAX package's fused single-device program runs for one
-object slice. That is rPIE (``RpieOptions``) and LSQML (``LstsqOptions``)
-with any batch method (compact batches in order, the others in a
-permutation drawn per epoch), any number of shared probe modes, eigen
-probes and weights (OPR), position correction for LSQML, the per-epoch
-probe and object constraints, object and probe adaptive moments, the
-Gaussian and Poisson noise models, and both rescale methods. Any option
-outside that raises ``NotImplementedError`` when the Reconstruction is
-created.
+Ported: what the JAX package's single-device ``iterate`` runs for one object
+slice. That is rPIE (``RpieOptions``) and LSQML (``LstsqOptions``) with any
+batch method (compact batches in order, the others in a permutation drawn
+per epoch), any number of shared probe modes, eigen probes and weights
+(OPR), position correction for LSQML, the per-epoch probe and object
+constraints, object and probe adaptive moments, the Gaussian and Poisson
+noise models, and both rescale methods. As in the JAX package,
+:meth:`Reconstruction.iterate` has two paths: all epochs of the call
+enqueued with one host read at the end (the counterpart of its fused
+program), and a per-epoch loop that reads each epoch's cost, which a finite
+``time_limit``, the affine position regularization, position options with
+rPIE and host streaming take. Any option outside that raises
+``NotImplementedError`` when the Reconstruction is created.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import cluster
+from ..opt import is_converged
 from ..ops.ptycho import (
     PtychoConfig,
     intensity_from_farplane,
@@ -42,6 +49,7 @@ from .probe import get_varying_probe
 from .solvers import _preconditioner
 from .solvers.epoch import EpochPlan, EpochState, _epoch_math, seed_err_hist
 from .solvers.options import PtychoParameters
+from .stream import StreamedBatches, iter_batches, pinned_batches
 
 __all__ = [
     "reconstruct",
@@ -201,7 +209,6 @@ def _unsupported(
     num_gpu=1,
     use_mpi: bool = False,
     mesh=None,
-    store_data_on_device: typing.Optional[bool] = None,
     object_sharding: str = "replicated",
 ) -> typing.List[str]:
     """What in ``parameters`` or in the entry point's other arguments asks
@@ -223,40 +230,73 @@ def _unsupported(
         f"rescale_method {algo.rescale_method!r}": (
             algo.rescale_method not in _RESCALE_METHODS
         ),
-        "convergence_window >= 2": algo.convergence_window >= 2,
-        "a finite time_limit": np.isfinite(algo.time_limit),
         "multislice objects": parameters.psi.shape[0] != 1,
-        "position_options.use_position_regularization": (
-            parameters.position_options is not None
-            and parameters.position_options.use_position_regularization
-        ),
-        "position correction with rpie (only with lstsq_grad)": (
-            parameters.position_options is not None and algo.name == "rpie"
-        ),
-        "host streaming (store_data_on_device=False)": (
-            store_data_on_device is not None and not store_data_on_device
-        ),
     }
     return [k for k, on in checks.items() if on]
+
+
+def _per_epoch_reasons(parameters: PtychoParameters, streamed: bool) -> typing.List[str]:
+    """Why :meth:`Reconstruction.iterate` takes the per-epoch loop for
+    ``parameters``; empty when all epochs of a call can be enqueued at once
+    (the JAX package's ``_fused_eligible``)."""
+    algo = parameters.algorithm_options
+    popt = parameters.position_options
+    checks = {
+        "a finite time_limit": algo.time_limit != np.inf,
+        "position_options with rpie": popt is not None and algo.name == "rpie",
+        "position_options.use_position_regularization": (
+            popt is not None and popt.use_position_regularization
+        ),
+        "host streaming (store_data_on_device=False)": streamed,
+    }
+    return [k for k, on in checks.items() if on]
+
+
+# The device working set of one batch, in complex64 arrays of the batch's
+# exit waves (L, modes, DET, DET): the full-width runs of chip_smoke.py peak
+# at 8 to 14 of them beside the data (PERF.md §6), so 16 leaves a margin.
+_WORKING_ARRAYS = 16
+
+
+def _data_fits_on_device(device, data_shape, num_batch: int, modes: int) -> bool:
+    """Whether the data (N, DET, DET) in float32 and the working set of one
+    of its ``num_batch`` batches fit into the free memory of the CUDA
+    ``device`` (``torch.cuda.mem_get_info``). The CPU always holds its data."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    n, det = data_shape[0], data_shape[-1]
+    per_batch = -(-n // max(int(num_batch), 1))
+    working = _WORKING_ARRAYS * 8 * per_batch * modes * det * det
+    return 4 * n * det * det + working < free
 
 
 class Reconstruction:
     """Context manager for ptychography reconstruction on one device.
 
-    Same API as :class:`tike_tpu.ptycho.Reconstruction`: data and
-    parameters stay on ``device`` while the context is open, so
-    :meth:`iterate` can be called repeatedly and :meth:`get_result`
-    mid-run. The same ``random_seed`` gives the same mini-batches as the
-    JAX package. ``device`` is the CUDA card unless the caller asks for
-    another, such as ``"cpu"``; a tensor in ``data`` or ``parameters`` that
-    lies on another device raises.
+    Same API as :class:`tike_tpu.ptycho.Reconstruction`: the parameters
+    stay on ``device`` while the context is open, so :meth:`iterate` can be
+    called repeatedly and :meth:`get_result` mid-run. The same
+    ``random_seed`` gives the same mini-batches as the JAX package.
+    ``device`` is the CUDA card unless the caller asks for another, such as
+    ``"cpu"``; a tensor in ``data`` or ``parameters`` that lies on another
+    device raises.
+
+    ``store_data_on_device=True`` keeps the batch-major data on the device;
+    ``False`` keeps it on the host (page-locked for a card) and streams one
+    batch at a time through two device buffers, so device memory holds two
+    batches and the model whatever the number of patterns; ``None``, the
+    default, streams only when the data and one batch's working set exceed
+    the card's free memory. ``context.data`` is then a
+    :class:`~tike_tpu_torch.ptycho.stream.StreamedBatches` whose ``host``
+    is the host tensor. Data that already lies on the device cannot be
+    streamed: ``False`` raises ``ValueError`` for it. A streamed and a
+    resident run from one seed give the same bits.
 
     The parameters before ``device`` are the JAX package's, in its order.
     Of those, what is not ported raises ``NotImplementedError``: ``num_gpu``
-    other than 1 or ``(1,)``, ``use_mpi``, a ``mesh``,
-    ``object_sharding="striped"`` and ``store_data_on_device=False`` (host
-    streaming; ``None``, the default, means on the device). ``device`` is
-    keyword-only.
+    other than 1 or ``(1,)``, ``use_mpi``, a ``mesh`` and
+    ``object_sharding="striped"``. ``device`` is keyword-only.
     """
 
     def __init__(
@@ -300,10 +340,7 @@ class Reconstruction:
                 f"and data shape {tuple(data.shape)} are incompatible. "
                 "The probe width/height must be <= the data width/height."
             )
-        missing = _unsupported(
-            parameters, num_gpu, use_mpi, mesh, store_data_on_device,
-            object_sharding,
-        )
+        missing = _unsupported(parameters, num_gpu, use_mpi, mesh, object_sharding)
         if missing:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
@@ -311,6 +348,30 @@ class Reconstruction:
         self.device = _resolve_device(
             device, data=data, **_parameter_tensors(parameters)
         )
+        if isinstance(data, torch.Tensor) and data.device.type != "cpu":
+            if store_data_on_device is False:
+                raise ValueError(
+                    "store_data_on_device=False (host streaming) requires "
+                    "host data, but data is already device-resident."
+                )
+            store_data_on_device = True
+        if store_data_on_device is None:
+            store_data_on_device = _data_fits_on_device(
+                self.device,
+                data.shape,
+                parameters.algorithm_options.num_batch,
+                parameters.probe.shape[-3],
+            )
+        self.store_data_on_device = bool(store_data_on_device)
+        reasons = _per_epoch_reasons(parameters, not self.store_data_on_device)
+        if reasons and parameters.eigen_probe is not None:
+            # The per-epoch loop constrains the eigen probes every epoch.
+            raise NotImplementedError(
+                "not ported to tike_tpu_torch yet: eigen probes on the "
+                "per-epoch path (constrain_variable_probe), which "
+                + "; ".join(reasons)
+                + " takes"
+            )
         self.data_host = data
         self.parameters_host = copy.deepcopy(parameters)
         probe_options = parameters.probe_options
@@ -341,9 +402,10 @@ class Reconstruction:
     def __enter__(self):
         data = self.data_host
         if isinstance(data, torch.Tensor):
-            data_ok = not bool(
-                torch.any(~torch.isfinite(data)) or torch.any(data < 0)
-            )
+            # One pass and no temporaries (the data may be tens of GB on the
+            # host): a NaN anywhere makes both ends NaN.
+            low, high = torch.aminmax(data)
+            data_ok = bool(low >= 0) and bool(torch.isfinite(high))
         else:
             data_ok = np.all(np.isfinite(data)) and not np.any(data < 0)
         if not data_ok:
@@ -353,6 +415,7 @@ class Reconstruction:
                 UserWarning,
             )
         # Order the data by batches, contiguous on the device.
+        started = time.perf_counter()
         order, batches, _ = cluster.by_scan_stripes_contiguous(
             scan=to_numpy(self.parameters_host.scan),
             num_stripes=1,
@@ -377,16 +440,25 @@ class Reconstruction:
         self.parameters = PtychoParameters.split(
             self.order, x=self.parameters_host
         ).copy_to_device(self.device)
-        # Store data batch-major (num_batch, L, DET, DET).
+        clustered = time.perf_counter()
+        # Store data batch-major (num_batch, L, DET, DET): on the device,
+        # or on the host behind two device buffers.
         perm = self.order[batch_idx.reshape(-1)]
-        if isinstance(data, torch.Tensor):
-            data = as_tensor(data, torch.float32, self.device)[
-                torch.as_tensor(perm, device=self.device)
-            ]
+        if not self.store_data_on_device:
+            self.data = StreamedBatches(
+                pinned_batches(data, perm, batch_idx.shape, self.device),
+                self.device,
+            )
         else:
-            data = as_tensor(np.asarray(data)[perm], torch.float32, self.device)
-        self.data = data.reshape(*batch_idx.shape, *data.shape[-2:])
+            if isinstance(data, torch.Tensor):
+                data = as_tensor(data, torch.float32, self.device)[
+                    torch.as_tensor(perm, device=self.device)
+                ]
+            else:
+                data = as_tensor(np.asarray(data)[perm], torch.float32, self.device)
+            self.data = data.reshape(*batch_idx.shape, *data.shape[-2:])
 
+        stored = time.perf_counter()
         popts = self.parameters.probe_options
         if popts is not None and popts.init_rescale_from_measurements:
             self.parameters = _rescale_probe(
@@ -396,6 +468,13 @@ class Reconstruction:
                 self._batch_mask,
                 self.parameters,
             )
+        # Host seconds of the set-up's parts (the rescale reads its scale
+        # back, so it includes the device's work; the others may not).
+        self.setup_seconds = {
+            "clustering": clustered - started,
+            "data": stored - clustered,
+            "rescale": time.perf_counter() - stored,
+        }
         algo = self.parameters.algorithm_options
         if algo.rescale_method == "constant_probe_photons" and (
             popts is None or not np.isfinite(popts.probe_photons)
@@ -408,7 +487,14 @@ class Reconstruction:
             )
         return self
 
-    def _make_plan(self) -> EpochPlan:
+    def _fused_eligible(self) -> bool:
+        """Whether :meth:`iterate` can enqueue all its epochs at once."""
+        return not _per_epoch_reasons(self.parameters, not self.store_data_on_device)
+
+    def _make_plan(self, per_epoch: bool = False) -> EpochPlan:
+        """The static configuration of an epoch. On the per-epoch path, as
+        in the JAX package, the preconditioners always take the FFT
+        formulation, and rPIE leaves the positions alone."""
         p = self.parameters
         popts = p.probe_options
         oopts = p.object_options
@@ -464,7 +550,8 @@ class Reconstruction:
             ),
             rescale_period=algo.rescale_period,
             alpha=float(getattr(algo, "alpha", 0.05)),
-            fft_precond=_preconditioner.fft_precond_profitable(
+            fft_precond=per_epoch
+            or _preconditioner.fft_precond_profitable(
                 n_positions=p.scan.shape[0],
                 probe_shape=self.operator.probe_shape,
                 nz=self.operator.nz,
@@ -477,7 +564,7 @@ class Reconstruction:
             obj_mdecay=oopts.mdecay if oopts else 0.9,
             probe_vdecay=popts.vdecay if popts else 0.999,
             probe_mdecay=popts.mdecay if popts else 0.9,
-            recover_positions=posopts is not None,
+            recover_positions=posopts is not None and not rpie,
             pos_update_start=posopts.update_start if posopts else 0,
             pos_use_adaptive_moment=(
                 posopts.use_adaptive_moment if posopts else False
@@ -523,32 +610,11 @@ class Reconstruction:
             costs = [float(c[0]) for c in p.algorithm_options.costs]
             state.err_hist = torch.as_tensor(seed_err_hist(costs), device=dev)
 
-    def iterate(self, num_iter: int) -> None:
-        """Advance the reconstruction by ``num_iter`` epochs.
-
-        Compact batching runs the batches in order; the other batch
-        methods in a permutation per epoch, all drawn from the
-        reconstruction's generator when the call starts, as the JAX
-        package's fused path draws them. The per-epoch costs and probe
-        powers stay on the device until all epochs have run, then come to
-        the host in one transfer; each epoch is recorded with the mean wall
-        time of the call. Moment states are kept in the object, probe and
-        position options between calls. With position correction the
-        global affine transform is fitted once afterwards, as in the JAX
-        package's fused path.
-        """
-        if num_iter < 1:
-            return
+    def _epoch_state(self, plan: EpochPlan) -> EpochState:
+        """The solver state an epoch starts from: the fields, and the
+        moment states kept in the options by earlier epochs."""
         p = self.parameters
-        algo = p.algorithm_options
         popt = p.position_options
-        plan = self._make_plan()
-        epoch0 = len(algo.times)
-        nb = self.data.shape[0]
-        if plan.compact:
-            orders = [range(nb)] * num_iter
-        else:
-            orders = [self._rng.permutation(nb).tolist() for _ in range(num_iter)]
         state = EpochState(
             psi=p.psi,
             probe=p.probe,
@@ -556,7 +622,7 @@ class Reconstruction:
             eigen_probe=p.eigen_probe,
             eigen_weights=p.eigen_weights,
         )
-        if popt is not None and popt.use_adaptive_moment:
+        if plan.recover_positions and popt.use_adaptive_moment:
             if popt._momentum is None:
                 state.pos_v = torch.zeros_like(p.scan)
                 state.pos_m = torch.zeros_like(p.scan)
@@ -564,6 +630,84 @@ class Reconstruction:
                 state.pos_v = popt._momentum[..., 0:2]
                 state.pos_m = popt._momentum[..., 2:4]
         self._moment_states(plan, state)
+        return state
+
+    def _keep_fields(self, state: EpochState) -> None:
+        p = self.parameters
+        p.psi, p.probe, p.scan = state.psi, state.probe, state.scan
+        p.eigen_probe = state.eigen_probe
+        p.eigen_weights = state.eigen_weights
+
+    def _keep_moments(self, plan: EpochPlan, state: EpochState) -> None:
+        """Put the moment states back into the options, for the next call."""
+        p = self.parameters
+        if plan.recover_positions and p.position_options.use_adaptive_moment:
+            p.position_options._momentum = torch.cat(
+                [state.pos_v, state.pos_m], dim=-1
+            )
+        if plan.obj_moment != "none":
+            p.object_options.m = state.obj_m
+            if plan.obj_moment != "momentum":
+                p.object_options.v = state.obj_v
+        if plan.probe_moment != "none":
+            p.probe_options.v = state.probe_v
+            p.probe_options.m = state.probe_m
+
+    def _epoch_order(self, plan: EpochPlan):
+        """The next epoch's batch order: 0..nb-1 for compact batches, else
+        a permutation drawn from the reconstruction's generator."""
+        nb = self._batch_idx.shape[0]
+        return range(nb) if plan.compact else self._rng.permutation(nb).tolist()
+
+    def iterate(self, num_iter: int) -> None:
+        """Advance the reconstruction by ``num_iter`` epochs.
+
+        Compact batching runs the batches in order; the other batch
+        methods in a permutation per epoch from the reconstruction's
+        generator. As in the JAX package there are two paths. Where nothing
+        needs the host between epochs (:meth:`_fused_eligible`), all epochs
+        are enqueued and read back once (:meth:`_iterate_fused`); with
+        ``convergence_window >= 2`` in chunks of ``window // 2`` epochs,
+        with :func:`~tike_tpu_torch.opt.is_converged` between them. A
+        finite ``time_limit``, ``use_position_regularization``, position
+        options with rPIE and host-streamed data take the per-epoch loop
+        (:meth:`_iterate_per_epoch`).
+        """
+        if num_iter < 1:
+            return
+        algo = self.parameters.algorithm_options
+        if not self._fused_eligible():
+            return self._iterate_per_epoch(num_iter)
+        window = algo.convergence_window
+        if window < 2:
+            return self._iterate_fused(num_iter)
+        # Early stopping reads the cost history on the host.
+        chunk = max(1, window // 2)
+        done = 0
+        while done < num_iter:
+            step = min(chunk, num_iter - done)
+            self._iterate_fused(step)
+            done += step
+            if is_converged(algo):
+                return
+
+    def _iterate_fused(self, num_iter: int) -> None:
+        """Run ``num_iter`` epochs without reading from the device between
+        them: the batch orders are all drawn when the call starts, as the
+        JAX package's fused path draws them; the per-epoch costs and probe
+        powers stay on the device until all epochs have run, then come to
+        the host in one transfer, and each epoch is recorded with the mean
+        wall time of the call. Moment states are kept in the object, probe
+        and position options between calls. With position correction the
+        global affine transform is fitted once afterwards.
+        """
+        p = self.parameters
+        algo = p.algorithm_options
+        popt = p.position_options
+        plan = self._make_plan()
+        epoch0 = len(algo.times)
+        orders = [self._epoch_order(plan) for _ in range(num_iter)]
+        state = self._epoch_state(plan)
         costs, powers = [], []
         start = time.perf_counter()
         for e in range(num_iter):
@@ -581,18 +725,8 @@ class Reconstruction:
             costs.append(cost)
             powers.append(pwr)
             # Drop the last epoch's tensors as soon as the next exist.
-            p.psi, p.probe, p.scan = state.psi, state.probe, state.scan
-            p.eigen_probe = state.eigen_probe
-            p.eigen_weights = state.eigen_weights
-        if popt is not None and popt.use_adaptive_moment:
-            popt._momentum = torch.cat([state.pos_v, state.pos_m], dim=-1)
-        if plan.obj_moment != "none":
-            p.object_options.m = state.obj_m
-            if plan.obj_moment != "momentum":
-                p.object_options.v = state.obj_v
-        if plan.probe_moment != "none":
-            p.probe_options.v = state.probe_v
-            p.probe_options.m = state.probe_m
+            self._keep_fields(state)
+        self._keep_moments(plan, state)
         costs_host = to_numpy(torch.stack(costs))  # waits for the device
         powers_host = to_numpy(torch.stack(powers))
         elapsed = time.perf_counter() - start
@@ -613,6 +747,56 @@ class Reconstruction:
             num_iter,
         )
 
+    def _iterate_per_epoch(self, num_iter: int) -> None:
+        """The per-epoch loop of the JAX package's ``iterate``: before each
+        epoch the ``time_limit`` is held against the recorded times and the
+        batch order is drawn; after it the epoch's cost (and, on epochs
+        that recover the probe, its power) is read to the host, the affine
+        position model is fitted (and applied with
+        ``use_position_regularization``), the epoch's own wall time is
+        recorded and :func:`~tike_tpu_torch.opt.is_converged` is asked.
+        Host-streamed data runs here, each batch copied in while the one
+        before computes. rPIE leaves the positions alone."""
+        p = self.parameters
+        algo = p.algorithm_options
+        plan = self._make_plan(per_epoch=True)
+        start = time.perf_counter()
+        for _ in range(num_iter):
+            if np.sum(algo.times) > algo.time_limit:
+                logger.info("Maximum reconstruction time exceeded.")
+                break
+            total_e = len(algo.times)
+            logger.info("%s epoch %d", algo.name, total_e)
+            order = self._epoch_order(plan)
+            state = self._epoch_state(plan)
+            cost, pwr = _epoch_math(
+                plan,
+                self.data,
+                self._batch_idx,
+                self._batch_mask,
+                self._batch_real,
+                order,
+                state,
+                p.exitwave_options,
+                total_e,
+            )
+            self._keep_fields(state)
+            self._keep_moments(plan, state)
+            algo.costs.append([float(cost)])  # waits for the device
+            if plan.recover_probe and plan.recover_now(total_e):
+                p.probe_options.power.append(to_numpy(pwr))
+            if p.position_options is not None:
+                p.scan, p.position_options = affine_position_regularization(
+                    p.scan, p.position_options, rng=self._fit_rng
+                )
+            algo.times.append(time.perf_counter() - start)
+            start = time.perf_counter()
+            logger.info(
+                "%10s cost is %+1.3e", p.exitwave_options.noise_model, algo.costs[-1][0]
+            )
+            if is_converged(algo):
+                break
+
     def get_scan(self) -> np.ndarray:
         """Return the current scan positions in the user's order."""
         return to_numpy(self.parameters.scan)[np.argsort(self.order)]
@@ -624,6 +808,10 @@ class Reconstruction:
         return PtychoParameters.join(
             [self.parameters.copy_to_host()], np.argsort(self.order)
         )
+
+    def get_psi(self) -> np.ndarray:
+        """Return the current object as a numpy array."""
+        return to_numpy(self.parameters.psi)
 
     def get_probe(self):
         """Return (probe, eigen_probe, eigen_weights) as numpy arrays, the
@@ -682,14 +870,15 @@ def _rescale_probe(
 ) -> PtychoParameters:
     """Rescale the probe so modeled and measured total intensity match.
 
-    ``data`` is batch-major (num_batch, L, DET, DET); padded slots (mask 0)
-    are not counted. Sets ``probe_photons`` from the rescaled probe when it
-    is unset.
+    ``data`` is batch-major (num_batch, L, DET, DET), resident or streamed
+    from the host batch by batch; padded slots (mask 0) are not counted.
+    Sets ``probe_photons`` from the rescaled probe when it is unset.
     """
     w = parameters.exitwave_options.measured_pixels.to(torch.float32)
-    s_data = torch.zeros((), device=data.device)
-    s_model = torch.zeros((), device=data.device)
-    for data_b, idx, bmask in zip(data, batch_idx, batch_mask):
+    s_data = torch.zeros((), device=w.device)
+    s_model = torch.zeros((), device=w.device)
+    for n, data_b in iter_batches(data, range(batch_idx.shape[0])):
+        idx, bmask = batch_idx[n], batch_mask[n]
         intensity = intensity_from_farplane(
             ptycho_fwd(
                 cfg, parameters.psi, parameters.scan[idx], parameters.probe[:, 0]

@@ -39,6 +39,7 @@ from ... import linalg, opt
 from ...ops.ptycho import PtychoConfig
 from .. import object as object_module
 from .. import probe as probe_module
+from ..stream import iter_batches
 from ._preconditioner import (
     _probe_precond_fft_math,
     _probe_precond_math,
@@ -548,8 +549,10 @@ def _epoch_math(
 ):
     """One full epoch, its batches in ``order``.
 
-    data (nb, L, DET, DET) float32; batch_idx (nb, L) int64 and batch_mask
-    (nb, L) float32 on the data's device; batch_real[n] the int64 slots of
+    data (nb, L, DET, DET) float32, a tensor on the device or host data
+    behind a :class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`, which
+    copies each batch in while the one before computes; batch_idx (nb, L)
+    int64 and batch_mask (nb, L) float32 on the device; batch_real[n] the int64 slots of
     batch n with a mask above 0; order a sequence of the nb batch numbers.
     Updates ``state`` and returns ``(epoch_cost, pwr)`` as device tensors;
     the epoch cost is the mean of the batch costs taken in batch order.
@@ -573,10 +576,10 @@ def _epoch_math(
         sums.pcomb = torch.zeros_like(state.probe)
         sums.pbeta = torch.zeros((), dtype=torch.float32, device=state.probe.device)
     costs, betas = [None] * nb, []
-    for n in order:
+    for n, data_n in iter_batches(data, order):
         costs[n], beta_obj = _batch_update_math(
             plan,
-            data[n],
+            data_n,
             batch_idx[n],
             batch_mask[n],
             batch_real[n],

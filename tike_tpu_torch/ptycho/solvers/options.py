@@ -86,6 +86,15 @@ def _shape(x) -> tuple:
     return tuple(x.shape)
 
 
+def _host_or_device(x, dtype):
+    """A field that does not depend on the positions, as ``split`` passes
+    it on: a tensor as it is (so an object kept on the device between
+    calls stays there), anything else as a numpy array of ``dtype``."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return np.asarray(x).astype(dtype)
+
+
 def _moments_to_host(options):
     """A shallow copy of object or probe ``options`` whose moment states
     (``v``, ``m``) are host numpy arrays."""
@@ -206,14 +215,14 @@ class PtychoParameters:
 
     @staticmethod
     def split(indices, *, x: "PtychoParameters") -> "PtychoParameters":
-        """Return new host parameters with only the positions in indices."""
+        """Return new parameters with only the positions in indices: the
+        per-position arrays as host arrays, the probe, psi and eigen probes
+        as ``x`` holds them (tensors stay where they are)."""
         return PtychoParameters(
-            probe=to_numpy(x.probe).astype(cfloating),
-            psi=to_numpy(x.psi).astype(cfloating),
+            probe=_host_or_device(x.probe, cfloating),
+            psi=_host_or_device(x.psi, cfloating),
             scan=to_numpy(x.scan)[indices].astype(floating),
-            eigen_probe=None
-            if x.eigen_probe is None
-            else to_numpy(x.eigen_probe).astype(cfloating),
+            eigen_probe=_host_or_device(x.eigen_probe, cfloating),
             eigen_weights=None
             if x.eigen_weights is None
             else to_numpy(x.eigen_weights)[indices].astype(floating),

@@ -31,7 +31,7 @@ from . import kernels
 
 PROBES = {
     # name: (what it computes, the Pallas probe's kernel and call)
-    "trivial": ("o = 2 x, one block", "scripts/pallas_probe.py:41-48 (:45)"),
+    "trivial": ("o = 2 x, one block of float4s", "scripts/pallas_probe.py:41-48 (:45)"),
     "gridded": (
         "o = 2 x over (8, 128, 128), a 2-D launch grid",
         "scripts/pallas_probe.py:52-63 (:56)",
@@ -45,7 +45,7 @@ PROBES = {
         "scripts/pallas_probe.py:93-113 (:102)",
     ),
     "dynamic_dma": (
-        "big[cy:+128, cx:+256] at read corners, cp.async.bulk + mbarrier",
+        "big[cy:+128, cx:+256] at read corners, cp.async.bulk in (mbarrier) and out",
         "scripts/pallas_probe.py:117-151 (:146)",
     ),
     "element_static": (
@@ -227,7 +227,8 @@ def _windows_cuda(name, fn, corners, big, check_indices=True, rows=ROWS):
 
 def dynamic_dma(corners, big, check_indices: bool = True):
     """o[i] = big[cy:cy+128, cx:cx+256] at the corners (planes, 2) int32,
-    each row by one ``cp.async.bulk``; cx must be a multiple of 4."""
+    each row in by one ``cp.async.bulk`` and each band of 8 rows out by
+    one; cx must be a multiple of 4."""
     if not big.is_cuda:
         return PLAIN["dynamic_dma"](corners, big)
     fn = kernels.load("probe").tike_probe_dynamic_dma
