@@ -90,7 +90,9 @@ After phase 9:
     and volume must equal the first one's bit for bit;
 12. the seven feature probes (``tike_tpu_torch/toolchain_probe.py``): each
     launched once on ``arange``-valued inputs and equal to its plain
-    version bit for bit, then timed beside its bound: in a CUDA graph with
+    version bit for bit, the element windows also at every lead (``cx %
+    4``) at ``big``'s edges (``tests/_torch_probe_cases.py``), then timed
+    beside its bound: in a CUDA graph with
     the index check left out (the kernel's own time) and as an eager call
     with it, and the library call likewise.
 
@@ -156,6 +158,7 @@ import tike_tpu_torch.admm as tadmm
 import tike_tpu_torch.lamino as tl
 import tike_tpu_torch.ptycho as tp
 from tests import _torch_patch_cases as cases
+from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
 from tike_tpu_torch import kernels, opt, toolchain_probe
 from tike_tpu_torch.constants import wavenumber
@@ -1317,23 +1320,15 @@ def phase_probes(device, card: str):
     for name, count in launches.items():
         if count != 1:
             raise AssertionError(f"probe {name} launched {count} times: {launches}")
-    x0, x, big = inp["x"][0], inp["x"], inp["big"]
-    rows, cols = toolchain_probe.ROWS, toolchain_probe.WINDOW_COLS
-
-    width = big.shape[1]
-
-    def windows(offset, step):
-        return big.as_strided((8, rows, cols), (step, width, 1), offset)
-
-    library = {
-        "trivial": lambda: torch.mul(x0, 2.0),
-        "gridded": lambda: torch.mul(x, 2.0),
-        "prefetch": None,
-        "static_dma": lambda: x0[0:rows, 0:toolchain_probe.COLS].clone(),
-        "dynamic_dma": lambda: windows(0, 8 * width + 16).clone(),
-        "element_static": lambda: torch.mul(windows(0, 8 * width + 16), 2.0),
-        "element_prefetch": lambda: torch.mul(windows(3 * width + 5, 9 * width + 17), 2.0),
-    }
+    # The element kernel's every lead (cx % 4) at big's edges, on the probes'
+    # big and on a random narrower one.
+    rng = np.random.default_rng(0)
+    for big in (inp["big"], cases_probe.random_big(rng, cases_probe.BIG_SHAPES[1], device)):
+        for lead in cases_probe.LEADS:
+            cases_probe.check_windows(big, cases_probe.edge_corners(tuple(big.shape), lead))
+    log(f"[probe] element_prefetch equal to its plain version bit for bit at every lead 0-3 at "
+        f"the edges of big {list(cases_probe.BIG_SHAPES)}")
+    library = cases_probe.library_calls(inp)
     out = {}
     for name, fn in toolchain_probe.FUNCTIONS.items():
         args = toolchain_probe._args(name, inp)

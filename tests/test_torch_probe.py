@@ -12,6 +12,7 @@ against numpy.
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -19,9 +20,11 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tike_tpu_torch import kernels
 from tike_tpu_torch import toolchain_probe as tp
 
 from . import _torch_parity  # noqa: F401  (one torch thread per worker)
+from . import _torch_probe_cases as cases
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
 import pallas_probe  # noqa: E402
@@ -122,3 +125,62 @@ def test_cpu_calls_launch_nothing():
     before = dict(tp.LAUNCHES)
     tp.run(tp.inputs("cpu"))
     assert tp.LAUNCHES == before
+
+
+def _source_constant(source, name):
+    match = re.search(rf"constexpr int {name} = (\d+)[;,]", source)
+    assert match is not None, name
+    return int(match.group(1))
+
+
+def test_band_constants_equal_those_of_the_source():
+    """``BAND_ROWS``, which the window wrappers refuse rows by, is
+    ``csrc/probe.cu``'s ``kBandRows``, and each window kernel's band
+    divides it."""
+    with open(os.path.join(kernels.CSRC, "probe.cu")) as f:
+        source = f.read()
+    band = _source_constant(source, "kBandRows")
+    assert tp.BAND_ROWS == band
+    for name in ("kDmaRows", "kElementRows"):
+        assert band % _source_constant(source, name) == 0, name
+    assert tp.ROWS % band == 0
+    assert _source_constant(source, "kStaticRows") % _source_constant(source, "kStaticBandRows") == 0
+
+
+@pytest.mark.parametrize("shape", cases.BIG_SHAPES)
+@pytest.mark.parametrize("lead", cases.LEADS)
+def test_plain_element_prefetch_matches_numpy_at_every_lead_and_edge(lead, shape):
+    big = cases.random_big(np.random.default_rng(lead), shape, "cpu")
+    corners = cases.edge_corners(shape, lead)
+    # The corners have the lead, and reach the last row and (through the
+    # row's span widened to 16 bytes) the last column.
+    cx = corners[:, 1].numpy()
+    assert (cx % 4 == lead).all()
+    assert int(corners[:, 0].max()) + tp.ROWS == shape[0]
+    assert int(cx.max()) - lead + 4 * -(-(lead + tp.WINDOW_COLS) // 4) == shape[1]
+    got = tp.element_prefetch(corners, big)
+    np.testing.assert_array_equal(got.numpy(), _numpy_windows(big.numpy(), corners.numpy(), 2))
+    cases.check_windows(big, corners)
+
+
+def test_library_calls_compute_the_probes():
+    inp = tp.inputs("cpu")
+    for name, call in cases.library_calls(inp).items():
+        if call is not None:
+            assert torch.equal(call(), tp.PLAIN[name](*tp._args(name, inp))), name
+
+
+def test_probe_sweep_variants_apply_to_the_source():
+    """Every default variant of ``kernel_sweep --source probe`` finds the
+    text it replaces in ``csrc/probe.cu``, and the variants are distinct
+    sources."""
+    from tike_tpu_torch import kernel_sweep
+
+    with open(kernel_sweep.PROBE_SOURCE) as f:
+        source = f.read()
+    variants = kernel_sweep.probe_variants(source)
+    sources = {kernel_sweep.variant_source(source, subs) for subs in variants.values()}
+    # Two variants repeat the source as it stands: the element kernel's and
+    # the static-DMA kernel's kept settings.
+    assert len(sources) == len(variants) - 2
+    assert {"element (a) staged, float4, 8 rows", "static_dma 8 rows, 128 threads"} <= set(variants)

@@ -63,7 +63,7 @@ LAUNCHES = {name: 0 for name in PROBES}
 
 PLANES, ROWS, COLS = 8, 128, 128  # x
 BIG, WINDOW_COLS = 1024, 256  # big (1024, 1024); windows (128, 256)
-BAND_ROWS = 32  # csrc/probe.cu kBandRows
+BAND_ROWS = 8  # csrc/probe.cu kBandRows
 
 
 def inputs(device, ones: bool = False) -> dict:
