@@ -11,7 +11,9 @@ without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
 2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu`` and
-   ``probe.cu`` for sm_90a, one nvcc each, all started together;
+   ``probe.cu`` for sm_90a, and ``probe.cu`` with its gridded and prefetch
+   kernels in their parent's form (``kernel_sweep.parent_form``), one nvcc
+   each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
    positions, P=128, some windows past the bottom/right edges): each CUDA
    kernel against its plain PyTorch version, two launches of each on the
@@ -91,10 +93,14 @@ After phase 9:
 12. the seven feature probes (``tike_tpu_torch/toolchain_probe.py``): each
     launched once on ``arange``-valued inputs and equal to its plain
     version bit for bit, the element windows also at every lead (``cx %
-    4``) at ``big``'s edges (``tests/_torch_probe_cases.py``), then timed
-    beside its bound: in a CUDA graph with
-    the index check left out (the kernel's own time) and as an eager call
-    with it, and the library call likewise.
+    4``) at ``big``'s edges, gridded and prefetch also at odd shapes and
+    index arrays (``tests/_torch_probe_cases.py``), then timed beside its
+    bound: in a CUDA graph with the index check left out (the kernel's own
+    time), in turns with the launch floor (``csrc/probe.cu``'s empty kernel
+    at the probe's grid), the library call (two calls for ``prefetch``) and,
+    for gridded and prefetch, the kernel in its parent's form; and as an
+    eager call with the index check, beside the plain version and the
+    library call.
 
 After phase 12, the joint-ADMM and host-streamed paths:
 
@@ -137,7 +143,10 @@ first timed run as ``launches_admm`` and in phase 15's epoch as
 probes' in phase 12; its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
-deterministic); each full-width path also logs each kernel's bound per
+deterministic; each probe's launch floor ``floor_ms``, for gridded and
+prefetch the parent's form's time ``parent_form_ms``, and for prefetch,
+which no single call computes, ``library_ms`` null beside
+``library_two_calls_ms``); each full-width path also logs each kernel's bound per
 launch over its batches. The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -160,7 +169,7 @@ import tike_tpu_torch.ptycho as tp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
-from tike_tpu_torch import kernels, opt, toolchain_probe
+from tike_tpu_torch import kernel_sweep, kernels, opt, toolchain_probe
 from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import patch, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
@@ -223,6 +232,8 @@ PROBE_KERNELS = {
     "element_prefetch": "scripts/pallas_probe.py:199",
 }
 SOURCES = ("patch", "usfft", "probe")
+# The probe kernels redesigned last, timed beside their parent's form.
+PARENT_FORM_PROBES = ("gridded", "prefetch")
 
 # Laminography (bench_all.py's lamino_cgrad and lamino_cgls): a 128^3
 # volume, 64 angles, tilt pi/3, eps 1e-3, upsample 1, one warm-up outer
@@ -317,11 +328,23 @@ def phase_environment() -> dict:
     return env
 
 
-def phase_build() -> None:
-    """Build every source with one nvcc each, all started together."""
+def phase_build():
+    """Build every source with one nvcc each, all started together, and
+    ``probe.cu`` in its parent's form; returns the latter, loaded."""
     start = time.perf_counter()
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe_source = (kernels.CSRC / "probe.cu").read_text()
+    parent = kernel_sweep.start_builds(
+        "probe",
+        {"parent form": kernel_sweep.variant_source(
+            probe_source, kernel_sweep.parent_form(probe_source))},
+        kernels.BUILD_DIR,
+    )
     kernels.build_all(SOURCES)
-    log(f"[build] {len(SOURCES)} sources in {time.perf_counter() - start:.2f} s")
+    libs, failed = kernel_sweep.finish_builds("probe", parent)
+    if failed:
+        raise RuntimeError(f"nvcc failed on probe.cu in its parent's form:\n{failed}")
+    log(f"[build] {len(SOURCES) + 1} sources in {time.perf_counter() - start:.2f} s")
     for name in SOURCES:
         kernels.load(name)
         info = kernels.BUILD_INFO[name]
@@ -329,6 +352,7 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {line.strip()}")
+    return libs["parent form"]
 
 
 def _ms_per_call(fn, reps: int) -> float:
@@ -356,6 +380,18 @@ def graph_ms_per_call(fn, reps: int = 20, rounds: int = 3) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return statistics.median(_ms_per_call(graph.replay, 1) / reps for _ in range(rounds))
+
+
+def graph_ms_in_turns(fns: dict) -> dict:
+    """Median ms per call of each function of ``fns`` by
+    :func:`graph_ms_per_call`, in turns: in their order, in the reverse
+    order, in order again."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for turn in (order, order[::-1], order):
+        for name in turn:
+            times[name].append(graph_ms_per_call(fns[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def median_ms_in_turns(fns: dict, reps: int = 20, rounds: int = 3) -> dict:
@@ -1304,12 +1340,15 @@ def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
     return launches
 
 
-def phase_probes(device, card: str):
+def phase_probes(device, card: str, parent_form):
     """The seven feature probes: run each once through its entry point
-    (counted), each output equal to its plain version bit for bit, then
-    times beside the bounds: the kernel in a CUDA graph with its index
-    check (a host read) left out, the eager call with it, and the library
-    call both ways."""
+    (counted), each output equal to its plain version bit for bit, the odd
+    shapes of gridded and prefetch likewise, then times beside the bounds:
+    the kernel in a CUDA graph with its index check (a host read) left out,
+    in turns with the launch floor, the library call and, for
+    ``PARENT_FORM_PROBES``, the kernel in its parent's form (the library
+    ``parent_form``); the eager call with the check, the plain version and
+    the library call in turns."""
     inp = toolchain_probe.inputs(device)
     for name in toolchain_probe.LAUNCHES:
         toolchain_probe.LAUNCHES[name] = 0
@@ -1328,46 +1367,72 @@ def phase_probes(device, card: str):
             cases_probe.check_windows(big, cases_probe.edge_corners(tuple(big.shape), lead))
     log(f"[probe] element_prefetch equal to its plain version bit for bit at every lead 0-3 at "
         f"the edges of big {list(cases_probe.BIG_SHAPES)}")
+    cases_probe.check_odd_shapes(device)
+    log(f"[probe] gridded at {list(cases_probe.GRIDDED_SHAPES)} (arange and random values) and "
+        f"prefetch on 8 planes of {list(cases_probe.PREFETCH_PLANES)} ({', '.join(cases_probe.INDEX_KINDS)} "
+        "indices): equal to their plain versions bit for bit")
     library = cases_probe.library_calls(inp)
     out = {}
     for name, fn in toolchain_probe.FUNCTIONS.items():
         args = toolchain_probe._args(name, inp)
         # The run above checked these indices.
         unchecked = {"check_indices": False} if name in toolchain_probe.INDEXED else {}
-        fns = {"plain": lambda: toolchain_probe.PLAIN[name](*args), "kernel": lambda: fn(*args)}
-        if library[name] is not None:
-            if not torch.equal(library[name](), outputs[name]):
-                raise AssertionError(f"probe {name}: the library call differs")
-            fns["library"] = library[name]
-        ms = median_ms_in_turns(fns)
-        if not torch.equal(fn(*args, **unchecked), outputs[name]):
+        if not torch.equal(library[name](), outputs[name]):
+            raise AssertionError(f"probe {name}: the library call differs")
+        ms = median_ms_in_turns({
+            "plain": lambda: toolchain_probe.PLAIN[name](*args),
+            "library": library[name],
+            "kernel": lambda: fn(*args),
+        })
+        kernel = lambda: fn(*args, **unchecked)
+        if not torch.equal(kernel(), outputs[name]):
             raise AssertionError(f"probe {name}: the call without the index check differs")
-        graph_ms = graph_ms_per_call(lambda: fn(*args, **unchecked))
-        library_graph_ms = graph_ms_per_call(library[name]) if library[name] else None
+        fns = {"kernel": kernel, "floor": cases_probe.floor_call(name, inp), "library": library[name]}
+        if name in PARENT_FORM_PROBES:
+
+            def in_parent_form():
+                with kernel_sweep.loaded("probe", parent_form):
+                    return kernel()
+
+            if not torch.equal(in_parent_form(), outputs[name]):
+                raise AssertionError(f"probe {name}: the parent's form differs")
+            fns["parent form"] = in_parent_form
+        graph = graph_ms_in_turns(fns)
         nbytes = toolchain_probe.bound_bytes(name, inp, outputs[name])
         bound_ms = 1e3 * nbytes / cases.HBM_BYTES_PER_S
+        # library_ms is one call's; prefetch's yardstick is two.
+        one_call = name != "prefetch"
         out[name] = dict(
             max_abs_err=0.0,
-            ms=graph_ms,
+            ms=graph["kernel"],
             ms_eager_call=ms["kernel"],
             plain_ms=ms["plain"],
-            library_ms=library_graph_ms,
-            library_ms_eager_call=ms.get("library"),
+            library_ms=graph["library"] if one_call else None,
+            library_ms_eager_call=ms["library"] if one_call else None,
+            **({} if one_call else {
+                "library_two_calls_ms": graph["library"],
+                "library_two_calls_ms_eager_call": ms["library"],
+            }),
+            library=cases_probe.LIBRARY_NAMES[name],
             bound_bytes=nbytes,
             bound_ms=bound_ms,
             bound_by="bytes",
-            roofline_share=bound_ms / graph_ms,
+            floor_ms=graph["floor"],
+            roofline_share=bound_ms / graph["kernel"],
             deterministic=True,
             card=card,
         )
-        lib = (
-            f"{library_graph_ms:.4f} ms (CUDA graph; eager call {ms['library']:.4f} ms)"
-            if "library" in ms else "none"
-        )
+        parent = ""
+        if "parent form" in graph:
+            out[name]["parent_form_ms"] = graph["parent form"]
+            parent = f"; the parent's form {graph['parent form']:.5f} ms (CUDA graph, same turns)"
         log(f"[probe] {name} ({toolchain_probe.PROBES[name][0]}): equal to its plain version "
-            f"bit for bit; kernel {graph_ms:.4f} ms (CUDA graph, index check outside; eager call "
-            f"{ms['kernel']:.4f} ms), plain {ms['plain']:.4f} ms, library {lib}; bound "
-            f"{bound_ms:.5f} ms ({nbytes} bytes) ({card})")
+            f"bit for bit; kernel {graph['kernel']:.5f} ms (CUDA graph, index check outside; eager "
+            f"call {ms['kernel']:.4f} ms){parent}; launch floor (empty kernel at its grid) "
+            f"{graph['floor']:.5f} ms; library ({cases_probe.LIBRARY_NAMES[name]}) "
+            f"{graph['library']:.5f} ms (CUDA graph; eager {ms['library']:.4f} ms); plain "
+            f"{ms['plain']:.4f} ms; bound {bound_ms:.5f} ms ({nbytes} bytes), "
+            f"{100 * bound_ms / graph['kernel']:.1f}% of it ({card})")
     return launches, out
 
 
@@ -1850,7 +1915,7 @@ def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
     card = env["nvidia_smi"]
-    phase_build()
+    parent_form = phase_build()
     timings = phase_kernel_parity(device, card)
     path_shape_timings = phase_path_shapes(device, card)
     timings.update(phase_usfft_parity(device, card))
@@ -1874,7 +1939,7 @@ def main() -> None:
     log(f"[lamino] simulate {tuple(data.shape)} at {volume.shape[0]}^3 on the card vs the "
         f"CPU: max|err| / max|value| {err:.2e} (tol {LAMINO_SIM_TOL:g})")
     lamino_launches = {alg: phase_lamino(device, alg, card, problem) for alg in ("cgrad", "cgls")}
-    probe_launches, probe_timings = phase_probes(device, card)
+    probe_launches, probe_timings = phase_probes(device, card, parent_form)
     phase_stream_slices(device)
     phase_stopping_slices(device)
     phase_admm_slice(device)

@@ -133,18 +133,79 @@ def _source_constant(source, name):
     return int(match.group(1))
 
 
+def _probe_source():
+    with open(os.path.join(kernels.CSRC, "probe.cu")) as f:
+        return f.read()
+
+
 def test_band_constants_equal_those_of_the_source():
     """``BAND_ROWS``, which the window wrappers refuse rows by, is
     ``csrc/probe.cu``'s ``kBandRows``, and each window kernel's band
-    divides it."""
-    with open(os.path.join(kernels.CSRC, "probe.cu")) as f:
-        source = f.read()
+    divides it. The gridded and prefetch bands need not tile anything: a
+    plane's last band is as short as it is, and the float4 path is taken
+    only where every band starts on 16 bytes (gridded: a multiple of 4
+    columns; prefetch: a multiple of 4 floats a plane, with a band of a
+    multiple of 4 floats)."""
+    source = _probe_source()
     band = _source_constant(source, "kBandRows")
     assert tp.BAND_ROWS == band
     for name in ("kDmaRows", "kElementRows"):
         assert band % _source_constant(source, name) == 0, name
     assert tp.ROWS % band == 0
     assert _source_constant(source, "kStaticRows") % _source_constant(source, "kStaticBandRows") == 0
+    prefetch_band = _source_constant(source, "kPrefetchRows") * _source_constant(source, "kPrefetchCols")
+    assert prefetch_band % 4 == 0
+    assert "cols % 4 == 0 && aligned16(x, o)" in source
+    assert "plane % 4 == 0 && aligned16(x, o)" in source
+
+
+def test_empty_kernel_ids_follow_the_probes():
+    """``tike_probe_empty`` takes a probe by its place in ``PROBES``:
+    ``csrc/probe.cu``'s ``ProbeId`` lists them in that order, and the
+    launch floor of each probe asks for a grid of its own probe's shape."""
+    source = _probe_source()
+    body = re.search(r"enum ProbeId \{([^}]*)\}", source).group(1)
+    ids = [word.strip() for word in body.split(",") if word.strip()]
+    camel = ["kProbe" + "".join(part.title() for part in name.split("_")) for name in tp.PROBES]
+    assert ids == camel
+    assert "tike_probe_empty" in kernels.SIGNATURES["probe"]
+    inp = tp.inputs("cpu")
+    assert cases._launch_extent("gridded", inp) == (tp.PLANES, tp.ROWS)
+    assert cases._launch_extent("prefetch", inp) == (tp.PLANES, tp.ROWS * tp.COLS)
+    assert cases._launch_extent("element_prefetch", inp) == (tp.PLANES, tp.ROWS)
+    assert cases._launch_extent("trivial", inp) == (1, 0)
+
+
+@pytest.mark.parametrize("shape", cases.GRIDDED_SHAPES)
+def test_plain_gridded_matches_numpy_at_odd_shapes(shape):
+    for kind in ("arange", "random"):
+        x = cases.gridded_input(shape, kind, "cpu")
+        assert x.shape == shape
+        np.testing.assert_array_equal(tp.gridded(x).numpy(), 2 * x.numpy())
+
+
+@pytest.mark.parametrize("kind", cases.INDEX_KINDS)
+@pytest.mark.parametrize("plane", cases.PREFETCH_PLANES)
+def test_plain_prefetch_matches_numpy_on_index_arrays(plane, kind):
+    idx, x = cases.prefetch_input(plane, kind, "cpu")
+    assert idx.dtype == torch.int32 and x.shape == (tp.PLANES, *plane)
+    assert int(idx.min()) >= 0 and int(idx.max()) < tp.PLANES
+    np.testing.assert_array_equal(tp.prefetch(idx, x).numpy(), x.numpy()[idx.numpy()] + 1)
+
+
+def test_odd_shape_cases():
+    """The odd shapes take both of the kernels' paths and a short last band:
+    some gridded planes have columns that are no multiple of 4, some a
+    count of rows that no band height of the sweep divides; some prefetch
+    planes hold a count of floats that is no multiple of 4; and the index
+    arrays repeat planes and leave some out."""
+    assert any(cols % 4 for _, _, cols in cases.GRIDDED_SHAPES)
+    assert any(cols % 4 == 0 for _, _, cols in cases.GRIDDED_SHAPES)
+    assert any(rows % 16 and rows > 16 for _, rows, _ in cases.GRIDDED_SHAPES)
+    assert max(cols for _, _, cols in cases.GRIDDED_SHAPES) == 1024
+    assert any(np.prod(plane) % 4 for plane in cases.PREFETCH_PLANES)
+    assert len(set(cases.prefetch_input((7, 5), "zeros", "cpu")[0].tolist())) == 1
+    cases.check_odd_shapes("cpu")
 
 
 @pytest.mark.parametrize("shape", cases.BIG_SHAPES)
@@ -164,10 +225,14 @@ def test_plain_element_prefetch_matches_numpy_at_every_lead_and_edge(lead, shape
 
 
 def test_library_calls_compute_the_probes():
+    """Every probe has its yardstick: one call, and for ``prefetch`` two
+    (``index_select``, then ``add_``)."""
     inp = tp.inputs("cpu")
-    for name, call in cases.library_calls(inp).items():
-        if call is not None:
-            assert torch.equal(call(), tp.PLAIN[name](*tp._args(name, inp))), name
+    calls = cases.library_calls(inp)
+    assert list(calls) == list(tp.PROBES) == list(cases.LIBRARY_NAMES)
+    assert "two calls" in cases.LIBRARY_NAMES["prefetch"]
+    for name, call in calls.items():
+        assert torch.equal(call(), tp.PLAIN[name](*tp._args(name, inp))), name
 
 
 def test_probe_sweep_variants_apply_to_the_source():
@@ -180,7 +245,40 @@ def test_probe_sweep_variants_apply_to_the_source():
         source = f.read()
     variants = kernel_sweep.probe_variants(source)
     sources = {kernel_sweep.variant_source(source, subs) for subs in variants.values()}
-    # Two variants repeat the source as it stands: the element kernel's and
-    # the static-DMA kernel's kept settings.
-    assert len(sources) == len(variants) - 2
-    assert {"element (a) staged, float4, 8 rows", "static_dma 8 rows, 128 threads"} <= set(variants)
+    # Four variants repeat the source as it stands: the kept settings of the
+    # element, static-DMA, gridded and prefetch kernels.
+    assert len(variants) == 91
+    assert len(sources) == len(variants) - 4
+    assert {
+        "element (a) staged, float4, 8 rows",
+        "static_dma 8 rows, 128 threads",
+        "gridded 16 rows, 4-byte, 256 threads",
+        "prefetch 1 rows, float4, 64 threads",
+        "prefetch 4 rows, index through shared memory",
+        "prefetch, the parent's form (a block per plane)",
+    } <= set(variants)
+    for tag in variants:
+        assert set(kernel_sweep.swept(tag)) <= set(kernel_sweep.PROBES_SWEPT), tag
+    assert kernel_sweep.swept("gridded 1 rows, 4-byte, 128 threads") == ("gridded",)
+    assert kernel_sweep.swept("prefetch, the parent's form (a block per plane)") == ("prefetch",)
+    assert kernel_sweep.swept("as it stands") == kernel_sweep.PROBES_SWEPT
+
+
+def test_parent_form_is_a_block_per_row_and_a_block_per_plane():
+    """``kernel_sweep.parent_form`` sets the constants to the launch the
+    gridded and prefetch kernels had before their bands: a 128-thread block
+    per 128-float row moving 4-byte values, and a 256-thread block per
+    plane reading its index through shared memory."""
+    from tike_tpu_torch import kernel_sweep
+
+    source = _probe_source()
+    parent = kernel_sweep.variant_source(source, kernel_sweep.parent_form(source))
+    assert _source_constant(parent, "kGriddedRows") == 1
+    assert _source_constant(parent, "kGriddedThreads") == tp.COLS
+    assert _source_constant(parent, "kPrefetchRows") * _source_constant(parent, "kPrefetchCols") == (
+        tp.ROWS * tp.COLS
+    )
+    assert _source_constant(parent, "kPrefetchThreads") == 256
+    for flag, value in (("kGriddedVectors", "false"), ("kPrefetchVectors", "false"),
+                        ("kPrefetchSharedIndex", "true")):
+        assert f"constexpr bool {flag} = {value};" in parent

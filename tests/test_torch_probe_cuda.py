@@ -1,6 +1,6 @@
-"""The element-window and static-DMA probe kernels (``csrc/probe.cu``)
-against their plain PyTorch versions (``toolchain_probe.PLAIN``), bit for
-bit, on the card.
+"""The element-window, static-DMA, gridded and prefetch probe kernels
+(``csrc/probe.cu``) against their plain PyTorch versions
+(``toolchain_probe.PLAIN``), bit for bit, on the card.
 
 Every test here needs a CUDA card and ``nvcc``, is marked ``cuda``, and
 skips without a card; whether there is one is decided inside each test, so
@@ -11,7 +11,8 @@ root of a checkout:
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX, which this file
 does not import.) The corners are those of ``tests/_torch_probe_cases.py``:
-every lead (``cx % 4``) at ``big``'s first and last rows and columns.
+every lead (``cx % 4``) at ``big``'s first and last rows and columns; so are
+gridded's odd shapes and prefetch's index arrays.
 """
 
 import numpy as np
@@ -24,7 +25,7 @@ from . import _torch_probe_cases as cases
 
 pytestmark = pytest.mark.cuda
 
-REDESIGNED = ("element_static", "element_prefetch", "static_dma")
+REDESIGNED = ("element_static", "element_prefetch", "static_dma", "gridded", "prefetch")
 
 
 @pytest.fixture
@@ -112,4 +113,40 @@ def test_a_window_leaving_big_is_refused_before_any_launch(card, corner):
         tp.element_prefetch(corners, inp["big"])
     with pytest.raises(ValueError, match="leave big"):
         tp.element_static(inp["big"][:150])  # starts reach row 56 + 128
+    assert tp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", cases.GRIDDED_SHAPES)
+def test_gridded_at_odd_shapes(card, shape):
+    for kind in ("arange", "random"):
+        x = cases.gridded_input(shape, kind, card)
+        cases.check_same("gridded", tp.gridded(x), tp.PLAIN["gridded"](x.cpu()), f"at {shape}")
+
+
+@pytest.mark.parametrize("kind", cases.INDEX_KINDS)
+@pytest.mark.parametrize("plane", cases.PREFETCH_PLANES)
+def test_prefetch_on_index_arrays(card, plane, kind):
+    idx, x = cases.prefetch_input(plane, kind, card)
+    want = tp.PLAIN["prefetch"](idx.cpu(), x.cpu())
+    cases.check_same("prefetch", tp.prefetch(idx, x), want, f"on {plane}, {kind}")
+    cases.check_same("prefetch", tp.prefetch(idx, x, check_indices=False), want, "unchecked")
+
+
+@pytest.mark.parametrize("bad", [-1, tp.PLANES])
+def test_an_out_of_range_index_is_refused_before_any_launch(card, bad):
+    inp = tp.inputs(card)
+    idx = inp["idx"].clone()
+    idx[3] = bad
+    before = dict(tp.LAUNCHES)
+    with pytest.raises(ValueError, match="out of range"):
+        tp.prefetch(idx, inp["x"])
+    assert tp.LAUNCHES == before
+
+
+def test_empty_kernel_launches_at_every_probe_grid(card):
+    inp = tp.inputs(card)
+    before = dict(tp.LAUNCHES)
+    for name in tp.PROBES:
+        cases.floor_call(name, inp)()
+    torch.cuda.synchronize()
     assert tp.LAUNCHES == before

@@ -14,11 +14,17 @@
 //     store 16 bytes at a time (0.0025-0.0027 ms in a CUDA graph; 256
 //     threads with 4-byte loads took 0.0029-0.0030; torch.mul, on many
 //     SMs, 0.0014-0.0017; NVIDIA H100 80GB HBM3, 700 W);
-//   - probe_gridded_kernel    (gridded, :52-63): o = 2 x over (8, 128, 128),
-//     a 2-D launch grid (plane, row), a thread per column;
-//   - probe_prefetch_kernel   (prefetch, :67-89): o[i] = x[idx[i]] + 1, each
-//     block reading its plane's index from the index array (Pallas fetched
-//     it ahead of the grid as a scalar prefetch);
+//   - probe_gridded_kernel    (gridded, :52-63): o = 2 x over (8, 128, 128)
+//     on a 2-D launch grid (band, plane): 256 blocks of 128 threads, each
+//     block a band of 4 rows of one plane, each thread 4 values whose loads
+//     all start before its first store; no shared memory, no barrier;
+//   - probe_prefetch_kernel   (prefetch, :67-89): o[i] = x[idx[i]] + 1 on the
+//     same bands, every thread reading its plane's index from the index
+//     array itself (one broadcast load a warp; Pallas fetched it ahead of
+//     the grid as a scalar prefetch). Both move 1 MiB, which the 50 MB L2
+//     holds across a graph's launches, so what they cost is the launch and
+//     one load latency: the empty kernel at their grid takes 0.0011-0.0012
+//     ms of their 0.0015-0.0017 (below);
 //   - probe_static_dma_kernel (static_dma, :93-113): the window x[0:128,
 //     0:128], at offsets fixed when compiled, copied into shared memory by
 //     16-byte cp.async (Ampere's asynchronous copy), then out. 128 KB to
@@ -65,11 +71,29 @@
 // static_dma, clone of the view 0.00132: 4-row bands of 128 threads (kept)
 // 0.00126-0.00128, of 64 threads 0.00129; 8 rows 0.00130 (64 threads
 // 0.00133); 16 rows 0.00135 (0.00142); 32 rows 0.00152 (0.00162).
+// gridded / prefetch (the same sweep, a later call; library calls torch.mul
+// 0.00154 / index_select then add_ 0.00631; the empty kernel at the grid of
+// 4-row bands 0.00116 / 0.00117, of 1-row bands 0.00133-0.00144):
+//   4-row bands of 128 threads, 4-byte (kept) 0.00150 / 0.00170; float4
+//   0.00160 / 0.00173; 1, 2, 8, 16 rows of 128 threads, float4 0.00177 /
+//   0.00189, 0.00163 / 0.00174, 0.00164 / 0.00174, 0.00163 / 0.00175, 4-byte
+//   0.00166 / 0.00188, 0.00153 / 0.00178, 0.00166 / 0.00190, 0.00194 /
+//   0.00218; of 64 or 256 threads within 0.0001 of 128 where each thread
+//   keeps at most 4 loads in flight, slower where it has to wait for more
+//   (16 rows of 64 threads, 4-byte: 0.00262 / 0.00290);
+//   prefetch's index through shared memory behind a barrier at 1-16 rows
+//   0.00197, 0.00179, 0.00176, 0.00178, 0.00206 (float4);
+//   the forms before the bands (a block per row, 1,024 blocks, 4-byte:
+//   0.00159 / a block per plane, 8 blocks of 256 threads: 0.00474, and as
+//   kernel_sweep.parent_form builds them from this source 0.00166 /
+//   0.00441).
 //
 // Each launcher allocates nothing, launches on the stream it is given, and
 // returns a cudaError_t; the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -93,6 +117,24 @@ constexpr int kElementRows = 4;        // rows of an element block
 constexpr bool kElementStaged = false;
 constexpr bool kElementVectors = true;
 constexpr int kElementPitch = kWindowCols + 4;  // staged rows: room for the lead
+// gridded: a block per band of kGriddedRows rows of one plane. prefetch: a
+// block per band of kPrefetchRows x kPrefetchCols floats of one plane (the
+// probe's rows are 128 floats). Float4 loads and stores where the launch is
+// aligned (k...Vectors), else 4-byte; the index read by every thread, or by
+// one into shared memory behind a barrier (kPrefetchSharedIndex).
+constexpr int kGriddedRows = 4;
+constexpr int kGriddedThreads = 128;
+constexpr bool kGriddedVectors = false;
+constexpr int kPrefetchRows = 4;
+constexpr int kPrefetchCols = 128;
+constexpr int kPrefetchThreads = 128;
+constexpr bool kPrefetchVectors = false;
+constexpr bool kPrefetchSharedIndex = false;
+constexpr int kPrefetchBand = kPrefetchRows * kPrefetchCols;
+static_assert(kPrefetchBand % 4 == 0,
+              "the bands of an aligned plane start on 16 bytes");
+constexpr int kInFlight = 4;      // loads a thread starts before its stores
+constexpr int kMaxGridY = 65535;  // prefetch planes beyond it loop in a block
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -201,28 +243,97 @@ __global__ void __launch_bounds__(kTrivialThreads)
   for (int j = 4 * vecs + threadIdx.x; j < count; j += kT) o[j] = 2.0f * x[j];
 }
 
-// grid (rows, planes), block (cols).
-__global__ void probe_gridded_kernel(const float* __restrict__ x,
-                                     float* __restrict__ o, int rows,
-                                     int cols) {
-  const long long k =
-      (static_cast<long long>(blockIdx.y) * rows + blockIdx.x) * cols +
-      threadIdx.x;
-  o[k] = 2.0f * x[k];
+struct Twice {
+  __device__ float operator()(float v) const { return 2.0f * v; }
+  __device__ float4 operator()(float4 v) const { return twice(v); }
+};
+
+struct PlusOne {
+  __device__ float operator()(float v) const { return v + 1.0f; }
+  __device__ float4 operator()(float4 v) const {
+    return make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
+  }
+};
+
+// op of the `count` values (float or float4) at `in`, to `out`, by the kT
+// threads of the block: each thread starts up to kInFlight loads before its
+// first store.
+template <int kT, class T, class Op>
+__device__ __forceinline__ void map_values(const T* __restrict__ in,
+                                           T* __restrict__ out, int count,
+                                           Op op) {
+  for (int k = threadIdx.x; k < count; k += kInFlight * kT) {
+    T v[kInFlight];
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      if (k + j * kT < count) v[j] = __ldg(in + k + j * kT);
+    }
+#pragma unroll
+    for (int j = 0; j < kInFlight; ++j) {
+      if (k + j * kT < count) out[k + j * kT] = op(v[j]);
+    }
+  }
 }
 
-// grid (planes).
-__global__ void __launch_bounds__(kThreads)
+// op of the `count` floats of a band, as float4s where `vectors` says the
+// whole launch may (both pointers 16-byte aligned, every band's start and
+// count a multiple of 4 floats), else 4-byte values: one branch, the same in
+// every block.
+template <int kT, bool kVectors, class Op>
+__device__ __forceinline__ void map_band(const float* __restrict__ in,
+                                         float* __restrict__ out, int count,
+                                         bool vectors, Op op) {
+  if (kVectors && vectors) {
+    map_values<kT>(reinterpret_cast<const float4*>(in),
+                   reinterpret_cast<float4*>(out), count / 4, op);
+  } else {
+    map_values<kT>(in, out, count, op);
+  }
+}
+
+// grid (bands of kGriddedRows rows, planes), kGriddedThreads; the last band
+// of a plane may be short.
+__global__ void __launch_bounds__(kGriddedThreads)
+    probe_gridded_kernel(const float* __restrict__ x, float* __restrict__ o,
+                         int rows, int cols, bool vectors) {
+  const int r0 = blockIdx.x * kGriddedRows;
+  const long long start =
+      (static_cast<long long>(blockIdx.y) * rows + r0) * cols;
+  map_band<kGriddedThreads, kGriddedVectors>(
+      x + start, o + start, min(kGriddedRows, rows - r0) * cols, vectors,
+      Twice{});
+}
+
+// grid (bands of kPrefetchBand floats, min(planes, kMaxGridY)),
+// kPrefetchThreads; blocks of row y take planes y, y + gridDim.y, ... Every
+// thread reads its plane's index itself (one broadcast load a warp), or,
+// with kPrefetchSharedIndex, thread 0 reads it into shared memory behind a
+// block barrier.
+__global__ void __launch_bounds__(kPrefetchThreads)
     probe_prefetch_kernel(const int* __restrict__ idx,
                           const float* __restrict__ x, float* __restrict__ o,
-                          int plane) {
-  __shared__ int src;
-  if (threadIdx.x == 0) src = idx[blockIdx.x];
-  __syncthreads();
-  const float* in = x + static_cast<long long>(src) * plane;
-  float* out = o + static_cast<long long>(blockIdx.x) * plane;
-  for (int k = threadIdx.x; k < plane; k += kThreads) out[k] = in[k] + 1.0f;
+                          int planes, int plane, bool vectors) {
+  const int b0 = blockIdx.x * kPrefetchBand;
+  const int count = min(kPrefetchBand, plane - b0);
+  for (int i = blockIdx.y; i < planes; i += gridDim.y) {
+    int src;
+    if constexpr (kPrefetchSharedIndex) {
+      __shared__ int shared_src;
+      __syncthreads();  // the previous plane's index has been read
+      if (threadIdx.x == 0) shared_src = idx[i];
+      __syncthreads();
+      src = shared_src;
+    } else {
+      src = __ldg(idx + i);
+    }
+    map_band<kPrefetchThreads, kPrefetchVectors>(
+        x + static_cast<long long>(src) * plane + b0,
+        o + static_cast<long long>(i) * plane + b0, count, vectors, PlusOne{});
+  }
 }
+
+// The launch floor: a block does nothing.
+__global__ void probe_empty_kernel() {}
 
 // grid (kStaticRows / kStaticBandRows), kStaticThreads; x has `pitch` floats
 // per row (a multiple of 4), x and o 16-byte aligned. Each thread copies its
@@ -412,6 +523,51 @@ __global__ void __launch_bounds__(kThreads)
 
 cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<unsigned long long>(a) |
+           reinterpret_cast<unsigned long long>(b)) &
+          15ull) == 0;
+}
+
+int ceil_div(int a, int b) { return a / b + (a % b != 0); }
+
+// Each kernel's grid and block, for its launcher and for tike_probe_empty.
+// The probes in the order of toolchain_probe.PROBES.
+enum ProbeId {
+  kProbeTrivial,
+  kProbeGridded,
+  kProbePrefetch,
+  kProbeStaticDma,
+  kProbeDynamicDma,
+  kProbeElementStatic,
+  kProbeElementPrefetch,
+};
+
+struct Launch {
+  dim3 grid;
+  int threads;
+};
+
+// `extent` is the rows of a gridded plane or of a window, or the floats of a
+// prefetch plane.
+Launch launch_of(int probe, int planes, int extent) {
+  switch (probe) {
+    case kProbeTrivial:
+      return {dim3(1), kTrivialThreads};
+    case kProbeGridded:
+      return {dim3(ceil_div(extent, kGriddedRows), planes), kGriddedThreads};
+    case kProbePrefetch:
+      return {dim3(ceil_div(extent, kPrefetchBand), std::min(planes, kMaxGridY)),
+              kPrefetchThreads};
+    case kProbeStaticDma:
+      return {dim3(kStaticRows / kStaticBandRows), kStaticThreads};
+    case kProbeDynamicDma:
+      return {dim3(extent / kDmaRows, planes), kDmaThreads};
+    default:  // the element windows
+      return {dim3(extent / kElementRows, planes), kThreads};
+  }
+}
+
 }  // namespace
 
 // o = 2 x, count floats, one block.
@@ -425,25 +581,28 @@ extern "C" int tike_probe_trivial(const void* x, void* o, int count,
 // o = 2 x over (planes, rows, cols); cols <= 1024.
 extern "C" int tike_probe_gridded(const void* x, void* o, int planes, int rows,
                                   int cols, void* stream) {
-  probe_gridded_kernel<<<dim3(rows, planes), cols, 0, as_stream(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o), rows, cols);
+  const Launch l = launch_of(kProbeGridded, planes, rows);
+  probe_gridded_kernel<<<l.grid, l.threads, 0, as_stream(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), rows, cols,
+      cols % 4 == 0 && aligned16(x, o));
   return static_cast<int>(cudaGetLastError());
 }
 
 // o[i] = x[idx[i]] + 1 for planes of `plane` floats.
 extern "C" int tike_probe_prefetch(const void* idx, const void* x, void* o,
                                    int planes, int plane, void* stream) {
-  probe_prefetch_kernel<<<planes, kThreads, 0, as_stream(stream)>>>(
+  const Launch l = launch_of(kProbePrefetch, planes, plane);
+  probe_prefetch_kernel<<<l.grid, l.threads, 0, as_stream(stream)>>>(
       static_cast<const int*>(idx), static_cast<const float*>(x),
-      static_cast<float*>(o), plane);
+      static_cast<float*>(o), planes, plane, plane % 4 == 0 && aligned16(x, o));
   return static_cast<int>(cudaGetLastError());
 }
 
 // o (128, 128) = x[0:128, 0:128]; x has `pitch` floats per row.
 extern "C" int tike_probe_static_dma(const void* x, void* o, int pitch,
                                      void* stream) {
-  probe_static_dma_kernel<<<kStaticRows / kStaticBandRows, kStaticThreads, 0,
-                            as_stream(stream)>>>(
+  const Launch l = launch_of(kProbeStaticDma, 1, 0);
+  probe_static_dma_kernel<<<l.grid, l.threads, 0, as_stream(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), pitch);
   return static_cast<int>(cudaGetLastError());
 }
@@ -453,8 +612,8 @@ extern "C" int tike_probe_static_dma(const void* x, void* o, int pitch,
 extern "C" int tike_probe_dynamic_dma(const void* corners, const void* big,
                                       void* o, int planes, int rows, int width,
                                       void* stream) {
-  probe_dynamic_dma_kernel<<<dim3(rows / kDmaRows, planes), kDmaThreads, 0,
-                             as_stream(stream)>>>(
+  const Launch l = launch_of(kProbeDynamicDma, planes, rows);
+  probe_dynamic_dma_kernel<<<l.grid, l.threads, 0, as_stream(stream)>>>(
       static_cast<const int*>(corners), static_cast<const float*>(big),
       static_cast<float*>(o), rows, width);
   return static_cast<int>(cudaGetLastError());
@@ -465,15 +624,28 @@ extern "C" int tike_probe_dynamic_dma(const void* corners, const void* big,
 extern "C" int tike_probe_element(const void* corners, const void* big,
                                   void* o, int planes, int rows, int width,
                                   void* stream) {
-  const dim3 grid(rows / kElementRows, planes);
+  const Launch l = launch_of(kProbeElementStatic, planes, rows);
   if (corners == nullptr) {
-    probe_element_kernel<false><<<grid, kThreads, 0, as_stream(stream)>>>(
+    probe_element_kernel<false><<<l.grid, l.threads, 0, as_stream(stream)>>>(
         nullptr, static_cast<const float*>(big), static_cast<float*>(o), rows,
         width);
   } else {
-    probe_element_kernel<true><<<grid, kThreads, 0, as_stream(stream)>>>(
+    probe_element_kernel<true><<<l.grid, l.threads, 0, as_stream(stream)>>>(
         static_cast<const int*>(corners), static_cast<const float*>(big),
         static_cast<float*>(o), rows, width);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel at the grid and block that probe `probe` (ProbeId) is
+// launched with (planes and extent as launch_of takes them): what a launch
+// of that shape costs before it moves a byte. For measurement only.
+extern "C" int tike_probe_empty(int probe, int planes, int extent,
+                                void* stream) {
+  if (probe < kProbeTrivial || probe > kProbeElementPrefetch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Launch l = launch_of(probe, planes, extent);
+  probe_empty_kernel<<<l.grid, l.threads, 0, as_stream(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

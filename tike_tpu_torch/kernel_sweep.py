@@ -3,10 +3,10 @@ stands, on one CUDA card.
 
 A development tool for the hand-written kernels: each variant is the source
 with a few text substitutions (a tuning constant, a load instruction, a
-loop), built by its own ``nvcc`` (all started together, a few seconds) and
-held to the plain PyTorch versions. Run from the root of a checkout:
+loop), built by its own ``nvcc`` (as many at once as the host has cores, a
+few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe] [--variants FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -20,13 +20,19 @@ there for its time alone.
 two forms, (a) the rows' spans staged in shared memory by bulk copies on
 an mbarrier and (b) no shared memory, each at bands of 4, 8, 16 and 32 rows
 and with float4 or 4-byte loads and stores; the static-DMA kernel at bands
-of 4, 8, 16 and 32 rows of 64 or 128 threads. Each variant's
-``element_static``, ``element_prefetch`` and ``static_dma`` must equal
-``toolchain_probe.PLAIN`` bit for bit (the element windows also at every
-lead and at ``big``'s edges, ``tests/_torch_probe_cases.py``), and each is
-timed in a CUDA graph with the index check outside, beside its library call
-(100 launches a graph, the median of 5 replays; ``chip_smoke.py`` takes 20
-and 3), in three rounds (the variants in order, in reverse, in order).
+of 4, 8, 16 and 32 rows of 64 or 128 threads; the gridded and prefetch
+kernels at bands of 1, 2, 4, 8 and 16 rows, float4 or 4-byte, of 64, 128 or
+256 threads, prefetch also with its index read through shared memory behind
+a barrier, and in the parent's form (a block per plane). Each variant's
+probes must equal ``toolchain_probe.PLAIN`` bit for bit (the element windows
+also at every lead and at ``big``'s edges, gridded and prefetch at odd
+shapes; ``tests/_torch_probe_cases.py``), and each probe a variant changes
+is timed in a CUDA graph with the index check outside, beside its library
+call and the empty kernel at the variant's grid for that probe (the launch
+floor), 100 launches a graph, the median of 5 replays (``chip_smoke.py``
+takes 20 and 3), in three rounds (the variants in order, in reverse, in
+order). ``--parent FILE`` builds a ``probe.cu`` of another checkout beside
+them and times all its probes (it may lack the empty kernel).
 
 ``FILE`` holds a Python literal ``{name: [(old, new), ...]}``; every ``old``
 must occur in the source. Without it the default variants run: the choices
@@ -37,6 +43,8 @@ from __future__ import annotations
 
 import argparse
 import ast
+import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import os
@@ -106,10 +114,28 @@ def _constant(source: str, name: str, value) -> tuple:
     return match.group(0), f"constexpr {match.group(1)} {name} = {value};"
 
 
+def parent_form(source: str) -> list:
+    """The substitutions that give ``csrc/probe.cu``'s gridded and prefetch
+    kernels the launch of their form before the bands: a block of 128
+    threads per 128-float row, each moving one 4-byte value; and a block of
+    256 threads per plane, 4-byte values, its index read into shared memory
+    behind a barrier. The first three are gridded's, the rest prefetch's."""
+    return [
+        _constant(source, "kGriddedRows", 1),
+        _constant(source, "kGriddedVectors", False),
+        _constant(source, "kGriddedThreads", toolchain_probe.COLS),
+        _constant(source, "kPrefetchRows", toolchain_probe.ROWS),
+        _constant(source, "kPrefetchVectors", False),
+        _constant(source, "kPrefetchThreads", 256),
+        _constant(source, "kPrefetchSharedIndex", True),
+    ]
+
+
 def probe_variants(source: str) -> dict:
     """The default variants of ``csrc/probe.cu`` (``source``): see the
     module's docstring. A variant that equals the source as it stands
-    repeats its time in the same call."""
+    repeats its time in the same call. The first word of a name is the
+    family (``FAMILIES``) whose probes it changes."""
     dma_rows = int(re.search(r"constexpr int kDmaRows = (\d+);", source).group(1))
     variants = {"as it stands": []}
     for staged in (False, True):
@@ -129,27 +155,83 @@ def probe_variants(source: str) -> dict:
                 _constant(source, "kStaticBandRows", rows),
                 _constant(source, "kStaticThreads", threads),
             ]
+    for name, prefix in (("gridded", "kGridded"), ("prefetch", "kPrefetch")):
+        for rows in (1, 2, 4, 8, 16):
+            for vectors in (True, False):
+                for threads in (64, 128, 256):
+                    loads = "float4" if vectors else "4-byte"
+                    variants[f"{name} {rows} rows, {loads}, {threads} threads"] = [
+                        _constant(source, f"{prefix}Rows", rows),
+                        _constant(source, f"{prefix}Vectors", vectors),
+                        _constant(source, f"{prefix}Threads", threads),
+                    ]
+    for rows in (1, 2, 4, 8, 16):
+        variants[f"prefetch {rows} rows, index through shared memory"] = [
+            _constant(source, "kPrefetchRows", rows),
+            _constant(source, "kPrefetchSharedIndex", True),
+        ]
+    # gridded's parent form is "gridded 1 rows, 4-byte, 128 threads".
+    variants["prefetch, the parent's form (a block per plane)"] = parent_form(source)[3:]
     return variants
 
 
-def _start_build(name: str, tag: str, source: str, directory: str):
-    path = os.path.join(directory, f"{name}_{tag}.cu")
-    with open(path, "w") as f:
-        f.write(source)
-    library = os.path.join(directory, f"{name}_{tag}.so")
-    process = subprocess.Popen(
-        [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", library, path],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    )
-    return process, library
+def start_builds(name: str, sources: dict, directory) -> dict:
+    """Compile each source (tag -> text) with its own ``nvcc`` in
+    ``directory``, as many at once as the host has cores: tag -> a future
+    of (library path, the end of nvcc's error output, or None)."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 8)
+    builds = {}
+    for i, (tag, text) in enumerate(sources.items()):
+        path = os.path.join(directory, f"{name}_variant_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        command = [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", path[:-3] + ".so", path]
+
+        def build(command=command):
+            done = subprocess.run(command, capture_output=True, text=True)
+            return command[-2], (done.stderr[-2000:] if done.returncode else None)
+
+        builds[tag] = pool.submit(build)
+    pool.shutdown(wait=False)
+    return builds
+
+
+def finish_builds(name: str, builds: dict) -> tuple:
+    """Wait for :func:`start_builds`: (tag -> loaded library, tag -> error)."""
+    libs, failed = {}, {}
+    for tag, future in builds.items():
+        library, error = future.result()
+        if error is None:
+            libs[tag] = _load(name, library)
+        else:
+            failed[tag] = error
+    return libs, failed
 
 
 def _load(name: str, library: str):
+    """Load a built variant; entry points it lacks (an older source's) are
+    left out."""
     lib = ctypes.CDLL(library)
     for fn_name, (argtypes, restype) in kernels.SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, restype
+        if hasattr(lib, fn_name):
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+@contextlib.contextmanager
+def loaded(name: str, lib):
+    """Inside the block ``kernels.load(name)`` returns ``lib``, so the
+    package's own wrappers launch that variant's kernels."""
+    built = kernels._LOADED.get(name)
+    kernels._LOADED[name] = lib
+    try:
+        yield
+    finally:
+        if built is None:
+            kernels._LOADED.pop(name, None)
+        else:
+            kernels._LOADED[name] = built
 
 
 def graph_ms(fn, reps: int = 10, rounds: int = 3) -> float:
@@ -233,15 +315,28 @@ def _sweep_usfft(libs: dict, device) -> None:
                   f"{cases.max_rel(out, want_gather):.1e})", flush=True)
 
 
-PROBES_SWEPT = ("element_static", "element_prefetch", "static_dma")
+PROBES_SWEPT = ("element_static", "element_prefetch", "static_dma", "gridded", "prefetch")
+# The probes that a family of variants (the first word of a variant's name)
+# changes; the source as it stands and another checkout's run them all.
+FAMILIES = {
+    "element": ("element_static", "element_prefetch"),
+    "static_dma": ("static_dma",),
+    "gridded": ("gridded",),
+    "prefetch": ("prefetch",),
+}
 # A probe launch is a microsecond or two: 100 launches a graph, the median of
 # 5 replays, three rounds, to see 0.0001 ms through the noise.
 PROBE_REPS, PROBE_REPLAYS = 100, 5
 
 
+def swept(tag: str) -> tuple:
+    """The probes variant ``tag`` is checked and timed on."""
+    return FAMILIES.get(tag.split()[0].rstrip(","), PROBES_SWEPT)
+
+
 def _sweep_probe(libs: dict, device) -> None:
-    """Each variant's three probes through ``toolchain_probe``'s own
-    wrappers, with the variant's library in place of the built one."""
+    """Each variant's probes through ``toolchain_probe``'s own wrappers,
+    with the variant's library in place of the built one."""
     from tests import _torch_probe_cases as cases
 
     inp = toolchain_probe.inputs(device)
@@ -255,42 +350,49 @@ def _sweep_probe(libs: dict, device) -> None:
         )
         for name in PROBES_SWEPT
     }
-    built = kernels._LOADED.get("probe")
+    floors = {name: cases.floor_call(name, inp) for name in PROBES_SWEPT}
     wrong = set()
-    try:
-        for tag, lib in libs.items():
-            kernels._LOADED["probe"] = lib
-            try:
-                toolchain_probe.check({name: calls[name]() for name in PROBES_SWEPT}, inp)
-                for big in bigs:
-                    for lead in cases.LEADS:
-                        cases.check_windows(big, cases.edge_corners(tuple(big.shape), lead))
-            except AssertionError as e:
-                wrong.add(tag)
-                print(f"{tag}: WRONG, {e}", flush=True)
-        times = {tag: {name: [] for name in PROBES_SWEPT} for tag in libs}
-        library_times = {name: [] for name in PROBES_SWEPT}
-        order = [tag for tag in libs if tag not in wrong]
-        for turn in (order, order[::-1], order):
-            for tag in turn:
-                kernels._LOADED["probe"] = libs[tag]
-                for name in PROBES_SWEPT:
+    for tag, lib in libs.items():
+        names = swept(tag)
+        try:
+            with loaded("probe", lib):
+                toolchain_probe.check({name: calls[name]() for name in names}, inp)
+                if "element_prefetch" in names:
+                    for big in bigs:
+                        for lead in cases.LEADS:
+                            cases.check_windows(big, cases.edge_corners(tuple(big.shape), lead))
+                if "gridded" in names or "prefetch" in names:
+                    cases.check_odd_shapes(device)
+        except AssertionError as e:
+            wrong.add(tag)
+            print(f"{tag}: WRONG, {e}", flush=True)
+    order = [tag for tag in libs if tag not in wrong]
+    times = {tag: {name: [] for name in swept(tag)} for tag in order}
+    floor_times = {tag: {name: [] for name in swept(tag)} for tag in order}
+    library_times = {name: [] for name in PROBES_SWEPT}
+    for turn in (order, order[::-1], order):
+        for tag in turn:
+            with loaded("probe", libs[tag]):
+                for name in swept(tag):
                     times[tag][name].append(graph_ms(calls[name], PROBE_REPS, PROBE_REPLAYS))
-            for name in PROBES_SWEPT:
-                library_times[name].append(graph_ms(library[name], PROBE_REPS, PROBE_REPLAYS))
-    finally:
-        if built is None:
-            kernels._LOADED.pop("probe", None)
-        else:
-            kernels._LOADED["probe"] = built
+                    if hasattr(libs[tag], "tike_probe_empty"):
+                        floor_times[tag][name].append(
+                            graph_ms(floors[name], PROBE_REPS, PROBE_REPLAYS)
+                        )
+        for name in PROBES_SWEPT:
+            library_times[name].append(graph_ms(library[name], PROBE_REPS, PROBE_REPLAYS))
     for name in PROBES_SWEPT:
         lib_ms = ", ".join(f"{t:.5f}" for t in library_times[name])
-        print(f"{name}: library call {lib_ms} ms (median "
+        print(f"{name}: library call ({cases.LIBRARY_NAMES[name]}) {lib_ms} ms (median "
               f"{statistics.median(library_times[name]):.5f})", flush=True)
         for tag in order:
+            if name not in times[tag]:
+                continue
             ms = ", ".join(f"{t:.5f}" for t in times[tag][name])
-            print(f"{name:16s} {tag:40s} {ms} ms (median {statistics.median(times[tag][name]):.5f}; "
-                  "bitwise equal to plain)", flush=True)
+            floor = floor_times[tag][name]
+            floor = f"{statistics.median(floor):.5f}" if floor else "not measured"
+            print(f"{name:16s} {tag:60s} {ms} ms (median {statistics.median(times[tag][name]):.5f}; "
+                  f"launch floor at its grid {floor}; bitwise equal to plain)", flush=True)
 
 
 SWEEPS = {"usfft": (SOURCE, _sweep_usfft), "probe": (PROBE_SOURCE, _sweep_probe)}
@@ -300,6 +402,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--source", default="usfft", choices=list(SWEEPS))
     parser.add_argument("--variants", default=None, help="a file holding {name: [(old, new), ...]}")
+    parser.add_argument("--parent", default=None,
+                        help="the source file of another checkout, built and timed beside the variants")
     args = parser.parse_args(argv)
     path, sweep = SWEEPS[args.source]
     with open(path) as f:
@@ -308,23 +412,19 @@ def main(argv=None) -> None:
     if args.variants:
         with open(args.variants) as f:
             variants = {"as it stands": [], **ast.literal_eval(f.read())}
+    sources = {tag: variant_source(source, subs) for tag, subs in variants.items()}
+    if args.parent:
+        with open(args.parent) as f:
+            sources[f"parent ({args.parent})"] = f.read()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip())
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as directory:
-        builds = {
-            tag: _start_build(args.source, str(i), variant_source(source, subs), directory)
-            for i, (tag, subs) in enumerate(variants.items())
-        }
-        libs = {}
-        for tag, (process, library) in builds.items():
-            _, err = process.communicate()
-            if process.returncode:
-                print(f"{tag}: build failed\n{err[-2000:]}")
-            else:
-                libs[tag] = _load(args.source, library)
+        libs, failed = finish_builds(args.source, start_builds(args.source, sources, directory))
+        for tag, error in failed.items():
+            print(f"{tag}: build failed\n{error}")
         sweep(libs, device)
 
 

@@ -62,6 +62,8 @@ SIGNATURES = {
         "tike_probe_dynamic_dma": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
         # (corners or NULL, big, o, planes, rows, width, stream)
         "tike_probe_element": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
+        # (probe, planes, extent, stream): measurement only, the launch floor
+        "tike_probe_empty": ([_INT] * 3 + [_PTR], _INT),
     },
 }
 

@@ -162,7 +162,8 @@ def trivial(x):
 
 
 def gridded(x):
-    """o = 2 x over (planes, rows, cols): a block per (plane, row)."""
+    """o = 2 x over (planes, rows, cols): a block per band of rows of a
+    plane, on a 2-D launch grid."""
     if not x.is_cuda:
         return PLAIN["gridded"](x)
     _check("x", x, torch.float32, x.shape)
