@@ -10,8 +10,8 @@ of JAX. Phases, in order; any failure raises and the script exits non-zero
 without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
-2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu`` and
-   ``probe.cu`` for sm_90a, and ``probe.cu`` with its gridded and prefetch
+2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu``,
+   ``probe.cu`` and ``bucket.cu`` for sm_90a, and ``probe.cu`` with its gridded and prefetch
    kernels in their parent's form (``kernel_sweep.parent_form``), one nvcc
    each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
@@ -134,9 +134,41 @@ After phase 12, the joint-ADMM and host-streamed paths:
     ``bench_all.py``'s comparison at 100,000 patterns (``num_batch=10``):
     resident against streamed s/epoch, and their results bitwise equal.
 
+After phase 15, Bucket laminography and the rest of ptychography:
+
+16. the Bucket kernels (``csrc/bucket.cu``): each against its plain
+    version (the forward to its atomics' rounding, the adjoint bit for bit),
+    adjointness, two adjoint launches bitwise equal, the points per cell of
+    a volume of ones equal, and every point's cell equal to the plain
+    version's (``tests/_torch_bucket_cases.py::cell_mismatches``) at n = 16
+    with precision 1, 2 and 4, at the golden geometry of
+    ``tests/data/lamino_setup.pickle.lzma`` (64^3, 58 angles, precision 1)
+    and at bench_all.py's 128^3 with precision 3 at one angle and at all 64;
+    each kernel's time in a CUDA graph, eager and plain beside its bound at
+    the full-width and golden shapes; the reference's golden protocol (1 +
+    30 outer iterations at eps=1) against ``lamino_bucket.pickle.lzma`` at
+    atol 1e-3; then ``bucket.simulate`` and ``bucket.reconstruct`` at
+    bench_all.py's laminography geometry (128^3, 64 angles in [0, pi), tilt
+    pi/3) with eps 1e-1 (precision 3) and ``cg_iter=4``: one warm-up outer
+    iteration and 5 timed, the kernel counts set to 0 before the timed run
+    and read after it; s/iteration, set-up, peak memory, finite and
+    decreasing costs, both kernels launched;
+17. ``reconstruct_multigrid`` at the main path's configuration (3 levels of
+    32^2, 64^2 and 128^2 patterns, 2 epochs each, seed 0): each level's
+    set-up, s/epoch, costs and patch launches, the final cost; then at
+    small sizes: config 2 with a finite ``time_limit`` (eigen probes on the
+    per-epoch path) card against CPU, a checkpoint written on the card,
+    loaded and resumed against 4 epochs at once, ``append_new_data`` card
+    against CPU, ``update_positions_pd`` card against CPU, and ``simulate``
+    with ``fly=3`` against numpy.
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
-``launches_stream``; its launches in phase 6 as
+``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
+for the patch kernels, in phase 17's levels as ``launches_multigrid_32``,
+``_64`` and ``_128``; the Bucket kernels' ``launches`` are phase 16's, with
+their points and atomics beside their bounds at the full-width and
+``_golden`` shapes; its launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
@@ -165,13 +197,16 @@ import torch
 
 import tike_tpu_torch.admm as tadmm
 import tike_tpu_torch.lamino as tl
+import tike_tpu_torch.lamino.bucket as tlb
 import tike_tpu_torch.ptycho as tp
+import tike_tpu_torch.ptycho.ptycho as tpp
+from tests import _torch_bucket_cases as cases_bucket
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
-from tike_tpu_torch import kernel_sweep, kernels, opt, toolchain_probe
+from tike_tpu_torch import checkpoint, kernel_sweep, kernels, opt, toolchain_probe
 from tike_tpu_torch.constants import wavenumber
-from tike_tpu_torch.ops import patch, usfft
+from tike_tpu_torch.ops import bucket, patch, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
@@ -231,7 +266,13 @@ PROBE_KERNELS = {
     "element_static": "scripts/pallas_probe.py:161",
     "element_prefetch": "scripts/pallas_probe.py:199",
 }
-SOURCES = ("patch", "usfft", "probe")
+# The Bucket kernels replace XLA code with no Pallas kernel: the scatter-add
+# and the gather of tike_tpu's bucket operator.
+BUCKET_KERNELS = {
+    "bucket_fwd": "tike_tpu/ops/bucket.py:101",
+    "bucket_adj": "tike_tpu/ops/bucket.py:126",
+}
+SOURCES = ("patch", "usfft", "probe", "bucket")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -278,6 +319,14 @@ ADMM_TIMED, ADMM_ROUNDS = 3, 3
 STREAM = dict(n_patterns=1_000_000, det=64, hw=4096, num_batch=100)
 STREAM_COMPARE = dict(n_patterns=100_000, det=64, hw=4096, num_batch=10)
 STREAM_PEAK_LIMIT = 4e9
+# Bucket laminography (phase 16) at bench_all.py's laminography geometry
+# (cases_bucket.FULL: 128^3, 64 angles in [0, pi), tilt pi/3) with the
+# Bucket solver's default eps 1e-1 (precision 3) and cg_iter 4: one warm-up
+# outer iteration, then BUCKET_TIMED timed ones.
+BUCKET_TIMED = 5
+# The rest of ptycho (phase 17): multigrid at the main path's configuration,
+# MULTIGRID_EPOCHS epochs at each of 3 levels (32^2, 64^2, 128^2 patterns).
+MULTIGRID_LEVELS, MULTIGRID_EPOCHS = 3, 2
 
 
 def log(*args):
@@ -1670,8 +1719,9 @@ def phase_admm_slice(device) -> None:
 
 
 def _reset_launches() -> None:
-    """Every kernel's count to 0: the patch, the KB and the probe kernels'."""
-    for counts in (patch.LAUNCHES, usfft.LAUNCHES, toolchain_probe.LAUNCHES):
+    """Every kernel's count to 0: the patch, the KB, the Bucket and the
+    probe kernels'."""
+    for counts in (patch.LAUNCHES, usfft.LAUNCHES, bucket.LAUNCHES, toolchain_probe.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1682,7 +1732,7 @@ def _read_launches(tag) -> dict:
     probes = {f"probe_{name}": count for name, count in toolchain_probe.LAUNCHES.items()}
     if any(probes.values()):
         raise AssertionError(f"{tag} launched probe kernels: {probes}")
-    return {**patch.LAUNCHES, **usfft.LAUNCHES, **probes}
+    return {**patch.LAUNCHES, **usfft.LAUNCHES, **bucket.LAUNCHES, **probes}
 
 
 def phase_admm(device, card: str) -> dict:
@@ -1911,6 +1961,377 @@ def phase_stream_compare(device, card: str) -> None:
         f"{_max_rel(out['resident, fused path'][0][1], psi_r):.2e}")
 
 
+def _bucket_parity_cases(device):
+    """The Bucket kernels' parity cases: name -> (config, angles): n = 16 at
+    precisions 1, 2 and 4 (16 angles over [0, pi), the ties at pi/4
+    included), the golden geometry of lamino_setup (64^3, 58 angles,
+    precision 1) and bench_all.py's geometry at the solver's default eps
+    (128^3, precision 3) at one angle and at all 64."""
+    c = cases_bucket.FULL
+    out = {
+        f"16^3 / 16 angles, precision {p}": (
+            bucket.BucketConfig(n=16, tilt=c["tilt"], precision=p),
+            cases_bucket.theta(16, 0.0, device),
+        )
+        for p in (1, 2, 4)
+    }
+    _, _, theta, tilt = cases_bucket.load_golden("lamino_setup.pickle.lzma")
+    out["golden: 64^3 / 58 angles, precision 1"] = (
+        bucket.BucketConfig.from_eps(64, float(tilt), 1.0),
+        torch.as_tensor(np.asarray(theta, np.float32), device=device),
+    )
+    full = bucket.BucketConfig.from_eps(c["n"], c["tilt"], c["eps"])
+    theta_full = cases_usfft.lamino_theta(c["ntheta"], device)
+    out["128^3 / 1 angle, precision 3"] = (full, theta_full[5:6].contiguous())
+    out["128^3 / 64 angles, precision 3"] = (full, theta_full)
+    return out
+
+
+def phase_bucket_parity(device, card: str) -> dict:
+    """16a: both Bucket kernels against their plain versions, adjointness,
+    two adjoint launches bitwise equal and every point's cell equal to the
+    plain version's (cases_bucket.cell_mismatches: zero), on each case of
+    ``_bucket_parity_cases``; then each kernel's time (a CUDA graph of its
+    launches on a prebuilt angle table) beside its bound, its plain
+    version's (the index_add_ form) and its atomics, at the full-width and
+    the golden shapes."""
+    inputs = {}
+    for name, (cfg, th) in _bucket_parity_cases(device).items():
+        u = cases_bucket.volume(cfg.n, device=device)
+        d = cases_bucket.planes(th.shape[0], cfg.n, device=device)
+        e = cases_bucket.check_bucket_kernels(cfg, u, d, th)
+        cells = cases_bucket.cell_mismatches(cfg, th)
+        if cells:
+            raise AssertionError(f"bucket {name}: {cells} voxels' cells differ from plain")
+        inputs[name] = (cfg, th, u, d, e)
+        log(f"[bucket] {name}: fwd max|err| {e['fwd_abs']:.3e} ({e['fwd']:.2e} of max|value|; "
+            f"{e['fwd_rounding']:.3f} of the rounding bound of its float32 sums, tol 1), adj "
+            f"{e['adj_abs']:.3e} (bitwise equal to plain: {e['adj_bitwise']}); adjointness "
+            f"{e['adjoint']:.2e} (tol {cases_bucket.ADJOINT_TOL:g}); two adjoint launches bitwise "
+            f"equal; cells of "
+            f"{cfg.n**3 * th.shape[0] * cfg.precision**3} points equal to plain")
+
+    out = {}
+    shapes = {"": "128^3 / 64 angles, precision 3", "_golden": "golden: 64^3 / 58 angles, precision 1"}
+    for key, case in shapes.items():
+        cfg, th, u, d, e = inputs[case]
+        trig = bucket.bucket_trig(cfg, th)
+        voxels, angles = cfg.n**3, th.shape[0]
+        calls = {
+            "bucket_fwd": dict(
+                kernel=lambda: bucket.bucket_fwd_cuda(cfg, u, th, None, trig),
+                plain=lambda: bucket.bucket_fwd_plain(cfg, u, th, None, trig),
+            ),
+            "bucket_adj": dict(
+                kernel=lambda: bucket.bucket_adj_cuda(cfg, d, th, None, trig),
+                plain=lambda: bucket.bucket_adj_plain(cfg, d, th, None, trig),
+            ),
+        }
+        for name, fns in calls.items():
+            graph_ms = graph_ms_per_call(fns["kernel"], reps=3)
+            ms = median_ms_in_turns(fns, reps=1, rounds=2)
+            bound = bucket.roofline(cfg, voxels, angles)
+            atomics = bound["points"] if name == "bucket_fwd" else 0
+            record = {
+                f"ms{key}": graph_ms,
+                f"ms_eager_call{key}": ms["kernel"],
+                f"plain_ms{key}": ms["plain"],
+                f"bound_bytes{key}": bound["bound_bytes"],
+                f"bound_flops{key}": bound["bound_flops"],
+                f"bound_ms{key}": bound["bound_ms"],
+                f"bound_by{key}": bound["bound_by"],
+                f"roofline_share{key}": bound["bound_ms"] / graph_ms,
+                f"points{key}": bound["points"],
+                f"atomics{key}": atomics,
+            }
+            if not key:
+                record.update(
+                    max_abs_err=e[f"{name.split('_')[1]}_abs"],
+                    max_rel_err_all_cases=max(
+                        v[4][name.split("_")[1]] for v in inputs.values()
+                    ),
+                    rounding_bound_ratio_all_cases=max(
+                        v[4]["fwd_rounding"] for v in inputs.values()
+                    )
+                    if name == "bucket_fwd"
+                    else 0.0,
+                    library_ms=None,
+                    library="none: no single PyTorch call computes it; the yardstick is the "
+                    "plain version (index_add_ per angle and offset for the forward, a gather "
+                    "for the adjoint)",
+                    deterministic=name == "bucket_adj",
+                    card=card,
+                )
+            out.setdefault(name, {}).update(record)
+            log(f"[bucket] {name} at {case} ({voxels} voxels, {bound['points']} points, "
+                f"{atomics} float2 atomics): kernel {graph_ms:.4f} ms (CUDA graph; eager "
+                f"{ms['kernel']:.4f} ms), plain {ms['plain']:.4f} ms; bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_bytes']} "
+                f"bytes at {bucket.HBM_BYTES_PER_S:g} B/s, {bound['bound_flops']} flops at "
+                f"{bucket.FP32_FLOPS_PER_S:g} flop/s), {100 * bound['bound_ms'] / graph_ms:.2f}% "
+                f"of it ({card})")
+    return out
+
+
+def phase_bucket_golden(device, card: str) -> None:
+    """16b: the reference's golden protocol (1 + 30 outer iterations at
+    eps=1 on lamino_setup) on the card, against lamino_bucket at atol
+    1e-3."""
+    start = time.perf_counter()
+    obj, standard, costs = cases_bucket.golden_reconstruct(device)
+    seconds = time.perf_counter() - start
+    if not (np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        raise AssertionError(f"bucket golden: costs {costs}")
+    np.testing.assert_allclose(obj, standard, atol=cases_bucket.GOLDEN_ATOL)
+    err = float(np.max(np.abs(obj - standard)))
+    log(f"[bucket-golden] 1 + 30 outer iterations at eps=1 on lamino_setup (64^3, 58 "
+        f"angles) in {seconds:.2f} s: max|obj - lamino_bucket| {err:.3e} (atol "
+        f"{cases_bucket.GOLDEN_ATOL:g}; max|lamino_bucket| {float(np.max(np.abs(standard))):.3e}); "
+        f"costs {costs[0]:.6e} -> {costs[-1]:.6e} ({card})")
+
+
+def phase_bucket(device, card: str) -> dict:
+    """16c: Bucket laminography at full width: ``bucket.simulate`` of
+    bench_all.py's volume, then ``bucket.reconstruct`` with one warm-up
+    outer iteration and BUCKET_TIMED timed ones from the start, the kernel
+    counts set to 0 just before the timed run and read just after."""
+    c = cases_bucket.FULL
+    volume = torch.as_tensor(lamino_volume(c["n"]), device=device)
+    theta = cases_usfft.lamino_theta(c["ntheta"], device)
+    start = time.perf_counter()
+    data = tlb.simulate(volume, theta, c["tilt"], eps=c["eps"], device=device)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - start
+    if tuple(data.shape) != (c["ntheta"], c["n"], c["n"]) or not bool(torch.isfinite(data).all()):
+        raise AssertionError("bucket: simulated data is not finite or has the wrong shape")
+    kwargs = dict(eps=c["eps"], cg_iter=c["cg_iter"], device=device)
+
+    def run(num_iter):
+        start = time.perf_counter()
+        result = tlb.reconstruct(data, theta, c["tilt"], num_iter=num_iter, **kwargs)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    opt.HOST_READS["line_search"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    warm, first_s = run(1)
+    _reset_launches()
+    result, timed_s = run(BUCKET_TIMED)
+    launches = _read_launches("bucket")
+    reads = opt.HOST_READS["line_search"]
+    peak = torch.cuda.max_memory_allocated()
+    costs = result["cost"]
+    log(f"[bucket] costs per outer iteration {costs.tolist()} (warm-up {warm['cost'].tolist()})")
+    if len(costs) != BUCKET_TIMED or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"bucket: costs are not {BUCKET_TIMED} finite values: {costs}")
+    if not (costs[-1] < costs[0] and np.all(np.diff(costs) <= 0)):
+        raise AssertionError(f"bucket: costs do not decrease: {costs}")
+    for name in BUCKET_KERNELS:
+        if not launches[name] > 0:
+            raise AssertionError(f"bucket launched no {name} kernel: {launches}")
+    obj = result["obj"]
+    if tuple(obj.shape) != (c["n"],) * 3 or not bool(torch.isfinite(obj).all()):
+        raise AssertionError("bucket: the volume is not finite or has the wrong shape")
+    per_iter = timed_s / BUCKET_TIMED
+    log(f"[bucket] simulate {tuple(data.shape)} at {c['n']}^3, precision "
+        f"{bucket.BucketConfig.from_eps(c['n'], c['tilt'], c['eps']).precision}: {sim_s:.3f} s "
+        f"({card})")
+    log(f"[bucket] {BUCKET_TIMED} outer iterations (cg_iter {c['cg_iter']}) in {timed_s:.3f} s "
+        f"= {per_iter:.4f} s/iteration; first call (1 iteration) {first_s:.3f} s, so set-up "
+        f"{first_s - per_iter:.3f} s ({card})")
+    log(f"[bucket] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches "
+        f"{ {k: launches[k] for k in BUCKET_KERNELS} }; line-search host reads {reads} ({card})")
+    return launches
+
+
+class _LevelSpy(tpp.Reconstruction):
+    """``Reconstruction`` recording, per level of a multigrid run, the
+    pattern width, the set-up seconds, the seconds per epoch and the kernel
+    launches (counts set to 0 at ``__enter__``, read after ``iterate``)."""
+
+    levels: list = []
+
+    def __enter__(self):
+        _reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        super().__enter__()
+        torch.cuda.synchronize()
+        self._level = dict(width=int(self.data.shape[-1]), setup_s=time.perf_counter() - start)
+        return self
+
+    def iterate(self, num_iter):
+        start = time.perf_counter()
+        super().iterate(num_iter)
+        torch.cuda.synchronize()
+        self._level.update(
+            epoch_s=(time.perf_counter() - start) / num_iter,
+            launches=_read_launches("multigrid"),
+            costs=[c[0] for c in self.parameters.algorithm_options.costs[-num_iter:]],
+        )
+        _LevelSpy.levels.append(self._level)
+
+
+def phase_multigrid(device, scan, psi, probe, card: str) -> dict:
+    """17a: ``reconstruct_multigrid`` at the main path's configuration
+    (10,000 x 128^2 on 1500^2, LSQML, compact, num_batch 10), 3 levels of
+    MULTIGRID_EPOCHS epochs, the data simulated on the card and cropped
+    there. The positions are the main path's, those nearer than 4 px to
+    the low edge moved to 4 px: at a quarter of the scale a position must
+    lie 1 px inside the object (``check_allowed_positions``). Returns each
+    level's launches by pattern width."""
+    scan = np.maximum(scan, np.float32(2 ** (MULTIGRID_LEVELS - 1)))
+    params = path_parameters(scan, psi, probe)
+    params.algorithm_options.num_iter = MULTIGRID_EPOCHS
+    data = tp.simulate_device(DET, probe, scan, psi, device=device)
+    _LevelSpy.levels = []
+    tpp.Reconstruction = _LevelSpy
+    try:
+        start = time.perf_counter()
+        result = tp.reconstruct_multigrid(
+            data, params, num_levels=MULTIGRID_LEVELS, device=device, random_seed=0
+        )
+        total = time.perf_counter() - start
+    finally:
+        tpp.Reconstruction = _LevelSpy.__bases__[0]
+    levels = _LevelSpy.levels
+    if [lv["width"] for lv in levels] != [DET // 4, DET // 2, DET]:
+        raise AssertionError(f"multigrid ran the levels {[lv['width'] for lv in levels]}")
+    costs = [c[0] for c in result.algorithm_options.costs]
+    if len(costs) != MULTIGRID_LEVELS * MULTIGRID_EPOCHS or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"multigrid: costs {costs}")
+    if result.psi.shape != psi.shape or not np.all(np.isfinite(result.psi)):
+        raise AssertionError("multigrid: psi is not finite or has the wrong shape")
+    out = {}
+    for lv in levels:
+        for name in patch.LAUNCHES:
+            if not lv["launches"][name] > 0:
+                raise AssertionError(f"multigrid level {lv['width']}: no {name} launch")
+        if not lv["costs"][-1] < lv["costs"][0]:
+            raise AssertionError(f"multigrid level {lv['width']}: costs {lv['costs']}")
+        out[lv["width"]] = {k: lv["launches"][k] for k in patch.LAUNCHES}
+        log(f"[multigrid] level {lv['width']}^2: set-up {lv['setup_s']:.2f} s, "
+            f"{lv['epoch_s']:.4f} s/epoch ({MULTIGRID_EPOCHS} epochs), costs {lv['costs']}, "
+            f"patch launches {out[lv['width']]} ({card})")
+    log(f"[multigrid] {MULTIGRID_LEVELS} levels in {total:.2f} s; final cost {costs[-1]:.6e} "
+        f"({card})")
+    return out
+
+
+def phase_ptycho_rest(device, scan, psi, probe, card: str) -> None:
+    """17b-f, small sizes: config 2 with a finite time_limit (eigen probes
+    on the per-epoch path) card against CPU; a checkpoint written on the
+    card, loaded and resumed; ``append_new_data`` on the card against the
+    CPU; ``update_positions_pd`` once, card against CPU; ``simulate`` with
+    ``fly=3`` against numpy."""
+    det = 24
+    s_scan, s_psi, s_probe, s_psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    data = tp.simulate(det, s_probe, s_scan, s_psi, device="cpu")
+
+    def config2_time_limit():
+        p = _small_slice_parameters(s_scan, s_probe, s_psi0, det, config2=True)
+        p.algorithm_options.time_limit = 60.0
+        return p
+
+    _card_vs_cpu(
+        "config-2 slice with time_limit (per-epoch path, eigen probe constrained)",
+        device, data, config2_time_limit, ("psi", "probe", "eigen_probe", "eigen_weights"),
+    )
+
+    # A checkpoint written on the card, loaded and resumed, against 4 epochs
+    # at once.
+    import tempfile
+
+    def run(params, epochs, path=None):
+        with tp.Reconstruction(data, params, device=device, random_seed=0) as context:
+            context.iterate(epochs)
+            if path is not None:
+                checkpoint.save_parameters(path + ".live.npz", context.parameters)
+            return context.get_result()
+
+    make = lambda: _small_slice_parameters(s_scan, s_probe, s_psi0, det)  # noqa: E731
+    straight = run(make(), 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint")
+        first = run(make(), 2, path)
+        checkpoint.save_parameters(path + ".npz", first)
+        loaded = checkpoint.load_parameters(path + ".npz")
+        live = checkpoint.load_parameters(path + ".live.npz")
+    if not isinstance(loaded.psi, np.ndarray) or live.psi.shape != s_psi0.shape:
+        raise AssertionError("checkpoint: loaded arrays are not numpy of the right shape")
+    loaded.probe_options.init_rescale_from_measurements = False
+    resumed = run(loaded, 2)
+    errs = {}
+    for key in ("psi", "probe", "scan"):
+        a, b = getattr(resumed, key), getattr(straight, key)
+        np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+        errs[key] = "bitwise" if np.array_equal(a, b) else f"{_max_rel(a, b):.2e}"
+    np.testing.assert_allclose(
+        resumed.algorithm_options.costs, straight.algorithm_options.costs, rtol=SLICE_TOL
+    )
+    log(f"[checkpoint] 2 epochs on {device}, saved (from the result, and from the live device "
+        f"tensors), loaded and resumed for 2: against 4 epochs at once {errs}")
+
+    # append_new_data, card against CPU.
+    results = {}
+    for dev in ("cpu", device):
+        p = _small_slice_parameters(s_scan[0::2], s_probe, s_psi0, det, config2=False)
+        p.algorithm_options.batch_method = "wobbly_center"
+        context = tp.Reconstruction(data[0::2], p, device=dev, random_seed=0)
+        context.__enter__()
+        context.iterate(2)
+        context.append_new_data(data[1::2], s_scan[1::2])
+        context.iterate(2)
+        results[str(dev)] = context.get_result()
+        context.__exit__(None, None, None)
+    got, ref = results[str(device)], results["cpu"]
+    np.testing.assert_allclose(
+        got.algorithm_options.costs, ref.algorithm_options.costs, rtol=SLICE_TOL
+    )
+    for key in ("psi", "probe"):
+        a, b = getattr(got, key), getattr(ref, key)
+        np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+    if got.scan.shape != s_scan.shape:
+        raise AssertionError(f"append_new_data: scan {got.scan.shape}")
+    log(f"[append] 2 epochs on {len(s_scan) // 2} positions, {len(s_scan) - len(s_scan) // 2} "
+        f"appended, 2 more on {device} vs cpu: costs "
+        f"{np.ravel(got.algorithm_options.costs).tolist()}; psi "
+        f"{_max_rel(got.psi, ref.psi):.2e}, probe {_max_rel(got.probe, ref.probe):.2e}")
+
+    # update_positions_pd, card against CPU, from positions moved off the
+    # true ones.
+    gen = np.random.default_rng(11)
+    moved = (s_scan + gen.uniform(0.3, 0.7, s_scan.shape) * gen.choice([-1, 1], s_scan.shape))
+    moved = moved.astype(np.float32)
+    cfg = tpp.PtychoConfig(probe_shape=s_probe.shape[-1], detector_shape=det,
+                           nz=s_psi.shape[-2], n=s_psi.shape[-1])
+    outs = {}
+    for dev in ("cpu", device):
+        _reset_launches()
+        args = [torch.as_tensor(x, device=dev) for x in (data, s_psi, s_probe, moved)]
+        new_scan, cost = tp.update_positions_pd(cfg, *args)
+        outs[str(dev)] = (new_scan.cpu().numpy(), cost, _read_launches("update_positions_pd"))
+    (got_s, got_c, launches), (ref_s, ref_c, _) = outs[str(device)], outs["cpu"]
+    np.testing.assert_allclose(got_s, ref_s, rtol=0, atol=SLICE_SCAN_TOL)
+    np.testing.assert_allclose(got_c, ref_c, rtol=SLICE_TOL)
+    if not launches["patch_fwd"] > 0:
+        raise AssertionError(f"update_positions_pd launched no patch_fwd: {launches}")
+    log(f"[position-pd] update_positions_pd of {len(moved)} positions on {device} vs cpu: scan "
+        f"max|err| {float(np.max(np.abs(got_s - ref_s))):.3e} px (tol {SLICE_SCAN_TOL:g}), cost "
+        f"{got_c:.6e} vs {ref_c:.6e}; patch_fwd launches {launches['patch_fwd']}; mean move "
+        f"{float(np.mean(np.abs(got_s - moved))):.3f} px")
+
+    # simulate with fly=3 against numpy.
+    n = 255
+    got = tp.simulate(DET, probe, scan[:n], psi, fly=3, device=device)
+    want = simulate_numpy(DET, probe, scan[:n], psi).reshape(n // 3, 3, DET, DET).sum(1)
+    atol = SIM_ATOL * float(np.max(want))
+    np.testing.assert_allclose(got, want, rtol=SIM_RTOL, atol=atol)
+    log(f"[fly] simulate fly=3 of {n} positions ({got.shape[0]} exposures of {DET}^2) on "
+        f"{device} vs numpy: max|err| {float(np.max(np.abs(got - want))):.3e} (rtol "
+        f"{SIM_RTOL:g}, atol {atol:.3e})")
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -1946,6 +2367,11 @@ def main() -> None:
     launches_admm = phase_admm(device, card)
     launches_stream = phase_stream(device, card)
     phase_stream_compare(device, card)
+    bucket_timings = phase_bucket_parity(device, card)
+    phase_bucket_golden(device, card)
+    launches_bucket = phase_bucket(device, card)
+    launches_multigrid = phase_multigrid(device, scan, psi, probe, card)
+    phase_ptycho_rest(device, scan, psi, probe, card)
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [
         {
@@ -1958,6 +2384,11 @@ def main() -> None:
             "launches_rpie": launches3[name],
             "launches_admm": launches_admm[name],
             "launches_stream": launches_stream[name],
+            "launches_bucket": launches_bucket[name],
+            **{
+                f"launches_multigrid_{width}": counts[name]
+                for width, counts in launches_multigrid.items()
+            },
             "ms_admm_shape": path_shape_timings[admm_shape][name]["ms"],
             "bound_ms_admm_shape": path_shape_timings[admm_shape][name]["bound_ms"],
             "ms_stream_batch": path_shape_timings[stream_shape][name]["ms"],
@@ -1976,6 +2407,7 @@ def main() -> None:
             "launches_lamino_cgls": lamino_launches["cgls"][name],
             "launches_admm": launches_admm[name],
             "launches_stream": launches_stream[name],
+            "launches_bucket": launches_bucket[name],
             **timings[name],
         }
         for name in USFFT_KERNELS
@@ -1988,9 +2420,23 @@ def main() -> None:
             "launches": probe_launches[name],
             "launches_admm": launches_admm[f"probe_{name}"],
             "launches_stream": launches_stream[f"probe_{name}"],
+            "launches_bucket": launches_bucket[f"probe_{name}"],
             **probe_timings[name],
         }
         for name in PROBE_KERNELS
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/bucket.cu",
+            "replaces": BUCKET_KERNELS[name],
+            "launches": launches_bucket[name],
+            "launches_bucket": launches_bucket[name],
+            "launches_admm": launches_admm[name],
+            "launches_stream": launches_stream[name],
+            **bucket_timings[name],
+        }
+        for name in BUCKET_KERNELS
     ]
     log(env["nvidia_smi"])
     log(json.dumps({"kernels": report}))

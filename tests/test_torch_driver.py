@@ -28,6 +28,7 @@ import tike_tpu.ptycho as jp
 import tike_tpu_torch.constants as tconstants
 import tike_tpu_torch.opt as topt
 import tike_tpu_torch.ptycho as tp
+import tike_tpu_torch.ptycho.probe as tprobe
 
 from . import _torch_parity as H
 
@@ -210,16 +211,29 @@ def test_get_psi_equals_the_results_psi(slice_data):
     assert hasattr(jp.Reconstruction, "get_psi")
 
 
-def test_eigen_probes_on_the_per_epoch_path_raise(slice_data):
-    """The per-epoch loop constrains the eigen probes every epoch
-    (``constrain_variable_probe``), which is not ported: refused by name
-    rather than run without it."""
-    scan, probe, psi0, data = slice_data
-    params = H.epoch_loop_parameters(
-        tp, scan, probe, psi0, "lstsq", dict(time_limit=60.0, batch_method="compact")
+def test_eigen_probes_on_the_per_epoch_path_raise(monkeypatch):
+    """Eigen probes on the per-epoch path, which the port once refused:
+    BASELINE config 2 (LSQML, compact batches, 3 probe modes, one eigen
+    probe with weights, position correction) with a finite ``time_limit``,
+    3 epochs. The loop constrains the eigen probes on probe-recovery epochs
+    (``constrain_variable_probe``: normalized, orthogonalized, sorted by
+    energy, outliers clipped), as tike_tpu's does, and nothing raises.
+    Costs and fields at 1e-5, positions at 1e-4 px."""
+    scan, psi, probe, psi0 = H.opr_inputs(h=Hh, p=P, det=DET, npos=NPOS)
+    data = np.asarray(jp.simulate(DET, probe, scan, psi))
+    H.seed_jax_position_fit(monkeypatch)
+    calls = []
+    constrain = tprobe.constrain_variable_probe
+    monkeypatch.setattr(
+        tprobe, "constrain_variable_probe", lambda *a: calls.append(1) or constrain(*a)
     )
-    params.eigen_probe, params.eigen_weights = H.bench_eigen(probe, len(scan))
-    with pytest.raises(NotImplementedError, match="constrain_variable_probe"):
-        tp.Reconstruction(data, params, device="cpu")
-    params.algorithm_options.time_limit = np.inf
-    tp.Reconstruction(data, params, device="cpu")
+    jparams = H.epoch_loop_parameters(
+        jp, scan, probe, psi0, "lstsq", dict(time_limit=60.0, batch_method="compact"),
+        dict(update_magnitude_limit=2.0),
+    )
+    jparams.eigen_probe, jparams.eigen_weights = H.bench_eigen(probe, len(scan))
+    got, want = H.run_both_packages(data, jparams, 3, fused=False)
+    H.check_epoch_run(got, want)
+    for key in ("eigen_probe", "eigen_weights"):
+        H.assert_close(got[key], want[key], rtol=H.SLICE_TOL, atol=H.SLICE_TOL, scale=True)
+    assert len(calls) == 3  # every epoch recovers the probe

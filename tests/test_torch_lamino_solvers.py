@@ -127,11 +127,13 @@ def test_reconstruct_refuses_what_is_not_ported():
     data = np.zeros((NTHETA, N, N), np.complex64)
     with pytest.raises(NotImplementedError, match="mesh"):
         tl.reconstruct(data, _theta(), TILT, "cgrad", mesh=object(), device="cpu")
-    # Bucket laminography is not ported: said so, and without sending the
-    # caller to a module of the other package.
-    with pytest.raises(NotImplementedError, match="algorithm='bucket' is not ported yet") as e:
+    # Bucket laminography has its own driver: the reference's ValueError,
+    # sending the caller to the port's module, not to the other package's.
+    with pytest.raises(ValueError, match="Use tike_tpu_torch.lamino.bucket.reconstruct") as e:
         tl.reconstruct(data, _theta(), TILT, "bucket", device="cpu")
-    assert "tike_tpu." not in str(e.value) and "tike_tpu_torch" in str(e.value)
+    assert "tike_tpu." not in str(e.value)
+    with pytest.raises(ValueError, match="Use tike_tpu.lamino.bucket.reconstruct"):
+        jl.reconstruct(data, _theta(), TILT, "bucket")
     with pytest.raises(ValueError, match="not an available"):
         tl.reconstruct(data, _theta(), TILT, "sirt", device="cpu")
 

@@ -192,7 +192,8 @@ def test_import_leaves_jax_out():
         "tike_tpu_torch.ops.usfft, tike_tpu_torch.ops.lamino, tike_tpu_torch.lamino, "
         "tike_tpu_torch.lamino.solvers, tike_tpu_torch.toolchain_probe, "
         "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, tike_tpu_torch.admm, "
-        "tike_tpu_torch.constants, tike_tpu_torch.ptycho.stream, chip_smoke; "
+        "tike_tpu_torch.constants, tike_tpu_torch.ptycho.stream, tike_tpu_torch.ops.bucket, "
+        "tike_tpu_torch.lamino.bucket, tike_tpu_torch.checkpoint, chip_smoke; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu')); "
         "assert not bad, bad"

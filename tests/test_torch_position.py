@@ -314,17 +314,24 @@ def test_positions_stay_in_the_allowed_window(slice_data):
 
 
 @pytest.mark.parametrize("which", ["use_position_regularization", "poisson"])
-def test_unported_config2_options_raise(slice_data, which):
-    """Position regularization is still refused; config 2 with Poisson
-    noise, refused before, now runs."""
+def test_unported_config2_options_raise(slice_data, monkeypatch, which):
+    """Config 2 options the port once refused now run. Poisson noise: one
+    epoch with a finite cost. Position regularization with an eigen probe
+    (the per-epoch path, which constrains the eigen probes every
+    probe-recovery epoch): 3 epochs against tike_tpu, costs and fields at
+    1e-5, positions at 1e-4 px."""
     scan, probe, psi0, data = slice_data
-    params = _parameters(tp, scan, probe, psi0, True, False)
     if which == "poisson":
+        params = _parameters(tp, scan, probe, psi0, True, False)
         params.exitwave_options.noise_model = "poisson"
         with tp.Reconstruction(data, params, device="cpu", random_seed=0) as c:
             c.iterate(1)
             assert np.isfinite(c.get_convergence()[0][-1][0])
         return
-    params.position_options.use_position_regularization = True
-    with pytest.raises(NotImplementedError, match=which):
-        tp.Reconstruction(data, params, device="cpu")
+    H.seed_jax_position_fit(monkeypatch)
+    jparams = _parameters(jp, scan, probe, psi0, True, False)
+    jparams.position_options.use_position_regularization = True
+    got, want = H.run_both_packages(data, jparams, 3, fused=False)
+    H.check_epoch_run(got, want)
+    for key in ("eigen_probe", "eigen_weights"):
+        H.assert_close(got[key], want[key], rtol=H.SLICE_TOL, atol=H.SLICE_TOL, scale=True)

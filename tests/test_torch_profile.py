@@ -55,6 +55,7 @@ def test_device_breakdown_counts_overlap_once():
         (["--config", "rpie"], "rpie"),
         (["--config", "lamino_cgrad"], "lamino_cgrad"),
         (["--config", "lamino_cgls"], "lamino_cgls"),
+        (["--config", "bucket"], "bucket"),
         (["--config", "admm"], "admm"),
         (["--config", "stream"], "stream"),
     ],

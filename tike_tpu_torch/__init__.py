@@ -6,7 +6,9 @@ function's counterpart sits at the same relative path. The bilinear patch
 gather and scatter, which ``tike_tpu`` wrote as Pallas kernels for the TPU,
 and the USFFT's Kaiser-Bessel gather and scatter, which it wrote as XLA
 einsums for the TPU's matrix unit, are hand-written CUDA kernels here
-(``csrc/patch.cu``, ``csrc/usfft.cu``), built with ``nvcc`` at first use on
+(``csrc/patch.cu``, ``csrc/usfft.cu``), as is the Bucket laminography
+operator's voxel projection and its adjoint, XLA scatter and gather code
+there (``csrc/bucket.cu``); all are built with ``nvcc`` at first use on
 a CUDA tensor; ``toolchain_probe`` holds the kernels of ``csrc/probe.cu``,
 the counterparts of the JAX package's Pallas feature probes. ``admm`` joins
 ptychography and laminography into one reconstruction, and
@@ -20,6 +22,7 @@ This package never imports ``jax`` or ``tike_tpu``.
 
 __version__ = "0.1.0"
 
+from . import checkpoint
 from . import cluster
 from . import linalg
 from . import precision

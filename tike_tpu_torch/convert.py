@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 
+from .ops.bucket import BucketConfig
 from .ops.lamino import LaminoConfig
 from .precision import cfloating, floating, to_numpy
 from .ptycho.exitwave import ExitWaveOptions
@@ -129,6 +130,15 @@ def lamino_config_from_jax(cfg) -> LaminoConfig:
     Laminography's state (volume, data, theta) crosses as numpy arrays."""
     return LaminoConfig(
         **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LaminoConfig)}
+    )
+
+
+def bucket_config_from_jax(cfg) -> BucketConfig:
+    """Return the port's BucketConfig with the fields of a ``tike_tpu`` one
+    (n, tilt, precision). Checkpoints cross between the packages by their
+    shared file format (:mod:`tike_tpu_torch.checkpoint`)."""
+    return BucketConfig(
+        **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(BucketConfig)}
     )
 
 

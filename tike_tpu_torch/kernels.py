@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 # C signatures of each library's entry points: (argtypes, restype).
-_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PTR, _INT, _LL, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "patch": {
         # (image, positions, patches, n, h, w, p, channels, stream)
@@ -64,6 +64,14 @@ SIGNATURES = {
         "tike_probe_element": ([_PTR] * 3 + [_INT] * 3 + [_PTR], _INT),
         # (probe, planes, extent, stream): measurement only, the launch floor
         "tike_probe_empty": ([_INT] * 3 + [_PTR], _INT),
+    },
+    "bucket": {
+        # (u, grid or NULL, table, planes, voxels, angles, n, precision,
+        # weight, stream)
+        "tike_bucket_fwd": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
+        # (planes, grid or NULL, table, out, voxels, angles, n, precision,
+        # weight, stream)
+        "tike_bucket_adj": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
     },
 }
 

@@ -61,9 +61,11 @@ def reconstruct(
     The parameters of ``tike_tpu.lamino.reconstruct``, plus ``device`` and
     the keyword-only ``plan``. ``algorithm`` is ``"cgrad"`` (backtracking
     Dai-Yuan CG) or ``"cgls"`` (optimal-step CG on the normal equations);
-    ``"bucket"`` is not ported yet. Returns a dict: ``obj``, ``cost`` (one
-    per outer iteration, always a numpy array) and what the solver returns
-    besides. ``mesh`` (several devices) is not ported.
+    ``"bucket"`` raises ``ValueError``, as in ``tike_tpu``: its solver is
+    :func:`tike_tpu_torch.lamino.bucket.reconstruct`. Returns a dict:
+    ``obj``, ``cost`` (one per outer iteration, always a numpy array) and
+    what the solver returns besides. ``mesh`` (several devices) is not
+    ported.
 
     ``data``, ``theta`` and ``obj`` are arrays or tensors. What comes back
     follows ``data``: numpy arrays for an array; for a tensor, tensors on
@@ -76,8 +78,8 @@ def reconstruct(
     if mesh is not None:
         raise NotImplementedError("multi-device laminography (mesh) is not ported")
     if algorithm == "bucket":
-        raise NotImplementedError(
-            "tike_tpu_torch.lamino.reconstruct: algorithm='bucket' is not ported yet"
+        raise ValueError(
+            "Use tike_tpu_torch.lamino.bucket.reconstruct for the bucket solver."
         )
     if algorithm not in solvers.__all__:
         raise ValueError(

@@ -1,6 +1,7 @@
 """Laminography solvers: one outer iteration each."""
 
+from .bucket import bucket
 from .cgls import cgls
 from .cgrad import cgrad
 
-__all__ = ["cgrad", "cgls"]
+__all__ = ["bucket", "cgls", "cgrad"]

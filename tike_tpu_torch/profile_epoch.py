@@ -24,6 +24,11 @@ With ``--config lamino_cgrad`` or ``lamino_cgls`` it builds
 volume, 64 angles, upsample 1, ``cg_iter=4``), runs two outer iterations
 of the solver on device tensors and traces the third the same way.
 
+With ``--config bucket`` it builds ``chip_smoke.py``'s Bucket laminography
+path (phase 16: the 128^3 volume, 64 angles, tilt pi/3, eps 1e-1 so
+precision 3, ``cg_iter=4``), runs two outer iterations of the solver on
+device tensors and traces the third.
+
 With ``--config admm`` it builds ``chip_smoke.py``'s joint-ADMM problem
 (``bench_all.py``'s ``admm_joint``: n = 64, 8 angles, 200 positions each),
 runs one ADMM iteration to warm up and traces the next. With ``--config
@@ -55,6 +60,8 @@ CLASSES = (
     ("kb_scatter_kernel (ours)", ("kb_scatter_kernel",)),
     ("patch_fwd_kernel (ours)", ("patch_fwd_kernel",)),
     ("patch_adj_kernel (ours)", ("patch_adj_kernel",)),
+    ("bucket_fwd_kernel (ours)", ("bucket_fwd_kernel",)),
+    ("bucket_adj_kernel (ours)", ("bucket_adj_kernel",)),
     ("copies from the host (memcpy HtoD)", ("memcpy htod",)),
     ("cuFFT", ("fft",)),
     ("sort, index, cat, memset, memcpy", ("sort", "index", "cat", "memset", "memcpy")),
@@ -96,10 +103,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--config",
-        choices=("main", "config2", "rpie", "lamino_cgrad", "lamino_cgls", "admm", "stream"),
+        choices=(
+            "main", "config2", "rpie", "lamino_cgrad", "lamino_cgls", "bucket", "admm", "stream"
+        ),
         default="main",
         help="the main path (one probe mode), BASELINE config 2, rPIE, "
-        "laminography with cgrad or CGLS, joint ADMM, or a host-streamed epoch",
+        "laminography with cgrad, CGLS or the Bucket operator, joint ADMM, or a "
+        "host-streamed epoch",
     )
     parser.add_argument(
         "--trace",
@@ -187,6 +197,34 @@ def _profile_lamino(cs, config, card, device):
     return prof, wall, lambda: None
 
 
+def _profile_bucket(cs, config, card, device):
+    """Trace the third outer iteration of the Bucket solver on device
+    tensors (the first two, which estimate the step from a zero and then a
+    first volume, warm up), with one angle table for every projection as
+    ``bucket.reconstruct`` keeps it; returns (profiler, wall seconds, what
+    to close)."""
+    from tike_tpu_torch.lamino.solvers import bucket as solver
+    from tike_tpu_torch.ops import bucket
+    from torch.profiler import ProfilerActivity, profile
+
+    c = cs.cases_bucket.FULL
+    cfg = bucket.BucketConfig.from_eps(c["n"], c["tilt"], c["eps"])
+    theta = cs.cases_usfft.lamino_theta(c["ntheta"], device)
+    trig = bucket.bucket_trig(cfg, theta)
+    volume = torch.as_tensor(cs.lamino_volume(c["n"]), device=device)
+    data = bucket.bucket_fwd(cfg, volume, theta, trig=trig)
+    result = {"obj": torch.zeros_like(volume)}
+    for _ in range(2):
+        result = solver(cfg, data, theta, cg_iter=c["cg_iter"], trig=trig, **result)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        solver(cfg, data, theta, cg_iter=c["cg_iter"], trig=trig, **result)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return prof, wall, lambda: None
+
+
 def _profile_admm(cs, config, card, device):
     """Trace one joint-ADMM iteration (8 angles of rPIE, the blend, the
     volume fit, the re-projection and the dual step) after one that warms
@@ -243,7 +281,7 @@ def main() -> None:
     card = cs.nvidia_smi_line()
     print("card:", card, "config:", args.config)
     device = torch.device("cuda", 0)
-    profilers = {"admm": _profile_admm, "stream": _profile_stream}
+    profilers = {"admm": _profile_admm, "bucket": _profile_bucket, "stream": _profile_stream}
     profiler = profilers.get(
         args.config, _profile_lamino if args.config.startswith("lamino") else _profile_ptycho
     )

@@ -52,6 +52,18 @@ class ExitWaveOptions:
             measured_pixels=to_numpy(self.measured_pixels).astype(bool),
         )
 
+    def resample(self, factor: float) -> "ExitWaveOptions":
+        """A host copy whose mask keeps the lowest frequencies of a
+        detector ``factor`` times as wide (``crop_fourier_space``; for
+        ``factor > 1`` it repeats rows, as the JAX package's does)."""
+        from .solvers.options import crop_fourier_space
+
+        mask = to_numpy(self.measured_pixels)
+        return dataclasses.replace(
+            self,
+            measured_pixels=crop_fourier_space(mask, int(mask.shape[-1] * factor)),
+        )
+
 
 def poisson_steplength_all_modes(
     xi,

@@ -57,6 +57,13 @@ class ObjectOptions:
     multislice_propagation_distance: float = 1.0e-9
     """Slice-to-slice propagation distance (meters) for multislice."""
 
+    def resample(self, factor: float, interp=None) -> "ObjectOptions":
+        """A copy for a grid of another scale: the moments and the
+        preconditioner reset, the update history kept."""
+        out = dataclasses.replace(self)
+        out.update_mnorm = list(self.update_mnorm)
+        return out
+
 
 def get_padded_object(scan, probe, extra: int = 0):
     """Return a 0.5-initialized object sized to cover the scan, and new scan.

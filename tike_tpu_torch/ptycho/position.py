@@ -19,6 +19,9 @@ import numpy as np
 import numpy.typing as npt
 import torch
 
+from .. import linalg
+from ..ops import objective
+from ..ops.ptycho import intensity_from_farplane, ptycho_fwd
 from ..precision import as_tensor, floating, to_numpy
 
 
@@ -275,6 +278,18 @@ class PositionOptions:
             self._momentum,
         )
 
+    def resample(self, factor: float) -> "PositionOptions":
+        """Host options for a grid ``factor`` times as fine: the initial
+        positions, the transform's shift and the origin scaled; the AdaM
+        moments reset to zeros (or None without AdaM)."""
+        out = self._with_arrays(
+            lambda x: to_numpy(x).astype(floating), self.initial_scan, self.confidence, None
+        )
+        out.initial_scan = out.initial_scan * factor
+        out.transform = self.transform.resample(factor)
+        out.origin = self.origin * factor
+        return out
+
     @staticmethod
     def join(x, reorder) -> "PositionOptions | None":
         """Concatenate the options of ``x`` and reorder their positions."""
@@ -431,3 +446,51 @@ def gaussian_gradient(x: torch.Tensor, sigma: float = 0.333, truncate: float = 6
         return acc
 
     return correlate(-x, x.dim() - 2), correlate(-x, x.dim() - 1)
+
+
+def update_positions_pd(cfg, data, psi, probe, scan, *, dx=-1.0, step=0.05):
+    """Update scan positions by the gradient-of-intensity method (Dwivedi
+    et al. 2018), as :func:`tike_tpu.ptycho.position.update_positions_pd`.
+
+    data (B, DET, DET), psi (1, H, W), probe (..., M, P, P) and scan (B, 2)
+    are tensors on one device. Per mode, the far field's derivatives with
+    respect to the position come from finite differences of ``dx`` px along
+    each axis; a per-position least-squares solve gives the shift that best
+    explains the intensity residual, ``step`` of it is taken, and the mean
+    position is restored (no drift). The forward model is ``ops.ptycho``'s,
+    so on the card every far field launches the patch kernel. Returns
+    ``(new_scan, cost)``: the new positions as a tensor, the Gaussian cost
+    at them as a float. Positions outside the allowed window raise
+    ``ValueError`` (:func:`check_allowed_positions`).
+    """
+    b = scan.shape[0]
+    npix = cfg.detector_shape * cfg.detector_shape
+    probe2 = probe.reshape((1, *probe.shape[-3:]))  # (1, M, P, P)
+    dx = torch.tensor(dx, dtype=torch.float32, device=scan.device)
+    step = torch.tensor(step, dtype=torch.float32, device=scan.device)
+
+    intensity = intensity_from_farplane(ptycho_fwd(cfg, psi, scan, probe2))
+    dI = (data - intensity).reshape(b, npix)
+
+    dI_dx = torch.zeros((b, npix), dtype=torch.float32, device=scan.device)
+    dI_dy = torch.zeros((b, npix), dtype=torch.float32, device=scan.device)
+    for m in range(probe2.shape[-3]):
+        pm = probe2[:, m : m + 1]
+        f0 = ptycho_fwd(cfg, psi, scan, pm)
+        fx = ptycho_fwd(cfg, psi, scan + torch.stack([0 * dx, dx]), pm)
+        fy = ptycho_fwd(cfg, psi, scan + torch.stack([dx, 0 * dx]), pm)
+        dI_dx = dI_dx + (2 * ((f0 - fx) / dx * torch.conj(f0)).real).reshape(b, npix)
+        dI_dy = dI_dy + (2 * ((f0 - fy) / dx * torch.conj(f0)).real).reshape(b, npix)
+
+    A = torch.stack([dI_dy, dI_dx], dim=-1)  # (B, npix, 2)
+    grad = linalg.lstsq(A, dI[..., None])[..., 0]  # (B, 2)
+
+    # Remove drift: keep the center of mass stationary.
+    center0 = torch.mean(scan, dim=-2, keepdim=True)
+    new_scan = scan - step * grad
+    new_scan = new_scan + center0 - torch.mean(new_scan, dim=-2, keepdim=True)
+
+    new_intensity = intensity_from_farplane(ptycho_fwd(cfg, psi, new_scan, probe2))
+    cost = objective.COST["gaussian"](data, new_intensity)
+    check_allowed_positions(to_numpy(new_scan), np.zeros(psi.shape), probe.shape)
+    return new_scan, float(cost)

@@ -107,6 +107,14 @@ class ProbeOptions:
             epoch % self.update_period == 0
         )
 
+    def resample(self, factor: float, interp=None) -> "ProbeOptions":
+        """A copy for a grid of another scale: the moments and the
+        preconditioner reset, the power history kept (the same list, as in
+        the JAX package)."""
+        out = dataclasses.replace(self)
+        out.power = self.power
+        return out
+
 
 def get_varying_probe(shared_probe, eigen_probe=None, weights=None):
     """Combine shared and eigen probes with weights into per-position probes.
@@ -193,6 +201,46 @@ def update_eigen_probe(
         weights[:, c : c + 1, m : m + 1].shape
     )
     return eigen_probe, weights
+
+
+def constrain_variable_probe(variable_probe, weights):
+    """Constrain eigen probes: normalize, orthogonalize, sort, de-outlier.
+
+    variable_probe (1, EIGEN, SHARED', W, H), weights (POSI, EIGEN+1,
+    SHARED), tensors on one device. Each eigen probe is normalized to unit
+    RMS and its norm moved into its weights; the eigen probes are
+    Gram-Schmidt orthogonalized along the axis before the pixels (as
+    :func:`~tike_tpu_torch.linalg.orthogonalize_gs` and the JAX package
+    enumerate them); per mode, the eigen probes and their weights are sorted
+    by the energy of the weights, descending, in the order numpy's
+    ``argsort`` gives on the host (ties included); and every weight is
+    clipped in magnitude to 1.5 times the 95th percentile over the
+    positions (linear interpolation, numpy's default). Returns new
+    ``(variable_probe, weights)``.
+    """
+    vnorm = linalg.mnorm(variable_probe, dim=(-2, -1), keepdim=True)
+    variable_probe = variable_probe / (vnorm + 1e-32)
+    m = variable_probe.shape[-3]
+    weights = weights.clone()
+    weights[..., 1:, :m] = weights[..., 1:, :m] * vnorm[..., 0, 0]
+
+    variable_probe = linalg.orthogonalize_gs(variable_probe, dim=(-2, -1))
+
+    power = linalg.norm(weights[..., 1:, :m], dim=-3, keepdim=True) ** 2
+    power = to_numpy(power)  # one small read: the order is numpy's
+    sorted_weights = weights.clone()
+    sorted_probe = variable_probe.clone()
+    for i in range(m):
+        order = torch.as_tensor(
+            np.argsort(-power[..., i].flatten()), device=weights.device
+        )
+        sorted_weights[..., 1:, i] = weights[..., 1 + order, i]
+        sorted_probe[..., :, i, :, :] = variable_probe[..., order, i, :, :]
+
+    aevol = torch.abs(sorted_weights)
+    limit = 1.5 * torch.quantile(aevol, 0.95, dim=-3, keepdim=True)
+    weights = torch.minimum(aevol, limit) * torch.sign(sorted_weights)
+    return sorted_probe, weights
 
 
 def gaussian(size, rin=0.8, rout=1.0):

@@ -44,11 +44,11 @@ from ..ops.ptycho import (
     simulate_intensity,
 )
 from ..precision import as_tensor, to_numpy
-from .position import affine_position_regularization
+from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
 from .solvers import _preconditioner
 from .solvers.epoch import EpochPlan, EpochState, _epoch_math, seed_err_hist
-from .solvers.options import PtychoParameters
+from .solvers.options import PtychoParameters, _resize_fft, crop_fourier_space
 from .stream import StreamedBatches, iter_batches, pinned_batches
 
 __all__ = [
@@ -56,6 +56,7 @@ __all__ = [
     "simulate",
     "simulate_device",
     "Reconstruction",
+    "reconstruct_multigrid",
 ]
 
 logger = logging.getLogger(__name__)
@@ -122,14 +123,13 @@ def simulate_device(
 
     probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), and optionally
     eigen_probe (1, EIGEN, S', P, P) and eigen_weights (N, EIGEN+1, S), as
-    arrays or tensors. Returns an (N, detector, detector) float32 tensor on
-    ``device`` (the CUDA card unless the caller asks for another), which
-    :class:`Reconstruction` takes as it is: per probe mode, the varying
-    probe's far-field intensity, summed over modes. A tensor input on
-    another device raises.
+    arrays or tensors. Returns an (N // fly, detector, detector) float32
+    tensor on ``device`` (the CUDA card unless the caller asks for another),
+    which :class:`Reconstruction` takes as it is: per probe mode, the
+    varying probe's far-field intensity, summed over modes and, in a fly
+    scan, over each group of ``fly`` consecutive positions (the frames of
+    one exposure). A tensor input on another device raises.
     """
-    if fly != 1:
-        raise NotImplementedError("fly-scan grouping is not ported yet")
     device = _resolve_device(
         device,
         probe=probe,
@@ -174,6 +174,10 @@ def simulate_device(
         intensity = (
             mode_intensity if intensity is None else intensity + mode_intensity
         )
+    if fly > 1:
+        intensity = intensity.reshape(
+            scan.shape[-2] // fly, fly, detector_shape, detector_shape
+        ).sum(dim=1)
     return intensity
 
 
@@ -363,15 +367,6 @@ class Reconstruction:
                 parameters.probe.shape[-3],
             )
         self.store_data_on_device = bool(store_data_on_device)
-        reasons = _per_epoch_reasons(parameters, not self.store_data_on_device)
-        if reasons and parameters.eigen_probe is not None:
-            # The per-epoch loop constrains the eigen probes every epoch.
-            raise NotImplementedError(
-                "not ported to tike_tpu_torch yet: eigen probes on the "
-                "per-epoch path (constrain_variable_probe), which "
-                + "; ".join(reasons)
-                + " takes"
-            )
         self.data_host = data
         self.parameters_host = copy.deepcopy(parameters)
         probe_options = parameters.probe_options
@@ -494,7 +489,8 @@ class Reconstruction:
     def _make_plan(self, per_epoch: bool = False) -> EpochPlan:
         """The static configuration of an epoch. On the per-epoch path, as
         in the JAX package, the preconditioners always take the FFT
-        formulation, and rPIE leaves the positions alone."""
+        formulation, rPIE leaves the positions alone, and eigen probes are
+        constrained on probe-recovery epochs."""
         p = self.parameters
         popts = p.probe_options
         oopts = p.object_options
@@ -574,6 +570,7 @@ class Reconstruction:
             pos_update_magnitude_limit=(
                 posopts.update_magnitude_limit if posopts else 0.0
             ),
+            constrain_eigen=per_epoch and p.eigen_probe is not None,
         )
 
     def _moment_states(self, plan: EpochPlan, state: EpochState) -> None:
@@ -836,6 +833,87 @@ class Reconstruction:
         self.parameters = self.parameters.copy_to_host()
         self.data = None
 
+    def append_new_data(self, new_data, new_scan):
+        """Append new diffraction patterns and positions mid-reconstruction.
+
+        Online (streaming-acquisition) reconstruction, as
+        :meth:`tike_tpu.ptycho.Reconstruction.append_new_data`: the new
+        patterns are checked, data and positions appended, the mini-batches
+        clustered again (from the reconstruction's own generator), eigen
+        weights padded with their column means, and the position-correction
+        state (initial positions, confidence, moments) extended. The solver
+        state (object, probe, eigen probes, moments, cost and time
+        histories) carries over, and ``init_rescale_from_measurements`` is
+        turned off so the refined probe is not rescaled again. Data that
+        was given on the device cannot be appended to:
+        ``NotImplementedError``; restart with the combined dataset.
+        """
+        if isinstance(self.data_host, torch.Tensor) and self.data_host.device.type != "cpu":
+            raise NotImplementedError(
+                "append_new_data requires host data (numpy or a CPU tensor); "
+                "data given on the device cannot be appended to. Restart "
+                "with the combined dataset instead."
+            )
+        new_scan = np.asarray(to_numpy(new_scan), dtype=np.float32)
+        new_data = (
+            new_data.detach().cpu()
+            if isinstance(new_data, torch.Tensor)
+            else np.asarray(new_data)
+        )
+        if (
+            new_data.ndim != 3
+            or new_scan.ndim != 2
+            or new_scan.shape[-1] != 2
+            or new_data.shape[0] != new_scan.shape[0]
+        ):
+            raise ValueError(
+                f"new data shape {tuple(new_data.shape)} and new scan shape "
+                f"{new_scan.shape} are incompatible. They should be "
+                "(K, W, H) and (K, 2) with the same leading dimension."
+            )
+        if tuple(new_data.shape[-2:]) != tuple(self.data_host.shape[-2:]):
+            raise ValueError(
+                f"new data frames {tuple(new_data.shape[-2:])} do not match the "
+                f"existing detector shape {tuple(self.data_host.shape[-2:])}."
+            )
+        check = to_numpy(new_data)
+        if not np.all(np.isfinite(check)) or np.any(check < 0):
+            warnings.warn(
+                "New diffraction patterns contain invalid data. "
+                "All data should be non-negative and finite.",
+                UserWarning,
+            )
+
+        # The current state in the user's order, then extended.
+        params = self.get_result()
+        check_allowed_positions(new_scan, params.psi, params.probe.shape)
+        n_new = new_scan.shape[0]
+        params.scan = np.concatenate([params.scan, new_scan], axis=0)
+        if params.eigen_weights is not None:
+            params.eigen_weights = np.pad(
+                params.eigen_weights, ((0, n_new), (0, 0), (0, 0)), mode="mean"
+            )
+        popt = params.position_options
+        if popt is not None:
+            popt.initial_scan = np.concatenate([popt.initial_scan, new_scan], axis=0)
+            if popt.confidence is not None:
+                popt.confidence = np.concatenate(
+                    [popt.confidence, np.ones((n_new, 2), dtype=np.float32)], axis=0
+                )
+            if popt._momentum is not None:
+                popt._momentum = np.pad(popt._momentum, ((0, n_new), (0, 0)))
+        if params.probe_options is not None:
+            params.probe_options.init_rescale_from_measurements = False
+
+        if isinstance(self.data_host, torch.Tensor):
+            self.data_host = torch.cat(
+                [self.data_host, torch.as_tensor(new_data, dtype=self.data_host.dtype)]
+            )
+        else:
+            self.data_host = np.concatenate([self.data_host, to_numpy(new_data)], axis=0)
+        self.parameters_host = params
+        return self.__enter__()
+
 
 def reconstruct(
     data,
@@ -859,6 +937,67 @@ def reconstruct(
     ) as context:
         context.iterate(parameters.algorithm_options.num_iter)
         return context.get_result()
+
+
+def reconstruct_multigrid(
+    data,
+    parameters: PtychoParameters,
+    num_gpu: typing.Union[int, typing.Tuple[int, ...]] = 1,
+    use_mpi: bool = False,
+    num_levels: int = 3,
+    interp: typing.Callable = None,
+    mesh=None,
+    object_sharding: str = "replicated",
+    store_data_on_device: typing.Optional[bool] = None,
+    *,
+    device="cuda",
+    random_seed: typing.Optional[int] = None,
+) -> PtychoParameters:
+    """Coarse-to-fine reconstruction on ``device``, as
+    :func:`tike_tpu.ptycho.reconstruct_multigrid`.
+
+    Level ``num_levels - 1`` first: the parameters resampled by ``0.5 **
+    level`` (``interp``, default :func:`~.solvers.options._resize_fft`, for
+    the probes) and the data cropped to its lowest ``1 / 2 ** level`` of
+    frequencies (:func:`~.solvers.options.crop_fourier_space`: plain
+    indexing, so data on the device stays there), then
+    ``algorithm_options.num_iter`` epochs, and the result resampled by 2
+    for the next level. Returns the finest level's result. The parameters
+    before ``device`` are the JAX package's, in its order; what
+    :class:`Reconstruction` refuses raises ``NotImplementedError`` before
+    any level runs. ``random_seed`` seeds every level's batches (the JAX
+    package leaves them unseeded).
+    """
+    missing = _unsupported(parameters, num_gpu, use_mpi, mesh, object_sharding)
+    if missing:
+        raise NotImplementedError("not ported to tike_tpu_torch yet: " + "; ".join(missing))
+    interp = _resize_fft if interp is None else interp
+    if (data.shape[-1] * 0.5 ** (num_levels - 1)) < 64:
+        warnings.warn(
+            "Cropping diffraction patterns to less than 64 pixels wide is "
+            "not recommended because the full doughnut may be visible."
+        )
+    resampled_parameters = parameters.resample(0.5 ** (num_levels - 1), interp)
+    for level in range(num_levels - 1, -1, -1):
+        with Reconstruction(
+            data
+            if level == 0
+            else crop_fourier_space(data, data.shape[-1] // (2**level)),
+            resampled_parameters,
+            num_gpu,
+            use_mpi,
+            mesh,
+            store_data_on_device,
+            random_seed,
+            object_sharding,
+            device=device,
+        ) as context:
+            context.iterate(resampled_parameters.algorithm_options.num_iter)
+            result = context.get_result()
+        if level == 0:
+            return result
+        resampled_parameters = result.resample(2.0, interp)
+    raise RuntimeError("This should not happen.")
 
 
 def _rescale_probe(

@@ -22,9 +22,10 @@ bitwise the same where the gate is 0 or 1:
 Batches run in the order the caller gives: 0..nb-1 in compact mode, a
 permutation drawn per epoch otherwise. Moment states advance as in
 ``fused.py``: the object's every epoch, the probe's only on probe-recovery
-epochs. As in ``fused.py``, the epoch does not constrain the eigen probes
-(``constrain_variable_probe`` runs only in the JAX package's per-epoch
-loop).
+epochs. The eigen probes are constrained (``constrain_variable_probe``,
+after the probe constraints and the photon rescale, on probe-recovery
+epochs) only where the plan asks for it: on the per-epoch path, as the JAX
+package's per-epoch loop does and its fused program does not.
 """
 
 from __future__ import annotations
@@ -110,6 +111,9 @@ class EpochPlan:
     pos_vdecay: float = 0.999
     pos_mdecay: float = 0.9
     pos_update_magnitude_limit: float = 0.0
+    # constrain_variable_probe at the start of probe-recovery epochs (the
+    # per-epoch path with eigen probes)
+    constrain_eigen: bool = False
 
     def recover_now(self, total_e: int) -> bool:
         """Whether the probe is updated in epoch ``total_e``."""
@@ -206,6 +210,10 @@ def _epoch_begin_math(
     """Start of an epoch: the probe constraints and rescale (into
     ``state.probe``) and the whole-epoch preconditioners.
 
+    With ``plan.constrain_eigen`` the eigen probes and weights are then
+    constrained on probe-recovery epochs (into ``state``), as the JAX
+    package's per-epoch loop does after its probe constraints.
+
     Returns ``(pwr (modes,), psi_pre (1, H, W), probe_pre (1, P, P) or
     None)``. As in ``fused.py``, ``pwr`` is the power of the constrained
     probe even on epochs where the constraints are not applied, so the
@@ -225,6 +233,15 @@ def _epoch_begin_math(
             probe, Nphotons=plan.rescale_photons
         )
     state.probe = probe
+    if (
+        plan.constrain_eigen
+        and plan.recover_probe
+        and recover_now
+        and state.eigen_probe is not None
+    ):
+        state.eigen_probe, state.eigen_weights = probe_module.constrain_variable_probe(
+            state.eigen_probe, state.eigen_weights
+        )
 
     psi, scan = state.psi, state.scan
     want_probe_pre = plan.solver == "rpie" and plan.recover_probe

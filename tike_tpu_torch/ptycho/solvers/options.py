@@ -4,6 +4,11 @@ Counterpart of :mod:`tike_tpu.ptycho.solvers.options`. PtychoParameters is
 the solver state: probe, psi, scan, eigen probes/weights and the option
 objects. Its arrays are numpy on the host and tensors after
 :meth:`PtychoParameters.copy_to_device`.
+
+The resize helpers of :meth:`PtychoParameters.resample` (multigrid) are
+host numpy and scipy, copies of the JAX package's: tensors go through the
+host, so both packages resample the same bits. :func:`crop_fourier_space`
+also takes a tensor and stays on its device.
 """
 
 from __future__ import annotations
@@ -213,6 +218,40 @@ class PtychoParameters:
             else self.position_options.copy_to_host(),
         )
 
+    def resample(
+        self,
+        factor: float,
+        interp: typing.Optional[typing.Callable] = None,
+    ) -> "PtychoParameters":
+        """Return new host parameters rescaled by ``factor``: the probe and
+        eigen probes by ``interp`` (default :func:`_resize_fft`), psi by a
+        spline zoom, the positions scaled, the options resampled (their
+        moments reset). The algorithm options are passed on as they are, so
+        the cost history runs on across levels."""
+        interp = _resize_fft if interp is None else interp
+        return PtychoParameters(
+            probe=interp(to_numpy(self.probe), factor).astype(cfloating),
+            psi=_resize_spline(to_numpy(self.psi), factor).astype(cfloating),
+            scan=to_numpy(self.scan) * factor,
+            eigen_probe=interp(to_numpy(self.eigen_probe), factor).astype(cfloating)
+            if self.eigen_probe is not None
+            else None,
+            eigen_weights=self.eigen_weights,
+            algorithm_options=self.algorithm_options,
+            probe_options=self.probe_options.resample(factor, interp)
+            if self.probe_options is not None
+            else None,
+            object_options=self.object_options.resample(factor, interp)
+            if self.object_options is not None
+            else None,
+            position_options=self.position_options.resample(factor)
+            if self.position_options is not None
+            else None,
+            exitwave_options=self.exitwave_options.resample(factor)
+            if self.exitwave_options is not None
+            else None,
+        )
+
     @staticmethod
     def split(indices, *, x: "PtychoParameters") -> "PtychoParameters":
         """Return new parameters with only the positions in indices: the
@@ -264,3 +303,115 @@ class PtychoParameters:
                 [p.position_options], reorder
             ),
         )
+
+
+def _resize_spline(x: np.ndarray, f: float) -> np.ndarray:
+    import scipy.ndimage
+
+    return scipy.ndimage.zoom(
+        x, zoom=[1] * (x.ndim - 2) + [f, f], grid_mode=True, prefilter=False
+    )
+
+
+def _fourier_rows(size: int, w: int) -> np.ndarray:
+    """The indices of the w lowest frequencies of a length-``size`` axis
+    with zero frequency in the corner."""
+    half1 = w // 2
+    half0 = w - half1
+    return np.r_[0:half0, (size - half1) : size]
+
+
+def crop_fourier_space(x, w: int):
+    """Crop x assuming 2D frequency space with zero frequency in corner.
+
+    ``x`` is a numpy array or a tensor (which stays on its device)."""
+    assert x.shape[-2] == x.shape[-1], "Only works on square arrays right now."
+    cols = _fourier_rows(x.shape[-1], w)
+    rows = _fourier_rows(x.shape[-2], w)
+    if isinstance(x, torch.Tensor):
+        cols = torch.as_tensor(cols, device=x.device)
+        rows = torch.as_tensor(rows, device=x.device)
+    return x[..., rows, :][..., :, cols]
+
+
+def pad_fourier_space(x: np.ndarray, w: int) -> np.ndarray:
+    """Pad x assuming 2D frequency space with zero frequency in corner."""
+    assert x.shape[-2] == x.shape[-1], "Only works on square arrays right now."
+    half1 = x.shape[-1] // 2
+    half0 = x.shape[-1] - half1
+    new_x = np.zeros((*x.shape[:-2], w, w), dtype=x.dtype)
+    new_x[..., 0:half0, np.r_[0:half0, (w - half1) : w]] = x[..., 0:half0, :]
+    new_x[..., -half1:, np.r_[0:half0, (w - half1) : w]] = x[..., -half1:, :]
+    return new_x
+
+
+def _resize_fft(x: np.ndarray, f: float) -> np.ndarray:
+    """Fourier interpolation resize of the last 2 dimensions of x."""
+    if f == 1:
+        return x
+    crop_or_pad = crop_fourier_space if f < 1 else pad_fourier_space
+    return np.fft.ifft2(
+        crop_or_pad(
+            np.fft.fft2(x, norm="ortho", axes=(-2, -1)),
+            w=int(x.shape[-1] * f),
+        ),
+        norm="ortho",
+        axes=(-2, -1),
+    )
+
+
+def _lanczos_resample_matrix(n_in: int, n_out: int, a: int = 4) -> np.ndarray:
+    """Dense (n_out, n_in) Lanczos-a resampling matrix (rows normalized)."""
+    scale = n_out / n_in
+    center = (np.arange(n_out) + 0.5) / scale - 0.5
+    t = center[:, None] - np.arange(n_in)[None, :]
+    w = np.sinc(t) * np.sinc(t / a) * (np.abs(t) < a)
+    return w / w.sum(axis=-1, keepdims=True)
+
+
+def _resize_complex_image(img0, scale_factor=(1, 1), interpolation=None):
+    """Resize a complex image by (horizontal, vertical) scale factors:
+    OpenCV's codes 0 or 1 (linear) and 2 (cubic) by scipy spline zoom of
+    the real and imaginary parts, 4 by a separable Lanczos-4 resample, as
+    ``tike_tpu.view.resize_complex_image`` does."""
+    if interpolation == 4:
+        h, w = img0.shape[-2:]
+        hn = int(round(h * scale_factor[1]))
+        wn = int(round(w * scale_factor[0]))
+        ry = _lanczos_resample_matrix(h, hn)
+        rx = _lanczos_resample_matrix(w, wn)
+        return np.einsum("ay,...yx,bx->...ab", ry, img0, rx).astype(img0.dtype)
+
+    import scipy.ndimage
+
+    order = 1 if interpolation in (None, 0, 1) else 3
+    zoom = (scale_factor[1], scale_factor[0])
+    return (
+        scipy.ndimage.zoom(img0.real, zoom, order=order, grid_mode=True,
+                           mode="grid-constant")
+        + 1j * scipy.ndimage.zoom(img0.imag, zoom, order=order, grid_mode=True,
+                                  mode="grid-constant")
+    ).astype(img0.dtype)
+
+
+def _resize_cv(x: np.ndarray, f: float, interpolation: int) -> np.ndarray:
+    """Image-space resize of the last 2 dims of x, image by image."""
+    shape = x.shape
+    flat = x.reshape(-1, *shape[-2:])
+    out = [
+        _resize_complex_image(img, scale_factor=(f, f), interpolation=interpolation)
+        for img in flat
+    ]
+    return np.asarray(out).reshape(*shape[:-2], *out[0].shape[-2:])
+
+
+def _resize_linear(x: np.ndarray, f: float) -> np.ndarray:
+    return _resize_cv(x, f, 1)
+
+
+def _resize_cubic(x: np.ndarray, f: float) -> np.ndarray:
+    return _resize_cv(x, f, 2)
+
+
+def _resize_lanczos(x: np.ndarray, f: float) -> np.ndarray:
+    return _resize_cv(x, f, 4)
