@@ -11,9 +11,10 @@ without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
 2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu``,
-   ``probe.cu`` and ``bucket.cu`` for sm_90a, and ``probe.cu`` with its gridded and prefetch
-   kernels in their parent's form (``kernel_sweep.parent_form``), one nvcc
-   each, all started together;
+   ``probe.cu``, ``bucket.cu`` and ``bucket_first_form.cu`` (the Bucket
+   kernels' first form, a yardstick) for sm_90a, and ``probe.cu`` with its
+   gridded and prefetch kernels in their parent's form
+   (``kernel_sweep.parent_form``), one nvcc each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
    positions, P=128, some windows past the bottom/right edges): each CUDA
    kernel against its plain PyTorch version, two launches of each on the
@@ -140,19 +141,22 @@ After phase 15, Bucket laminography and the rest of ptychography:
     version (the forward to its atomics' rounding, the adjoint bit for bit),
     adjointness, two adjoint launches bitwise equal, the points per cell of
     a volume of ones equal, and every point's cell equal to the plain
-    version's (``tests/_torch_bucket_cases.py::cell_mismatches``) at n = 16
+    version's (``tests/_torch_bucket_cases.py::cell_mismatches``) and no
+    point outside its tile's window (the card's counter, 0) at n = 16
     with precision 1, 2 and 4, at the golden geometry of
     ``tests/data/lamino_setup.pickle.lzma`` (64^3, 58 angles, precision 1)
     and at bench_all.py's 128^3 with precision 3 at one angle and at all 64;
-    each kernel's time in a CUDA graph, eager and plain beside its bound at
-    the full-width and golden shapes; the reference's golden protocol (1 +
+    each kernel's time in a CUDA graph in turns with its first form's
+    (``csrc/bucket_first_form.cu``), eager and plain, beside its bound
+    counted pipe by pipe (bytes, FP32 instructions, floors) and the first
+    count's, at the full-width and golden shapes; the reference's golden protocol (1 +
     30 outer iterations at eps=1) against ``lamino_bucket.pickle.lzma`` at
     atol 1e-3; then ``bucket.simulate`` and ``bucket.reconstruct`` at
     bench_all.py's laminography geometry (128^3, 64 angles in [0, pi), tilt
     pi/3) with eps 1e-1 (precision 3) and ``cg_iter=4``: one warm-up outer
     iteration and 5 timed, the kernel counts set to 0 before the timed run
     and read after it; s/iteration, set-up, peak memory, finite and
-    decreasing costs, both kernels launched;
+    decreasing costs, both kernels launched, no point outside its window;
 17. ``reconstruct_multigrid`` at the main path's configuration (3 levels of
     32^2, 64^2 and 128^2 patterns, 2 epochs each, seed 0): each level's
     set-up, s/epoch, costs and patch launches, the final cost; then at
@@ -167,8 +171,12 @@ first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
 for the patch kernels, in phase 17's levels as ``launches_multigrid_32``,
 ``_64`` and ``_128``; the Bucket kernels' ``launches`` are phase 16's, with
-their points and atomics beside their bounds at the full-width and
-``_golden`` shapes; its launches in phase 6 as
+their points, the sum of the out-of-window counter's readings
+(``outside_windows``), their first form's time
+``parent_form_ms`` and their bound pipe by pipe (``bound_fp32_ms``,
+``bound_floors_ms``, ``bound_bytes_ms``) beside the first count's
+``bound_ms_first_count``, at the full-width and ``_golden`` shapes; its
+launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
@@ -272,7 +280,9 @@ BUCKET_KERNELS = {
     "bucket_fwd": "tike_tpu/ops/bucket.py:101",
     "bucket_adj": "tike_tpu/ops/bucket.py:126",
 }
-SOURCES = ("patch", "usfft", "probe", "bucket")
+# The Bucket kernels' first form (csrc/bucket_first_form.cu) is built with
+# them and timed beside them in phase 16; no path runs it.
+SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -1987,62 +1997,114 @@ def _bucket_parity_cases(device):
     return out
 
 
+def _first_form(name, cfg, values, th, trig):
+    """A call of the Bucket kernel ``name`` in its first form
+    (csrc/bucket_first_form.cu, the lattice) on ``values``; it reads the
+    first 8 columns of the table, ``trig``."""
+    lib = kernels.load("bucket_first_form")
+    voxels, angles = cfg.n**3, th.shape[0]
+    if name == "bucket_fwd":
+        shape, entry = (angles, cfg.n, cfg.n), lib.tike_bucket_first_form_fwd
+    else:
+        shape, entry = (voxels,), lib.tike_bucket_first_form_adj
+    out = torch.empty(shape, dtype=torch.complex64, device=values.device)
+    rc = entry(values.data_ptr(), None, trig.data_ptr(), out.data_ptr(), voxels, angles, cfg.n,
+               cfg.precision, bucket._weight(cfg), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} in its first form failed with CUDA error {rc}")
+    return out
+
+
 def phase_bucket_parity(device, card: str) -> dict:
     """16a: both Bucket kernels against their plain versions, adjointness,
-    two adjoint launches bitwise equal and every point's cell equal to the
-    plain version's (cases_bucket.cell_mismatches: zero), on each case of
+    two adjoint launches bitwise equal, every point's cell equal to the
+    plain version's (cases_bucket.cell_mismatches: zero) and no point
+    outside its tile's window (the card's counter: zero), on each case of
     ``_bucket_parity_cases``; then each kernel's time (a CUDA graph of its
-    launches on a prebuilt angle table) beside its bound, its plain
-    version's (the index_add_ form) and its atomics, at the full-width and
+    launches on a prebuilt angle table), in turns with its first form's
+    (csrc/bucket_first_form.cu, held to it first), beside its bound counted
+    pipe by pipe, the first count's bound, its plain version's time (the
+    index_add_ form) and, in the log only, the most global atomics the
+    forward's windows allow (a bound, not a count), at the full-width and
     the golden shapes."""
     inputs = {}
+    outside_total = 0  # the counter's readings over every case
     for name, (cfg, th) in _bucket_parity_cases(device).items():
         u = cases_bucket.volume(cfg.n, device=device)
         d = cases_bucket.planes(th.shape[0], cfg.n, device=device)
         e = cases_bucket.check_bucket_kernels(cfg, u, d, th)
+        bucket.reset_outside_windows(device)
         cells = cases_bucket.cell_mismatches(cfg, th)
         if cells:
             raise AssertionError(f"bucket {name}: {cells} voxels' cells differ from plain")
+        outside = bucket.outside_windows(device)
+        if outside:
+            raise AssertionError(f"bucket {name}: {outside} points outside their windows")
+        outside_total += e["outside"] + outside
         inputs[name] = (cfg, th, u, d, e)
+        rows, cols = bucket.window_limits(cfg)
         log(f"[bucket] {name}: fwd max|err| {e['fwd_abs']:.3e} ({e['fwd']:.2e} of max|value|; "
             f"{e['fwd_rounding']:.3f} of the rounding bound of its float32 sums, tol 1), adj "
             f"{e['adj_abs']:.3e} (bitwise equal to plain: {e['adj_bitwise']}); adjointness "
             f"{e['adjoint']:.2e} (tol {cases_bucket.ADJOINT_TOL:g}); two adjoint launches bitwise "
             f"equal; cells of "
-            f"{cfg.n**3 * th.shape[0] * cfg.precision**3} points equal to plain")
+            f"{cfg.n**3 * th.shape[0] * cfg.precision**3} points equal to plain; points outside "
+            f"their tile's window {e['outside'] + outside} (windows of at most {rows} x {cols} "
+            f"cells)")
 
     out = {}
     shapes = {"": "128^3 / 64 angles, precision 3", "_golden": "golden: 64^3 / 58 angles, precision 1"}
     for key, case in shapes.items():
         cfg, th, u, d, e = inputs[case]
         trig = bucket.bucket_trig(cfg, th)
+        first_table = trig[:, : bucket.TRIG_WIDTH].contiguous()
         voxels, angles = cfg.n**3, th.shape[0]
         calls = {
             "bucket_fwd": dict(
                 kernel=lambda: bucket.bucket_fwd_cuda(cfg, u, th, None, trig),
+                first=lambda: _first_form("bucket_fwd", cfg, u, th, first_table),
                 plain=lambda: bucket.bucket_fwd_plain(cfg, u, th, None, trig),
             ),
             "bucket_adj": dict(
                 kernel=lambda: bucket.bucket_adj_cuda(cfg, d, th, None, trig),
+                first=lambda: _first_form("bucket_adj", cfg, d, th, first_table),
                 plain=lambda: bucket.bucket_adj_plain(cfg, d, th, None, trig),
             ),
         }
         for name, fns in calls.items():
-            graph_ms = graph_ms_per_call(fns["kernel"], reps=3)
-            ms = median_ms_in_turns(fns, reps=1, rounds=2)
-            bound = bucket.roofline(cfg, voxels, angles)
-            atomics = bound["points"] if name == "bucket_fwd" else 0
+            new, first = fns["kernel"](), fns["first"]()
+            if name == "bucket_adj" and not torch.equal(new, first):
+                raise AssertionError(f"bucket_adj's first form differs from the kernel at {case}")
+            first_err = cases_bucket.max_rel(first, new)
+            if not first_err <= 1e-4:
+                raise AssertionError(f"{name}'s first form differs by {first_err:.3e} at {case}")
+            graph = {}
+            for turn in (("kernel", "first"), ("first", "kernel"), ("kernel", "first")):
+                for which in turn:
+                    graph.setdefault(which, []).append(graph_ms_per_call(fns[which], reps=3))
+            graph_ms, first_ms = (statistics.median(graph[w]) for w in ("kernel", "first"))
+            ms = median_ms_in_turns({k: fns[k] for k in ("kernel", "plain")}, reps=1, rounds=2)
+            bound = bucket.roofline(cfg, voxels, angles, name)
+            tiles = -(-cfg.n // bucket.TILE) ** 3
+            rows, cols = bucket.window_limits(cfg)
+            atomics = tiles * angles * rows * cols if name == "bucket_fwd" else 0
             record = {
                 f"ms{key}": graph_ms,
                 f"ms_eager_call{key}": ms["kernel"],
+                f"parent_form_ms{key}": first_ms,
                 f"plain_ms{key}": ms["plain"],
                 f"bound_bytes{key}": bound["bound_bytes"],
-                f"bound_flops{key}": bound["bound_flops"],
+                f"bound_fp32{key}": bound["bound_fp32"],
+                f"bound_floors{key}": bound["bound_floors"],
+                f"bound_bytes_ms{key}": bound["bound_bytes_ms"],
+                f"bound_fp32_ms{key}": bound["bound_fp32_ms"],
+                f"bound_floors_ms{key}": bound["bound_floors_ms"],
                 f"bound_ms{key}": bound["bound_ms"],
                 f"bound_by{key}": bound["bound_by"],
+                f"bound_ms_first_count{key}": bound["bound_ms_first_count"],
                 f"roofline_share{key}": bound["bound_ms"] / graph_ms,
+                f"roofline_share_first_count{key}": bound["bound_ms_first_count"] / graph_ms,
                 f"points{key}": bound["points"],
-                f"atomics{key}": atomics,
             }
             if not key:
                 record.update(
@@ -2055,6 +2117,7 @@ def phase_bucket_parity(device, card: str) -> dict:
                     )
                     if name == "bucket_fwd"
                     else 0.0,
+                    outside_windows=outside_total,
                     library_ms=None,
                     library="none: no single PyTorch call computes it; the yardstick is the "
                     "plain version (index_add_ per angle and offset for the forward, a gather "
@@ -2063,13 +2126,19 @@ def phase_bucket_parity(device, card: str) -> dict:
                     card=card,
                 )
             out.setdefault(name, {}).update(record)
-            log(f"[bucket] {name} at {case} ({voxels} voxels, {bound['points']} points, "
-                f"{atomics} float2 atomics): kernel {graph_ms:.4f} ms (CUDA graph; eager "
-                f"{ms['kernel']:.4f} ms), plain {ms['plain']:.4f} ms; bound "
-                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_bytes']} "
-                f"bytes at {bucket.HBM_BYTES_PER_S:g} B/s, {bound['bound_flops']} flops at "
-                f"{bucket.FP32_FLOPS_PER_S:g} flop/s), {100 * bound['bound_ms'] / graph_ms:.2f}% "
-                f"of it ({card})")
+            log(f"[bucket] {name} at {case} ({voxels} voxels, {bound['points']} points; float2 "
+                f"atomics at most {atomics}, bounded by the window sizes, not counted): kernel {graph_ms:.4f} ms (CUDA graph; eager "
+                f"{ms['kernel']:.4f} ms), first form {first_ms:.4f} ms in the same turns "
+                f"({first_ms / graph_ms:.2f}x; max|diff| / max|value| {first_err:.2e}), plain "
+                f"{ms['plain']:.4f} ms; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"(bytes {bound['bound_bytes']} = {bound['bound_bytes_ms']:.4f} ms at "
+                f"{bucket.HBM_BYTES_PER_S:g} B/s; FP32 pipe {bound['bound_fp32']} = "
+                f"{bound['bound_fp32_ms']:.4f} ms at {bucket.FP32_PER_S:g}/s; floors "
+                f"{bound['bound_floors']} = {bound['bound_floors_ms']:.4f} ms at "
+                f"{bucket.CONVERSIONS_PER_S:g}/s on the conversion pipe), "
+                f"{100 * bound['bound_ms'] / graph_ms:.2f}% of it; the first count's bound "
+                f"{bound['bound_ms_first_count']:.4f} ms, {100 * bound['bound_ms_first_count'] / graph_ms:.2f}% "
+                f"({card})")
     return out
 
 
@@ -2115,9 +2184,13 @@ def phase_bucket(device, card: str) -> dict:
     opt.HOST_READS["line_search"] = 0
     torch.cuda.reset_peak_memory_stats()
     warm, first_s = run(1)
+    bucket.reset_outside_windows(device)
     _reset_launches()
     result, timed_s = run(BUCKET_TIMED)
     launches = _read_launches("bucket")
+    outside = bucket.outside_windows(device)
+    if outside:
+        raise AssertionError(f"bucket: {outside} points fell outside their tile's window")
     reads = opt.HOST_READS["line_search"]
     peak = torch.cuda.max_memory_allocated()
     costs = result["cost"]
@@ -2140,7 +2213,8 @@ def phase_bucket(device, card: str) -> dict:
         f"= {per_iter:.4f} s/iteration; first call (1 iteration) {first_s:.3f} s, so set-up "
         f"{first_s - per_iter:.3f} s ({card})")
     log(f"[bucket] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches "
-        f"{ {k: launches[k] for k in BUCKET_KERNELS} }; line-search host reads {reads} ({card})")
+        f"{ {k: launches[k] for k in BUCKET_KERNELS} }; line-search host reads {reads}; points "
+        f"outside their tile's window {outside} ({card})")
     return launches
 
 

@@ -102,6 +102,40 @@ def fwd_rounding_ratio(cfg: bucket.BucketConfig, got, want, u, th, grid=None, tr
     return ratio
 
 
+def sequential_reference(cfg: bucket.BucketConfig, u, d, trig) -> tuple:
+    """Both operators on the lattice in numpy from the plain version's cells
+    (all points of an angle at once, on the CPU), for any precision: the
+    adjoint ((G,) complex64) in the plain version's order of float32 sums
+    (angles outer, offsets inner, by the sequential np.add.accumulate); the
+    forward's exact sum of each cell ((T, n^2) complex128) and the rounding
+    bound FWD_ROUNDING k u S of its real and imaginary parts."""
+    n, ntheta = cfg.n, trig.shape[0]
+    grid = torch.as_tensor(bucket.make_grid(n))
+    offsets = torch.as_tensor(bucket._subsample_offsets(cfg.precision))
+    cells = np.stack([
+        bucket.plane_flat_indices(cfg, grid[:, None, :], offsets[None], trig[t].cpu()).numpy()
+        for t in range(ntheta)
+    ])  # (angle, voxel, point)
+    w = np.float32(bucket._weight(cfg))
+    values = d.cpu().numpy().reshape(ntheta, -1)[np.arange(ntheta)[:, None, None], cells]
+    adj = [
+        np.add.accumulate((part(values) * w).transpose(1, 0, 2).reshape(n**3, -1), axis=1,
+                          dtype=np.float32)[:, -1]
+        for part in (np.real, np.imag)
+    ]
+    terms = u.cpu().numpy().reshape(-1) * w
+    exact = np.zeros((ntheta, n * n), np.complex128)
+    count = np.zeros((ntheta, n * n))
+    size = np.zeros((2, ntheta, n * n))
+    for t in range(ntheta):
+        np.add.at(exact[t], cells[t], terms[:, None].astype(np.complex128))
+        np.add.at(count[t], cells[t], 1.0)
+        for s, part in zip(size, (np.real, np.imag)):
+            np.add.at(s[t], cells[t], np.abs(part(terms)).astype(np.float64)[:, None])
+    bound = FWD_ROUNDING * count * UNIT_ROUNDOFF * size
+    return (adj[0] + 1j * adj[1]).astype(np.complex64), exact, bound
+
+
 def cell_mismatches(cfg: bucket.BucketConfig, th, grid=None) -> int:
     """Voxels whose cells differ between the adjoint kernel and the plain
     version, angle by angle: each angle's plane holds its own flat cell
@@ -120,13 +154,91 @@ def cell_mismatches(cfg: bucket.BucketConfig, th, grid=None) -> int:
     return bad
 
 
+def tile_corners(cfg: bucket.BucketConfig, grid: torch.Tensor) -> torch.Tensor:
+    """The lowest corner (float32) of the lattice tile of bucket.TILE^3 voxels
+    that holds each voxel of ``grid`` ((G, 3) int32 coordinates)."""
+    lo = -(cfg.n // 2) - cfg.n % 2
+    return (lo + torch.div(grid - lo, bucket.TILE, rounding_mode="floor") * bucket.TILE).to(
+        torch.float32
+    )
+
+
+def window_origins(corner: torch.Tensor, row: torch.Tensor):
+    """The first row and column (y0, z0) of the window of tiles with lowest
+    corners ``corner`` ((G, 3) float32) for the angle of ``row`` (one row of
+    bucket_trig): csrc/bucket.cu's window_of, in its float32 operations."""
+    c0, c1, c2 = corner.unbind(-1)
+    by = ((row[3] * c0 + row[4] * c1) + row[5] * c2) + row[8]
+    bz = (row[6] * c1 + row[7] * c2) + row[9]
+    return torch.floor(by).to(torch.int64), torch.floor(bz).to(torch.int64)
+
+
+def points_outside_windows(cfg: bucket.BucketConfig, th) -> tuple:
+    """(points outside their tile's window, points whose cell wraps) over
+    the whole lattice at the angles ``th`` (on the CPU): each point's floor(y)
+    and floor(z) from the plain version's float32 operations, less its
+    window's origin, against the window's rows and columns; what the
+    lattice kernels' counter counts on the card."""
+    grid = torch.as_tensor(bucket.make_grid(cfg.n))
+    corner = tile_corners(cfg, grid)
+    table = bucket.bucket_trig(cfg, th.cpu())
+    outside = wrapped = 0
+    for row in table:
+        y0, z0 = window_origins(corner, row)
+        for off in torch.as_tensor(bucket._subsample_offsets(cfg.precision)):
+            y, z = bucket.plane_coordinates(grid, off, row)
+            fy, fz = torch.floor(y).to(torch.int64), torch.floor(z).to(torch.int64)
+            wy, wz = fy - y0, fz - z0
+            outside += int(torch.sum((wy < 0) | (wy >= row[10]) | (wz < 0) | (wz >= row[11])))
+            iy, iz = fy + cfg.n // 2, fz + cfg.n // 2
+            wrapped += int(torch.sum((iy < 0) | (iy >= cfg.n) | (iz < 0) | (iz >= cfg.n)))
+    return outside, wrapped
+
+
+def points_outside_boxes(cfg: bucket.BucketConfig, th) -> int:
+    """Points that leave their voxel's 3 x 3 box of cells, or whose box
+    leaves its window and the 2 rows and columns past it, in the forward
+    kernel's counting of precisions 3-5 (``csrc/bucket.cu``: the box from
+    the floor of the voxel's lowest y and z less 1/32, here in float32
+    without its FMAs, which the margin covers). Such a point still reaches
+    its cell, one shared atomic for it alone."""
+    grid = torch.as_tensor(bucket.make_grid(cfg.n))
+    g = grid.to(torch.float32)
+    corner = tile_corners(cfg, grid)
+    table = bucket.bucket_trig(cfg, th.cpu())
+    c = torch.as_tensor(bucket.bucket_offsets(cfg.precision))
+    c0, cl = c[0], c[-1]
+
+    def low(e):
+        return sum(torch.minimum(x * c0, x * cl) for x in e) - 0.03125
+
+    missed = 0
+    for row in table:
+        y0, z0 = window_origins(corner, row)
+        st, cqct, sqct, nsq, cq = row[3:8]
+        by = torch.floor(st * g[:, 0] + cqct * g[:, 1] + sqct * g[:, 2] + low((st, cqct, sqct)))
+        bz = torch.floor(nsq * g[:, 1] + cq * g[:, 2] + low((nsq, cq)))
+        by, bz = by.to(torch.int64), bz.to(torch.int64)
+        missed += int(torch.sum((by < y0) | (by + 3 > y0 + row[10] + 2)
+                                | (bz < z0) | (bz + 3 > z0 + row[11] + 2))) * cfg.precision**3
+        for off in torch.as_tensor(bucket._subsample_offsets(cfg.precision)):
+            y, z = bucket.plane_coordinates(grid, off, row)
+            dy = torch.floor(y).to(torch.int64) - by
+            dz = torch.floor(z).to(torch.int64) - bz
+            missed += int(torch.sum((dy < 0) | (dy > 2) | (dz < 0) | (dz > 2)))
+    return missed
+
+
 def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None) -> dict:
     """Both kernels against their plain versions on the same inputs (u the
     volume, d the planes, th the angles, all on the card), and against
     adjointness; two adjoint launches bitwise equal; the forward of a
     volume of ones (each cell's count of points times the weight) equal to
     the plain version's where the weight is a power of two, so that every
-    sum is exact. Raises AssertionError; returns the errors."""
+    sum is exact; no point of the lattice kernels outside its window (the
+    card's counter, set to 0 first, still 0). Raises AssertionError; returns
+    the errors."""
+    bucket.reset_outside_windows(th.device)
     trig = bucket.bucket_trig(cfg, th)
     fwd = bucket.bucket_fwd_cuda(cfg, u, th, grid, trig)
     adj = bucket.bucket_adj_cuda(cfg, d, th, grid, trig)
@@ -161,6 +273,9 @@ def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None) -> dict:
         counts = bucket.bucket_fwd_cuda(cfg, ones, th, grid, trig)
         if not torch.equal(counts, bucket.bucket_fwd_plain(cfg, ones, th, grid, trig)):
             raise AssertionError(f"{what}: bucket_fwd's points per cell differ from plain")
+    out["outside"] = bucket.outside_windows(th.device)
+    if out["outside"]:
+        raise AssertionError(f"{what}: {out['outside']} points fell outside their tile's window")
     return out
 
 

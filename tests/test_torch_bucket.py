@@ -247,16 +247,149 @@ def test_kernels_take_only_cuda_tensors():
 
 def test_roofline_at_full_width():
     """bench_all.py's geometry at the solver's default eps: 3.6e9 points a
-    projection, bound by the operations (67 TFLOP/s) rather than the 25 MB
-    of volume and planes."""
+    projection, bound by the operations rather than the 25 MB of volume and
+    planes, counted pipe by pipe: 15 rounded float32 operations a point in
+    the forward, 19 in the adjoint, on the FP32 pipe (33.5e12 a second, an
+    FMA never counted twice), and two floors a point on the conversion pipe
+    (16 a clock an SM) or as FP32 adds; the first count (24 a point at 67
+    TFLOP/s) beside it."""
     c = cases.FULL
     cfg = tb.BucketConfig.from_eps(c["n"], c["tilt"], c["eps"])
     assert cfg.precision == 3
-    r = tb.roofline(cfg, c["n"] ** 3, c["ntheta"])
-    assert r["points"] == 128**3 * 64 * 27 == 3_623_878_656
-    assert r["bound_bytes"] == 8 * 128**3 + 8 * 64 * 128**2 + 32 * 64
-    assert r["bound_by"] == "operations"
-    assert r["bound_ms"] == pytest.approx(1e3 * 24 * r["points"] / 67e12)
+    fwd = tb.roofline(cfg, c["n"] ** 3, c["ntheta"], "bucket_fwd")
+    adj = tb.roofline(cfg, c["n"] ** 3, c["ntheta"], "bucket_adj")
+    points = 128**3 * 64 * 27
+    for r in (fwd, adj):
+        assert r["points"] == points == 3_623_878_656
+        assert r["bound_bytes"] == 8 * 128**3 + 8 * 64 * 128**2 + 4 * tb.TABLE_WIDTH * 64
+        assert r["bound_by"] == "operations"
+        assert r["bound_floors_ms"] == pytest.approx(1e3 * 2 * points / (132 * 16 * 1.98e9))
+        assert r["bound_ms_first_count"] == pytest.approx(1e3 * 24 * points / 67e12)
+    assert fwd["bound_fp32_ms"] == pytest.approx(1e3 * 15 * points / (132 * 128 * 1.98e9))
+    assert adj["bound_fp32_ms"] == pytest.approx(1e3 * 19 * points / (132 * 128 * 1.98e9))
+    # The forward's floors do not all fit beside its FP32 work on the
+    # conversion pipe; the adjoint's do.
+    assert fwd["bound_ms"] == pytest.approx(1e3 * 17 * points / (132 * 144 * 1.98e9))
+    assert adj["bound_ms"] == adj["bound_fp32_ms"]
+    assert 1.6 < fwd["bound_ms"] < 1.7 and 2.0 < adj["bound_ms"] < 2.1
+
+
+@pytest.mark.parametrize("precision", [1, 2, 3, 4, 5, 10])
+def test_offset_table_matches_jax(precision):
+    """The kernels' offsets are tike_tpu's _subsample_offsets along one axis,
+    bit for bit."""
+    want = jb._subsample_offsets(precision)
+    got = tb.bucket_offsets(precision)
+    assert got.dtype == np.float32 and got.shape == (precision,)
+    np.testing.assert_array_equal(want[:precision, 2], got)
+    np.testing.assert_array_equal(want[:: precision**2, 0], got)
+
+
+@pytest.mark.parametrize("n, precision", [(16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4)])
+def test_every_point_lies_in_its_window(n, precision):
+    """Every point of every tile of the lattice lies in the window that the
+    host's per-angle extents give, placed from the tile's corner as the
+    kernels place it (16 angles over [0, pi), the ties at pi/4 included); at
+    n = 16 and 32, tilt pi/3, some points' cells wrap."""
+    cfg = tb.BucketConfig(n=n, tilt=TILT, precision=precision)
+    outside, wrapped = cases.points_outside_windows(cfg, cases.theta(16, 0.0))
+    assert outside == 0
+    assert wrapped > 0
+    table = tb.bucket_trig(cfg, cases.theta(16, 0.0))
+    rows, cols = tb.window_limits(cfg)
+    assert int(table[:, 10].max()) <= rows and int(table[:, 11].max()) <= cols
+
+
+@pytest.mark.parametrize("n, precision", [(16, 3), (16, 5), (32, 4)])
+def test_every_point_lies_in_its_voxels_box(n, precision):
+    """At precisions 3-5 the forward counts each voxel's points in a 3 x 3
+    box of cells from the floor of the voxel's lowest y and z: every point
+    lies in its box, and every box in its window and the 2 rows and columns
+    past it that the window buffers hold."""
+    cfg = tb.BucketConfig(n=n, tilt=TILT, precision=precision)
+    assert cases.points_outside_boxes(cfg, cases.theta(16, 0.0)) == 0
+
+
+def test_every_point_lies_in_its_window_at_the_golden_geometry():
+    """The same at two angles of the reference's golden geometry (64^3,
+    precision 1, lamino_setup's tilt and angles)."""
+    _, _, theta, tilt = cases.load_golden("lamino_setup.pickle.lzma")
+    cfg = tb.BucketConfig.from_eps(64, float(tilt), 1.0)
+    th = torch.as_tensor(np.asarray(theta, np.float32)[[7, 40]])
+    assert cases.points_outside_windows(cfg, th)[0] == 0
+
+
+@pytest.mark.parametrize("n, precision, ntheta, shift", [(9, 3, 5, 0.2), (10, 5, 4, 0.0)])
+def test_window_cells_wrap_by_floor_mod(n, precision, ntheta, shift):
+    """The windows of the lattice's cut edge tiles (n not a multiple of the
+    tile) reach rows or columns outside [-n, 2n) before the wrap, so one
+    compare-and-add would leave the planes: the kernels wrap each window
+    cell, and each point of a caller's grid, by a floor-mod."""
+    from tike_tpu_torch import kernels
+
+    cfg = tb.BucketConfig(n=n, tilt=TILT, precision=precision)
+    table = tb.bucket_trig(cfg, cases.theta(ntheta, shift))
+    tiles = -(-n // tb.TILE)
+    a = torch.arange(tiles)
+    corner = torch.stack(torch.meshgrid(a, a, a, indexing="ij"), -1).reshape(-1, 3)
+    corner = (corner * tb.TILE - (n + 1) // 2).to(torch.float32)
+    low, high = [], []
+    for row in table:
+        y0, z0 = cases.window_origins(corner, row)
+        for first, extent in ((y0, row[10]), (z0, row[11])):
+            low.append(int(first.min()) + n // 2)
+            high.append(int(first.max()) + n // 2 + int(extent) + 1)  # the forward's + 2
+    assert min(low) < -n or max(high) >= 2 * n
+    source = (kernels.CSRC / "bucket.cu").read_text()
+    for fn in ("long long plane_cell(", "long long cell("):
+        body = source[source.index(f"__device__ __forceinline__ {fn}"):]
+        body = body[: body.index("\n}\n")]
+        assert body.count("floor_mod(") == 2
+
+
+@pytest.mark.parametrize("n, precision", [(4, 3), (5, 2)])
+def test_sequential_reference_matches_plain(n, precision):
+    """The numpy reference that the card's test of the largest precisions
+    holds the kernels to: its adjoint equals the plain version bit for bit,
+    and the plain forward lies within its rounding bound."""
+    cfg = tb.BucketConfig(n=n, tilt=TILT, precision=precision)
+    th = cases.theta(3, 0.1)
+    trig = tb.bucket_trig(cfg, th)
+    u, d = cases.volume(n), cases.planes(3, n)
+    adj, exact, bound = cases.sequential_reference(cfg, u, d, trig)
+    np.testing.assert_array_equal(tb.bucket_adj_plain(cfg, d, th, trig=trig).numpy(), adj)
+    fwd = tb.bucket_fwd_plain(cfg, u, th, trig=trig).numpy().reshape(3, -1)
+    for part, b in zip((np.real, np.imag), bound):
+        assert np.all(np.abs(part(fwd) - part(exact)) <= b)
+    assert np.any(bound > 0)
+
+
+def test_bucket_sweep_variants_apply_to_the_source():
+    """Every default variant of ``kernel_sweep --source bucket`` finds the
+    constant it sets in ``csrc/bucket.cu`` and changes the source, and the
+    first form, which chip_smoke.py times beside the kernels, keeps its own
+    entry points."""
+    from tike_tpu_torch import kernel_sweep, kernels
+
+    with open(kernel_sweep.BUCKET_SOURCE) as f:
+        source = f.read()
+    variants = kernel_sweep.bucket_variants(source)
+    sources = [kernel_sweep.variant_source(source, subs) for subs in variants.values()]
+    assert sources[0] == source and len(set(sources)) == len(variants) == 14
+    first = (kernels.CSRC / "bucket_first_form.cu").read_text()
+    for name in kernels.SIGNATURES["bucket_first_form"]:
+        assert f'extern "C" int {name}(' in first
+
+
+def test_kernel_source_matches_the_wrappers_constants():
+    """The tile, the table's width and the count of offsets in the
+    kernels' parameters that the wrappers use are the kernel's own."""
+    from tike_tpu_torch import kernels
+
+    source = (kernels.CSRC / "bucket.cu").read_text()
+    assert f"constexpr int kTile = {tb.TILE};" in source
+    assert f"constexpr int kTableWidth = {tb.TABLE_WIDTH};" in source
+    assert f"constexpr int kParamOffsets = {tb.PARAM_OFFSETS};" in source
 
 
 def test_kernel_source_rounds_each_operation():

@@ -33,8 +33,10 @@ def card():
 
 
 # (n, angles, precision, tilt, shift of the angles): odd n, n = 1, one
-# angle, many angles, precisions 1-4; at n = 16 and tilt pi/3 the corner
-# voxels project past the plane's edge and wrap.
+# angle, many angles, precisions 1-4 (their kernels compiled for each) and 5
+# (the kernels' runtime loops); at n = 16 and tilt pi/3 the corner voxels
+# project past the plane's edge and wrap. Every n but 8, 16 and 24 cuts the
+# lattice's last tiles of bucket.TILE^3 voxels.
 EDGE_CASES = [
     (16, 8, 1, np.pi / 3, 0.0),
     (16, 8, 2, np.pi / 3, 0.0),
@@ -43,6 +45,7 @@ EDGE_CASES = [
     (1, 3, 2, np.pi / 3, 0.0),
     (24, 1, 3, np.pi / 2, 0.3),
     (8, 300, 1, np.pi / 4, 0.0),
+    (10, 4, 5, np.pi / 3, 0.0),
 ]
 
 
@@ -55,16 +58,68 @@ def test_kernels_match_plain(card, n, ntheta, precision, tilt, shift):
     assert cases.cell_mismatches(cfg, th) == 0
 
 
-def test_kernels_on_a_grid_chunk(card):
+@pytest.mark.parametrize("host", [False, True], ids=["grid on the card", "grid on the host"])
+def test_kernels_on_a_grid_chunk(card, host):
     """A chunk of x-slabs with its grid given (the voxel-parallel layout's
-    part of one rank)."""
+    part of one rank), from the card or from the host: a thread per voxel,
+    each point's cell by a floor-mod."""
     n = 12
     cfg = bucket.BucketConfig(n=n, tilt=np.pi / 3, precision=2)
-    grid = torch.as_tensor(bucket.make_grid(n, 3, 1), device=card)
+    grid = bucket.make_grid(n, 3, 1)
+    if not host:
+        grid = torch.as_tensor(grid, device=card)
     th = cases.theta(6, 0.0, card)
     u = cases.volume(n, device=card).reshape(-1)[: grid.shape[0]].contiguous()
     cases.check_bucket_kernels(cfg, u, cases.planes(6, n, device=card), th, grid)
     assert cases.cell_mismatches(cfg, th, grid) == 0
+
+
+@pytest.mark.parametrize("lattice", [True, False], ids=["lattice", "grid"])
+def test_precision_past_the_parameter_offsets(card, lattice):
+    """At precision bucket.PARAM_OFFSETS + 1 the last offset is computed in
+    the kernel, not passed: every point still lands in the plain version's
+    cell. The adjoint equals, bit for bit, the plain order of its float32
+    sums (angles outer, offsets inner; summed here by numpy's sequential
+    accumulate), and the forward lies within FWD_ROUNDING k u S of each
+    cell's exact sum."""
+    n, ntheta = 2, 2
+    cfg = bucket.BucketConfig(n=n, tilt=np.pi / 3, precision=bucket.PARAM_OFFSETS + 1)
+    th = cases.theta(ntheta, 0.1)
+    trig = bucket.bucket_trig(cfg, th)
+    u, d = cases.volume(n), cases.planes(ntheta, n)
+    want_adj, exact, bound = cases.sequential_reference(cfg, u, d, trig)
+    on = None if lattice else torch.as_tensor(bucket.make_grid(n), device=card)
+    bucket.reset_outside_windows(card)
+    adj = bucket.bucket_adj_cuda(cfg, d.to(card), th.to(card), on, trig.to(card)).cpu().numpy()
+    fwd = bucket.bucket_fwd_cuda(cfg, u.to(card), th.to(card), on, trig.to(card)).cpu().numpy()
+    assert bucket.outside_windows(card) == 0
+    np.testing.assert_array_equal(adj, want_adj)
+    fwd = fwd.reshape(ntheta, -1)
+    for part, b in zip((np.real, np.imag), bound):
+        assert np.all(np.abs(part(fwd) - part(exact)) <= b)
+
+
+@pytest.mark.parametrize("n, precision", [(9, 3), (17, 2), (23, 1)])
+def test_tile_edges(card, n, precision):
+    """A lattice whose edge tiles are cut (n not a multiple of bucket.TILE):
+    the voxels past n are no voxels, and nothing of theirs reaches a plane
+    or the volume."""
+    cfg = bucket.BucketConfig(n=n, tilt=np.pi / 3, precision=precision)
+    th = cases.theta(5, 0.2, card)
+    u, d = cases.volume(n, device=card), cases.planes(5, n, device=card)
+    cases.check_bucket_kernels(cfg, u, d, th)
+    assert cases.cell_mismatches(cfg, th) == 0
+
+
+def test_zero_voxels_add_nothing(card):
+    """The forward skips voxels whose value is 0 (a plane cell stays +0):
+    half a volume of zeros against the plain version."""
+    n = 16
+    cfg = bucket.BucketConfig(n=n, tilt=np.pi / 3, precision=3)
+    th = cases.theta(6, 0.0, card)
+    u = cases.volume(n, device=card)
+    u[: n // 2] = 0
+    cases.check_bucket_kernels(cfg, u, cases.planes(6, n, device=card), th)
 
 
 def test_wrapping_points_are_covered(card):
@@ -106,11 +161,13 @@ def test_kernels_run_in_a_cuda_graph(card):
     with torch.cuda.graph(graph):
         g_fwd = bucket.bucket_fwd(cfg, u, th, trig=trig)
         g_adj = bucket.bucket_adj(cfg, d, th, trig=trig)
+    bucket.reset_outside_windows(card)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(g_adj, adj)
         assert cases.fwd_rounding_ratio(cfg, g_fwd, fwd, u, th, trig=trig) <= 1.0
+    assert bucket.outside_windows(card) == 0
 
 
 def test_launches_are_counted(card):

@@ -24,5 +24,6 @@ __version__ = "0.1.0"
 
 from . import checkpoint
 from . import cluster
+from . import constants
 from . import linalg
 from . import precision

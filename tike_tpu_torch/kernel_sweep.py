@@ -6,7 +6,7 @@ with a few text substitutions (a tuning constant, a load instruction, a
 loop), built by its own ``nvcc`` (as many at once as the host has cores, a
 few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe] [--variants FILE] [--parent FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe|bucket] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -33,6 +33,22 @@ floor), 100 launches a graph, the median of 5 replays (``chip_smoke.py``
 takes 20 and 3), in three rounds (the variants in order, in reverse, in
 order). ``--parent FILE`` builds a ``probe.cu`` of another checkout beside
 them and times all its probes (it may lack the empty kernel).
+
+``--source bucket``, ``csrc/bucket.cu``: the adjoint with 2 and 8 window
+stages in flight besides its own 4 and with two blocks an SM (64 registers
+a thread) besides one, each kernel with the other's mapping
+of a warp's lanes to voxels, the forward adding each point to its window
+cell in place of counting a voxel's points per cell, and with 1 and 8
+copies of its window besides its own 4, and with one block an SM; then, to
+see where the time goes, three that leave a step out (the forward's adds
+of window cells to the plane or of counts to the window, the adjoint's
+gathers from the window), which compute something else and are timed all
+the same (``bucket_variants``). Each variant's adjoint must equal the plain
+version's bit for bit, its forward lie within 1e-4 (of the largest value)
+of the plain version's, and no point fall outside its window; then both
+kernels are timed in a CUDA graph of 3 launches in three rounds, at
+bench_all.py's 128^3, 64 angles, precision 3 and at the golden 64^3, 58
+angles, precision 1.
 
 ``FILE`` holds a Python literal ``{name: [(old, new), ...]}``; every ``old``
 must occur in the source. Without it the default variants run: the choices
@@ -61,6 +77,7 @@ from .ops import usfft
 
 SOURCE = os.path.join(kernels.CSRC, "usfft.cu")
 PROBE_SOURCE = os.path.join(kernels.CSRC, "probe.cu")
+BUCKET_SOURCE = os.path.join(kernels.CSRC, "bucket.cu")
 
 VARIANTS = {
     "as it stands": [],
@@ -395,7 +412,101 @@ def _sweep_probe(libs: dict, device) -> None:
                   f"launch floor at its grid {floor}; bitwise equal to plain)", flush=True)
 
 
-SWEEPS = {"usfft": (SOURCE, _sweep_usfft), "probe": (PROBE_SOURCE, _sweep_probe)}
+def bucket_variants(source: str) -> dict:
+    """The default variants of ``csrc/bucket.cu`` (``source``)."""
+    variants = {"as it stands": []}
+    for stages in (2, 8):
+        variants[f"adjoint with {stages} window stages"] = [_constant(source, "kStages", stages)]
+    variants["adjoint lanes spread"] = [_constant(source, "kAdjSpread", True)]
+    variants["adjoint two blocks an SM"] = [_constant(source, "kAdjBlocks", 2)]
+    variants["forward lanes in rows of 8"] = [_constant(source, "kFwdSpread", False)]
+    variants["forward point by point"] = [_constant(source, "kCountCells", False)]
+    for copies in (1, 8):
+        variants[f"forward with {copies} window copies"] = [
+            _constant(source, "kWindowCopies", copies)
+        ]
+    variants["forward one block an SM"] = [_constant(source, "kFwdBlocks", 1)]
+    variants["forward one block an SM, 8 copies"] = [
+        _constant(source, "kFwdBlocks", 1), _constant(source, "kWindowCopies", 8)
+    ]
+    # Where the time goes: each leaves one step out, so computes something
+    # else, and is timed all the same.
+    variants["forward, no window cell added to the plane (time only)"] = [(
+        "if (v.x != 0.0f || v.y != 0.0f) atomicAdd(plane + plane_cell(w, row, col, n), v);",
+        "if (v.x == 12345.0f) atomicAdd(plane + plane_cell(w, row, col, n), v);",
+    )]
+    variants["forward, no count added to the window (time only)"] = [(
+        "shared_add(box + (f / 3) * pitch + f % 3,",
+        "if (count == 12345u) shared_add(box + (f / 3) * pitch + f % 3,",
+    )]
+    variants["adjoint, no gather from the window (time only)"] = [(
+        "const float2 v = buf[min(static_cast<unsigned>(row * pitch + col),",
+        "const float2 v = make_float2(row, col); (void)buf[min(static_cast<unsigned>(row * pitch + col),",
+    )]
+    return variants
+
+
+def _sweep_bucket(libs: dict, device) -> None:
+    """Each variant through ``ops.bucket``'s own wrappers, with the
+    variant's library in place of the built one."""
+    from tests import _torch_bucket_cases as cases
+
+    from .ops import bucket
+
+    _, _, theta, tilt = cases.load_golden("lamino_setup.pickle.lzma")
+    full = cases.FULL
+    shapes = {
+        "128^3 / 64 angles, precision 3": (
+            bucket.BucketConfig.from_eps(full["n"], full["tilt"], full["eps"]),
+            cases.theta(full["ntheta"], 0.0, device),
+        ),
+        "golden 64^3 / 58 angles, precision 1": (
+            bucket.BucketConfig.from_eps(64, float(tilt), 1.0),
+            torch.as_tensor(np.asarray(theta, np.float32), device=device),
+        ),
+    }
+    for case, (cfg, th) in shapes.items():
+        u = cases.volume(cfg.n, device=device)
+        d = cases.planes(th.shape[0], cfg.n, device=device)
+        trig = bucket.bucket_trig(cfg, th)
+        want_fwd = bucket.bucket_fwd_plain(cfg, u, th, None, trig)
+        want_adj = bucket.bucket_adj_plain(cfg, d, th, None, trig)
+        calls = {
+            "fwd": lambda: bucket.bucket_fwd_cuda(cfg, u, th, None, trig),
+            "adj": lambda: bucket.bucket_adj_cuda(cfg, d, th, None, trig),
+        }
+        order = []
+        for tag, lib in libs.items():
+            with loaded("bucket", lib):
+                bucket.reset_outside_windows(device)
+                fwd_err = cases.max_rel(calls["fwd"](), want_fwd)
+                same = torch.equal(calls["adj"](), want_adj)
+                outside = bucket.outside_windows(device)
+            right = fwd_err <= 1e-4 and same and not outside
+            if right or "(time only)" in tag:
+                order.append(tag)
+            if not right:
+                print(f"{case}: {tag}: WRONG (forward {fwd_err:.1e} of max|value|, adjoint "
+                      f"bitwise equal {same}, {outside} points outside)", flush=True)
+        times = {tag: {name: [] for name in calls} for tag in order}
+        for turn in (order, order[::-1], order):
+            for tag in turn:
+                with loaded("bucket", libs[tag]):
+                    for name, fn in calls.items():
+                        times[tag][name].append(graph_ms(fn, reps=3))
+        for tag in order:
+            line = "; ".join(
+                f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + f" ms (median {statistics.median(ts):.4f})"
+                for name, ts in times[tag].items()
+            )
+            print(f"{case}: {tag:36s} {line}", flush=True)
+
+
+SWEEPS = {
+    "usfft": (SOURCE, _sweep_usfft),
+    "probe": (PROBE_SOURCE, _sweep_probe),
+    "bucket": (BUCKET_SOURCE, _sweep_bucket),
+}
 
 
 def main(argv=None) -> None:
@@ -408,7 +519,8 @@ def main(argv=None) -> None:
     path, sweep = SWEEPS[args.source]
     with open(path) as f:
         source = f.read()
-    variants = VARIANTS if args.source == "usfft" else probe_variants(source)
+    variants = {"usfft": lambda s: VARIANTS, "probe": probe_variants,
+                "bucket": bucket_variants}[args.source](source)
     if args.variants:
         with open(args.variants) as f:
             variants = {"as it stands": [], **ast.literal_eval(f.read())}

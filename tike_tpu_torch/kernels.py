@@ -66,12 +66,21 @@ SIGNATURES = {
         "tike_probe_empty": ([_INT] * 3 + [_PTR], _INT),
     },
     "bucket": {
-        # (u, grid or NULL, table, planes, voxels, angles, n, precision,
-        # weight, stream)
-        "tike_bucket_fwd": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
-        # (planes, grid or NULL, table, out, voxels, angles, n, precision,
-        # weight, stream)
-        "tike_bucket_adj": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
+        # (u, grid or NULL, table, planes, outside, offsets (host), voxels,
+        # angles, n, precision, weight, pitch, window_cells, stream)
+        "tike_bucket_fwd": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 2 + [_PTR], _INT),
+        # (planes, grid or NULL, table, out, outside, offsets (host), voxels,
+        # angles, n, precision, weight, pitch, window_cells, stream)
+        "tike_bucket_adj": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 2 + [_PTR], _INT),
+    },
+    # The Bucket kernels' first form, a yardstick no path runs.
+    "bucket_first_form": {
+        # (u, grid or NULL, table (T x 8), planes, voxels, angles, n,
+        # precision, weight, stream)
+        "tike_bucket_first_form_fwd": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
+        # (planes, grid or NULL, table (T x 8), out, voxels, angles, n,
+        # precision, weight, stream)
+        "tike_bucket_first_form_adj": ([_PTR] * 4 + [_LL] + [_INT] * 3 + [_FLOAT, _PTR], _INT),
     },
 }
 
@@ -115,7 +124,8 @@ def build_all(names) -> dict[str, Path]:
     try:
         for name, target in targets.items():
             if target.exists():
-                BUILD_INFO[name] = {"seconds": 0.0, "path": str(target), "log": ""}
+                # Keep what the build that made it recorded, if it was this process's.
+                BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": str(target), "log": ""})
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -2,6 +2,8 @@
 Bucket operator's drivers in :mod:`.bucket`."""
 
 from . import bucket
+from . import solvers
 from .lamino import reconstruct, simulate
+from .solvers.cgrad import cgrad
 
-__all__ = ["bucket", "reconstruct", "simulate"]
+__all__ = ["bucket", "cgrad", "reconstruct", "simulate", "solvers"]

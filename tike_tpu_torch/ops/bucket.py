@@ -23,10 +23,20 @@ Each operator has two implementations:
 
 ``bucket_fwd`` and ``bucket_adj`` dispatch on the device of the tensors they
 are given: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise. Both read the same per-angle trigonometry table
-(:func:`bucket_trig`) and compute each point's cell in the JAX package's
-order of float32 operations, so the kernels, the plain versions and the JAX
-package pick the same cells.
+kernel or raise. Both read the same per-angle table (:func:`bucket_trig`)
+and compute each point's cell in the JAX package's order of float32
+operations, so the kernels, the plain versions and the JAX package pick the
+same cells.
+
+On the full lattice (``grid=None``) the kernels work tile by tile: a block
+owns a :data:`TILE`^3 tile of voxels, and for each angle the tile's points
+land in a window of the plane whose extent the host computes
+(:func:`bucket_trig`'s last four columns). The adjoint stages the window in
+shared memory and gathers from it; the forward accumulates into it and adds
+each nonzero cell to the plane once. A point outside its window (none, when
+the extents are right) adds 1 to a counter on the card
+(:func:`outside_windows`) and takes the global path. A caller's grid takes
+one thread per voxel.
 """
 
 from __future__ import annotations
@@ -43,18 +53,43 @@ LAUNCHES = {"bucket_fwd": 0, "bucket_adj": 0}
 """How many times each CUDA kernel has been launched in this process.
 Incremented only by a successful launch; callers may reset them to 0."""
 
-TABLE_WIDTH = 8
-"""Columns of :func:`bucket_trig`'s table: nx, ny, nz, st, cq ct, sq ct,
--sq, cq."""
+TRIG_WIDTH = 8
+"""Leading columns of :func:`bucket_trig`'s table, each angle's
+trigonometry: nx, ny, nz, st, cq ct, sq ct, -sq, cq."""
+TABLE_WIDTH = 12
+"""Columns of :func:`bucket_trig`'s table: the trigonometry, then the tiled
+kernels' window of the angle: the lowest y and z of a tile's points
+relative to its lowest corner (less a margin), and the window's rows and
+columns."""
+
+TILE = 8
+"""Voxels along each axis of a tile of the lattice kernels (``csrc/
+bucket.cu``'s ``kTile``)."""
+PARAM_OFFSETS = 64
+"""Offsets the kernels take in their parameters (``kParamOffsets``); a
+larger precision's further offsets are computed in the kernel."""
 
 HBM_BYTES_PER_S = 3.35e12
+"""The H100's published HBM rate (SXM, 700 W)."""
+FP32_PER_S = 132 * 128 * 1.98e9
+"""float32 instructions a second on the H100's FP32 pipe (132 SMs, 128 a
+clock, 1.98 GHz): each operation rounded on its own is one instruction, so
+no FMA counts twice."""
+CONVERSIONS_PER_S = 132 * 16 * 1.98e9
+"""Conversions (such as a float's floor to an integer) a second: 16 a clock
+on each SM, on a pipe of their own."""
+POINT_FP32 = {"bucket_fwd": 15, "bucket_adj": 19}
+"""Rounded float32 operations a point needs, everything that does not change
+within a voxel's row of points hoisted: 1 for d, 6 for (px, py, pz), 5 for
+y and 3 for z; the adjoint's 2 products and 2 sums on top (the forward's
+run of points into one cell needs one product)."""
+POINT_FLOORS = 2
+"""Floors a point needs (y and z): on the conversion pipe, or as one
+round-down add on the FP32 pipe."""
 FP32_FLOPS_PER_S = 67e12
-"""The H100's published HBM rate and float32 rate outside the tensor
-cores (SXM, 700 W), for the bounds."""
-
 POINT_FLOPS = 24
-"""float32 operations of one point: 3 adds for the point, 5 for d, 6 for
-(px, py, pz), 5 for y, 3 for z, and the 2 of the value's accumulation."""
+"""The first count of the bound: 24 float32 operations a point at the
+H100's 67 TFLOP/s outside the tensor cores, which counts an FMA as two."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,10 +131,61 @@ def _subsample_offsets(precision: int) -> np.ndarray:
     return np.stack([i.ravel(), j.ravel(), k.ravel()], -1).astype(np.float32)
 
 
+def bucket_offsets(precision: int) -> np.ndarray:
+    """The sub-voxel offsets (i + 0.5) / precision along one axis, (precision,)
+    float32: the float64 quotient rounded, as :func:`_subsample_offsets`'s."""
+    return ((np.arange(precision) + 0.5) / precision).astype(np.float32)
+
+
+def _margin(cfg: BucketConfig) -> float:
+    """Cells by which a window reaches past its tile's points on each side:
+    1/16, and 2^-17 of the largest |y| of the lattice (some 64 float32 ulps)
+    for the rounding of the points' and the window's coordinates."""
+    return 1 / 16 + np.sqrt(3) * (cfg.n / 2 + 1) * 2.0**-17
+
+
+def window_limits(cfg: BucketConfig) -> tuple:
+    """(rows, columns) of the kernels' window buffers: the largest window of
+    a tile at any angle, and 2 more of each, which the forward's 3 x 3 cell
+    boxes of a voxel's points reach past the window's points. A tile's
+    points span (TILE - 1) + c_last - c_0 along each axis, and the sum of
+    |e_i| of y's unit direction is at most sqrt(3) (of z's, (0, -sq, cq), at
+    most sqrt(2))."""
+    c = bucket_offsets(cfg.precision).astype(np.float64)
+    span = TILE - 1 + c[-1] - c[0]
+    m = 2 * _margin(cfg)
+    bound = lambda s: int(np.floor(s * span * (1 + 1e-6) + m)) + 4  # noqa: E731
+    return bound(np.sqrt(3)), bound(np.sqrt(2))
+
+
+def _windows(cfg: BucketConfig, trig: np.ndarray) -> np.ndarray:
+    """The (T, 4) float32 window columns of :func:`bucket_trig` for the (T, 8)
+    trigonometry ``trig``: per angle, the lowest y and z of a tile's points
+    relative to its lowest corner less the margin (rounded down to float32),
+    and the rows and columns of the window, floor(span + 2 margin) + 2, which
+    hold every point's floor from that of the corner's lowest coordinate
+    (``csrc/bucket.cu``'s ``window_of``)."""
+    c = bucket_offsets(cfg.precision).astype(np.float64)
+    near, far = c[0], TILE - 1 + c[-1]
+    t = trig.astype(np.float64)
+    m = _margin(cfg)
+    out = []
+    for e in (t[:, 3:6], np.stack([np.zeros(len(t)), t[:, 6], t[:, 7]], -1)):
+        low = np.minimum(e * near, e * far).sum(-1) - m
+        low32 = low.astype(np.float32)
+        low32 = np.where(low32 > low, np.nextafter(low32, np.float32(-np.inf)), low32)
+        out.append((low32, np.floor((np.abs(e) * (far - near)).sum(-1) + 2 * m) + 2))
+    (ylo, rows), (zlo, cols) = out
+    limits = window_limits(cfg)
+    assert rows.max(initial=0) + 2 <= limits[0] and cols.max(initial=0) + 2 <= limits[1]
+    return np.stack([ylo, zlo, rows, cols], -1).astype(np.float32)
+
+
 def bucket_trig(cfg: BucketConfig, theta) -> torch.Tensor:
-    """The (T, 8) float32 table of each angle's trigonometry, on theta's
-    device: (nx, ny, nz, st, cq ct, sq ct, -sq, cq), with ct, st the cos
-    and sin of the tilt and cq, sq those of the angle.
+    """The (T, 12) float32 table of each angle, on theta's device: its
+    trigonometry (nx, ny, nz, st, cq ct, sq ct, -sq, cq), with ct, st the
+    cos and sin of the tilt and cq, sq those of the angle, then the tiled
+    kernels' window (:func:`_windows`).
 
     Computed on the host: each cos and sin as the float64 value of the
     float32 angle, rounded to float32; each product as the float64 product
@@ -118,8 +204,9 @@ def bucket_trig(cfg: BucketConfig, theta) -> torch.Tensor:
     ct, st = np.broadcast_to(ct, cq.shape), np.broadcast_to(st, cq.shape)
     table = np.stack(
         [ct, -(cq * st), -(sq * st), st, cq * ct, sq * ct, -sq, cq], axis=-1
-    ).astype(np.float32)
-    return torch.as_tensor(table.reshape(-1, TABLE_WIDTH), device=device)
+    ).astype(np.float32).reshape(-1, TRIG_WIDTH)
+    table = np.concatenate([table, _windows(cfg, table)], -1)
+    return torch.as_tensor(table, device=device)
 
 
 def _weight(cfg: BucketConfig) -> float:
@@ -136,20 +223,26 @@ def _grid_tensor(cfg: BucketConfig, grid, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(grid, np.int32).reshape(-1, 3), device=device)
 
 
-def plane_flat_indices(cfg: BucketConfig, grid: torch.Tensor, offset, trig_row):
-    """The flat plane cell (iy n + iz, int64) of every voxel of ``grid``
+def plane_coordinates(grid: torch.Tensor, offset, trig_row):
+    """The in-plane coordinates (y, z), float32, of every voxel of ``grid``
     ((G, 3) int32) sampled at ``offset`` ((3,) float32) for the angle of
-    ``trig_row`` (one row of :func:`bucket_trig`), in the JAX package's
-    order of float32 operations."""
-    nx, ny, nz, st, cqct, sqct, nsq, cq = trig_row.unbind(0)
+    ``trig_row``, in the JAX package's order of float32 operations."""
+    nx, ny, nz, st, cqct, sqct, nsq, cq = trig_row[:TRIG_WIDTH].unbind(0)
     p = grid.to(torch.float32) + offset
     p0, p1, p2 = p.unbind(-1)
     d = p0 * nx + p1 * ny + p2 * nz
     px = p0 - d * nx
     py = p1 - d * ny
     pz = p2 - d * nz
-    y = st * px + cqct * py + sqct * pz
-    z = nsq * py + cq * pz
+    return st * px + cqct * py + sqct * pz, nsq * py + cq * pz
+
+
+def plane_flat_indices(cfg: BucketConfig, grid: torch.Tensor, offset, trig_row):
+    """The flat plane cell (iy n + iz, int64) of every voxel of ``grid``
+    ((G, 3) int32) sampled at ``offset`` ((3,) float32) for the angle of
+    ``trig_row`` (one row of :func:`bucket_trig`), in the JAX package's
+    order of float32 operations."""
+    y, z = plane_coordinates(grid, offset, trig_row)
     n = cfg.n
     iy = torch.remainder(torch.floor(y).to(torch.int64) + n // 2, n)
     iz = torch.remainder(torch.floor(z).to(torch.int64) + n // 2, n)
@@ -217,9 +310,36 @@ def _raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+_OUTSIDE: dict = {}
+
+
+def _outside_counter(device: torch.device) -> torch.Tensor:
+    """The card's count of points that fell outside their tile's window, one
+    int64 (the kernels add to it as an unsigned 64-bit integer)."""
+    counter = _OUTSIDE.get(device)
+    if counter is None:
+        counter = _OUTSIDE[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return counter
+
+
+def outside_windows(device) -> int:
+    """Points of the lattice kernels on the card ``device`` that fell outside
+    their tile's window since the last :func:`reset_outside_windows`, over
+    all launches. Each still reached its cell through global memory; a
+    nonzero count means the window extents are wrong. Waits for the card."""
+    counter = _OUTSIDE.get(torch.device(device))
+    return 0 if counter is None else int(counter.item())
+
+
+def reset_outside_windows(device) -> None:
+    """Set the card's count of :func:`outside_windows` to 0."""
+    counter = _OUTSIDE.get(torch.device(device))
+    if counter is not None:
+        counter.zero_()
+
+
 def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device):
-    """The trig table and the grid (or None) as the kernels take them,
-    checked."""
+    """The table and the grid (or None) as the kernels take them, checked."""
     trig = _trig_for(cfg, theta, trig)
     _check("trig", trig, torch.float32, (theta.shape[0], TABLE_WIDTH))
     if trig.device != device:
@@ -237,43 +357,41 @@ def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device):
     return trig, grid
 
 
+def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig):
+    """Launch ``tike_<name>`` on ``values`` into ``out``."""
+    device = values.device
+    trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, device)
+    rows, pitch = window_limits(cfg)
+    offsets = bucket_offsets(cfg.precision)
+    counter = _outside_counter(device)
+    lib = kernels.load("bucket")
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"tike_{name}")(
+            values.data_ptr(), None if grid is None else grid.data_ptr(), trig.data_ptr(),
+            out.data_ptr(), counter.data_ptr(), offsets.ctypes.data, voxels, trig.shape[0],
+            cfg.n, cfg.precision, _weight(cfg), pitch, rows * pitch,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
 def bucket_fwd_cuda(cfg: BucketConfig, u, theta, grid=None, trig=None):
     """Launch the CUDA ``bucket_fwd`` kernel (``csrc/bucket.cu``)."""
     u = u.reshape(-1)
     voxels = u.shape[0]
     _check("u", u, torch.complex64, (voxels,))
-    trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, u.device)
-    angles = trig.shape[0]
-    out = torch.empty((angles, cfg.n, cfg.n), dtype=torch.complex64, device=u.device)
-    lib = kernels.load("bucket")
-    with torch.cuda.device(u.device):
-        rc = lib.tike_bucket_fwd(
-            u.data_ptr(), None if grid is None else grid.data_ptr(), trig.data_ptr(),
-            out.data_ptr(), voxels, angles, cfg.n, cfg.precision, _weight(cfg),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error("bucket_fwd", rc)
-    LAUNCHES["bucket_fwd"] += 1
-    return out
+    out = torch.empty((theta.shape[0], cfg.n, cfg.n), dtype=torch.complex64, device=u.device)
+    return _launch("bucket_fwd", cfg, u, out, voxels, theta, grid, trig)
 
 
 def bucket_adj_cuda(cfg: BucketConfig, data, theta, grid=None, trig=None):
     """Launch the CUDA ``bucket_adj`` kernel (``csrc/bucket.cu``)."""
-    angles = theta.shape[0]
-    _check("data", data, torch.complex64, (angles, cfg.n, cfg.n))
+    _check("data", data, torch.complex64, (theta.shape[0], cfg.n, cfg.n))
     voxels = cfg.n**3 if grid is None else int(np.prod(grid.shape)) // 3
-    trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, data.device)
     out = torch.empty((voxels,), dtype=torch.complex64, device=data.device)
-    lib = kernels.load("bucket")
-    with torch.cuda.device(data.device):
-        rc = lib.tike_bucket_adj(
-            data.data_ptr(), None if grid is None else grid.data_ptr(), trig.data_ptr(),
-            out.data_ptr(), voxels, angles, cfg.n, cfg.precision, _weight(cfg),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error("bucket_adj", rc)
-    LAUNCHES["bucket_adj"] += 1
-    return out
+    return _launch("bucket_adj", cfg, data, out, voxels, theta, grid, trig)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -322,25 +440,39 @@ def bucket_step_scale(cfg: BucketConfig, u, theta, grid=None, trig=None):
 
 def points(cfg: BucketConfig, voxels: int, angles: int) -> int:
     """Point projections of one forward or adjoint: one per voxel, angle
-    and offset (and, in the forward, as many float2 atomics)."""
+    and offset."""
     return voxels * angles * cfg.precision**3
 
 
-def roofline(cfg: BucketConfig, voxels: int, angles: int, grid: bool = False) -> dict:
-    """The least time the H100 could take for one forward or adjoint: the
-    larger of the bytes (the volume read or written once, 8 bytes a voxel;
-    the planes written or read once, 8 bytes a cell; the grid's 12 bytes a
-    voxel where one is given; the table) at 3.35 TB/s and the operations
-    (:data:`POINT_FLOPS` a point) at 67 TFLOP/s."""
+def roofline(cfg: BucketConfig, voxels: int, angles: int, kernel: str = "bucket_fwd",
+             grid: bool = False) -> dict:
+    """The least time the H100 could take for one forward or adjoint
+    (``kernel``), pipe by pipe: the bytes (the volume read or written once,
+    8 bytes a voxel; the planes written or read once, 8 bytes a cell; the
+    grid's 12 bytes a voxel where one is given; the table) at 3.35 TB/s; the
+    :data:`POINT_FP32` rounded float32 operations a point on the FP32 pipe;
+    and the :data:`POINT_FLOORS` floors a point, on the conversion pipe or as
+    adds on the FP32 pipe, whichever the least time wants: the operations
+    take max(fp32 / FP32_PER_S, (fp32 + floors) / (FP32_PER_S +
+    CONVERSIONS_PER_S)). ``bound_ms`` is the larger of bytes and operations;
+    ``bound_ms_first_count`` the first count's (:data:`POINT_FLOPS` a point
+    at 67 TFLOP/s)."""
     nbytes = 8 * voxels + 8 * angles * cfg.n**2 + 4 * TABLE_WIDTH * angles
     if grid:
         nbytes += 12 * voxels
-    flops = POINT_FLOPS * points(cfg, voxels, angles)
-    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS_PER_S
+    n_points = points(cfg, voxels, angles)
+    fp32, floors = POINT_FP32[kernel] * n_points, POINT_FLOORS * n_points
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = max(1e3 * fp32 / FP32_PER_S, 1e3 * (fp32 + floors) / (FP32_PER_S + CONVERSIONS_PER_S))
     return dict(
         bound_bytes=nbytes,
-        bound_flops=flops,
-        bound_ms=max(bytes_ms, flops_ms),
-        bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-        points=points(cfg, voxels, angles),
+        bound_fp32=fp32,
+        bound_floors=floors,
+        bound_bytes_ms=bytes_ms,
+        bound_fp32_ms=1e3 * fp32 / FP32_PER_S,
+        bound_floors_ms=1e3 * floors / CONVERSIONS_PER_S,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_ms_first_count=max(bytes_ms, 1e3 * POINT_FLOPS * n_points / FP32_FLOPS_PER_S),
+        points=n_points,
     )

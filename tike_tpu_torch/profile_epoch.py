@@ -60,8 +60,8 @@ CLASSES = (
     ("kb_scatter_kernel (ours)", ("kb_scatter_kernel",)),
     ("patch_fwd_kernel (ours)", ("patch_fwd_kernel",)),
     ("patch_adj_kernel (ours)", ("patch_adj_kernel",)),
-    ("bucket_fwd_kernel (ours)", ("bucket_fwd_kernel",)),
-    ("bucket_adj_kernel (ours)", ("bucket_adj_kernel",)),
+    ("bucket_fwd_kernel (ours)", ("bucket_fwd",)),
+    ("bucket_adj_kernel (ours)", ("bucket_adj",)),
     ("copies from the host (memcpy HtoD)", ("memcpy htod",)),
     ("cuFFT", ("fft",)),
     ("sort, index, cat, memset, memcpy", ("sort", "index", "cat", "memset", "memcpy")),

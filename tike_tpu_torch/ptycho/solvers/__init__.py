@@ -5,6 +5,8 @@ from .options import (
     LstsqOptions,
     PtychoParameters,
     RpieOptions,
+    crop_fourier_space,
+    pad_fourier_space,
 )
 
 __all__ = [
@@ -12,4 +14,6 @@ __all__ = [
     "LstsqOptions",
     "PtychoParameters",
     "RpieOptions",
+    "crop_fourier_space",
+    "pad_fourier_space",
 ]
