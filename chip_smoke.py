@@ -11,8 +11,8 @@ without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
 2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu``,
-   ``probe.cu``, ``bucket.cu`` and ``bucket_first_form.cu`` (the Bucket
-   kernels' first form, a yardstick) for sm_90a, and ``probe.cu`` with its
+   ``probe.cu``, ``bucket.cu``, ``bucket_first_form.cu`` (the Bucket
+   kernels' first form, a yardstick) and ``interp.cu`` for sm_90a, and ``probe.cu`` with its
    gridded and prefetch kernels in their parent's form
    (``kernel_sweep.parent_form``), one nvcc each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
@@ -38,8 +38,9 @@ without printing the final ``ok`` line:
    position correction);
 6. main path: 10,000 simulated 128^2 patterns of a 1500^2 object, LSQML
    with compact batching (num_batch=10), ``iterate(1)`` then a timed
-   ``iterate(3)``; costs must be finite and decreasing, and both patch
-   kernels must have been launched by it;
+   ``iterate(3)``, every kernel count set to 0 just before it and read
+   just after (phases 7, 8 and 18b alike); costs must be finite and
+   decreasing, and both patch kernels must have been launched by it;
 7. config 2 (``bench_all.py``'s ``lsqml_opr_pos``, BASELINE.md config 2):
    the same scan and object with 3 probe modes, one eigen probe with
    per-position weights and position correction, data simulated on the
@@ -166,6 +167,35 @@ After phase 15, Bucket laminography and the rest of ptychography:
     against CPU, ``update_positions_pd`` card against CPU, and ``simulate``
     with ``fly=3`` against numpy.
 
+After phase 17, multislice ptychography and alignment:
+
+18. multislice rPIE: (a) the reference test's problem
+    (``tests/ptycho/test_multislice_recon.py``: 2 slices of 96^2, 120
+    positions of a 16^2 probe, wavelength 1.4e-10 m, field of view 1e-6 m,
+    slices 2e-8 m apart), ``simulate`` on the card against the CPU, then 3
+    rPIE epochs card against CPU; (b) the main path's data and geometry
+    (10,000 x 128^2, a 1500^2 frame, compact, ``num_batch=10``, one mode)
+    through 3 slices with the same optics, data simulated on the card:
+    ``iterate(1)`` then a timed ``iterate(3)`` with the kernel counts set to
+    0 before and read after, one epoch traced (idle share, the patch
+    kernels' and cuFFT's launches and time), then the same run with one
+    slice for the comparison; costs finite and decreasing;
+19. alignment: (a) the Lanczos remap kernels (``csrc/interp.cu``) against
+    their plain versions and their adjointness on the cases of
+    ``tests/_torch_interp_cases.py`` (m 0, 1, 2, 5, 11; complex and real; a
+    complex cval; points outside, on the edges and on integers; shared
+    points) and at 128 x 1024^2 (the flow warp's and the rotation's points)
+    and 1 x 128^2, then timed in CUDA graphs in turns with their plain
+    versions and bicubic ``grid_sample`` (its input gradient for the
+    adjoint), beside their bounds; (b) ``align.simulate`` of the golden
+    dataset (``tests/data/algin_setup.pickle.lzma``) at atol 1e-6; (c) at
+    128 x 1024^2 complex64: ``simulate`` with a smooth flow, shifts of up to
+    8 px and a 0.05 rad rotation, ``invert``, ``reconstruct`` by
+    cross-correlation at upsample 10 on a shifted stack (every shift within
+    0.15 px), and the operator's adjoint held by adjointness, the kernel
+    counts set to 0 before and read after; Farneback is not run (OpenCV on
+    the host; the card's machine has no ``cv2``).
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
@@ -180,7 +210,9 @@ launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
-probes' in phase 12; its error against the plain version, its time, the
+probes' in phase 12, the Lanczos kernels' in phase 19c; every kernel's
+launches in phase 18b's timed run as ``launches_multislice`` and in 19c as
+``launches_align``); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic; each probe's launch floor ``floor_ms``, for gridded and
@@ -194,7 +226,9 @@ launch over its batches. The last line is
 import bz2
 import importlib.metadata
 import json
+import lzma
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -204,17 +238,20 @@ import numpy as np
 import torch
 
 import tike_tpu_torch.admm as tadmm
+import tike_tpu_torch.align as talign
 import tike_tpu_torch.lamino as tl
 import tike_tpu_torch.lamino.bucket as tlb
 import tike_tpu_torch.ptycho as tp
 import tike_tpu_torch.ptycho.ptycho as tpp
 from tests import _torch_bucket_cases as cases_bucket
+from tests import _torch_interp_cases as cases_interp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
-from tike_tpu_torch import checkpoint, kernel_sweep, kernels, opt, toolchain_probe
+from tike_tpu_torch import checkpoint, kernel_sweep, kernels, opt, profile_epoch, toolchain_probe
 from tike_tpu_torch.constants import wavenumber
-from tike_tpu_torch.ops import bucket, patch, usfft
+from tike_tpu_torch.ops import alignment as ops_alignment
+from tike_tpu_torch.ops import bucket, interp, patch, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
@@ -282,7 +319,13 @@ BUCKET_KERNELS = {
 }
 # The Bucket kernels' first form (csrc/bucket_first_form.cu) is built with
 # them and timed beside them in phase 16; no path runs it.
-SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form")
+# The Lanczos remap kernels replace XLA code with no Pallas kernel (the
+# original tike's interp.cu:218-237): tike_tpu's tap scans.
+INTERP_KERNELS = {
+    "lanczos_fwd": "tike_tpu/ops/interp.py:36",
+    "lanczos_adj": "tike_tpu/ops/interp.py:71",
+}
+SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form", "interp")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -334,6 +377,26 @@ STREAM_PEAK_LIMIT = 4e9
 # Bucket solver's default eps 1e-1 (precision 3) and cg_iter 4: one warm-up
 # outer iteration, then BUCKET_TIMED timed ones.
 BUCKET_TIMED = 5
+# Multislice rPIE (phase 18): tests/ptycho/test_multislice_recon.py's
+# optics (wavelength, field of view, slice distance), its 2-slice 96^2
+# problem card against CPU, then the main path's data and geometry with
+# MULTISLICE_SLICES slices at full width.
+MULTISLICE_OPTICS = dict(
+    probe_wavelength=1.4e-10, probe_FOV_lengths=(1e-6, 1e-6),
+    multislice_propagation_distance=2e-8,
+)
+MULTISLICE_SLICES = 3
+# Alignment (phase 19c): ALIGN_IMAGES projections of ALIGN_N^2, shifts of
+# up to ALIGN_SHIFT px, a rotation of ALIGN_ANGLE rad and a flow of a few px;
+# cross-correlation at upsample ALIGN_UPSAMPLE must find every shift within
+# ALIGN_SHIFT_TOL px. The golden dataset (19b) is held at the reference's
+# atol (tests/test_parity_golden.py).
+ALIGN_IMAGES, ALIGN_N = cases_interp.FULL_IMAGES, cases_interp.FULL_N
+ALIGN_SHIFT, ALIGN_ANGLE, ALIGN_UPSAMPLE, ALIGN_SHIFT_TOL = 8.0, 0.05, 10, 0.15
+ALIGN_GOLDEN = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "tests", "data", "algin_setup.pickle.lzma"
+)
+ALIGN_GOLDEN_ATOL = 1e-6
 # The rest of ptycho (phase 17): multigrid at the main path's configuration,
 # MULTIGRID_EPOCHS epochs at each of 3 levels (32^2, 64^2, 128^2 patterns).
 MULTIGRID_LEVELS, MULTIGRID_EPOCHS = 3, 2
@@ -888,74 +951,82 @@ def path_parameters(scan, psi, probe, config2=False):
     )
 
 
-def _drive(tag, device, probe, scan, psi, card, params) -> dict:
-    """Simulate the data on the card, then enter a Reconstruction of
-    ``params`` and run ``iterate(1)`` and a timed ``iterate(3)``, with the
-    kernel counts set to 0 just before and read just after. Checks what
-    every path shares."""
-    start = time.perf_counter()
-    data = tp.simulate_device(DET, probe, scan, psi, device=device)
-    torch.cuda.synchronize()
-    log(f"[{tag}] simulated {tuple(data.shape)} {data.dtype} on {device} with "
-        f"{probe.shape[-3]} probe mode(s) in {time.perf_counter() - start:.2f} s")
-    if not bool(torch.isfinite(data).all()):
-        raise AssertionError("simulated data is not finite")
+def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=False,
+           **optics) -> dict:
+    """Simulate the data on the card from ``psi`` (``optics`` go to
+    ``simulate_device``), unless ``data`` is given, then enter a
+    Reconstruction of ``params`` and run ``iterate(1)`` and a timed
+    ``iterate(3)``, with every kernel count set to 0 just before the timed
+    run and read just after, and, with ``trace``, one more epoch traced
+    (``_traced_epoch``). Checks what every path shares: 4 finite,
+    decreasing costs, both patch kernels launched, a finite result of the
+    start's shapes."""
+    if data is None:
+        start = time.perf_counter()
+        data = tp.simulate_device(DET, probe, scan, psi, device=device, **optics)
+        torch.cuda.synchronize()
+        log(f"[{tag}] simulated {tuple(data.shape)} {data.dtype} on {device} with "
+            f"{probe.shape[-3]} probe mode(s) and {psi.shape[0]} slice(s) in "
+            f"{time.perf_counter() - start:.2f} s")
+        if not bool(torch.isfinite(data).all()):
+            raise AssertionError(f"{tag}: simulated data is not finite")
 
-    for name in patch.LAUNCHES:
-        patch.LAUNCHES[name] = 0
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     context = tp.Reconstruction(data, params, device=device, random_seed=0)
     context.__enter__()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
+    plan = context._make_plan()
+    fused = context._fused_eligible()
     log(f"[{tag}] Reconstruction entered in {setup_s:.2f} s "
         f"({params.algorithm_options.batch_method} batches "
-        f"{context.batches[0].shape}, fft_precond "
-        f"{bool(context._make_plan().fft_precond)}) ({card})")
-    before = dict(patch.LAUNCHES)
+        f"{context.batches[0].shape}, fft_precond {bool(plan.fft_precond)}, "
+        f"{'all epochs enqueued' if fused else 'per-epoch loop'}) ({card})")
     start = time.perf_counter()
     context.iterate(1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - start
     scan1 = context.get_scan()
+    _reset_launches()
     start = time.perf_counter()
     context.iterate(3)
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - start
-    launches = dict(patch.LAUNCHES)
+    launches = _read_launches(tag)
     peak = torch.cuda.max_memory_allocated()
 
     costs = [c[0] for c in context.get_convergence()[0]]
     result = context.get_result()
+    breakdown = _traced_epoch(context, tag) if trace else None
     context.__exit__(None, None, None)
     log(f"[{tag}] per-epoch costs {costs}")
     if len(costs) != 4 or not np.all(np.isfinite(costs)):
-        raise AssertionError(f"costs are not 4 finite values: {costs}")
+        raise AssertionError(f"{tag}: costs are not 4 finite values: {costs}")
     if not costs[-1] < costs[0]:
-        raise AssertionError(f"cost did not decrease: {costs}")
+        raise AssertionError(f"{tag}: cost did not decrease: {costs}")
     for name in patch.LAUNCHES:
-        if not launches[name] > before[name]:
-            raise AssertionError(f"iterate launched no {name} kernel: {launches}")
-    if result.psi.shape != psi.shape or not np.all(np.isfinite(result.psi)):
-        raise AssertionError("reconstructed psi is not finite or has the wrong shape")
+        if not launches[name] > 0:
+            raise AssertionError(f"{tag}: iterate(3) launched no {name} kernel: {launches}")
+    if result.psi.shape != params.psi.shape or not np.all(np.isfinite(result.psi)):
+        raise AssertionError(f"{tag}: reconstructed psi is not finite or has the wrong shape")
     if result.probe.shape != probe.shape or not np.all(np.isfinite(result.probe)):
-        raise AssertionError("reconstructed probe is not finite or has the wrong shape")
-    per_epoch = timed_s / 3
+        raise AssertionError(f"{tag}: reconstructed probe is not finite or has the wrong shape")
+    epoch_s = timed_s / 3
     log(f"[{tag}] iterate(1) {first_s:.3f} s; iterate(3) {timed_s:.3f} s = "
-        f"{per_epoch:.4f} s/epoch, {len(scan) / per_epoch:.1f} patterns/s "
+        f"{epoch_s:.4f} s/epoch, {len(scan) / epoch_s:.1f} patterns/s "
         f"({card})")
     log(f"[{tag}] set-up {setup_s:.2f} s; peak device memory {peak} bytes "
         f"({peak / 2**30:.3f} GiB) ({card})")
-    log(f"[{tag}] kernel launches {launches} (iterate alone: "
-        f"{ {k: launches[k] - before[k] for k in launches} })")
+    log(f"[{tag}] kernel launches in iterate(3) "
+        f"{ {k: launches[k] for k in patch.LAUNCHES} }")
     # Each kernel's bound per launch on this path: the mean, over the
     # batches at their starting positions, of what a batch's positions
     # need (cases.roofline).
     batch_scan = torch.as_tensor(scan[context.order[context.batches[0]]], device=device)
     bounds = {
         name: statistics.mean(
-            cases.roofline(name, b, probe.shape[-1], psi.shape[-2:], torch.complex64)[
+            cases.roofline(name, b, probe.shape[-1], params.psi.shape[-2:], torch.complex64)[
                 "bound_ms"
             ]
             for b in batch_scan
@@ -965,7 +1036,8 @@ def _drive(tag, device, probe, scan, psi, card, params) -> dict:
     log(f"[{tag}] bound per launch, mean over the {len(batch_scan)} batches of "
         f"{batch_scan.shape[1]}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items())
         + f" ({card})")
-    return dict(launches=launches, result=result, scan1=scan1)
+    return dict(launches=launches, result=result, scan1=scan1, data=data, setup_s=setup_s,
+                epoch_s=epoch_s, costs=costs, breakdown=breakdown, plan=plan, fused=fused)
 
 
 def phase_main_path(device, scan, psi, probe, card: str) -> dict:
@@ -1729,9 +1801,11 @@ def phase_admm_slice(device) -> None:
 
 
 def _reset_launches() -> None:
-    """Every kernel's count to 0: the patch, the KB, the Bucket and the
-    probe kernels'."""
-    for counts in (patch.LAUNCHES, usfft.LAUNCHES, bucket.LAUNCHES, toolchain_probe.LAUNCHES):
+    """Every kernel's count to 0: the patch, the KB, the Bucket, the
+    Lanczos and the probe kernels'."""
+    for counts in (
+        patch.LAUNCHES, usfft.LAUNCHES, bucket.LAUNCHES, interp.LAUNCHES, toolchain_probe.LAUNCHES
+    ):
         for name in counts:
             counts[name] = 0
 
@@ -1742,7 +1816,7 @@ def _read_launches(tag) -> dict:
     probes = {f"probe_{name}": count for name, count in toolchain_probe.LAUNCHES.items()}
     if any(probes.values()):
         raise AssertionError(f"{tag} launched probe kernels: {probes}")
-    return {**patch.LAUNCHES, **usfft.LAUNCHES, **bucket.LAUNCHES, **probes}
+    return {**patch.LAUNCHES, **usfft.LAUNCHES, **bucket.LAUNCHES, **interp.LAUNCHES, **probes}
 
 
 def phase_admm(device, card: str) -> dict:
@@ -2406,6 +2480,361 @@ def phase_ptycho_rest(device, scan, psi, probe, card: str) -> None:
         f"{SIM_RTOL:g}, atol {atol:.3e})")
 
 
+def multislice_reference_problem():
+    """tests/ptycho/test_multislice_recon.py's problem: 120 positions of a
+    16^2 Gaussian probe with a weak phase over 2 slices of 96^2."""
+    rng = np.random.default_rng(0)
+    p, hw, n = 16, 96, 120
+    yy, xx = np.mgrid[0:hw, 0:hw] / hw
+    psi = np.stack(
+        [
+            np.exp(1j * 0.4 * np.sin(5 * yy) * np.cos(3 * xx)),
+            np.exp(1j * 0.3 * np.cos(4 * yy * xx * 7)),
+        ]
+    ).astype(np.complex64)
+    probe = (tp.gaussian(p) * np.exp(1j * 0.1 * tp.gaussian(p)))[None, None, None].astype(
+        np.complex64
+    )
+    scan = np.stack(
+        [rng.uniform(2, hw - p - 3, n), rng.uniform(2, hw - p - 3, n)], -1
+    ).astype(np.float32)
+    return scan, psi, probe
+
+
+def multislice_parameters(scan, psi0, probe, num_batch, **algo):
+    """rPIE on a multislice object with MULTISLICE_OPTICS."""
+    return tp.PtychoParameters(
+        probe=probe,
+        psi=psi0,
+        scan=scan,
+        algorithm_options=tp.RpieOptions(num_batch=num_batch, **algo),
+        object_options=tp.ObjectOptions(
+            multislice_propagation_distance=MULTISLICE_OPTICS["multislice_propagation_distance"]
+        ),
+        probe_options=tp.ProbeOptions(
+            probe_wavelength=MULTISLICE_OPTICS["probe_wavelength"],
+            probe_FOV_lengths=MULTISLICE_OPTICS["probe_FOV_lengths"],
+        ),
+    )
+
+
+def phase_multislice_slice(device) -> None:
+    """18a: the multislice reference test's problem, simulated on the card
+    against the CPU, then 3 rPIE epochs card against CPU (``_card_vs_cpu``,
+    SLICE_TOL). The start is a perturbed 0.9 object and the probe's modulus
+    with a random phase, as tests/test_torch_multislice.py holds the CPU
+    path to tike_tpu from: the reference test's constant start leaves
+    far-field pixels near 0, whose gradient is the phase of FFT rounding
+    noise, so two FFT libraries part there by 5e-3 after 3 epochs."""
+    scan, psi, probe = multislice_reference_problem()
+    p = probe.shape[-1]
+    data = tp.simulate(p, probe, scan, psi, device="cpu", **MULTISLICE_OPTICS)
+    got = tp.simulate(p, probe, scan, psi, device=device, **MULTISLICE_OPTICS)
+    atol = SIM_ATOL * float(np.max(data))
+    np.testing.assert_allclose(got, data, rtol=SIM_RTOL, atol=atol)
+    log(f"[multislice] simulate {psi.shape[0]} slices, {len(scan)}x{p}^2 on {device} vs cpu: "
+        f"max|err| {float(np.max(np.abs(got - data))):.3e} (rtol {SIM_RTOL:g}, atol {atol:.3e})")
+    gen = np.random.default_rng(3)
+    psi0 = (
+        0.9 + 0.05 * (gen.standard_normal(psi.shape) + 1j * gen.standard_normal(psi.shape))
+    ).astype(np.complex64)
+    probe0 = (np.abs(probe) * np.exp(1j * gen.uniform(-np.pi, np.pi, probe.shape))).astype(
+        np.complex64
+    )
+    _card_vs_cpu(
+        "multislice slice (2 slices of 96^2, rPIE)", device, data,
+        lambda: multislice_parameters(scan, psi0, probe0, 3),
+    )
+
+
+def multislice_object(hw: int, slices: int) -> np.ndarray:
+    """(slices, hw, hw) complex64: the main path's object recipe with other
+    frequencies in each further slice (slice 0 is the main path's)."""
+    yy, xx = np.mgrid[0:hw, 0:hw] / hw
+    return np.stack(
+        [
+            np.exp(1j * 0.5 * np.sin((17 + 4 * k) * yy) * np.cos((13 - 3 * k) * xx))
+            * (0.9 + 0.1 * np.cos((23 + 5 * k) * xx * yy))
+            for k in range(slices)
+        ]
+    ).astype(np.complex64)
+
+
+def _traced_epoch(context, tag: str) -> dict:
+    """One more epoch of ``context`` under ``torch.profiler``: the device's
+    busy share and the time and launches of each kernel class
+    (``profile_epoch``), from the chrome trace under ``_build/``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        context.iterate(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = kernels.BUILD_DIR / f"epoch_trace_{tag}.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as f:
+        return profile_epoch.device_breakdown(json.load(f)["traceEvents"], wall * 1e6)
+
+
+def phase_multislice(device, scan, probe, card: str) -> dict:
+    """18b: multislice rPIE at full width: the main path's 10,000 positions,
+    128^2 probe and detector and 1500^2 frame, with MULTISLICE_SLICES
+    slices, rPIE with compact batches (num_batch 10), 1 probe mode, the
+    optics of 18a; data simulated on the card; the main path's 0.5 start
+    in every slice. ``iterate(1)`` then a timed
+    ``iterate(3)`` (the kernel counts set to 0 just before, read just
+    after), then one epoch traced; then the same with one slice, for the
+    comparison. Costs finite and decreasing, both patch kernels launched,
+    the gather preconditioners taken."""
+    psi = multislice_object(HW, MULTISLICE_SLICES)
+    runs, data = {}, None
+    for slices in (MULTISLICE_SLICES, 1):
+        tag = "multislice" if slices > 1 else "multislice-1"
+        params = multislice_parameters(
+            scan, np.full_like(psi[:slices], 0.5), probe, NUM_BATCH,
+            batch_method="compact", num_iter=1,
+        )
+        runs[slices] = run = _drive(
+            tag, device, probe, scan, psi, card, params, data=data, trace=slices > 1,
+            **MULTISLICE_OPTICS,
+        )
+        data = run.pop("data")
+        if (slices > 1 and run["plan"].fft_precond) or not run["fused"]:
+            raise AssertionError(f"{tag}: took fft_precond {run['plan'].fft_precond}, fused "
+                                 f"{run['fused']}")
+    del data
+    run = runs[MULTISLICE_SLICES]
+    b = run["breakdown"]
+    per_epoch = {k: run["launches"][k] / 3 for k in patch.LAUNCHES}
+    log(f"[multislice] {MULTISLICE_SLICES} slices: {run['epoch_s']:.4f} s/epoch, "
+        f"{len(scan) / run['epoch_s']:.1f} patterns/s; 1 slice, the same run: "
+        f"{runs[1]['epoch_s']:.4f} s/epoch ({run['epoch_s'] / runs[1]['epoch_s']:.2f}x) ({card})")
+    log(f"[multislice] kernel launches per epoch {per_epoch} ({MULTISLICE_SLICES} slices), "
+        f"{ {k: runs[1]['launches'][k] / 3 for k in patch.LAUNCHES} } (1 slice)")
+    classes = b["classes"]
+    device_us = sum(v[0] for v in classes.values())
+    log(f"[multislice] traced epoch: wall {b['wall_us'] / 1e3:.2f} ms, device busy "
+        f"{b['busy_us'] / 1e3:.2f} ms, idle {100 * (1 - b['busy_us'] / b['wall_us']):.1f}%, "
+        f"{b['activities']} device activities ({card})")
+    for name in ("patch_fwd_kernel (ours)", "patch_adj_kernel (ours)", "cuFFT"):
+        us, n = classes.get(name, (0.0, 0))
+        log(f"[multislice] traced epoch: {name} {us / 1e3:.3f} ms in {n} launches "
+            f"({100 * us / max(device_us, 1e-9):.1f}% of device time)")
+    others = sorted(classes.items(), key=lambda kv: -kv[1][0])
+    log("[multislice] traced epoch by class: " + "; ".join(
+        f"{k} {v[0] / 1e3:.3f} ms / {v[1]}" for k, v in others))
+    return run["launches"]
+
+
+def _lanczos_calls(images, points, values, m=2) -> dict:
+    """Each Lanczos kernel, its plain version and its library yardstick on
+    one set of inputs."""
+    h, w = images.shape[-2:]
+    library = cases_interp.grid_sample_calls(images, points, values)
+    return {
+        "lanczos_fwd": dict(
+            kernel=lambda: interp.remap_lanczos_fwd_cuda(images, points, m),
+            plain=lambda: interp.remap_lanczos_fwd_plain(images, points, m),
+            library=library["lanczos_fwd"],
+        ),
+        "lanczos_adj": dict(
+            kernel=lambda: interp.remap_lanczos_adj_cuda(values, points, m, (h, w)),
+            plain=lambda: interp.remap_lanczos_adj_plain(values, points, m, (h, w)),
+            library=library["lanczos_adj"],
+        ),
+    }
+
+
+# Calls a CUDA graph captures per timing of each: the plain versions at full
+# width take a tenth of a second and gigabytes of temporaries each.
+LANCZOS_GRAPH_REPS = dict(kernel=20, plain=2, library=5)
+
+
+def phase_lanczos_parity(device, card: str) -> dict:
+    """19a: the Lanczos kernels against their plain versions and their own
+    adjointness on every case of ``tests/_torch_interp_cases.py`` (m 0, 1,
+    2, 5, 11; complex and real; a complex cval; points outside, on the edges
+    and on integers; the rotation's shared points), at the paths' full
+    width (128 x 1024^2: the flow warp's points and the rotation's, m = 2)
+    and at the golden dataset's 128^2; then each kernel, its plain version
+    and ``grid_sample`` (its input gradient for the adjoint) in CUDA
+    graphs, in turns, at those three shapes, beside the kernel's bound."""
+    errs = {name: 0.0 for name in INTERP_KERNELS}
+    gap = 0.0
+
+    def check(images, points, values, m, cval, label):
+        nonlocal gap
+        out = cases_interp.check_lanczos_kernels(images, points, values, m, cval, label)
+        for name in INTERP_KERNELS:
+            errs[name] = max(errs[name], out[name])
+        gap = max(gap, out["adjointness"])
+        log(f"[lanczos] {label}: lanczos_fwd max|err| {out['lanczos_fwd']:.3e}, lanczos_adj "
+            f"{out['lanczos_adj']:.3e} (tol {cases_interp.FWD_TOL:g} / {cases_interp.ADJ_TOL:g} "
+            f"x max|value|); adjointness {out['adjointness']:.2e} "
+            f"(tol {cases_interp.ADJOINT_TOL:g})")
+
+    for name in cases_interp.CASES:
+        check(*cases_interp.case_inputs(name, device), label=name)
+    full = cases_interp.full_width_inputs(device)
+    values = full["images"].reshape(ALIGN_IMAGES, -1)
+    golden = cases_interp.full_width_inputs(device, images=1, n=cases_interp.GOLDEN_N, seed=1)
+    shapes = {
+        "flow": (full["images"], full["flow"], values),
+        "rotate": (full["images"], full["rotate"], values),
+        "golden": (golden["images"], golden["flow"], golden["images"].reshape(1, -1)),
+    }
+    for key, (images, points, vals) in shapes.items():
+        check(images, points, vals, 2, 0.0, f"{tuple(images.shape)} {key} points, m = 2")
+
+    out = {name: dict(max_abs_err=errs[name], adjointness=gap, library=lib, card=card,
+                      deterministic=name == "lanczos_fwd")
+           for name, lib in (("lanczos_fwd", "torch.nn.functional.grid_sample (bicubic)"),
+                             ("lanczos_adj", "grid_sampler_2d_backward (bicubic input grad)"))}
+    for key, (images, points, vals) in shapes.items():
+        for name, calls in _lanczos_calls(images, points, vals).items():
+            times = {c: [] for c in calls}
+            order = list(calls)
+            for turn in (order, order[::-1], order):
+                for c in turn:
+                    times[c].append(graph_ms_per_call(calls[c], reps=LANCZOS_GRAPH_REPS[c]))
+            ms = {c: statistics.median(t) for c, t in times.items()}
+            bound = cases_interp.bound(name, images, points, 2)
+            suffix = "" if key == "flow" else f"_{key}"
+            out[name].update({
+                f"ms{suffix}": ms["kernel"],
+                f"plain_ms{suffix}": ms["plain"],
+                f"library_ms{suffix}": ms["library"],
+                f"bound_ms{suffix}": bound["bound_ms"],
+                f"bound_by{suffix}": bound["bound_by"],
+                f"bound_bytes{suffix}": bound["bound_bytes"],
+                f"bound_fp32{suffix}": bound["bound_fp32"],
+                f"roofline_share{suffix}": bound["bound_ms"] / ms["kernel"],
+            })
+            log(f"[lanczos] {name} {tuple(images.shape)} {key} points: kernel "
+                f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library {ms['library']:.4f} "
+                f"ms (CUDA graphs, in turns); bound {bound['bound_ms']:.4f} ms by "
+                f"{bound['bound_by']} ({bound['bound_bytes']} bytes at "
+                f"{interp.HBM_BYTES_PER_S:g} B/s, {bound['bound_fp32']} FP32 at "
+                f"{interp.FP32_PER_S:g}/s), {100 * bound['bound_ms'] / ms['kernel']:.1f}% of it "
+                f"({card})")
+    return out
+
+
+def phase_align_golden(device, card: str) -> None:
+    """19b: ``align.simulate`` of the golden dataset (a Lanczos flow warp
+    and a Fourier shift of one 128^2 image) on the card against the stored
+    result, at the reference's atol."""
+    with lzma.open(ALIGN_GOLDEN, "rb") as f:
+        data, original, flow, shift = pickle.load(f)
+    _reset_launches()
+    sim = talign.simulate(
+        original=original, flow=flow, shift=shift, padded_shape=None, angle=None, device=device
+    )
+    launches = _read_launches("align golden")
+    err = float(np.max(np.abs(sim - data)))
+    log(f"[align] golden {data.shape} on {device}: max|err| {err:.3e} against the stored "
+        f"result (atol {ALIGN_GOLDEN_ATOL:g}); Lanczos launches "
+        f"{ {k: launches[k] for k in INTERP_KERNELS} }")
+    if sim.shape != data.shape or sim.dtype != np.complex64 or not err <= ALIGN_GOLDEN_ATOL:
+        raise AssertionError(f"align golden: max|err| {err:.3e} > {ALIGN_GOLDEN_ATOL:g}")
+
+
+def align_stack(device, images: int, n: int, seed: int = 0) -> torch.Tensor:
+    """(images, n, n) complex64 band-limited random fields, made on the card
+    from ``seed``: white noise through a Gaussian low-pass of 0.02 cycles
+    a pixel, scaled to a largest modulus of 1."""
+    gen = torch.Generator(device).manual_seed(seed)
+    noise = torch.complex(
+        torch.randn((images, n, n), generator=gen, device=device),
+        torch.randn((images, n, n), generator=gen, device=device),
+    )
+    f = torch.fft.fftfreq(n, device=device)
+    lowpass = torch.exp(-(f[:, None] ** 2 + f[None, :] ** 2) / (2 * 0.02**2))
+    stack = torch.fft.ifft2(torch.fft.fft2(noise) * lowpass)
+    return (stack / torch.abs(stack).amax()).to(torch.complex64)
+
+
+def phase_align(device, card: str) -> dict:
+    """19c: alignment at full width, ALIGN_IMAGES projections of ALIGN_N^2
+    complex64 made on the card from seed 0, every kernel count set to 0
+    before the first call and read after the last: (1) ``align.simulate``
+    with a random smooth flow (filter size 5, so m = 2), random shifts of
+    up to ALIGN_SHIFT px and a rotation of ALIGN_ANGLE rad; (2)
+    ``align.invert`` of its result; (3) ``align.reconstruct(...,
+    "cross_correlation", upsample_factor=ALIGN_UPSAMPLE)`` on the stack
+    shifted alone, every shift found within ALIGN_SHIFT_TOL px; (4) the
+    operator's adjoint (``ops.alignment.alignment_adj``, what a solver of
+    one's own takes) at the same shift, flow and angle, held by adjointness
+    against (1). Each call's seconds (numpy in and out for the entry
+    points), and the Lanczos launches of each."""
+    gen = np.random.default_rng(0)
+    stack = align_stack(device, ALIGN_IMAGES, ALIGN_N)
+    flow = cases_interp.smooth_flow(gen, ALIGN_IMAGES, ALIGN_N, device)
+    shifts = gen.uniform(-ALIGN_SHIFT, ALIGN_SHIFT, (ALIGN_IMAGES, 2)).astype(np.float32)
+    torch.cuda.synchronize()
+    calls = {}
+    _reset_launches()
+
+    def timed(name, fn):
+        before = {k: interp.LAUNCHES[k] for k in INTERP_KERNELS}
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls[name] = dict(
+            seconds=time.perf_counter() - start,
+            launches={k: interp.LAUNCHES[k] - before[k] for k in INTERP_KERNELS},
+        )
+        return out
+
+    kw = dict(shift=shifts, flow=flow, angle=ALIGN_ANGLE, device=device)
+    unaligned = timed("simulate", lambda: talign.simulate(stack, padded_shape=None, **kw))
+    back = timed("invert", lambda: talign.invert(unaligned, unpadded_shape=None, **kw))
+    shifted = talign.simulate(stack, shift=shifts, flow=None, padded_shape=None, angle=None,
+                              device=device)
+    found = timed("reconstruct (cross_correlation)", lambda: talign.reconstruct(
+        original=stack, unaligned=shifted, algorithm="cross_correlation",
+        upsample_factor=ALIGN_UPSAMPLE, device=device,
+    ))
+    y = torch.as_tensor(unaligned, device=device)
+    aty = timed("alignment_adj", lambda: ops_alignment.alignment_adj(
+        y, flow=flow, shift=torch.as_tensor(shifts, device=device), unpadded_shape=None,
+        angle=ALIGN_ANGLE,
+    ))
+    launches = _read_launches("align")
+    shape = (ALIGN_IMAGES, ALIGN_N, ALIGN_N)
+    for name, value in (("simulate", unaligned), ("invert", back), ("shifted", shifted)):
+        if value.shape != shape or value.dtype != np.complex64 or not np.all(np.isfinite(value)):
+            raise AssertionError(f"align: {name} is not a finite complex64 {shape} array")
+    err = float(np.max(np.abs(found["shift"] - shifts)))
+    if found["shift"].shape != shifts.shape or not err <= ALIGN_SHIFT_TOL:
+        raise AssertionError(f"align: cross_correlation missed a shift by {err:.4f} px")
+    a = cases_interp.inner(y, y)
+    b = cases_interp.inner(stack, aty)
+    gap = abs(a - b) / abs(a)
+    if not gap <= cases_interp.ADJOINT_TOL:
+        raise AssertionError(f"align: <A x, A x> and <x, A* A x> differ by {gap:.3e}")
+    for name in INTERP_KERNELS:
+        if not launches[name] > 0:
+            raise AssertionError(f"align launched no {name} kernel: {launches}")
+    inner = (slice(None), slice(ALIGN_N // 4, 3 * ALIGN_N // 4), slice(ALIGN_N // 4, 3 * ALIGN_N // 4))
+    x = stack.cpu().numpy()
+    back_err = float(np.linalg.norm(back[inner] - x[inner]) / np.linalg.norm(x[inner]))
+    for name, c in calls.items():
+        log(f"[align] {name} of {shape} complex64: {c['seconds']:.3f} s, Lanczos launches "
+            f"{c['launches']} ({card})")
+    log(f"[align] cross_correlation at upsample {ALIGN_UPSAMPLE}: max|shift - truth| "
+        f"{err:.4f} px (tol {ALIGN_SHIFT_TOL:g}) over {ALIGN_IMAGES} images of shifts up to "
+        f"{ALIGN_SHIFT:g} px")
+    log(f"[align] invert(simulate(x)) against x in the central half: relative error "
+        f"{back_err:.3e} (the inverse of the flow and the rotation is approximate); adjointness "
+        f"of the operator {gap:.2e} (tol {cases_interp.ADJOINT_TOL:g})")
+    log("[align] farneback is not run on the card: it is OpenCV on the host, and the card's "
+        "machine has no cv2")
+    return launches
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -2446,6 +2875,14 @@ def main() -> None:
     launches_bucket = phase_bucket(device, card)
     launches_multigrid = phase_multigrid(device, scan, psi, probe, card)
     phase_ptycho_rest(device, scan, psi, probe, card)
+    phase_multislice_slice(device)
+    launches_multislice = phase_multislice(device, scan, probe, card)
+    lanczos_timings = phase_lanczos_parity(device, card)
+    phase_align_golden(device, card)
+    launches_align = phase_align(device, card)
+    later = lambda name: dict(
+        launches_multislice=launches_multislice[name], launches_align=launches_align[name]
+    )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [
         {
@@ -2467,6 +2904,7 @@ def main() -> None:
             "bound_ms_admm_shape": path_shape_timings[admm_shape][name]["bound_ms"],
             "ms_stream_batch": path_shape_timings[stream_shape][name]["ms"],
             "bound_ms_stream_batch": path_shape_timings[stream_shape][name]["bound_ms"],
+            **later(name),
             **timings[name],
         }
         for name in KERNELS
@@ -2482,6 +2920,7 @@ def main() -> None:
             "launches_admm": launches_admm[name],
             "launches_stream": launches_stream[name],
             "launches_bucket": launches_bucket[name],
+            **later(name),
             **timings[name],
         }
         for name in USFFT_KERNELS
@@ -2495,6 +2934,7 @@ def main() -> None:
             "launches_admm": launches_admm[f"probe_{name}"],
             "launches_stream": launches_stream[f"probe_{name}"],
             "launches_bucket": launches_bucket[f"probe_{name}"],
+            **later(f"probe_{name}"),
             **probe_timings[name],
         }
         for name in PROBE_KERNELS
@@ -2508,9 +2948,21 @@ def main() -> None:
             "launches_bucket": launches_bucket[name],
             "launches_admm": launches_admm[name],
             "launches_stream": launches_stream[name],
+            **later(name),
             **bucket_timings[name],
         }
         for name in BUCKET_KERNELS
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/interp.cu",
+            "replaces": INTERP_KERNELS[name],
+            "launches": launches_align[name],
+            **later(name),
+            **lanczos_timings[name],
+        }
+        for name in INTERP_KERNELS
     ]
     log(env["nvidia_smi"])
     log(json.dumps({"kernels": report}))

@@ -15,7 +15,10 @@ import sys
 
 import pytest
 
-NAMESPACES = ["", ".ptycho", ".ptycho.solvers", ".lamino", ".lamino.solvers", ".ops"]
+NAMESPACES = [
+    "", ".ptycho", ".ptycho.solvers", ".lamino", ".lamino.solvers", ".ops", ".align",
+    ".align.solvers",
+]
 
 # Not ported yet, by namespace (ROADMAP.md queue 1).
 NOT_PORTED = {
@@ -34,12 +37,11 @@ NOT_PORTED = {
     ".lamino": set(),
     ".lamino.solvers": set(),
     ".ops": {
-        # Multislice (queue 1 item 1): its propagators and operator.
-        "fresnel_spectrum_propagator", "fresnel_fwd", "fresnel_adj", "multislice_fwd",
-        "ptycho_fwd_with_probes", "ptycho_adj",
         # Host leftovers (queue 1 item 3).
         "patch_fwd_padded",
     },
+    ".align": set(),
+    ".align.solvers": set(),
 }
 
 # Not to be ported: module-level imports that tike_tpu.ptycho's star

@@ -193,7 +193,8 @@ def test_import_leaves_jax_out():
         "tike_tpu_torch.lamino.solvers, tike_tpu_torch.toolchain_probe, "
         "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, tike_tpu_torch.admm, "
         "tike_tpu_torch.constants, tike_tpu_torch.ptycho.stream, tike_tpu_torch.ops.bucket, "
-        "tike_tpu_torch.lamino.bucket, tike_tpu_torch.checkpoint, chip_smoke; "
+        "tike_tpu_torch.lamino.bucket, tike_tpu_torch.checkpoint, tike_tpu_torch.align, "
+        "tike_tpu_torch.align.solvers, tike_tpu_torch.ops.interp, chip_smoke; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu')); "
         "assert not bad, bad"

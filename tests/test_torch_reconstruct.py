@@ -260,7 +260,9 @@ def test_device_tensor_data_matches_host_data(slice_data):
 def _unported(scan, probe, psi0):
     """What the port refused before the per-epoch path of ``iterate`` and host
     streaming were ported (the first five, which now run), and what it
-    still refuses (the last two)."""
+    still refuses (the last two): a multislice object with LSQML, which the
+    JAX package refuses too (``ValueError``, its message), and an unknown
+    rescale method."""
     yield "convergence_window", dict(
         algorithm_options=tp.LstsqOptions(convergence_window=4)
     )
@@ -288,7 +290,9 @@ _NOW_RUNNING = {0: False, 1: True, 2: True, 3: True, 4: True}
 
 @pytest.mark.parametrize("which", range(7))
 def test_unported_options_raise(slice_data, which):
-    """Cases 5 and 6 raise by name. Cases 0 to 4, refused until the
+    """Cases 5 and 6 raise by name (case 5, LSQML on a multislice object,
+    the JAX package's ValueError "LSQML is single-slice ... use rpie for
+    multislice objects"). Cases 0 to 4, refused until the
     per-epoch path and host streaming were ported, construct, run two
     epochs on the path the JAX package takes for them and lower the cost."""
     scan, _, probe, psi0, data = slice_data
@@ -311,7 +315,8 @@ def test_unported_options_raise(slice_data, which):
         random_seed=0,
     )
     if which not in _NOW_RUNNING:
-        with pytest.raises(NotImplementedError, match=match):
+        error = ValueError if match == "multislice" else NotImplementedError
+        with pytest.raises(error, match=match):
             make()
         return
     with make() as context:

@@ -4,6 +4,11 @@ The two packages share their parameter model: the same attribute names,
 the same option dataclass fields and the same array layouts. These helpers
 copy one into the other so that tests can start both from the same state.
 They read attributes only and never import ``tike_tpu`` or ``jax``.
+:func:`parameters_from_jax` carries a multislice psi of any depth and the
+propagation options (``ProbeOptions.probe_wavelength`` and
+``probe_FOV_lengths``, ``ObjectOptions.multislice_propagation_distance``).
+Alignment needs no converter: its inputs (images, shifts, flows, angles)
+are plain numpy arrays that either package's ``align`` takes as they are.
 """
 
 from __future__ import annotations

@@ -73,6 +73,14 @@ SIGNATURES = {
         # angles, n, precision, weight, pitch, window_cells, stream)
         "tike_bucket_adj": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 2 + [_PTR], _INT),
     },
+    "interp": {
+        # (image, points, out, images, npoints, h, w, m, shared_points,
+        # channels, cval_re, cval_im, stream)
+        "tike_lanczos_fwd": ([_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_FLOAT] * 2 + [_PTR], _INT),
+        # (values, points, grid (zeroed), images, npoints, h, w, m,
+        # shared_points, channels, stream)
+        "tike_lanczos_adj": ([_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_PTR], _INT),
+    },
     # The Bucket kernels' first form, a yardstick no path runs.
     "bucket_first_form": {
         # (u, grid or NULL, table (T x 8), planes, voxels, angles, n,

@@ -62,6 +62,8 @@ CLASSES = (
     ("patch_adj_kernel (ours)", ("patch_adj_kernel",)),
     ("bucket_fwd_kernel (ours)", ("bucket_fwd",)),
     ("bucket_adj_kernel (ours)", ("bucket_adj",)),
+    ("lanczos_fwd_kernel (ours)", ("lanczos_fwd",)),
+    ("lanczos_adj_kernel (ours)", ("lanczos_adj",)),
     ("copies from the host (memcpy HtoD)", ("memcpy htod",)),
     ("cuFFT", ("fft",)),
     ("sort, index, cat, memset, memcpy", ("sort", "index", "cat", "memset", "memcpy")),

@@ -9,8 +9,11 @@ stays on that device for the whole reconstruction, or, with
 ``store_data_on_device=False``, in pinned host memory from which each
 batch is copied in while the batch before computes (:mod:`.stream`).
 
-Ported: what the JAX package's single-device ``iterate`` runs for one object
-slice. That is rPIE (``RpieOptions``) and LSQML (``LstsqOptions``) with any
+Ported: what the JAX package's single-device ``iterate`` runs. That is
+rPIE (``RpieOptions``), for one object slice or several (multislice, with
+``ObjectOptions.multislice_propagation_distance``,
+``ProbeOptions.probe_wavelength`` and ``probe_FOV_lengths``), and LSQML
+(``LstsqOptions``), which is single-slice as in the JAX package, with any
 batch method (compact batches in order, the others in a permutation drawn
 per epoch), any number of shared probe modes, eigen probes and weights
 (OPR), position correction for LSQML, the per-epoch probe and object
@@ -121,10 +124,13 @@ def simulate_device(
 ) -> torch.Tensor:
     """:func:`simulate`, but the intensities stay on ``device``.
 
-    probe (1, 1, S, P, P), scan (N, 2) and psi (1, H, W), and optionally
+    probe (1, 1, S, P, P), scan (N, 2) and psi (D, H, W), and optionally
     eigen_probe (1, EIGEN, S', P, P) and eigen_weights (N, EIGEN+1, S), as
-    arrays or tensors. Returns an (N // fly, detector, detector) float32
-    tensor on ``device`` (the CUDA card unless the caller asks for another),
+    arrays or tensors; ``kwargs`` may hold ``probe_wavelength``,
+    ``probe_FOV_lengths`` and ``multislice_propagation_distance``, which
+    propagate the wave between the D slices. Returns an (N // fly,
+    detector, detector) float32 tensor on ``device`` (the CUDA card unless
+    the caller asks for another),
     which :class:`Reconstruction` takes as it is: per probe mode, the
     varying probe's far-field intensity, summed over modes and, in a fly
     scan, over each group of ``fly`` consecutive positions (the frames of
@@ -234,9 +240,18 @@ def _unsupported(
         f"rescale_method {algo.rescale_method!r}": (
             algo.rescale_method not in _RESCALE_METHODS
         ),
-        "multislice objects": parameters.psi.shape[0] != 1,
     }
     return [k for k, on in checks.items() if on]
+
+
+def _check_single_slice_lstsq(parameters: PtychoParameters) -> None:
+    """LSQML is single-slice in the JAX package, which asserts so; the
+    port raises ValueError with its message."""
+    if parameters.algorithm_options.name == "lstsq_grad" and parameters.psi.shape[0] != 1:
+        raise ValueError(
+            "LSQML is single-slice (like the reference); use rpie for "
+            "multislice objects"
+        )
 
 
 def _per_epoch_reasons(parameters: PtychoParameters, streamed: bool) -> typing.List[str]:
@@ -300,7 +315,9 @@ class Reconstruction:
     The parameters before ``device`` are the JAX package's, in its order.
     Of those, what is not ported raises ``NotImplementedError``: ``num_gpu``
     other than 1 or ``(1,)``, ``use_mpi``, a ``mesh`` and
-    ``object_sharding="striped"``. ``device`` is keyword-only.
+    ``object_sharding="striped"``. LSQML with more than one object slice
+    raises ``ValueError``, as the JAX package refuses it. ``device`` is
+    keyword-only.
     """
 
     def __init__(
@@ -349,6 +366,7 @@ class Reconstruction:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
             )
+        _check_single_slice_lstsq(parameters)
         self.device = _resolve_device(
             device, data=data, **_parameter_tensors(parameters)
         )
@@ -370,6 +388,7 @@ class Reconstruction:
         self.data_host = data
         self.parameters_host = copy.deepcopy(parameters)
         probe_options = parameters.probe_options
+        object_options = parameters.object_options
         self.operator = PtychoConfig(
             probe_shape=parameters.probe.shape[-1],
             detector_shape=data.shape[-1],
@@ -385,6 +404,11 @@ class Reconstruction:
                 tuple(probe_options.probe_FOV_lengths)
                 if probe_options is not None
                 else (1e-6, 1e-6)
+            ),
+            multislice_propagation_distance=(
+                object_options.multislice_propagation_distance
+                if object_options is not None
+                else 1e-9
             ),
         )
         self._rng = np.random.default_rng(random_seed)
@@ -488,8 +512,9 @@ class Reconstruction:
 
     def _make_plan(self, per_epoch: bool = False) -> EpochPlan:
         """The static configuration of an epoch. On the per-epoch path, as
-        in the JAX package, the preconditioners always take the FFT
-        formulation, rPIE leaves the positions alone, and eigen probes are
+        in the JAX package, the preconditioners of one object slice always
+        take the FFT formulation (several slices take the gather one on
+        either path), rPIE leaves the positions alone, and eigen probes are
         constrained on probe-recovery epochs."""
         p = self.parameters
         popts = p.probe_options
@@ -546,12 +571,15 @@ class Reconstruction:
             ),
             rescale_period=algo.rescale_period,
             alpha=float(getattr(algo, "alpha", 0.05)),
-            fft_precond=per_epoch
-            or _preconditioner.fft_precond_profitable(
-                n_positions=p.scan.shape[0],
-                probe_shape=self.operator.probe_shape,
-                nz=self.operator.nz,
-                n=self.operator.n,
+            fft_precond=self.operator.nslices == 1
+            and (
+                per_epoch
+                or _preconditioner.fft_precond_profitable(
+                    n_positions=p.scan.shape[0],
+                    probe_shape=self.operator.probe_shape,
+                    nz=self.operator.nz,
+                    n=self.operator.n,
+                )
             ),
             has_eigen=p.eigen_weights is not None,
             obj_moment=obj_moment,
@@ -971,6 +999,7 @@ def reconstruct_multigrid(
     missing = _unsupported(parameters, num_gpu, use_mpi, mesh, object_sharding)
     if missing:
         raise NotImplementedError("not ported to tike_tpu_torch yet: " + "; ".join(missing))
+    _check_single_slice_lstsq(parameters)
     interp = _resize_fft if interp is None else interp
     if (data.shape[-1] * 0.5 ** (num_levels - 1)) < 64:
         warnings.warn(

@@ -1,18 +1,21 @@
-"""Object and probe preconditioners (single slice).
+"""Object and probe preconditioners.
 
-Counterpart of :mod:`tike_tpu.ptycho.solvers._preconditioner`:
+Counterpart of :mod:`tike_tpu.ptycho.solvers._preconditioner`, per slice:
 
-- psi preconditioner = sum over positions of |probe|^2 added into the
-  object frame at each position;
+- psi preconditioner = sum over positions of |illumination|^2 added into
+  the object frame at each position: the probe at slice 0, and at slice i
+  the probe propagated through slices 0 to i - 1;
 - probe preconditioner = sum over positions of |object patch|^2.
 
 Each has two exact formulations, as in the JAX package: a gather one that
 runs the patch operators per position (``_psi_precond_math``,
-``_probe_precond_math``), and an FFT one that scatters bilinear point
-densities at integer pixels and convolves/correlates them with full-object
-fields (``_psi_precond_fft_math``, ``_probe_precond_fft_math``).
+``_probe_precond_math``), for any number of slices, and an FFT one for a
+single slice that scatters bilinear point densities at integer pixels and
+convolves/correlates them with full-object fields
+(``_psi_precond_fft_math``, ``_probe_precond_fft_math``).
 :func:`fft_precond_profitable` picks between them with the JAX package's
-own rule, so both packages take the same formulation.
+own rule, so both packages take the same formulation; multislice objects
+take the gather one, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,37 +24,55 @@ import numpy as np
 import torch
 
 from ...ops.patch import patch_adj, patch_fwd
-from ...ops.ptycho import PtychoConfig, _require_single_slice
+from ...ops.propagation import fresnel_fwd
+from ...ops.ptycho import PtychoConfig
 
 # The (8, 128) tile the JAX gather formulation works in; only the cost
 # model below reads it.
 _SUB, _LANE = 8, 128
 
 
+def _require_single_slice(cfg: PtychoConfig) -> None:
+    """The FFT formulation is for one slice, as in the JAX package, whose
+    epochs take it only then."""
+    if cfg.nslices != 1:
+        raise ValueError(
+            "the FFT formulation of the preconditioners is single-slice; "
+            f"nslices={cfg.nslices} takes the gather one"
+        )
+
+
 def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
-    """Return (1, H, W) float32 sum of |illumination|^2 at each pixel.
+    """Return (D, H, W) float32 sum of |illumination|^2 at each pixel.
 
     ``mask`` (N,) optionally zeroes padded batch slots.
     """
-    _require_single_slice(cfg)
-    n = scan.shape[0]
+    n, p = scan.shape[0], cfg.probe_shape
     w = torch.ones(n, device=scan.device) if mask is None else mask
     probe_amp = torch.sum((probe[0, 0] * probe[0, 0].conj()).real, dim=0)
-    return patch_adj(
-        (probe_amp[None] * w[:, None, None]).contiguous(),
-        scan,
-        (cfg.nz, cfg.n),
-    )[None]
+    slices = [
+        patch_adj((probe_amp[None] * w[:, None, None]).contiguous(), scan, (cfg.nz, cfg.n))
+    ]
+    prop = cfg.propagator(psi.device)
+    probe1 = probe[0, 0].expand(n, probe.shape[-3], p, p)
+    for i in range(1, cfg.nslices):
+        patches = patch_fwd(psi[i - 1], scan, p)
+        probe1 = fresnel_fwd(patches[:, None] * probe1, prop)
+        amp = torch.sum((probe1 * probe1.conj()).real, dim=1)  # (N, P, P)
+        slices.append(patch_adj(amp * w[:, None, None], scan, (cfg.nz, cfg.n)))
+    return torch.stack(slices)
 
 
 def _probe_precond_math(cfg: PtychoConfig, psi, scan, mask=None):
-    """Return (1, P, P) float32 sum of |object patches|^2."""
-    _require_single_slice(cfg)
+    """Return (D, P, P) float32 sum of |object patches|^2, per slice."""
     w = torch.ones(scan.shape[0], device=scan.device) if mask is None else mask
-    patches = patch_fwd(psi[0], scan, cfg.probe_shape)
-    return torch.sum(
-        (patches * patches.conj()).real * w[:, None, None], dim=0
-    )[None]
+    slices = []
+    for i in range(cfg.nslices):
+        patches = patch_fwd(psi[i], scan, cfg.probe_shape)
+        slices.append(
+            torch.sum((patches * patches.conj()).real * w[:, None, None], dim=0)
+        )
+    return torch.stack(slices)
 
 
 def fft_precond_profitable(

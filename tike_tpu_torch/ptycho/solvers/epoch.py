@@ -74,7 +74,8 @@ class EpochPlan:
     rescale_period: int
     solver: str = "lstsq"  # 'lstsq' | 'rpie'
     compact: bool = True
-    # FFT-formulation preconditioners (exact; see _preconditioner.py)
+    # FFT-formulation preconditioners (exact; see _preconditioner.py), for
+    # one object slice only
     fft_precond: bool = False
     # eigen weights (and perhaps eigen probes) are part of the state
     has_eigen: bool = False
@@ -214,8 +215,8 @@ def _epoch_begin_math(
     constrained on probe-recovery epochs (into ``state``), as the JAX
     package's per-epoch loop does after its probe constraints.
 
-    Returns ``(pwr (modes,), psi_pre (1, H, W), probe_pre (1, P, P) or
-    None)``. As in ``fused.py``, ``pwr`` is the power of the constrained
+    Returns ``(pwr (modes,), psi_pre (D, H, W), probe_pre (D, P, P) or
+    None)``, one preconditioner per object slice. As in ``fused.py``, ``pwr`` is the power of the constrained
     probe even on epochs where the constraints are not applied, so the
     constraints run whenever the probe is recovered. Only rPIE reads the
     probe preconditioner; the LSQML epoch does not compute it.
@@ -245,7 +246,9 @@ def _epoch_begin_math(
 
     psi, scan = state.psi, state.scan
     want_probe_pre = plan.solver == "rpie" and plan.recover_probe
-    psi_pre = torch.zeros((1, cfg.nz, cfg.n), dtype=torch.float32, device=psi.device)
+    psi_pre = torch.zeros(
+        (cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=psi.device
+    )
     probe_pre = None
     if plan.fft_precond:
         w_all = torch.zeros(scan.shape[0], dtype=torch.float32, device=psi.device)
@@ -257,7 +260,7 @@ def _epoch_begin_math(
         return pwr, psi_pre, probe_pre
     if want_probe_pre:
         probe_pre = torch.zeros(
-            (1, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
+            (cfg.nslices, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
             device=psi.device,
         )
     for idx, bmask in zip(batch_idx, batch_mask):
@@ -584,7 +587,9 @@ def _epoch_math(
         sums.psi = torch.zeros_like(state.psi)
         if plan.solver == "rpie":
             sums.probe = torch.zeros(
-                (1, *state.probe.shape), dtype=state.probe.dtype, device=state.probe.device
+                (state.psi.shape[0], *state.probe.shape),
+                dtype=state.probe.dtype,
+                device=state.probe.device,
             )
     if plan.recover_positions:
         sums.pos_num = torch.zeros_like(state.scan)

@@ -3,9 +3,11 @@
 Counterpart of :mod:`tike_tpu.ptycho.solvers.rpie` (Maiden & Rodenburg
 2009, Ultramicroscopy 109; Maiden, Johnson, Li 2017, Optica 4): one
 batch's forward model, exitwave step (Gaussian or Poisson) and the
-backpropagated object and probe numerators, for one object slice. How the
-numerators become steps (per batch, or summed over the epoch in compact
-mode) is the epoch's business (``epoch.py``).
+backpropagated object and probe numerators, for each object slice: with
+D > 1 slices the exit-wave difference is propagated back from the last
+slice to the first by the adjoint Fresnel propagator. How the numerators
+become steps (per batch, or summed over the epoch in compact mode) is the
+epoch's business (``epoch.py``).
 """
 
 from __future__ import annotations
@@ -15,13 +17,12 @@ import torch
 from ... import linalg
 from ...ops.objective import ELEMENTWISE, GRAD
 from ...ops.patch import patch_adj, patch_fwd
-from ...ops.propagation import propagation_adj, propagation_fwd
+from ...ops.propagation import fresnel_adj, propagation_adj
 from ...ops.ptycho import (
     PtychoConfig,
     _crop_from_detector,
-    _pad_to_detector,
-    _require_single_slice,
     intensity_from_farplane,
+    ptycho_fwd_with_probes,
 )
 from ..exitwave import (
     poisson_steplength_all_modes,
@@ -54,14 +55,14 @@ def _batch_gradients_math(
 
     data_b (B, DET, DET) is the batch's data; idx (B,) indexes the full
     scan and eigen weights; bmask (B,) zeroes padded slots. Returns
-    ``(costs (B,), psi_num (1, H, W), probe_num (1, 1, 1, M, P, P),
+    ``(costs (B,), psi_num (D, H, W), probe_num (D, 1, 1, M, P, P),
     eigen_delta (B,) or None)``; ``eigen_delta`` is the change of each
-    position's shared-component weight of mode 0, 0 in padded slots.
+    position's shared-component weight of mode 0, 0 in padded slots, from
+    slice 0's windows and the difference propagated back to slice 0.
 
     The object windows are gathered again for the probe numerator, as the
     JAX package does by default, rather than kept from the forward model.
     """
-    _require_single_slice(cfg)
     nmodes = probe.shape[-3]
     p = cfg.probe_shape
     scan_b = scan[idx]
@@ -71,10 +72,9 @@ def _batch_gradients_math(
     else:
         unique_probe = probe[:, 0]  # (1, M, P, P)
 
-    patches = patch_fwd(psi[0], scan_b, p)
-    farplane = propagation_fwd(
-        _pad_to_detector(patches[:, None] * unique_probe, cfg)
-    )  # (B, M, DET, DET)
+    farplane, slice_probes = ptycho_fwd_with_probes(
+        cfg, psi, scan_b, unique_probe
+    )  # (B, M, DET, DET), (D, B, M, P, P)
     intensity = intensity_from_farplane(farplane)
 
     costs = _masked_mean_each_pattern(
@@ -119,12 +119,19 @@ def _batch_gradients_math(
     diff = _crop_from_detector(propagation_adj(chi), cfg)  # (B, M, P, P)
     diff = diff * bmask[:, None, None, None]
 
-    grad_psi = torch.sum(torch.conj(unique_probe) * diff, dim=1) / nmodes
-    psi_num = patch_adj(grad_psi, scan_b, (cfg.nz, cfg.n))[None]
-    patches = patch_fwd(psi[0], scan_b, p)
-    probe_num = torch.sum(torch.conj(patches)[:, None] * diff, dim=0)[
-        None, None, None
-    ]  # (1, 1, 1, M, P, P)
+    # From the last slice back to the first; the loop ends with slice 0's
+    # windows in ``patches`` and its difference in ``diff``.
+    psi_num, probe_num = [], []
+    prop = cfg.propagator(psi.device)
+    for tt in range(cfg.nslices - 1, -1, -1):
+        grad_psi = torch.sum(torch.conj(slice_probes[tt]) * diff, dim=1) / nmodes
+        psi_num.append(patch_adj(grad_psi, scan_b, (cfg.nz, cfg.n)))
+        patches = patch_fwd(psi[tt], scan_b, p)
+        probe_num.append(torch.sum(torch.conj(patches)[:, None] * diff, dim=0))
+        if tt > 0:
+            diff = fresnel_adj(diff, prop)
+    psi_num = torch.stack(psi_num[::-1])  # (D, H, W)
+    probe_num = torch.stack(probe_num[::-1])[:, None, None]  # (D, 1, 1, M, P, P)
 
     eigen_delta = None
     if recover_probe and eigen_weights is not None:
