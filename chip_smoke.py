@@ -12,7 +12,8 @@ without printing the final ``ok`` line:
 1. environment: torch, CUDA, card, power limit and nvcc versions;
 2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu``,
    ``probe.cu``, ``bucket.cu``, ``bucket_first_form.cu`` (the Bucket
-   kernels' first form, a yardstick) and ``interp.cu`` for sm_90a, and ``probe.cu`` with its
+   kernels' first form, a yardstick), ``interp.cu`` and
+   ``interp_first_form.cu`` (the Lanczos kernels' first form) for sm_90a, and ``probe.cu`` with its
    gridded and prefetch kernels in their parent's form
    (``kernel_sweep.parent_form``), one nvcc each, all started together;
 3. kernel parity at the main path's shapes (1500^2 complex object, 1,000
@@ -185,9 +186,11 @@ After phase 17, multislice ptychography and alignment:
     ``tests/_torch_interp_cases.py`` (m 0, 1, 2, 5, 11; complex and real; a
     complex cval; points outside, on the edges and on integers; shared
     points) and at 128 x 1024^2 (the flow warp's and the rotation's points)
-    and 1 x 128^2, then timed in CUDA graphs in turns with their plain
-    versions and bicubic ``grid_sample`` (its input gradient for the
-    adjoint), beside their bounds; (b) ``align.simulate`` of the golden
+    and 1 x 128^2, there also against their first form
+    (``csrc/interp_first_form.cu``) with the adjoint's fallback warps
+    counted, then timed in CUDA graphs in turns with their first form,
+    their plain versions and bicubic ``grid_sample`` (its input gradient
+    for the adjoint), beside their bounds; (b) ``align.simulate`` of the golden
     dataset (``tests/data/algin_setup.pickle.lzma``) at atol 1e-6; (c) at
     128 x 1024^2 complex64: ``simulate`` with a smooth flow, shifts of up to
     8 px and a 0.05 rad rotation, ``invert``, ``reconstruct`` by
@@ -205,7 +208,11 @@ their points, the sum of the out-of-window counter's readings
 (``outside_windows``), their first form's time
 ``parent_form_ms`` and their bound pipe by pipe (``bound_fp32_ms``,
 ``bound_floors_ms``, ``bound_bytes_ms``) beside the first count's
-``bound_ms_first_count``, at the full-width and ``_golden`` shapes; its
+``bound_ms_first_count``, at the full-width and ``_golden`` shapes; the
+Lanczos kernels' first form's times ``first_form_ms`` (``_rotate``,
+``_golden``), the forward's time at m = 11 on the flow's points
+``ms_m11`` and the adjoint's fallback warps ``fallback_warps`` (the same
+suffixes); its
 launches in phase 6 as
 ``launches``, in phase 7 as ``launches_config2`` and in phase 8 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
@@ -325,7 +332,8 @@ INTERP_KERNELS = {
     "lanczos_fwd": "tike_tpu/ops/interp.py:36",
     "lanczos_adj": "tike_tpu/ops/interp.py:71",
 }
-SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form", "interp")
+# So are the Lanczos kernels' (csrc/interp_first_form.cu) in phase 19a.
+SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form", "interp", "interp_first_form")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -2629,18 +2637,20 @@ def phase_multislice(device, scan, probe, card: str) -> dict:
 
 
 def _lanczos_calls(images, points, values, m=2) -> dict:
-    """Each Lanczos kernel, its plain version and its library yardstick on
-    one set of inputs."""
+    """Each Lanczos kernel, its first form, its plain version and its
+    library yardstick on one set of inputs."""
     h, w = images.shape[-2:]
     library = cases_interp.grid_sample_calls(images, points, values)
     return {
         "lanczos_fwd": dict(
             kernel=lambda: interp.remap_lanczos_fwd_cuda(images, points, m),
+            first_form=lambda: cases_interp.first_form_fwd(images, points, m),
             plain=lambda: interp.remap_lanczos_fwd_plain(images, points, m),
             library=library["lanczos_fwd"],
         ),
         "lanczos_adj": dict(
             kernel=lambda: interp.remap_lanczos_adj_cuda(values, points, m, (h, w)),
+            first_form=lambda: cases_interp.first_form_adj(values, points, m, (h, w)),
             plain=lambda: interp.remap_lanczos_adj_plain(values, points, m, (h, w)),
             library=library["lanczos_adj"],
         ),
@@ -2649,7 +2659,7 @@ def _lanczos_calls(images, points, values, m=2) -> dict:
 
 # Calls a CUDA graph captures per timing of each: the plain versions at full
 # width take a tenth of a second and gigabytes of temporaries each.
-LANCZOS_GRAPH_REPS = dict(kernel=20, plain=2, library=5)
+LANCZOS_GRAPH_REPS = dict(kernel=20, first_form=20, plain=2, library=5)
 
 
 def phase_lanczos_parity(device, card: str) -> dict:
@@ -2658,9 +2668,11 @@ def phase_lanczos_parity(device, card: str) -> dict:
     2, 5, 11; complex and real; a complex cval; points outside, on the edges
     and on integers; the rotation's shared points), at the paths' full
     width (128 x 1024^2: the flow warp's points and the rotation's, m = 2)
-    and at the golden dataset's 128^2; then each kernel, its plain version
-    and ``grid_sample`` (its input gradient for the adjoint) in CUDA
-    graphs, in turns, at those three shapes, beside the kernel's bound."""
+    and at the golden dataset's 128^2, there also against their first form
+    (``csrc/interp_first_form.cu``) with the adjoint's fallback warps
+    counted; then each kernel, its first form, its plain version and
+    ``grid_sample`` (its input gradient for the adjoint) in CUDA graphs, in
+    turns, at those three shapes, beside the kernel's bound."""
     errs = {name: 0.0 for name in INTERP_KERNELS}
     gap = 0.0
 
@@ -2685,11 +2697,27 @@ def phase_lanczos_parity(device, card: str) -> dict:
         "rotate": (full["images"], full["rotate"], values),
         "golden": (golden["images"], golden["flow"], golden["images"].reshape(1, -1)),
     }
+    fallback = {}
     for key, (images, points, vals) in shapes.items():
+        interp.reset_fallback_warps(device)
         check(images, points, vals, 2, 0.0, f"{tuple(images.shape)} {key} points, m = 2")
-
+        suffix = "" if key == "flow" else f"_{key}"
+        fallback[f"fallback_warps{suffix}"] = interp.fallback_warps(device)
+        calls = _lanczos_calls(images, points, vals)
+        for name, tol in (("lanczos_fwd", cases_interp.FWD_TOL),
+                          ("lanczos_adj", cases_interp.ADJ_TOL)):
+            err, rel = cases_interp._max_rel(calls[name]["kernel"](), calls[name]["first_form"]())
+            log(f"[lanczos] {name} {tuple(images.shape)} {key} points against its first form: "
+                f"max|err| {err:.3e} ({rel:.2e} of the largest value; tol {tol:g})")
+            if not rel <= tol:
+                raise AssertionError(f"{name} {key}: {rel:.3e} from its first form")
+        log(f"[lanczos] lanczos_adj {tuple(images.shape)} {key} points: "
+            f"{fallback[f'fallback_warps{suffix}']} of "
+            f"{images.shape[0] * -(-points.shape[-2] // 32)} warps added tap by tap (their "
+            f"windows' box did not fit the warp's buffer)")
     out = {name: dict(max_abs_err=errs[name], adjointness=gap, library=lib, card=card,
-                      deterministic=name == "lanczos_fwd")
+                      deterministic=name == "lanczos_fwd",
+                      **(fallback if name == "lanczos_adj" else {}))
            for name, lib in (("lanczos_fwd", "torch.nn.functional.grid_sample (bicubic)"),
                              ("lanczos_adj", "grid_sampler_2d_backward (bicubic input grad)"))}
     for key, (images, points, vals) in shapes.items():
@@ -2704,6 +2732,7 @@ def phase_lanczos_parity(device, card: str) -> dict:
             suffix = "" if key == "flow" else f"_{key}"
             out[name].update({
                 f"ms{suffix}": ms["kernel"],
+                f"first_form_ms{suffix}": ms["first_form"],
                 f"plain_ms{suffix}": ms["plain"],
                 f"library_ms{suffix}": ms["library"],
                 f"bound_ms{suffix}": bound["bound_ms"],
@@ -2713,12 +2742,24 @@ def phase_lanczos_parity(device, card: str) -> dict:
                 f"roofline_share{suffix}": bound["bound_ms"] / ms["kernel"],
             })
             log(f"[lanczos] {name} {tuple(images.shape)} {key} points: kernel "
-                f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library {ms['library']:.4f} "
+                f"{ms['kernel']:.4f} ms, first form {ms['first_form']:.4f} ms, plain "
+                f"{ms['plain']:.4f} ms, library {ms['library']:.4f} "
                 f"ms (CUDA graphs, in turns); bound {bound['bound_ms']:.4f} ms by "
                 f"{bound['bound_by']} ({bound['bound_bytes']} bytes at "
                 f"{interp.HBM_BYTES_PER_S:g} B/s, {bound['bound_fp32']} FP32 at "
                 f"{interp.FP32_PER_S:g}/s), {100 * bound['bound_ms'] / ms['kernel']:.1f}% of it "
                 f"({card})")
+            if key != "golden" and not ms["kernel"] <= ms["first_form"]:
+                raise AssertionError(
+                    f"{name} {key}: {ms['kernel']:.4f} ms, slower than its first form's "
+                    f"{ms['first_form']:.4f} ms")
+    # A flow's filter_size of 22 (m = 11) runs m = 2's 4 x 4 window.
+    images, points, _ = shapes["flow"]
+    out["lanczos_fwd"]["ms_m11"] = graph_ms_per_call(
+        lambda: interp.remap_lanczos_fwd_cuda(images, points, 11))
+    log(f"[lanczos] lanczos_fwd {tuple(images.shape)} flow points at m = 11: "
+        f"{out['lanczos_fwd']['ms_m11']:.4f} ms (m = 2: {out['lanczos_fwd']['ms']:.4f} ms; "
+        f"{card})")
     return out
 
 

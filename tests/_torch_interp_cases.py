@@ -14,6 +14,11 @@ order, but with the card's ``sinf`` and fused multiply-adds, so the two
 differ by a few float32 roundings (``FWD_TOL``); the adjoint's float
 atomics add each grid value's taps in no fixed order (``ADJ_TOL``).
 Adjointness <fwd(x), y> = <x, adj(y)> holds to ``ADJOINT_TOL`` relative.
+
+``sine_pair_weights``, ``window_fwd`` and ``window_adj`` write out in
+plain PyTorch what the kernels compute: the window that half-width m
+reduces to (``interp.window``: every m >= 2 is m = 2's 4 x 4 taps), with
+weights from one sine pair an axis.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tike_tpu_torch import kernels
 from tike_tpu_torch.ops import interp
 
 FWD_TOL = 1e-5
@@ -134,6 +140,82 @@ def full_width_inputs(device, images: int = FULL_IMAGES, n: int = FULL_N, seed: 
     )
 
 
+def sine_pair_weights(f: torch.Tensor, offsets) -> torch.Tensor:
+    """(..., len(offsets)) float32 Lanczos weights at fractions f in [0, 1]
+    (float32) as ``csrc/interp.cu`` computes them: s, c = sin, cos(pi f /
+    2) (``sincospif``, correctly rounded here through float64), then in
+    float32 (4 / pi^2) s c times c for odd offsets and s for even ones,
+    signed (-, +, +, -) for offsets -1, 0, 1, 2, over d^2, d = f - o; 1
+    where |d| < 1e-12."""
+    half = (0.5 * f.to(torch.float64)) * np.pi
+    s = torch.sin(half).to(torch.float32)
+    c = torch.cos(half).to(torch.float32)
+    sc = torch.tensor(4 / np.pi**2, dtype=torch.float32) * s * c
+    odd, even = sc * c, sc * s
+    numerators = {-1: -odd, 0: even, 1: odd, 2: -even}
+    out = []
+    for o in offsets:
+        d = f - torch.tensor(float(o), dtype=torch.float32)
+        out.append(torch.where(torch.abs(d) < 1e-12, 1.0, numerators[o] / (d * d)))
+    return torch.stack(out, -1)
+
+
+def _window_taps(x: torch.Tensor, m: int):
+    """(first row, first column, wy, wx) of every point's window: the
+    origins (..., ) int64 and the weights (..., K)."""
+    k, lo = interp.window(m)
+    fl = torch.floor(x)
+    frac = x - fl
+    offsets = range(lo, lo + k)
+    return (
+        fl[..., 0].to(torch.int64) + lo,
+        fl[..., 1].to(torch.int64) + lo,
+        sine_pair_weights(frac[..., 0], offsets),
+        sine_pair_weights(frac[..., 1], offsets),
+    )
+
+
+def window_fwd(images: torch.Tensor, points: torch.Tensor, m: int, cval=0.0) -> torch.Tensor:
+    """The forward kernel's sum in plain PyTorch: images (I, H, W), points
+    (I, N, 2) or (N, 2); each point's window summed row by row, sum_i wy[i]
+    (sum_j wx[j] v[i, j]), taps outside the grid reading cval."""
+    i, h, w = images.shape
+    pts = points if points.dim() == 3 else points[None].expand(i, -1, -1)
+    row0, col0, wy, wx = _window_taps(pts, m)
+    k = wy.shape[-1]
+    flat = images.reshape(i, h * w)
+    acc = torch.zeros(pts.shape[:-1], dtype=images.dtype)
+    for a in range(k):
+        line = torch.zeros_like(acc)
+        for b in range(k):
+            row, col = row0 + a, col0 + b
+            inside = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+            idx = (row.clamp(0, h - 1) * w + col.clamp(0, w - 1))
+            v = torch.where(inside, torch.gather(flat, 1, idx), torch.tensor(cval, dtype=images.dtype))
+            line = line + wx[..., b] * v
+        acc = acc + wy[..., a] * line
+    return acc
+
+
+def window_adj(values: torch.Tensor, points: torch.Tensor, m: int, grid_shape) -> torch.Tensor:
+    """The adjoint kernels' taps in plain PyTorch: values (I, N) spread
+    onto (I, H, W) grids, wx[j] (wy[i] v) a tap, taps outside dropped."""
+    h, w = grid_shape
+    i = values.shape[0]
+    pts = points if points.dim() == 3 else points[None].expand(i, -1, -1)
+    row0, col0, wy, wx = _window_taps(pts, m)
+    k = wy.shape[-1]
+    grid = torch.zeros((i, h * w), dtype=values.dtype)
+    for a in range(k):
+        rv = wy[..., a] * values
+        for b in range(k):
+            row, col = row0 + a, col0 + b
+            inside = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+            idx = (row.clamp(0, h - 1) * w + col.clamp(0, w - 1))
+            grid.scatter_add_(1, idx, torch.where(inside, wx[..., b] * rv, 0))
+    return grid.reshape(i, h, w)
+
+
 def _max_rel(got, want) -> tuple:
     err = float(torch.max(torch.abs(got - want))) if want.numel() else 0.0
     scale = float(torch.max(torch.abs(want))) if want.numel() else 1.0
@@ -177,6 +259,38 @@ def check_lanczos_kernels(images, points, values, m, cval, label="") -> dict:
         raise AssertionError(f"{label}: adjointness gap {gap:.3e} (tol {ADJOINT_TOL:g})")
     out["adjointness"] = gap if values.numel() else 0.0
     return out
+
+
+def first_form_fwd(images, points, m: int, cval=0.0):
+    """The forward of ``csrc/interp_first_form.cu`` (the kernels before
+    their redesign, a yardstick) on (I, H, W) images: (I, N)."""
+    i, h, w = images.shape
+    out = torch.empty((i, points.shape[-2]), dtype=images.dtype, device=images.device)
+    cval = complex(cval)
+    rc = kernels.load("interp_first_form").tike_lanczos_first_form_fwd(
+        images.data_ptr(), points.data_ptr(), out.data_ptr(), i, points.shape[-2], h, w, m,
+        int(points.dim() == 2), 2 if images.is_complex() else 1, cval.real, cval.imag,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"lanczos first form fwd: CUDA error {rc}")
+    return out
+
+
+def first_form_adj(values, points, m: int, grid_shape):
+    """The adjoint of ``csrc/interp_first_form.cu`` on (I, N) values: (I,
+    H, W)."""
+    h, w = grid_shape
+    i, n = values.shape
+    grid = torch.zeros((i, h, w), dtype=values.dtype, device=values.device)
+    rc = kernels.load("interp_first_form").tike_lanczos_first_form_adj(
+        values.data_ptr(), points.data_ptr(), grid.data_ptr(), i, n, h, w, m,
+        int(points.dim() == 2), 2 if values.is_complex() else 1,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"lanczos first form adj: CUDA error {rc}")
+    return grid
 
 
 def grid_sample_calls(images, points, values):

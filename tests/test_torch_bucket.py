@@ -392,6 +392,19 @@ def test_kernel_source_matches_the_wrappers_constants():
     assert f"constexpr int kParamOffsets = {tb.PARAM_OFFSETS};" in source
 
 
+def test_outside_count_reads_cuda_as_the_current_card(monkeypatch):
+    """The count is filed under the card with its index, so ``cuda`` reads
+    (and resets) the current card's count and not an empty entry. A CPU
+    tensor stands in for the card's slot."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    slot = torch.tensor([3], dtype=torch.int64)
+    monkeypatch.setitem(tb.OUTSIDE._tensors, torch.device("cuda", 0), slot)
+    assert tb.OUTSIDE.tensor("cuda") is slot
+    assert tb.outside_windows("cuda") == tb.outside_windows("cuda:0") == 3
+    tb.reset_outside_windows("cuda")
+    assert tb.outside_windows("cuda:0") == 0
+
+
 def test_kernel_source_rounds_each_operation():
     """The kernels round each multiply and add on its own (nvcc would fuse
     them into FMAs, which moves points across cell edges) and the entry

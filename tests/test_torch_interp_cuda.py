@@ -56,6 +56,42 @@ def test_kernels_match_plain_at_the_paths_shapes(card):
         cases.check_lanczos_kernels(full["images"], full[key], values, 2, 0.0, label=key)
 
 
+def test_kernels_match_the_first_form_at_the_paths_shapes(card):
+    """The redesigned kernels against their first form
+    (``csrc/interp_first_form.cu``) at 128 x 1024^2, m = 2, flow and
+    rotation points; no adjoint warp of either falls back to tap-by-tap
+    atomics."""
+    full = cases.full_width_inputs(card)
+    values = full["images"].reshape(cases.FULL_IMAGES, -1)
+    shape = full["images"].shape[-2:]
+    for key in ("flow", "rotate"):
+        points = full[key]
+        interp.reset_fallback_warps(card)
+        for got, want, tol in (
+            (interp.remap_lanczos_fwd_cuda(full["images"], points, 2),
+             cases.first_form_fwd(full["images"], points, 2), cases.FWD_TOL),
+            (interp.remap_lanczos_adj_cuda(values, points, 2, shape),
+             cases.first_form_adj(values, points, 2, shape), cases.ADJ_TOL),
+        ):
+            err, rel = cases._max_rel(got, want)
+            assert rel <= tol, (key, err, rel)
+        assert interp.fallback_warps(card) == 0, key
+
+
+def test_adjoint_falls_back_where_a_warp_spreads(card):
+    """Points scattered at random over the grid: every warp's windows span
+    more than its buffer, so each adds tap by tap, is counted, and the
+    result still matches the plain version."""
+    images, points, values, m, _ = cases.case_inputs("m2 complex, cval", card)
+    h, w = images.shape[-2:]
+    interp.reset_fallback_warps(card)
+    got = interp.remap_lanczos_adj_cuda(values, points, m, (h, w))
+    warps = images.shape[0] * -(-points.shape[-2] // 32)
+    assert interp.fallback_warps(card) == warps
+    err, rel = cases._max_rel(got, interp.remap_lanczos_adj_plain(values, points, m, (h, w)))
+    assert rel <= cases.ADJ_TOL, (err, rel)
+
+
 def test_launches_are_counted_and_refusals_raise(card):
     images, points, values, m, cval = cases.case_inputs("m1 complex", card)
     before = dict(interp.LAUNCHES)

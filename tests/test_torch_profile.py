@@ -58,6 +58,7 @@ def test_device_breakdown_counts_overlap_once():
         (["--config", "bucket"], "bucket"),
         (["--config", "admm"], "admm"),
         (["--config", "stream"], "stream"),
+        (["--config", "align"], "align"),
     ],
 )
 def test_parse_args_picks_the_configuration(argv, config):

@@ -6,7 +6,7 @@ with a few text substitutions (a tuning constant, a load instruction, a
 loop), built by its own ``nvcc`` (as many at once as the host has cores, a
 few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe|bucket] [--variants FILE] [--parent FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe|bucket|interp] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -50,6 +50,21 @@ kernels are timed in a CUDA graph of 3 launches in three rounds, at
 bench_all.py's 128^3, 64 angles, precision 3 and at the golden 64^3, 58
 angles, precision 1.
 
+``--source interp``, ``csrc/interp.cu``: the weights from two accurate
+``sinf`` each (the first form's) besides one sine pair an axis, and their
+quotients by ``__fdividef`` besides the approximate reciprocal; the
+adjoint's warp-aggregated windows with other buffers, and tap by tap (the
+first form's atomics on the 4 x 4 window, and one counter atomic a warp);
+and, to see where the time goes, a forward that reads one tap a row and an
+adjoint that adds nothing to the grid, which compute something else and
+are timed all the same (``interp_variants``). Each variant's kernels must
+lie within the tolerances of ``tests/_torch_interp_cases.py`` of the plain
+versions; then both are timed in CUDA graphs in three rounds beside the
+first form (``csrc/interp_first_form.cu``), at ``chip_smoke.py`` phase
+19a's shapes: 128 x 1024^2 with the flow's and the rotation's points, and
+the golden 128^2, m = 2, and at a rotation by 0.5 rad, where every adjoint
+warp falls back to adding tap by tap.
+
 ``FILE`` holds a Python literal ``{name: [(old, new), ...]}``; every ``old``
 must occur in the source. Without it the default variants run: the choices
 the source's header comment reports as measured.
@@ -78,6 +93,7 @@ from .ops import usfft
 SOURCE = os.path.join(kernels.CSRC, "usfft.cu")
 PROBE_SOURCE = os.path.join(kernels.CSRC, "probe.cu")
 BUCKET_SOURCE = os.path.join(kernels.CSRC, "bucket.cu")
+INTERP_SOURCE = os.path.join(kernels.CSRC, "interp.cu")
 
 VARIANTS = {
     "as it stands": [],
@@ -502,10 +518,98 @@ def _sweep_bucket(libs: dict, device) -> None:
             print(f"{case}: {tag:36s} {line}", flush=True)
 
 
+def interp_variants(source: str) -> dict:
+    """The default variants of ``csrc/interp.cu`` (``source``)."""
+    return {
+        "as it stands": [],
+        "weights from accurate sinf": [_constant(source, "kSinePair", False)],
+        "weights' quotients by __fdividef": [(
+            "const float w = num * reciprocal(d * d);", "const float w = __fdividef(num, d * d);",
+        )],
+        "adjoint tap by tap": [_constant(source, "kWarpAggregate", False)],
+        "adjoint buffer 6 x 40": [_constant(source, "kBufRows", 6)],
+        "adjoint buffer 8 x 64": [_constant(source, "kBufCols", 64)],
+        # Where the time goes (time only).
+        "forward, one tap read a row (time only)": [(
+            "        v = __ldg(line + j);\n", "        v = __ldg(line);\n",
+        )],
+        "adjoint, nothing added to the grid (time only)": [(
+            "if (col >= 0 && col < w && nonzero(sum)) atomic_add(line + col, sum);",
+            "if (col == -12345 && nonzero(sum)) atomic_add(line + col, sum);",
+        )],
+    }
+
+
+def _sweep_interp(libs: dict, device) -> None:
+    """Each variant through ``ops.interp``'s own wrappers, with the
+    variant's library in place of the built one."""
+    from tests import _torch_interp_cases as cases
+
+    from .ops import interp
+
+    full = cases.full_width_inputs(device)
+    golden = cases.full_width_inputs(device, images=1, n=cases.GOLDEN_N, seed=1)
+    shapes = {
+        "flow 128 x 1024^2": (full["images"], full["flow"]),
+        "rotation 128 x 1024^2": (full["images"], full["rotate"]),
+        "golden 1 x 128^2": (golden["images"], golden["flow"]),
+        # Every warp's windows span more rows than the adjoint's buffer.
+        "rotation by 0.5 rad, 128 x 1024^2": (
+            full["images"], cases.rotate_points(cases.FULL_N, 0.5, device).contiguous()
+        ),
+    }
+    for case, (images, points) in shapes.items():
+        shape = tuple(images.shape[-2:])
+        values = images.reshape(images.shape[0], -1)
+        want_fwd = interp.remap_lanczos_fwd_plain(images, points, 2)
+        want_adj = interp.remap_lanczos_adj_plain(values, points, 2, shape)
+        calls = {
+            "fwd": lambda: interp.remap_lanczos_fwd_cuda(images, points, 2),
+            "adj": lambda: interp.remap_lanczos_adj_cuda(values, points, 2, shape),
+        }
+        first = {
+            "fwd": lambda: cases.first_form_fwd(images, points, 2),
+            "adj": lambda: cases.first_form_adj(values, points, 2, shape),
+        }
+        order = []
+        for tag, lib in libs.items():
+            with loaded("interp", lib):
+                interp.reset_fallback_warps(device)
+                errs = {
+                    name: cases._max_rel(fn(), want_fwd if name == "fwd" else want_adj)[1]
+                    for name, fn in calls.items()
+                }
+                fallback = interp.fallback_warps(device)
+            right = errs["fwd"] <= cases.FWD_TOL and errs["adj"] <= cases.ADJ_TOL
+            if right or "(time only)" in tag:
+                order.append(tag)
+            print(f"{case}: {tag}: {'right' if right else 'WRONG'} (max|err| / max|value|: "
+                  + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                  + f"; adjoint fallback warps {fallback})", flush=True)
+        order.append("first form")
+        times = {tag: {name: [] for name in calls} for tag in order}
+        for turn in (order, order[::-1], order):
+            for tag in turn:
+                if tag == "first form":
+                    for name, fn in first.items():
+                        times[tag][name].append(graph_ms(fn, reps=5))
+                    continue
+                with loaded("interp", libs[tag]):
+                    for name, fn in calls.items():
+                        times[tag][name].append(graph_ms(fn, reps=5))
+        for tag in order:
+            line = "; ".join(
+                f"{name} " + ", ".join(f"{t:.4f}" for t in ts) + f" ms (median {statistics.median(ts):.4f})"
+                for name, ts in times[tag].items()
+            )
+            print(f"{case}: {tag:44s} {line}", flush=True)
+
+
 SWEEPS = {
     "usfft": (SOURCE, _sweep_usfft),
     "probe": (PROBE_SOURCE, _sweep_probe),
     "bucket": (BUCKET_SOURCE, _sweep_bucket),
+    "interp": (INTERP_SOURCE, _sweep_interp),
 }
 
 
@@ -520,7 +624,7 @@ def main(argv=None) -> None:
     with open(path) as f:
         source = f.read()
     variants = {"usfft": lambda s: VARIANTS, "probe": probe_variants,
-                "bucket": bucket_variants}[args.source](source)
+                "bucket": bucket_variants, "interp": interp_variants}[args.source](source)
     if args.variants:
         with open(args.variants) as f:
             variants = {"as it stands": [], **ast.literal_eval(f.read())}

@@ -7,6 +7,7 @@ into a shared library with a plain C interface, then loaded with
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused within a checkout. A missing ``nvcc`` or a failed build raises.
 :func:`build_all` starts one ``nvcc`` per source, all together.
+:class:`CardCounter` keeps the counts that kernels add to on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -77,9 +80,20 @@ SIGNATURES = {
         # (image, points, out, images, npoints, h, w, m, shared_points,
         # channels, cval_re, cval_im, stream)
         "tike_lanczos_fwd": ([_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_FLOAT] * 2 + [_PTR], _INT),
+        # (values, points, grid (zeroed), fallback count, images, npoints, h,
+        # w, m, shared_points, channels, stream)
+        "tike_lanczos_adj": ([_PTR] * 4 + [_INT, _LL] + [_INT] * 5 + [_PTR], _INT),
+    },
+    # The Lanczos kernels' first form, a yardstick no path runs.
+    "interp_first_form": {
+        # (image, points, out, images, npoints, h, w, m, shared_points,
+        # channels, cval_re, cval_im, stream)
+        "tike_lanczos_first_form_fwd": (
+            [_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_FLOAT] * 2 + [_PTR], _INT
+        ),
         # (values, points, grid (zeroed), images, npoints, h, w, m,
         # shared_points, channels, stream)
-        "tike_lanczos_adj": ([_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_PTR], _INT),
+        "tike_lanczos_first_form_adj": ([_PTR] * 3 + [_INT, _LL] + [_INT] * 5 + [_PTR], _INT),
     },
     # The Bucket kernels' first form, a yardstick no path runs.
     "bucket_first_form": {
@@ -185,3 +199,43 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = restype
     _LOADED[name] = lib
     return lib
+
+
+class CardCounter:
+    """A count that kernels keep on the card: ``slots`` int64 per CUDA
+    device, which the kernels add to as unsigned 64-bit integers (spread
+    over several slots so that warps do not all add to one address) and
+    which read as their sum. A device named ``cuda`` without an index is the
+    current one, as for a tensor made there."""
+
+    def __init__(self, slots: int = 1):
+        self.slots = slots
+        self._tensors: dict[torch.device, torch.Tensor] = {}
+
+    @staticmethod
+    def device_key(device) -> torch.device:
+        """``device`` as the counter files it: with its index filled in."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+
+    def tensor(self, device) -> torch.Tensor:
+        """The slots on ``device`` for a kernel to add to, made at first use."""
+        key = self.device_key(device)
+        counter = self._tensors.get(key)
+        if counter is None:
+            counter = self._tensors[key] = torch.zeros(self.slots, dtype=torch.int64, device=key)
+        return counter
+
+    def read(self, device) -> int:
+        """The count on ``device`` since its last :meth:`reset`, 0 where no
+        kernel has added to it. Waits for the card."""
+        counter = self._tensors.get(self.device_key(device))
+        return 0 if counter is None else int(counter.sum().item())
+
+    def reset(self, device) -> None:
+        """Set the count on ``device`` to 0."""
+        counter = self._tensors.get(self.device_key(device))
+        if counter is not None:
+            counter.zero_()

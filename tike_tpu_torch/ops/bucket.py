@@ -310,16 +310,8 @@ def _raise_on_error(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-_OUTSIDE: dict = {}
-
-
-def _outside_counter(device: torch.device) -> torch.Tensor:
-    """The card's count of points that fell outside their tile's window, one
-    int64 (the kernels add to it as an unsigned 64-bit integer)."""
-    counter = _OUTSIDE.get(device)
-    if counter is None:
-        counter = _OUTSIDE[device] = torch.zeros(1, dtype=torch.int64, device=device)
-    return counter
+OUTSIDE = kernels.CardCounter()
+"""The card's count of points that fell outside their tile's window."""
 
 
 def outside_windows(device) -> int:
@@ -327,15 +319,12 @@ def outside_windows(device) -> int:
     their tile's window since the last :func:`reset_outside_windows`, over
     all launches. Each still reached its cell through global memory; a
     nonzero count means the window extents are wrong. Waits for the card."""
-    counter = _OUTSIDE.get(torch.device(device))
-    return 0 if counter is None else int(counter.item())
+    return OUTSIDE.read(device)
 
 
 def reset_outside_windows(device) -> None:
     """Set the card's count of :func:`outside_windows` to 0."""
-    counter = _OUTSIDE.get(torch.device(device))
-    if counter is not None:
-        counter.zero_()
+    OUTSIDE.reset(device)
 
 
 def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device):
@@ -363,7 +352,7 @@ def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig
     trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, device)
     rows, pitch = window_limits(cfg)
     offsets = bucket_offsets(cfg.precision)
-    counter = _outside_counter(device)
+    counter = OUTSIDE.tensor(device)
     lib = kernels.load("bucket")
     with torch.cuda.device(device):
         rc = getattr(lib, f"tike_{name}")(

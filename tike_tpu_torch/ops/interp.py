@@ -18,7 +18,9 @@ Each operator has two implementations:
   order, with its 1e-12 guards, a gather (or an ``index_add_``) per tap;
 - hand-written CUDA kernels (``csrc/interp.cu``, ``remap_lanczos_fwd_cuda``,
   ``remap_lanczos_adj_cuda``), the counterparts of the original tike's
-  ``interp.cu`` kernels, which the JAX package wrote as XLA code.
+  ``interp.cu`` kernels, which the JAX package wrote as XLA code. They
+  compute the window that half-width m reduces to (:func:`window`: every
+  m >= 2 is m = 2's 4 x 4 taps), with weights from one sine pair an axis.
 
 ``remap_lanczos_fwd`` and ``remap_lanczos_adj`` dispatch on the device of
 the tensors they are given: CPU tensors take the plain version, CUDA
@@ -43,10 +45,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 132 * 128 * 1.98e9
 """float32 instructions a second on the H100's FP32 pipe (132 SMs, 128 a
 clock, 1.98 GHz); each rounded operation is one instruction."""
-WEIGHT_FP32 = 9
-"""float32 operations of one Lanczos weight: the distance, times pi, the
-half, two sines, two products, the square and the quotient; each sine
-counted as one instruction, the least it could take."""
+AXIS_FP32 = 8
+"""float32 operations of one axis's sine pair: the floor, the fraction, its
+half, the sine and the cosine (each counted as one instruction, the least
+it could take) and three products."""
+TAP_FP32 = 3
+"""float32 operations of one weight from its axis's sine pair: the
+distance, its square and the quotient."""
 
 _DTYPES = (torch.complex64, torch.float32)
 
@@ -58,6 +63,14 @@ def _lanczos_weight(d: torch.Tensor, nlobes: float = 2.0) -> torch.Tensor:
     w = nlobes * torch.sin(safe) * torch.sin(safe / nlobes) / (safe * safe)
     w = torch.where(torch.abs(d) < 1e-12, 1.0, w)
     return torch.where(torch.abs(d) <= nlobes, w, 0.0)
+
+
+def window(m: int) -> typing.Tuple[int, int]:
+    """(K, lo): the kernels' window of half-width m, the K taps a side at
+    offsets lo .. lo + K - 1 from floor(c). The 2-lobe window is 0 beyond
+    |d| > 2, so every m >= 2 weighs only m = 2's offsets -1 .. 2 (the offset
+    -2 is inside only at a fraction of 0, where its weight is 0)."""
+    return (1, 0) if m == 0 else (3, -1) if m == 1 else (4, -1)
 
 
 def _offsets(m: int):
@@ -193,10 +206,32 @@ def remap_lanczos_fwd_cuda(Fe: torch.Tensor, x: torch.Tensor, m: int, cval=0.0):
     return out[0] if Fe.dim() == 2 else out
 
 
+FALLBACK_SLOTS = 256
+"""``csrc/interp.cu``'s ``kFallbackSlots``: the int64 slots over which the
+adjoint spreads its count of fallback warps."""
+FALLBACK = kernels.CardCounter(FALLBACK_SLOTS)
+"""The card's count of adjoint warps whose windows did not fit their
+buffer."""
+
+
+def fallback_warps(device) -> int:
+    """Warps of the adjoint kernel on the card ``device`` that added tap by
+    tap to the grid (their windows' box did not fit the warp's buffer) since
+    the last :func:`reset_fallback_warps`, over all launches. Waits for the
+    card."""
+    return FALLBACK.read(device)
+
+
+def reset_fallback_warps(device) -> None:
+    """Set the card's count of :func:`fallback_warps` to 0."""
+    FALLBACK.reset(device)
+
+
 def remap_lanczos_adj_cuda(points: torch.Tensor, x: torch.Tensor, m: int, grid_shape):
-    """Launch ``csrc/interp.cu``'s adjoint kernel onto zeroed grids, one
-    launch for every image. Its float atomics add in no fixed order, so
-    the last bits vary from run to run."""
+    """Launch ``csrc/interp.cu``'s adjoint kernel (each warp's windows
+    summed in shared memory, one atomic a touched cell) onto zeroed
+    grids, one launch for every image. Its float atomics add in no fixed
+    order, so the last bits vary from run to run."""
     _check("values", points, (1, 2))
     images = 1 if points.dim() == 1 else points.shape[0]
     n, shared = _check_points(x, images, points.device)
@@ -205,11 +240,13 @@ def remap_lanczos_adj_cuda(points: torch.Tensor, x: torch.Tensor, m: int, grid_s
     m = _check_m(m)
     h, w = (int(s) for s in grid_shape)
     grid = torch.zeros((images, h, w), dtype=points.dtype, device=points.device)
+    counter = FALLBACK.tensor(points.device)
     lib = kernels.load("interp")
     with torch.cuda.device(points.device):
         rc = lib.tike_lanczos_adj(
-            points.data_ptr(), x.data_ptr(), grid.data_ptr(), images, n, h, w, m, shared,
-            2 if points.is_complex() else 1, torch.cuda.current_stream().cuda_stream,
+            points.data_ptr(), x.data_ptr(), grid.data_ptr(), counter.data_ptr(), images, n,
+            h, w, m, shared, 2 if points.is_complex() else 1,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("lanczos_adj", rc)
     LAUNCHES["lanczos_adj"] += 1
@@ -248,12 +285,13 @@ def roofline(kernel: str, images: int, npoints: int, h: int, w: int, m: int,
     """The least time the H100 could take for one launch of ``kernel``
     (``lanczos_fwd`` or ``lanczos_adj``): the larger of the bytes (the
     images read or the grids written once, the values written or read once,
-    the points read once) at 3.35 TB/s and the float32 instructions on the
-    FP32 pipe: 2(2m+1) weights of :data:`WEIGHT_FP32` a point, and, the
-    weights being separable, the taps summed row by row (forward: a row's
-    sum of wx[j] v, then wy[i] times it; adjoint: wy[i] v once a row, then
-    wx[j] times it a tap), one multiply(-add) a channel each: (2m+1)^2 +
-    (2m+1) a channel."""
+    the points read once) at 3.35 TB/s and the least float32 instructions on
+    the FP32 pipe for the window half-width m reduces to (:func:`window`, K
+    taps a side): one sine pair an axis (:data:`AXIS_FP32`) and K weights
+    from it (:data:`TAP_FP32` each), and, the weights being separable, the
+    taps summed row by row (forward: a row's sum of wx[j] v, then wy[i]
+    times it; adjoint: wy[i] v once a row, then wx[j] times it a tap), one
+    multiply(-add) a channel each: K^2 + K a channel."""
     item = 8 if complex_values else 4
     channels = 2 if complex_values else 1
     nbytes = (
@@ -261,8 +299,10 @@ def roofline(kernel: str, images: int, npoints: int, h: int, w: int, m: int,
         + item * images * npoints
         + 8 * npoints * (1 if shared_points else images)
     )
-    taps = 2 * m + 1
-    fp32 = images * npoints * (WEIGHT_FP32 * 2 * taps + (taps * taps + taps) * channels)
+    taps = window(m)[0]
+    fp32 = images * npoints * (
+        2 * (AXIS_FP32 + TAP_FP32 * taps) + (taps * taps + taps) * channels
+    )
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * fp32 / FP32_PER_S
     return dict(

@@ -36,7 +36,12 @@ stream`` it builds the host-streamed comparison problem (100,000 patterns
 of 64^2 in pinned host memory, a 4096^2 object, rPIE, 10 random batches),
 runs one epoch and traces the next; the copies from the host (the
 streamed batches, on the copy stream) are a class of their own, and the copy stream's busy time and the compute stream's wait
-on it are printed beside the table.
+on it are printed beside the table. With ``--config align`` it makes
+``chip_smoke.py`` phase 19c's stack (128 projections of 1024^2 complex64
+on the card, a smooth flow, shifts of up to 8 px, a 0.05 rad rotation),
+calls ``align.simulate`` once to warm up and traces the next call, numpy
+out. Every configuration also prints the device time of the copies to the
+host (memcpy DtoH), which the table counts with memsets and copies.
 
 The chrome trace goes to PATH (by default
 ``tike_tpu_torch/_build/epoch_trace_<config>.json``, which git ignores). Every time printed stands beside the card's name and
@@ -106,12 +111,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--config",
         choices=(
-            "main", "config2", "rpie", "lamino_cgrad", "lamino_cgls", "bucket", "admm", "stream"
+            "main", "config2", "rpie", "lamino_cgrad", "lamino_cgls", "bucket", "admm", "stream",
+            "align",
         ),
         default="main",
         help="the main path (one probe mode), BASELINE config 2, rPIE, "
-        "laminography with cgrad, CGLS or the Bucket operator, joint ADMM, or a "
-        "host-streamed epoch",
+        "laminography with cgrad, CGLS or the Bucket operator, joint ADMM, a "
+        "host-streamed epoch, or one align.simulate",
     )
     parser.add_argument(
         "--trace",
@@ -274,6 +280,28 @@ def _profile_stream(cs, config, card, device):
     return prof, wall, lambda: context.__exit__(None, None, None)
 
 
+def _profile_align(cs, config, card, device):
+    """Trace one ``align.simulate`` of phase 19c's stack (flow, shifts and
+    rotation; numpy out) after one that warms up; returns (profiler, wall
+    seconds, what to close)."""
+    from tike_tpu_torch import align
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = np.random.default_rng(0)
+    stack = cs.align_stack(device, cs.ALIGN_IMAGES, cs.ALIGN_N)
+    flow = cs.cases_interp.smooth_flow(gen, cs.ALIGN_IMAGES, cs.ALIGN_N, device)
+    shifts = gen.uniform(-cs.ALIGN_SHIFT, cs.ALIGN_SHIFT, (cs.ALIGN_IMAGES, 2)).astype(np.float32)
+    kw = dict(shift=shifts, flow=flow, angle=cs.ALIGN_ANGLE, padded_shape=None, device=device)
+    align.simulate(stack, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        align.simulate(stack, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return prof, wall, lambda: None
+
+
 def main() -> None:
     import chip_smoke as cs
 
@@ -283,7 +311,8 @@ def main() -> None:
     card = cs.nvidia_smi_line()
     print("card:", card, "config:", args.config)
     device = torch.device("cuda", 0)
-    profilers = {"admm": _profile_admm, "bucket": _profile_bucket, "stream": _profile_stream}
+    profilers = {"admm": _profile_admm, "bucket": _profile_bucket, "stream": _profile_stream,
+                 "align": _profile_align}
     profiler = profilers.get(
         args.config, _profile_lamino if args.config.startswith("lamino") else _profile_ptycho
     )
@@ -295,12 +324,16 @@ def main() -> None:
     b = device_breakdown(events, wall * 1e6)
     device_us = sum(v[0] for v in b["classes"].values())
     print(
-        f"profiled {'epoch' if profiler in (_profile_ptycho, _profile_stream) else 'iteration'}: "
+        f"profiled {'epoch' if profiler in (_profile_ptycho, _profile_stream) else 'call' if profiler is _profile_align else 'iteration'}: "
         f"wall {wall * 1e3:.2f} ms, device busy "
         f"{b['busy_us'] / 1e3:.2f} ms ({100 * b['busy_us'] / b['wall_us']:.1f}%), "
         f"idle {100 * (1 - b['busy_us'] / b['wall_us']):.1f}%, "
         f"{b['activities']} device activities ({card})"
     )
+    to_host = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+               and "dtoh" in e["name"].lower()]
+    print(f"copies to the host (memcpy DtoH): {sum(to_host) / 1e3:.3f} ms in {len(to_host)} "
+          f"({100 * sum(to_host) / max(device_us, 1e-9):.1f}% of device time; {card})")
     print("| Kernel class | Device ms | Launches | Share of device time |")
     print("|---|---|---|---|")
     for name, (us, n) in sorted(b["classes"].items(), key=lambda kv: -kv[1][0]):
