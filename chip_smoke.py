@@ -199,6 +199,31 @@ After phase 17, multislice ptychography and alignment:
     counts set to 0 before and read after; Farneback is not run (OpenCV on
     the host; the card's machine has no ``cv2``).
 
+After phase 19, the rest of the public API by hand:
+
+20. (a) a zone-plate start: ``fresnel.single_probe`` at 128^2 with the
+    optics of the original tike's fresnel test, 3 Hermite modes, their
+    powers set by ``adjust_probe_power`` on the card (against the CPU),
+    ``MW_probe`` at 3 energies (modes sorted by power) and
+    ``simulate_varying_weights``; (b) the reference's per-epoch loop
+    written by hand at the main path's configuration (phase 6's scan,
+    object and probe, data simulated on the card, one compact clustering
+    of the 10,000 positions into 10 batches, timed on the host, the probe
+    rescaled to the data as ``Reconstruction``'s set-up does): 1 + 3 epochs of
+    ``update_preconditioners`` then ``solvers.lstsq_grad``, then 1 + 3 of
+    ``update_preconditioners`` then ``solvers.rpie`` on the same batches,
+    each solver's kernel counts set to 0 before its 3 timed epochs and read
+    after; costs finite and decreasing, both patch kernels launched, each
+    solver's s/epoch beside phase 6's ``iterate``; (c) the same loop at
+    phase 5's small size, card against CPU at phase 5's tolerance (LSQML
+    with compact batches, batch-major data and position correction; rPIE
+    with wobbly-center batches and flat data); (d) ``remove_object_ambiguity``
+    of (b)'s LSQML object, ``learn.extract_patches`` at all 10,000 positions
+    of the 1500^2 object against ``patch_fwd_plain`` on the card,
+    ``patch_fwd_padded`` to 256^2, the Fourier patch pair's adjointness
+    and its plain path on 1,000 windows on the card, and
+    ``get_absorbtion_image`` of the 10,000 patterns (a host time).
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
@@ -218,8 +243,9 @@ launches in phase 6 as
 ``launches_rpie``; the KB kernels' in phase 11's cgrad as ``launches`` and
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
 probes' in phase 12, the Lanczos kernels' in phase 19c; every kernel's
-launches in phase 18b's timed run as ``launches_multislice`` and in 19c as
-``launches_align``); its error against the plain version, its time, the
+launches in phase 18b's timed run as ``launches_multislice``, in 19c as
+``launches_align`` and in phase 20b's timed epochs of both solvers as
+``launches_api``); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic; each probe's launch floor ``floor_ms``, for gridded and
@@ -255,11 +281,15 @@ from tests import _torch_interp_cases as cases_interp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
-from tike_tpu_torch import checkpoint, kernel_sweep, kernels, opt, profile_epoch, toolchain_probe
+from tike_tpu_torch import (
+    checkpoint, cluster, kernel_sweep, kernels, linalg, opt, profile_epoch, toolchain_probe,
+)
 from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import alignment as ops_alignment
-from tike_tpu_torch.ops import bucket, interp, patch, usfft
+from tike_tpu_torch.ops import bucket, interp, patch, shift, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
+from tike_tpu_torch.ops.ptycho import PtychoConfig
+from tike_tpu_torch.ptycho import learn
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
 # object, LSQML, num_batch=10, compact batches).
@@ -408,6 +438,16 @@ ALIGN_GOLDEN_ATOL = 1e-6
 # The rest of ptycho (phase 17): multigrid at the main path's configuration,
 # MULTIGRID_EPOCHS epochs at each of 3 levels (32^2, 64^2, 128^2 patterns).
 MULTIGRID_LEVELS, MULTIGRID_EPOCHS = 3, 2
+# The public API by hand (phase 20): the zone plate and optics of the
+# original tike's fresnel test (10 keV, 20 nm pixels, 800 um defocus);
+# adjust_probe_power on the card against the CPU, relative to the largest
+# value; the windows of patch_fwd_padded and of the Fourier patch pair, the
+# padded width, and the pair's adjointness gap (float32 values, sums in
+# double precision).
+API_OPTICS = dict(lambda0=1.24e-9 / 10, dx=20e-9, dis_defocus=800e-6, zone_plate_params="velo")
+API_POWER_TOL = 1e-6
+API_WINDOWS, API_PADDED = 1000, 256
+API_ADJOINT_TOL = 1e-5
 
 
 def log(*args):
@@ -1048,9 +1088,23 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
                 epoch_s=epoch_s, costs=costs, breakdown=breakdown, plan=plan, fused=fused)
 
 
-def phase_main_path(device, scan, psi, probe, card: str) -> dict:
+def phase_main_path(device, scan, psi, probe, card: str):
+    """The main path, and one more epoch traced after the timed ones;
+    returns its kernel counts, its s/epoch and the traced epoch's
+    breakdown."""
     params = path_parameters(scan, psi, probe)
-    return _drive("main", device, probe, scan, psi, card, params)["launches"]
+    out = _drive("main", device, probe, scan, psi, card, params, trace=True)
+    log_breakdown("main", out["breakdown"], card)
+    return out["launches"], out["epoch_s"], out["breakdown"]
+
+
+def log_breakdown(tag: str, b: dict, card: str) -> None:
+    """A traced epoch's wall and busy time, idle share and kernel classes."""
+    classes = sorted(b["classes"].items(), key=lambda kv: -kv[1][0])
+    log(f"[{tag}] traced epoch: wall {b['wall_us'] / 1e3:.2f} ms, device busy "
+        f"{b['busy_us'] / 1e3:.2f} ms, idle {100 * (1 - b['busy_us'] / b['wall_us']):.1f}%, "
+        f"{b['activities']} device activities; by class: "
+        + "; ".join(f"{k} {v[0] / 1e3:.3f} ms / {v[1]}" for k, v in classes) + f" ({card})")
 
 
 def phase_config2(device, scan, psi, probe, card: str) -> dict:
@@ -2569,14 +2623,19 @@ def multislice_object(hw: int, slices: int) -> np.ndarray:
 
 
 def _traced_epoch(context, tag: str) -> dict:
-    """One more epoch of ``context`` under ``torch.profiler``: the device's
-    busy share and the time and launches of each kernel class
-    (``profile_epoch``), from the chrome trace under ``_build/``."""
+    """One more epoch of ``context`` under ``torch.profiler`` (:func:`_traced`)."""
+    return _traced(lambda: context.iterate(1), tag)
+
+
+def _traced(epoch, tag: str) -> dict:
+    """``epoch()`` under ``torch.profiler``: the device's busy share and the
+    time and launches of each kernel class (``profile_epoch``), from the
+    chrome trace under ``_build/``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        context.iterate(1)
+        epoch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2876,6 +2935,280 @@ def phase_align(device, card: str) -> dict:
     return launches
 
 
+def api_parameters(scan, psi0, probe, solver, batch_method, num_batch, det, position=False):
+    """Parameters of the hand-written per-epoch loop: one probe mode, the
+    object and probe recovered, ``solver``'s options."""
+    options = tp.RpieOptions if solver == "rpie" else tp.LstsqOptions
+    return tp.PtychoParameters(
+        probe=probe,
+        psi=psi0,
+        scan=scan,
+        algorithm_options=options(num_batch=num_batch, batch_method=batch_method),
+        object_options=tp.ObjectOptions(),
+        probe_options=tp.ProbeOptions(),
+        position_options=tp.PositionOptions(initial_scan=scan, update_magnitude_limit=POS_LIMIT)
+        if position
+        else None,
+        exitwave_options=tp.ExitWaveOptions(measured_pixels=np.ones((det, det), bool)),
+    )
+
+
+def api_epoch(solver, params, data, batches, cfg, epoch, rng):
+    """One epoch of the reference's per-epoch loop written by hand:
+    ``update_preconditioners`` then ``solvers.rpie`` or
+    ``solvers.lstsq_grad``."""
+    fn = tp.solvers.rpie if solver == "rpie" else tp.solvers.lstsq_grad
+    params = tp.update_preconditioners(cfg, params, batches)
+    return fn(params, data, batches, op=cfg, epoch=epoch, rng=rng)
+
+
+def api_loop(solver, params, data, batches, cfg, epochs, counted_from=None):
+    """``epochs`` of :func:`api_epoch`, the batch order drawn from
+    ``np.random.default_rng(0)``. With ``counted_from``, every kernel count
+    is set to 0 before that epoch and the card synchronized, and the
+    seconds of the epochs from there on and the counts after them are
+    returned with the parameters."""
+    rng = np.random.default_rng(0)
+    start = None
+    for epoch in range(epochs):
+        if epoch == counted_from:
+            torch.cuda.synchronize()
+            _reset_launches()
+            start = time.perf_counter()
+        params = api_epoch(solver, params, data, batches, cfg, epoch, rng)
+    if start is None:
+        return params, None, None
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - start, _read_launches(f"api {solver}")
+
+
+def phase_api_probes(device) -> None:
+    """20a: a zone-plate start: ``fresnel.single_probe`` at 128^2 with the
+    original tike test's optics, split into 3 Hermite modes, their powers
+    set by ``adjust_probe_power`` on the card (against the CPU); the
+    multi-energy ``MW_probe``; eigen weights from
+    ``simulate_varying_weights``."""
+    start = time.perf_counter()
+    single = tp.single_probe(probe_shape=PROBE, **API_OPTICS)
+    modes = tp.add_modes_cartesian_hermite(single, MODES)
+    host_s = time.perf_counter() - start
+    got = tp.adjust_probe_power(torch.as_tensor(modes, device=device))
+    want = tp.adjust_probe_power(modes, device="cpu")
+    got = got.cpu().numpy()
+    err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    if not (single.shape == (1, 1, 1, PROBE, PROBE) and err <= API_POWER_TOL):
+        raise AssertionError(f"api: adjust_probe_power on the card differs by {err:.2e}")
+    power = np.sum(np.abs(got[0, 0]) ** 2, axis=(-2, -1))
+    if not np.allclose(power / power[0], 1.0 / np.arange(1, MODES + 1) ** 2, rtol=1e-5):
+        raise AssertionError(f"api: adjusted mode powers {power / power[0]}")
+    mw = tp.MW_probe(probe_shape=PROBE, energy=MODES, **API_OPTICS)
+    mw_power = np.sum(np.abs(mw[0, 0]) ** 2, axis=(-2, -1))
+    if not (mw.shape == (1, 1, MODES, PROBE, PROBE)
+            and np.all(np.diff(mw_power) <= 1e-6 * mw_power[0])):
+        raise AssertionError(f"api: MW_probe modes not sorted by power: {mw_power}")
+    weights = tp.simulate_varying_weights(
+        np.zeros((1, N_PATTERNS, 2)), np.zeros((1, 1, MODES, PROBE, PROBE)),
+        rng=np.random.default_rng(0),
+    )
+    if not (weights.shape == (N_PATTERNS, 1, MODES) and np.all(np.abs(weights) <= 1)):
+        raise AssertionError(f"api: simulate_varying_weights gave {weights.shape}")
+    log(f"[api] single_probe {PROBE}^2 ({API_OPTICS['zone_plate_params']}) and "
+        f"{MODES} Hermite modes on the host in {host_s:.3f} s; adjust_probe_power on the card "
+        f"vs the CPU: max|err| / max|value| {err:.2e} (tol {API_POWER_TOL:g}); relative "
+        f"mode powers {np.round(power / power[0], 6).tolist()}; MW_probe mode powers "
+        f"{mw_power.tolist()}; simulate_varying_weights {weights.shape}")
+
+
+def phase_api(device, scan, psi, probe, card: str, iterate_epoch_s: float, iterate_breakdown):
+    """20b: the reference's per-epoch loop by hand at the main path's
+    configuration: compact batches of the port's ``cluster`` (timed, on the
+    host), data simulated on the card and stored batch-major, the probe
+    rescaled to the data as ``Reconstruction``'s set-up does, then 1 + 3 epochs of
+    LSQML and 1 + 3 of rPIE from the same start and batches,
+    each solver's kernel counts set to 0 before its 3 timed epochs and read
+    after them; then one more LSQML epoch traced, beside phase 6's traced
+    epoch, and one with the card synchronized between its two calls, after
+    ``update_preconditioners`` timed on parameters without probe options
+    (the object's preconditioner alone).
+    Returns the counts of both solvers' timed epochs together, and the
+    data, the batches and the LSQML result for 20d."""
+    tag = "api"
+    start = time.perf_counter()
+    batches = cluster.batches_padded(
+        cluster.compact(scan, NUM_BATCH, rng=np.random.default_rng(0))
+    )
+    cluster_s = time.perf_counter() - start
+    cfg = PtychoConfig(probe_shape=PROBE, detector_shape=DET, nz=HW, n=HW)
+    batch_idx = torch.as_tensor(batches[0], dtype=torch.int64, device=device)
+    batch_mask = torch.as_tensor(batches[1], device=device)
+    data = tp.simulate_device(DET, probe, scan, psi, device=device)[batch_idx]
+    torch.cuda.synchronize()
+    log(f"[{tag}] compact clustering of {N_PATTERNS} positions into {NUM_BATCH} batches "
+        f"{batches[0].shape} in {cluster_s:.2f} s (host); data {tuple(data.shape)} batch-major "
+        f"on {device}")
+    launches, results = {}, {}
+    for solver in ("lstsq", "rpie"):
+        params = api_parameters(
+            scan, np.full_like(psi, 0.5), probe, solver, "compact", NUM_BATCH, DET
+        ).copy_to_device(device)
+        # The probe rescaled to the measured intensity, as Reconstruction's
+        # set-up does (phase 6's among them).
+        params = tpp._rescale_probe(cfg, data, batch_idx, batch_mask, params)
+        params, seconds, counts = api_loop(solver, params, data, batches, cfg, 4, counted_from=1)
+        costs = [c[0] for c in params.algorithm_options.costs]
+        if not (len(costs) == 4 and np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+            raise AssertionError(f"{tag} {solver}: costs not 4 finite, decreasing: {costs}")
+        if solver == "lstsq":
+            rng = np.random.default_rng(0)
+            breakdown = _traced(
+                lambda: api_epoch(solver, params, data, batches, cfg, 4, rng), f"{tag}-lstsq"
+            )
+            # The object's preconditioner alone: parameters without probe
+            # options, as a caller that keeps the probe fixed passes.
+            psi_only = tp.PtychoParameters(
+                probe=params.probe, psi=params.psi, scan=params.scan,
+                object_options=tp.ObjectOptions(),
+            )
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            tp.update_preconditioners(cfg, psi_only, batches)
+            torch.cuda.synchronize()
+            psi_only_s = time.perf_counter() - start
+            start = time.perf_counter()
+            params = tp.update_preconditioners(cfg, params, batches)
+            torch.cuda.synchronize()
+            precond_s = time.perf_counter() - start
+            params = tp.solvers.lstsq_grad(params, data, batches, op=cfg, epoch=5, rng=rng)
+            torch.cuda.synchronize()
+            split = (precond_s, time.perf_counter() - start - precond_s, psi_only_s)
+        for name in patch.LAUNCHES:
+            if not counts[name] > 0:
+                raise AssertionError(f"{tag} {solver}: no {name} launched: {counts}")
+        if not bool(torch.isfinite(params.psi).all() and torch.isfinite(params.probe).all()):
+            raise AssertionError(f"{tag} {solver}: the reconstruction is not finite")
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        results[solver] = params
+        log(f"[{tag}] {solver} by hand (update_preconditioners, then solvers."
+            f"{'rpie' if solver == 'rpie' else 'lstsq_grad'}): costs {costs}; 3 epochs "
+            f"{seconds:.3f} s = {seconds / 3:.4f} s/epoch beside phase 6's iterate "
+            f"{iterate_epoch_s:.4f} s/epoch ({seconds / 3 / iterate_epoch_s:.3f}x); patch "
+            f"launches { {k: counts[k] for k in patch.LAUNCHES} } ({card})")
+    log_breakdown("api-main", iterate_breakdown, card)
+    log_breakdown("api-lstsq", breakdown, card)
+    log(f"[{tag}] lstsq by hand, one epoch synchronized between its calls: "
+        f"update_preconditioners {split[0] * 1e3:.2f} ms (without probe options, the object's "
+        f"alone: {split[2] * 1e3:.2f} ms), lstsq_grad {split[1] * 1e3:.2f} ms ({card})")
+    return launches, dict(data=data, batches=batches, lstsq=results["lstsq"])
+
+
+def phase_api_slice(device) -> None:
+    """20c: the hand-written loop at phase 5's small size, card against the
+    CPU: LSQML with compact batches and position correction, batch-major
+    data; rPIE with wobbly-center batches, flat data."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    det = 24
+    cfg = PtychoConfig(probe_shape=16, detector_shape=det, nz=psi.shape[-2], n=psi.shape[-1])
+    flat = tp.simulate(det, probe, scan, psi, device="cpu")
+    for solver, method in (("lstsq", "compact"), ("rpie", "wobbly_center")):
+        kw = dict(rng=np.random.default_rng(0)) if method == "compact" else {}
+        batches = cluster.batches_padded(getattr(cluster, method)(scan, 3, **kw))
+        data = flat[batches[0]] if solver == "lstsq" else flat
+        out = {}
+        for dev in ("cpu", device):
+            params = api_parameters(
+                scan, psi0, probe, solver, method, 3, det, position=solver == "lstsq"
+            ).copy_to_device(dev)
+            out[str(dev)] = api_loop(solver, params, torch.as_tensor(data, device=dev), batches,
+                                     cfg, 3)[0].copy_to_host()
+        got, ref = out[str(device)], out["cpu"]
+        c_got = np.asarray(got.algorithm_options.costs)
+        c_ref = np.asarray(ref.algorithm_options.costs)
+        if not (np.all(np.isfinite(c_got)) and c_got[-1, 0] < c_got[0, 0]):
+            raise AssertionError(f"api slice {solver}: costs {c_got.ravel()}")
+        np.testing.assert_allclose(c_got, c_ref, rtol=SLICE_TOL)
+        errs = {}
+        for key in ("psi", "probe"):
+            a, b = getattr(got, key), getattr(ref, key)
+            np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+            errs[key] = float(np.max(np.abs(a - b)) / np.abs(b).max())
+        np.testing.assert_allclose(got.scan, ref.scan, rtol=0, atol=SLICE_SCAN_TOL)
+        log(f"[api] slice {solver} by hand ({method}, {'batch-major' if data.ndim == 4 else 'flat'}"
+            f" data{', positions' if solver == 'lstsq' else ''}), 3 epochs on {device} vs cpu: "
+            f"costs {c_got.ravel().tolist()} vs {c_ref.ravel().tolist()} (rtol {SLICE_TOL:g}); "
+            f"max|err| / max|value| { {k: f'{v:.2e}' for k, v in errs.items()} }; scan max|err| "
+            f"{float(np.max(np.abs(got.scan - ref.scan))):.2e} px (tol {SLICE_SCAN_TOL:g})")
+
+
+def phase_api_helpers(device, scan, psi, card: str, *, data, batches, lstsq) -> None:
+    """20d: ``remove_object_ambiguity`` of 20b's LSQML object;
+    ``learn.extract_patches`` at every position of the 1500^2 object
+    against ``patch_fwd_plain`` on the card; ``patch_fwd_padded`` to
+    API_PADDED on API_WINDOWS windows; the Fourier patch pair's adjointness
+    and its plain path on API_WINDOWS windows; ``get_absorbtion_image`` of
+    the data, on the host."""
+    tag = "api"
+    pre = lstsq.object_options.preconditioner
+    psi1, probe1 = tp.remove_object_ambiguity(lstsq.psi, lstsq.probe, pre)
+    W = pre.real / linalg.mnorm(pre.real)
+    norm = float(2 * torch.sqrt(torch.mean(torch.abs(psi1) ** 2 * W)))
+    if not (abs(norm - 1) <= 1e-5 and bool(torch.isfinite(probe1).all())):
+        raise AssertionError(f"{tag}: remove_object_ambiguity left a weighted norm of {norm}")
+    image = torch.as_tensor(psi[0], device=device)
+    positions = torch.as_tensor(scan, device=device)
+    before = dict(patch.LAUNCHES)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got = learn.extract_patches(image, positions, PROBE)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - start
+    if not patch.LAUNCHES["patch_fwd"] == before["patch_fwd"] + 1:
+        raise AssertionError(f"{tag}: extract_patches did not launch patch_fwd once")
+    want = patch.patch_fwd_plain(image, positions, PROBE)
+    torch.testing.assert_close(got, want, rtol=cases.FWD_TOL, atol=cases.FWD_TOL)
+    extract_err = cases.max_abs(got, want)
+    del got, want
+    few = positions[:API_WINDOWS]
+    padded = patch.patch_fwd_padded(image, few, PROBE, API_PADDED)
+    pad = (API_PADDED - PROBE) // 2
+    inside = padded[:, pad : pad + PROBE, pad : pad + PROBE]
+    border = padded.clone()
+    border[:, pad : pad + PROBE, pad : pad + PROBE] = 0
+    if not (tuple(padded.shape) == (API_WINDOWS, API_PADDED, API_PADDED)
+            and cases.equal_bits(inside, patch.patch_fwd(image, few, PROBE))
+            and not bool(border.any())):
+        raise AssertionError(f"{tag}: patch_fwd_padded is not the centred window in zeros")
+    gen = torch.Generator(device).manual_seed(0)
+    y = torch.complex(*torch.randn((2, API_WINDOWS, PROBE, PROBE), generator=gen, device=device))
+    fwd = patch.patch_fwd_fourier(image, few, PROBE)
+    adj = patch.patch_adj_fourier(y, few, (HW, HW))
+    gap = abs(cases_interp.inner(fwd, y) - cases_interp.inner(image, adj)) / abs(
+        cases_interp.inner(fwd, y)
+    )
+    lo = torch.floor(few)
+    fwd_plain = shift.shift_adj(patch.patch_fwd_plain(image, lo, PROBE), few - lo)
+    adj_plain = patch.patch_adj_plain(shift.shift_fwd(y, few - lo), lo, (HW, HW))
+    fwd_err = cases.max_abs(fwd, fwd_plain) / cases.max_value(fwd_plain)
+    adj_err = cases.max_abs(adj, adj_plain) / cases.max_value(adj_plain)
+    if not (gap <= API_ADJOINT_TOL and fwd_err <= cases.FWD_TOL and adj_err <= cases.ADJ_TOL):
+        raise AssertionError(
+            f"{tag}: Fourier patch pair: adjointness {gap:.2e}, against its plain path "
+            f"{fwd_err:.2e} / {adj_err:.2e}"
+        )
+    start = time.perf_counter()
+    absorbtion = tp.get_absorbtion_image(data.reshape(-1, DET, DET), scan[batches[0].reshape(-1)])
+    absorbtion_s = time.perf_counter() - start
+    if not (absorbtion.ndim == 2 and np.all(np.isfinite(absorbtion))):
+        raise AssertionError(f"{tag}: get_absorbtion_image is not a finite image")
+    log(f"[{tag}] remove_object_ambiguity of the LSQML object: weighted norm {norm:.6f}; "
+        f"extract_patches at {len(scan)} positions of {HW}^2 in {extract_s * 1e3:.2f} ms, "
+        f"against patch_fwd_plain max|err| {extract_err:.2e} (tol {cases.FWD_TOL:g}); "
+        f"patch_fwd_padded {tuple(padded.shape)}; Fourier pair on {API_WINDOWS} windows: "
+        f"adjointness {gap:.2e} (tol {API_ADJOINT_TOL:g}), against its plain path "
+        f"{fwd_err:.2e} / {adj_err:.2e}; get_absorbtion_image {absorbtion.shape} of "
+        f"{len(scan)} patterns in {absorbtion_s:.2f} s on the host ({card})")
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -2889,7 +3222,9 @@ def main() -> None:
     phase_small_slice(device)
     phase_small_slice(device, config2=True)
     phase_rpie_slices(device)
-    launches = phase_main_path(device, scan, psi, probe, env["nvidia_smi"])
+    launches, main_epoch_s, main_breakdown = phase_main_path(
+        device, scan, psi, probe, env["nvidia_smi"]
+    )
     launches2 = phase_config2(device, scan, psi, probe, env["nvidia_smi"])
     launches3 = phase_rpie(device, scan, psi, probe, env["nvidia_smi"])
     phase_siemens(device, env["nvidia_smi"])
@@ -2921,8 +3256,14 @@ def main() -> None:
     lanczos_timings = phase_lanczos_parity(device, card)
     phase_align_golden(device, card)
     launches_align = phase_align(device, card)
+    phase_api_probes(device)
+    launches_api, api = phase_api(device, scan, psi, probe, card, main_epoch_s, main_breakdown)
+    phase_api_slice(device)
+    phase_api_helpers(device, scan, psi, card, **api)
+    del api
     later = lambda name: dict(
-        launches_multislice=launches_multislice[name], launches_align=launches_align[name]
+        launches_multislice=launches_multislice[name], launches_align=launches_align[name],
+        launches_api=launches_api[name],
     )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [

@@ -260,3 +260,56 @@ def test_epoch_plan_fields_cover_the_jax_constraints():
     ours = {f.name for f in dataclasses.fields(epoch.EpochPlan)}
     theirs = {f.name for f in dataclasses.fields(fused.EpochPlan)}
     assert theirs - ours == {"n_epochs"}
+
+
+@pytest.mark.parametrize("power", [None, (1.0, 0.3, 0.05)], ids=["default", "given"])
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_adjust_probe_power_matches_jax(kind, power):
+    """numpy in gives numpy out (on the device asked for), a tensor stays a
+    tensor, as tike_tpu's host wrapper does."""
+    probe = H.crandn(H.rng(40), 1, 1, 3, 16, 16)
+    want = jprobe.adjust_probe_power(probe, power)
+    if kind == "tensor":
+        got = tprobe.adjust_probe_power(H.t(probe), power)
+        assert isinstance(got, torch.Tensor)
+    else:
+        got = tprobe.adjust_probe_power(probe, power, device="cpu")
+        assert isinstance(got, np.ndarray) and got.dtype == np.complex64
+    _close(got, want)
+    norms = np.linalg.norm(H.n(got)[0, 0].reshape(3, -1), axis=-1)
+    expected = 1.0 / np.arange(1, 4) if power is None else np.asarray(power)
+    np.testing.assert_allclose(norms / norms[0], expected, rtol=1e-5)
+
+
+def test_simulate_varying_weights_matches_jax_bitwise():
+    scan = H.rng(41).uniform(0, 50, (1, 30, 2)).astype(np.float32)
+    eigen_probe = np.zeros((1, 2, 3, 8, 8), np.complex64)
+    got = tprobe.simulate_varying_weights(scan, eigen_probe, rng=H.rng(42))
+    assert got.shape == (30, 2, 3)
+    np.testing.assert_array_equal(
+        got, jprobe.simulate_varying_weights(scan, eigen_probe, rng=H.rng(42))
+    )
+
+
+@pytest.mark.parametrize("precond", ["float32", "complex64"])
+def test_remove_object_ambiguity_matches_jax(precond):
+    """The rescale the epochs apply every ``rescale_period`` epochs, from
+    either preconditioner dtype."""
+    gen = H.rng(43)
+    psi = H.crandn(gen, 2, 20, 24)
+    probe = H.crandn(gen, 1, 1, 2, 8, 8)
+    pre = gen.uniform(0, 3, (2, 20, 24)).astype(np.float32).astype(precond)
+    want = jobj.remove_object_ambiguity(jnp.asarray(psi), jnp.asarray(probe), jnp.asarray(pre))
+    got = tobj.remove_object_ambiguity(H.t(psi), H.t(probe), H.t(pre))
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("method", ["cubic", "linear", "nearest"])
+def test_get_absorbtion_image_matches_jax_bitwise(method):
+    gen = H.rng(44)
+    data = gen.random((60, 8, 8)).astype(np.float32)
+    scan = gen.uniform(0, 20, (60, 2)).astype(np.float32)
+    want = jobj.get_absorbtion_image(data, scan, rescale=0.5, method=method)
+    got = tobj.get_absorbtion_image(H.t(data), H.t(scan), rescale=0.5, method=method)
+    np.testing.assert_array_equal(got, want)

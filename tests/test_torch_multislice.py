@@ -25,11 +25,11 @@ from tike_tpu.ptycho.solvers import _preconditioner as jpre
 
 from tike_tpu_torch.ops import ptycho as tops
 from tike_tpu_torch.ptycho.solvers import _preconditioner as tpre
-from tike_tpu_torch.ptycho.solvers import rpie as trpie
 
 from . import _torch_parity as H
 
 jrpie = importlib.import_module("tike_tpu.ptycho.solvers.rpie")
+trpie = importlib.import_module("tike_tpu_torch.ptycho.solvers.rpie")
 
 # tests/operators/test_ptycho.py's operator geometry
 NZ, N, P, DET, B, M = 60, 65, 16, 24, 11, 3

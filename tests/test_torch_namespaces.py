@@ -22,24 +22,13 @@ NAMESPACES = [
 
 # Not ported yet, by namespace (ROADMAP.md queue 1).
 NOT_PORTED = {
-    # Multi-device (queue 1 item 4) and the host-side modules (item 3).
-    "": {"parallel", "random", "scan", "trajectory"},
-    ".ptycho": {
-        # Host leftovers (queue 1 item 3): fresnel.py's zone-plate probes,
-        # and probe and object helpers no path of the port calls.
-        "fresnel", "MW_probe", "single_probe", "adjust_probe_power",
-        "simulate_varying_weights", "get_absorbtion_image", "remove_object_ambiguity",
-        # The per-epoch solver functions (queue 1 item 3). The port's
-        # ptycho.solvers.rpie is the solver module, not this function.
-        "rpie", "lstsq_grad", "update_preconditioners",
-    },
-    ".ptycho.solvers": {"lstsq_grad", "update_preconditioners"},
+    # Multi-device (queue 1).
+    "": {"parallel"},
+    ".ptycho": set(),
+    ".ptycho.solvers": set(),
     ".lamino": set(),
     ".lamino.solvers": set(),
-    ".ops": {
-        # Host leftovers (queue 1 item 3).
-        "patch_fwd_padded",
-    },
+    ".ops": set(),
     ".align": set(),
     ".align.solvers": set(),
 }

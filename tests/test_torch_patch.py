@@ -186,6 +186,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_import_leaves_jax_out():
+    """The port, ``chip_smoke.py`` among its users, imports neither JAX nor
+    tike_tpu; nor matplotlib or h5py, which ``view`` and ``ptycho.io``
+    import only when called (the card's machine has neither)."""
     code = (
         "import sys, tike_tpu_torch, tike_tpu_torch.ptycho, "
         "tike_tpu_torch.convert, tike_tpu_torch.kernels, tike_tpu_torch.ops, "
@@ -194,9 +197,11 @@ def test_import_leaves_jax_out():
         "tike_tpu_torch.profile_epoch, tike_tpu_torch.opt, tike_tpu_torch.admm, "
         "tike_tpu_torch.constants, tike_tpu_torch.ptycho.stream, tike_tpu_torch.ops.bucket, "
         "tike_tpu_torch.lamino.bucket, tike_tpu_torch.checkpoint, tike_tpu_torch.align, "
-        "tike_tpu_torch.align.solvers, tike_tpu_torch.ops.interp, chip_smoke; "
+        "tike_tpu_torch.align.solvers, tike_tpu_torch.ops.interp, tike_tpu_torch.random, "
+        "tike_tpu_torch.scan, tike_tpu_torch.trajectory, tike_tpu_torch.ptycho.fresnel, "
+        "tike_tpu_torch.ptycho.learn, tike_tpu_torch.ptycho.io, tike_tpu_torch.view, chip_smoke; "
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu')); "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'tike_tpu', 'matplotlib', 'h5py')); "
         "assert not bad, bad"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -378,3 +383,41 @@ def test_library_yardsticks_compute_the_same_function(initial):
     want = tpatch.patch_adj_plain(patches, pos, (HW, HW), init)
     got = cases.planar_to_complex(adj, (HW, HW)) + (0 if init is None else init)
     cases.check_library("patch_adj", got, want)
+
+
+@pytest.mark.parametrize("padded", [P, P + 8, P + 9])
+def test_patch_fwd_padded_matches_jax(padded):
+    """The window centred at (padded - P) // 2, zeros around it."""
+    images, pos, _ = _case("fractional")
+    want = jpatch.patch_fwd_padded(jnp.asarray(images), jnp.asarray(pos), P, padded)
+    got = tpatch.patch_fwd_padded(H.t(images), H.t(pos), P, padded)
+    assert tuple(got.shape) == (N, padded, padded)
+    H.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    pad = (padded - P) // 2
+    np.testing.assert_array_equal(
+        H.n(got)[:, pad : pad + P, pad : pad + P], H.n(tpatch.patch_fwd(H.t(images), H.t(pos), P))
+    )
+
+
+@pytest.mark.parametrize("initial", [False, True], ids=["zeros", "initial"])
+def test_fourier_pair_matches_jax(initial):
+    """``patch_fwd_fourier`` and ``patch_adj_fourier`` against tike_tpu's,
+    and against each other: <fwd x, y> = <x, adj y>."""
+    images, pos, patches = _case("fractional")
+    gen = H.rng(9)
+    start = H.crandn(gen, HW, HW) if initial else None
+    want_fwd = jpatch.patch_fwd_fourier(jnp.asarray(images), jnp.asarray(pos), P)
+    got_fwd = tpatch.patch_fwd_fourier(H.t(images), H.t(pos), P)
+    H.assert_close(got_fwd, want_fwd, rtol=1e-5, atol=1e-5, scale=True)
+    want_adj = jpatch.patch_adj_fourier(
+        jnp.asarray(patches), jnp.asarray(pos), (HW, HW),
+        None if start is None else jnp.asarray(start),
+    )
+    got_adj = tpatch.patch_adj_fourier(
+        H.t(patches), H.t(pos), (HW, HW), None if start is None else H.t(start)
+    )
+    H.assert_close(got_adj, want_adj, rtol=1e-4, atol=1e-4, scale=True)
+    if start is None:
+        lhs = np.vdot(H.n(got_fwd), patches)
+        rhs = np.vdot(images, H.n(got_adj))
+        np.testing.assert_allclose(lhs, rhs, rtol=1e-4)

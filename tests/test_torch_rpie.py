@@ -25,12 +25,12 @@ import tike_tpu_torch.cluster as tcluster
 import tike_tpu_torch.ptycho as tp
 from tike_tpu_torch import convert
 from tike_tpu_torch.ops.ptycho import PtychoConfig as TConfig
-from tike_tpu_torch.ptycho.solvers import rpie as trpie
 
 from . import _torch_parity as H
 
-# The module, which the solvers package's ``rpie`` function shadows.
+# The modules, which the solvers packages' ``rpie`` functions shadow.
 jrpie = importlib.import_module("tike_tpu.ptycho.solvers.rpie")
+trpie = importlib.import_module("tike_tpu_torch.ptycho.solvers.rpie")
 
 Hh, P, DET, NPOS = 160, 16, 24, 120
 TOL = H.SLICE_TOL

@@ -18,7 +18,9 @@ ptychography and laminography into one reconstruction, and
 ``ptycho.stream`` feeds a reconstruction from pinned host memory when the
 patterns exceed the card. Multislice objects propagate the wave between
 slices by the Fresnel spectrum propagators of ``ops.propagation``, on cuFFT.
-``align`` is imported on its own, as ``tike_tpu.align`` is. On CPU tensors
+``align`` is imported on its own, as ``tike_tpu.align`` is, and so are
+``view`` and ``ptycho.io``, whose ``matplotlib`` and ``h5py`` are imported
+only when a function is called. On CPU tensors
 every function runs its plain PyTorch version, which the tests hold against
 ``tike_tpu``.
 
@@ -31,4 +33,8 @@ from . import checkpoint
 from . import cluster
 from . import constants
 from . import linalg
+from . import opt
 from . import precision
+from . import random
+from . import scan
+from . import trajectory

@@ -1,6 +1,6 @@
 """Complex linear algebra helpers (PyTorch).
 
-Counterpart of :mod:`tike_tpu.linalg`; only what the solvers use.
+Counterpart of :mod:`tike_tpu.linalg`.
 """
 
 from __future__ import annotations
@@ -22,6 +22,17 @@ def norm(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     if dim is None:
         return torch.sqrt(torch.sum(sq))
     return torch.sqrt(torch.sum(sq, dim=dim, keepdim=keepdim))
+
+
+def hermitian(x: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose of x along the last two dims."""
+    return torch.conj_physical(x).transpose(-1, -2)
+
+
+def cov(x: torch.Tensor) -> torch.Tensor:
+    """Covariance of x, observations along dim -2 (not normalized)."""
+    x0 = x - torch.mean(x, dim=-2, keepdim=True)
+    return hermitian(x0) @ x0
 
 
 def inner(x: torch.Tensor, y: torch.Tensor, dim=None, keepdim: bool = False):
@@ -82,3 +93,19 @@ def orthogonalize_gs(x: torch.Tensor, dim=-1) -> torch.Tensor:
     for k, p in enumerate(perm):
         inv[p] = k
     return out.permute(inv)
+
+
+def pca_eig(data: torch.Tensor, k: int):
+    """Return the k principal components of data by eigendecomposition.
+
+    data (N, ...) with its features flattened after the first axis;
+    returns ``(S (k,), U (k, ...))``, the largest k eigenvalues of
+    ``data^H data`` in descending order and their eigenvectors. Each
+    eigenvector's sign or phase is the eigensolver's choice.
+    """
+    flat = data.reshape(data.shape[0], -1)
+    vals, vecs = torch.linalg.eigh(flat.conj().T @ flat)
+    # eigh is ascending; take the top k descending.
+    vals = torch.flip(vals, dims=(0,))[:k]
+    vecs = torch.flip(vecs, dims=(1,))[:, :k]
+    return vals, vecs.T.reshape(k, *data.shape[1:])

@@ -7,7 +7,7 @@ projection pair (:mod:`.bucket`) and the alignment's Lanczos remap pair
 CUDA kernels on CUDA tensors.
 """
 
-from .patch import patch_adj, patch_fwd
+from .patch import patch_adj, patch_fwd, patch_fwd_padded
 from .propagation import (
     fresnel_adj,
     fresnel_fwd,

@@ -24,7 +24,9 @@ Each operator has two implementations:
 
 ``patch_fwd`` and ``patch_adj`` dispatch on the device of the tensors they
 are given: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise. Nothing falls back from one to the other.
+kernel or raise. Nothing falls back from one to the other. The helpers
+``patch_fwd_padded`` and the Fourier-shift pair ``patch_fwd_fourier`` /
+``patch_adj_fourier`` run on the two.
 """
 
 from __future__ import annotations
@@ -344,3 +346,53 @@ def patch_adj(
     if _on_cpu(patches, positions, images):
         return patch_adj_plain(patches, positions, images_shape, images)
     return patch_adj_cuda(patches, positions, images_shape, images)
+
+
+def patch_fwd_padded(
+    images: torch.Tensor,
+    positions: torch.Tensor,
+    patch_width: int,
+    padded_width: int,
+) -> torch.Tensor:
+    """Extract patches zero-padded to ``padded_width`` (the detector's).
+
+    The P x P patch of :func:`patch_fwd` sits centred, at the offset
+    ``(padded_width - patch_width) // 2``.
+    """
+    patches = patch_fwd(images, positions, patch_width)
+    pad = (padded_width - patch_width) // 2
+    if padded_width == patch_width:
+        return patches
+    rest = padded_width - patch_width - pad
+    return torch.nn.functional.pad(patches, (pad, rest, pad, rest))
+
+
+def patch_fwd_fourier(
+    images: torch.Tensor,
+    positions: torch.Tensor,
+    patch_width: int,
+) -> torch.Tensor:
+    """Patch extraction with Fourier-shift sub-pixel interpolation.
+
+    :func:`patch_fwd` at the integer corner, then the fractional part as
+    a Fourier phase-ramp shift of each patch (band-limited, sinc,
+    interpolation where :func:`patch_fwd` is bilinear).
+    """
+    from .shift import shift_adj
+
+    lo = torch.floor(positions)
+    patches = patch_fwd(images, lo, patch_width)
+    return shift_adj(patches, positions - lo)
+
+
+def patch_adj_fourier(
+    patches: torch.Tensor,
+    positions: torch.Tensor,
+    images_shape: typing.Tuple[int, int],
+    images: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Adjoint of :func:`patch_fwd_fourier`."""
+    from .shift import shift_fwd
+
+    lo = torch.floor(positions)
+    return patch_adj(shift_fwd(patches, positions - lo), lo, images_shape, images)

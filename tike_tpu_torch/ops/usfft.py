@@ -478,6 +478,18 @@ def scatter(f, x, n: int, m: int, mu: float):
     return torch.view_as_complex(G).reshape(n, n, n)
 
 
+# The names of the Gaussian-window gather and scatter in the numpy test
+# oracles of the original tike.
+def vector_gather(Fe, x, n: int, m: int, mu: float):
+    """:func:`gather`."""
+    return gather(Fe, x, n, m, mu)
+
+
+def vector_scatter(f, x, n: int, m: int, mu: float):
+    """:func:`scatter`."""
+    return scatter(f, x, n, m, mu)
+
+
 def _centered_fftn(x):
     return torch.fft.fftshift(torch.fft.fftn(torch.fft.ifftshift(x)))
 

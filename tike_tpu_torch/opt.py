@@ -1,21 +1,27 @@
 """Step directions and conjugate-gradient loops (PyTorch).
 
-Counterpart of :mod:`tike_tpu.opt`: ``adam`` (the position step, and rPIE's
-per-batch object and probe moments), ``momentum`` (LSQML's per-batch
-object momentum) and ``momentum_checked_traced`` (the epoch-end moment of
-compact runs), whose decisions stay on the device; ``is_converged``, the
-early-stopping test of the per-epoch loop on the host cost history; and the
-laminography
-solvers' loops, ``line_search``, ``direction_dy``, ``conjugate_gradient``
-(``tike_tpu``'s ``conjugate_gradient_traced``) and ``cgls``
-(``cgls_traced``). ``tike_tpu`` traces those loops into one device program;
-here they are eager, and each trial of the backtracking line search reads
-one comparison back to the host (counted in ``HOST_READS``).
+Counterpart of :mod:`tike_tpu.opt`: the step directions ``adam`` (the
+position step, and rPIE's per-batch object and probe moments),
+``momentum`` (LSQML's per-batch object momentum), ``adagrad`` and
+``adadelta``; the checked momentum of compact runs, as
+``momentum_checked_traced``, whose decisions stay on the device (the
+epochs of ``Reconstruction``), and as ``momentum_checked``, which decides
+on the host from the cost history (the per-epoch solver functions
+``solvers.rpie`` and ``solvers.lstsq_grad``); ``is_converged``, the
+early-stopping test of the per-epoch loop on the host cost history; the
+batch helpers ``batch_indicies``, ``get_batch`` and ``put_batch``; and the
+laminography solvers' loops, ``line_search``, ``direction_dy``,
+``conjugate_gradient`` (``tike_tpu``'s ``conjugate_gradient_traced``) and
+``cgls`` (``cgls_traced``). ``tike_tpu`` traces those loops into one
+device program; here they are eager, and each trial of the backtracking
+line search reads one comparison back to the host (counted in
+``HOST_READS``).
 """
 
 from __future__ import annotations
 
 import logging
+import typing
 
 import numpy as np
 import torch
@@ -51,11 +57,65 @@ def is_converged(algorithm_options) -> bool:
     return False
 
 
+def batch_indicies(n, m=1, use_random=True, rng=None):
+    """Return the indices [0...n) as m groups, shuffled by ``rng`` unless
+    ``use_random`` is false."""
+    assert 0 < m <= n, (m, n)
+    rng = np.random.default_rng() if rng is None else rng
+    i = rng.permutation(n) if use_random else np.arange(n)
+    return np.array_split(i, m)
+
+
+def get_batch(x, b, n):
+    """Return x[b[n]]; for use with map()."""
+    return x[b[n]]
+
+
+def put_batch(y, x, b, n):
+    """Set x[b[n]] to y: a numpy ``x`` in place, which is returned; a
+    tensor ``x`` is left as it is and the updated copy returned."""
+    if isinstance(x, torch.Tensor):
+        index = torch.as_tensor(b[n], device=x.device)
+        return x.index_put((index,), torch.as_tensor(y, dtype=x.dtype, device=x.device))
+    x[b[n]] = y
+    return x
+
+
+def update_single(x, step_length, d):
+    """x + step_length * d."""
+    return x + step_length * d
+
+
+def dir_single(x):
+    """The identity direction."""
+    return x
+
+
 def momentum(g, v, m, vdecay=None, mdecay=0.9):
     """Classical momentum direction. Returns ``(direction, None, m)``."""
     m = 0 if m is None else m
     m = mdecay * m + (1 - mdecay) * g
     return m, None, m
+
+
+def adagrad(g, v=None, m=None, eps=1e-6):
+    """Adagrad direction. The first call returns ``g`` itself and starts
+    the sum of squares ``v``. Returns ``(direction, v, m)``."""
+    if v is None:
+        return g, (g * g.conj()).real, m
+    v = v + (g * g.conj()).real
+    return g / torch.sqrt(v + eps), v, m
+
+
+def adadelta(g, d0=None, v=None, m=None, decay=0.9, eps=1e-6):
+    """Adadelta direction from the gradient ``g`` and the last step ``d0``.
+    Returns ``(direction, v, m)``."""
+    v = 0 if v is None else v
+    m = 0 if m is None else m
+    d0 = torch.zeros_like(g) if d0 is None else d0
+    v = v * decay + (1 - decay) * (g * g.conj()).real
+    m = m * decay + (1 - decay) * (d0 * d0.conj()).real
+    return torch.sqrt((m + eps) / (v + eps)) * g, v, m
 
 
 def adam(g, v=None, m=None, vdecay=0.999, mdecay=0.9, eps=1e-8):
@@ -71,6 +131,66 @@ def adam(g, v=None, m=None, vdecay=0.999, mdecay=0.9, eps=1e-8):
     m_ = m / (1 - mdecay)
     v_ = torch.sqrt(v / (1 - vdecay))
     return m_ / (v_ + eps), v, m
+
+
+def fit_line_least_squares(y, x):
+    """Return the (slope, intercept) of the line fit to (x, y), in float64
+    on the host."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    count = len(x)
+    assert count == len(y)
+    sx = x.sum()
+    sy = y.sum()
+    slope = (count * (x * y).sum() - sx * sy) / (count * (x * x).sum() - sx * sx)
+    intercept = (sy - slope * sx) / count
+    return slope, intercept
+
+
+def momentum_checked(
+    g,
+    v,
+    m,
+    mdecay: float,
+    errors: typing.List[float],
+    beta: float = 1.0,
+    memory_length: int = 3,
+    vdecay=None,
+):
+    """Momentum, applied only while the cost trends down and the recent
+    normalized steps agree, decided on the host.
+
+    ``v`` (memory_length, *g.shape) holds the last normalized steps (None
+    to start), ``m`` the momentum (like ``g``, None to start) and
+    ``errors`` the recent epoch costs, the current one last. The trend is
+    read from ``errors``; the correlations of the steps are read back
+    from ``g``'s device, and the friction is fitted to them in float64.
+    Returns ``(direction, v, m)``. :func:`momentum_checked_traced` is the
+    same step with the decision left on the device.
+    """
+    m = torch.zeros_like(g) if m is None else m
+    previous_g = (
+        torch.zeros((memory_length, *g.shape), dtype=g.dtype, device=g.device)
+        if v is None
+        else v
+    )
+    previous_g = torch.roll(previous_g, shifts=-1, dims=0)
+    gnorm = linalg.norm(g)
+    previous_g[-1] = g / torch.where(gnorm == 0, 1, gnorm) * beta
+    if len(errors) > 2 and max(errors[-3], errors[-2]) > min(errors[-2], errors[-1]):
+        corr = (
+            linalg.inner(previous_g[:-1], previous_g[-1:], dim=(-2, -1))
+            .real.flatten().cpu().numpy()
+        )
+        if np.all(corr > 0):
+            friction, _ = fit_line_least_squares(
+                x=np.arange(len(corr) + 1),
+                y=[0.0] + np.log(corr).tolist(),
+            )
+            friction = 0.5 * max(-friction, 0)
+            m = (1 - friction) * m + g
+            return mdecay * m, previous_g, m
+    return torch.zeros_like(g), previous_g, m / 2
 
 
 def momentum_checked_traced(

@@ -18,11 +18,14 @@ from .exitwave import (
     poisson_steplength_all_modes,
     poisson_steplength_dominant_mode,
 )
+from .fresnel import MW_probe, single_probe
 from .object import (
     ObjectOptions,
     clip_magnitude,
+    get_absorbtion_image,
     get_padded_object,
     positivity_constraint,
+    remove_object_ambiguity,
     smoothness_constraint,
 )
 from .position import (
@@ -39,6 +42,7 @@ from .probe import (
     ProbeOptions,
     add_modes_cartesian_hermite,
     add_modes_random_phase,
+    adjust_probe_power,
     apply_median_filter_abs_probe,
     constrain_center_peak,
     constrain_probe_sparsity,
@@ -50,6 +54,7 @@ from .probe import (
     orthogonalize_eig,
     power,
     rescale_probe_using_fixed_intensity_photons,
+    simulate_varying_weights,
     update_eigen_probe,
 )
 from .ptycho import (
@@ -65,7 +70,10 @@ from .solvers import (
     PtychoParameters,
     RpieOptions,
     crop_fourier_space,
+    lstsq_grad,
     pad_fourier_space,
+    rpie,
+    update_preconditioners,
 )
 
 __all__ = [
@@ -73,6 +81,7 @@ __all__ = [
     "ExitWaveOptions",
     "IterativeOptions",
     "LstsqOptions",
+    "MW_probe",
     "ObjectOptions",
     "PositionOptions",
     "ProbeOptions",
@@ -81,6 +90,7 @@ __all__ = [
     "RpieOptions",
     "add_modes_cartesian_hermite",
     "add_modes_random_phase",
+    "adjust_probe_power",
     "affine_position_regularization",
     "apply_median_filter_abs_probe",
     "center_of_mass2d",
@@ -98,11 +108,13 @@ __all__ = [
     "gaussian",
     "gaussian_filter2d",
     "gaussian_gradient",
+    "get_absorbtion_image",
     "get_padded_object",
     "get_varying_probe",
     "init_varying_probe",
     "integer",
     "integer_shift2d",
+    "lstsq_grad",
     "median_filter2d",
     "orthogonalize_eig",
     "pad_fourier_space",
@@ -112,10 +124,15 @@ __all__ = [
     "power",
     "reconstruct",
     "reconstruct_multigrid",
+    "remove_object_ambiguity",
     "rescale_probe_using_fixed_intensity_photons",
+    "rpie",
     "simulate",
     "simulate_device",
+    "simulate_varying_weights",
+    "single_probe",
     "smoothness_constraint",
     "update_eigen_probe",
     "update_positions_pd",
+    "update_preconditioners",
 ]

@@ -1,7 +1,9 @@
 """Object (psi) options and helpers.
 
 Counterpart of :mod:`tike_tpu.ptycho.object`, with the per-epoch object
-constraints (positivity, smoothness, magnitude clipping) on tensors.
+constraints (positivity, smoothness, magnitude clipping) and the removal of
+the probe-object scaling ambiguity on tensors, and the host helpers
+``get_padded_object`` and ``get_absorbtion_image`` in numpy.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import typing
 import numpy as np
 import torch
 
-from ..precision import cfloating, floating, integer
+from .. import linalg
+from ..precision import cfloating, floating, integer, to_numpy
 
 
 @dataclasses.dataclass
@@ -118,3 +121,47 @@ def clip_magnitude(x: torch.Tensor, a_max: float = 1.0) -> torch.Tensor:
         magnitude > a_max, a_max / magnitude, torch.ones_like(magnitude)
     )
     return x * scale
+
+
+def remove_object_ambiguity(psi: torch.Tensor, probe: torch.Tensor, preconditioner):
+    """Remove the scaling ambiguity between probe and psi: rescale both so
+    that the mean |psi|^2 weighted by the illumination ``preconditioner``
+    (normalized to a root mean square of 1) is 1/4, psi divided by the
+    factor and the probe multiplied. Returns ``(psi, probe)``."""
+    W = preconditioner.real
+    W = W / linalg.mnorm(W)
+    object_norm = 2 * torch.sqrt(torch.mean(torch.square(torch.abs(psi)) * W))
+    return psi / object_norm, probe * object_norm
+
+
+def get_absorbtion_image(data, scan, *, rescale=1.0, method="cubic"):
+    """Approximate a scanning-transmission image from diffraction patterns.
+
+    Host numpy and scipy, as in the JAX package: the total intensity of
+    each pattern becomes one sample of an absorption map at its
+    (rescaled) scan position, resampled onto an integer grid with
+    ``scipy.interpolate.griddata``. Points outside the convex hull are
+    filled with the maximum intensity (fully transmitting). Tensors are
+    copied to the host.
+    """
+    import scipy.interpolate
+
+    data = to_numpy(data)
+    scan = to_numpy(scan)
+    rescaled = scan * rescale
+
+    def span(x):
+        return np.arange(np.floor(x.min()), np.ceil(x.max()))
+
+    coord0, coord1 = np.meshgrid(
+        span(rescaled[:, 0]), span(rescaled[:, 1]), indexing="ij"
+    )
+    values = np.sum(np.square(np.abs(data)), axis=(-2, -1))
+    image = scipy.interpolate.griddata(
+        points=rescaled,
+        values=values,
+        xi=(coord0.flatten(), coord1.flatten()),
+        method=method,
+        fill_value=np.amax(values),
+    )
+    return np.reshape(image, coord0.shape)

@@ -7,9 +7,10 @@ complex64; eigen probes are (1, EIGEN, SHARED, W, H) and eigen weights are
 relaxation, OPR).
 
 The per-epoch probe constraints (finite support, median filter of the
-magnitude, centering, sparsity, orthogonalization) and the photon-count
-rescale run on tensors on any device. The set-up helpers (``add_modes_*``,
-``init_varying_probe``) are host numpy, as in the JAX package.
+magnitude, centering, sparsity, orthogonalization), the photon-count
+rescale and ``adjust_probe_power`` run on tensors on any device. The
+set-up helpers (``add_modes_*``, ``init_varying_probe``,
+``simulate_varying_weights``) are host numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import linalg
-from ..precision import cfloating, floating, to_numpy
+from ..precision import as_tensor, cfloating, floating, to_numpy
 from ..utils.ndimage import (
     center_of_mass2d,
     gaussian_filter2d,
@@ -255,6 +256,23 @@ def gaussian(size, rin=0.8, rout=1.0):
     zone = np.logical_and(rs > rmin, rs < rmax)
     img[zone] = np.divide(rmax - rs[zone], rmax - rmin)
     return img
+
+
+def adjust_probe_power(probe, power=None, *, device="cuda"):
+    """Rescale the probe modes (axis -3) to the relative powers ``power``
+    (default 1 / (1, 2, 3, ...)) of the first mode's.
+
+    A tensor ``probe`` is rescaled on its device; a numpy one on
+    ``device``, and given back as numpy.
+    """
+    host = not isinstance(probe, torch.Tensor)
+    x = as_tensor(probe, torch.complex64, device) if host else probe
+    if power is None:
+        power = 1.0 / np.arange(1, x.shape[-3] + 1)
+    power = as_tensor(power, torch.float32, x.device)[..., None, None]
+    norm = linalg.norm(x, dim=(-2, -1), keepdim=True)
+    out = x * power * norm[..., 0:1, :, :] / (norm + 1e-32)
+    return to_numpy(out) if host else out
 
 
 def add_modes_random_phase(probe, nmodes, rng=None):
@@ -508,3 +526,15 @@ def rescale_probe_using_fixed_intensity_photons(
     return probe * torch.sqrt(
         probe_power_fraction * Nphotons / (probe_photons + 1e-32)
     )[..., None, None]
+
+
+def simulate_varying_weights(scan, eigen_probe, rng=None):
+    """Random sinusoidal eigen weights for a simulation, host numpy: along
+    axis 1 of ``scan``, one random period and phase per eigen probe and
+    mode of ``eigen_probe``."""
+    rng = np.random.default_rng() if rng is None else rng
+    N = scan.shape[1]
+    x = np.arange(N)[..., :, None, None]
+    period = N * rng.random(eigen_probe.shape[:-2])
+    phase = 2 * np.pi * rng.random(eigen_probe.shape[:-2])
+    return np.sin(2 * np.pi / period * x - phase)

@@ -50,8 +50,8 @@ from ..precision import as_tensor, to_numpy
 from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
 from .solvers import _preconditioner
-from .solvers.epoch import EpochPlan, EpochState, _epoch_math, seed_err_hist
-from .solvers.options import PtychoParameters, _resize_fft, crop_fourier_space
+from .solvers.epoch import EpochPlan, EpochState, _epoch_math, plan_fields, seed_err_hist
+from .solvers.options import PtychoParameters, _batch_tensors, _resize_fft, crop_fourier_space
 from .stream import StreamedBatches, iter_batches, pinned_batches
 
 __all__ = [
@@ -444,17 +444,12 @@ class Reconstruction:
         )
         self.order = order[0]
         self.batches = cluster.batches_padded(batches[0])
-        batch_idx, batch_mask = self.batches
-        self._batch_idx = torch.as_tensor(
-            batch_idx, dtype=torch.int64, device=self.device
-        )
-        self._batch_mask = torch.as_tensor(batch_mask, device=self.device)
+        batch_idx = self.batches[0]
         # The real (unpadded) slots of each batch: eigen weights are
         # written back through these alone.
-        self._batch_real = [
-            torch.as_tensor(np.flatnonzero(m > 0), device=self.device)
-            for m in batch_mask
-        ]
+        self._batch_idx, self._batch_mask, self._batch_real = _batch_tensors(
+            self.batches, self.device
+        )
 
         self.parameters = PtychoParameters.split(
             self.order, x=self.parameters_host
@@ -519,28 +514,11 @@ class Reconstruction:
         p = self.parameters
         popts = p.probe_options
         oopts = p.object_options
-        posopts = p.position_options
         algo = p.algorithm_options
-        compact = algo.batch_method == "compact"
-        rpie = algo.name == "rpie"
-        # The moment kinds of the JAX package's fused program: rPIE takes
-        # per-batch AdaM (epoch-end checked momentum when compact); LSQML
-        # per-batch classical momentum (checked when compact) for the
-        # object and the epoch-end checked momentum for the probe.
-        obj_moment = "none"
-        if oopts is not None and oopts.use_adaptive_moment:
-            obj_moment = "checked" if compact else ("adam" if rpie else "momentum")
-        probe_moment = "none"
-        if popts is not None and popts.use_adaptive_moment:
-            probe_moment = "adam" if rpie and not compact else "checked"
         return EpochPlan(
-            cfg=self.operator,
-            solver="rpie" if rpie else "lstsq",
-            compact=compact,
-            noise_model=p.exitwave_options.noise_model,
-            steplength_usemodes=p.exitwave_options.step_length_usemodes,
-            recover_psi=oopts is not None,
-            recover_probe=popts is not None,
+            **plan_fields(
+                self.operator, p, "rpie" if algo.name == "rpie" else "lstsq", popts is not None
+            ),
             update_start=popts.update_start if popts else 0,
             update_period=popts.update_period if popts else 1,
             probe_support=popts.probe_support if popts else 0.0,
@@ -570,7 +548,6 @@ class Reconstruction:
                 else 0.0
             ),
             rescale_period=algo.rescale_period,
-            alpha=float(getattr(algo, "alpha", 0.05)),
             fft_precond=self.operator.nslices == 1
             and (
                 per_epoch
@@ -580,23 +557,6 @@ class Reconstruction:
                     nz=self.operator.nz,
                     n=self.operator.n,
                 )
-            ),
-            has_eigen=p.eigen_weights is not None,
-            obj_moment=obj_moment,
-            probe_moment=probe_moment,
-            obj_vdecay=oopts.vdecay if oopts else 0.999,
-            obj_mdecay=oopts.mdecay if oopts else 0.9,
-            probe_vdecay=popts.vdecay if popts else 0.999,
-            probe_mdecay=popts.mdecay if popts else 0.9,
-            recover_positions=posopts is not None and not rpie,
-            pos_update_start=posopts.update_start if posopts else 0,
-            pos_use_adaptive_moment=(
-                posopts.use_adaptive_moment if posopts else False
-            ),
-            pos_vdecay=posopts.vdecay if posopts else 0.999,
-            pos_mdecay=posopts.mdecay if posopts else 0.9,
-            pos_update_magnitude_limit=(
-                posopts.update_magnitude_limit if posopts else 0.0
             ),
             constrain_eigen=per_epoch and p.eigen_probe is not None,
         )

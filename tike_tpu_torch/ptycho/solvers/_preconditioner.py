@@ -13,9 +13,15 @@ runs the patch operators per position (``_psi_precond_math``,
 single slice that scatters bilinear point densities at integer pixels and
 convolves/correlates them with full-object fields
 (``_psi_precond_fft_math``, ``_probe_precond_fft_math``).
-:func:`fft_precond_profitable` picks between them with the JAX package's
-own rule, so both packages take the same formulation; multislice objects
-take the gather one, as in the JAX package.
+:func:`_batched_preconditioners` sums either over an epoch's padded
+batches; the epochs of ``Reconstruction`` call it, and so does
+:func:`update_preconditioners`, the per-epoch solver functions' public
+step. :func:`fft_precond_profitable` picks between the formulations on the
+fused path with the JAX package's own rule, so both packages take the same
+one; multislice objects take the gather one, as in the JAX package.
+:func:`update_preconditioners` takes the FFT formulation for one slice,
+the JAX package's default; unlike it, the port reads no environment
+variable for that choice.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import fresnel_fwd
 from ...ops.ptycho import PtychoConfig
+from .options import PtychoParameters, _device_fields
 
 # The (8, 128) tile the JAX gather formulation works in; only the cost
 # model below reads it.
@@ -191,3 +198,101 @@ def _probe_precond_fft_math(cfg: PtychoConfig, psi, scan, w):
     )[:, :p, :p]
     out = corr[0] + 2 * torch.sum(corr[1:], dim=0)
     return out[None].to(torch.float32)
+
+
+def _batched_preconditioners(
+    cfg: PtychoConfig,
+    psi,
+    scan,
+    probe,
+    batch_idx,
+    batch_mask,
+    *,
+    use_fft: bool,
+    want_psi: bool,
+    want_probe: bool,
+):
+    """Both preconditioners of the positions in the padded batches
+    ``batch_idx`` (nb, L) int64 and ``batch_mask`` (nb, L) float32, in
+    float32: the FFT formulation over the mask's weight at each position
+    (one slice), or the gather one summed batch by batch.
+
+    Returns ``(psi_pre (D, H, W), probe_pre (D, P, P))``; psi_pre is zeros
+    unless ``want_psi``, probe_pre None unless ``want_probe``.
+    """
+    psi_pre = torch.zeros((cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=psi.device)
+    probe_pre = None
+    if use_fft:
+        w_all = torch.zeros(scan.shape[0], dtype=torch.float32, device=psi.device)
+        w_all.index_add_(0, batch_idx.reshape(-1), batch_mask.reshape(-1))
+        if want_psi:
+            psi_pre = _psi_precond_fft_math(cfg, scan, probe, w_all)
+        if want_probe:
+            probe_pre = _probe_precond_fft_math(cfg, psi, scan, w_all)
+        return psi_pre, probe_pre
+    if want_probe:
+        probe_pre = torch.zeros(
+            (cfg.nslices, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
+            device=psi.device,
+        )
+    for idx, bmask in zip(batch_idx, batch_mask):
+        if want_psi:
+            psi_pre = psi_pre + _psi_precond_math(cfg, psi, scan[idx], probe, bmask)
+        if want_probe:
+            probe_pre = probe_pre + _probe_precond_math(cfg, psi, scan[idx], bmask)
+    return psi_pre, probe_pre
+
+
+def psi_preconditioner(cfg: PtychoConfig, psi, scan, probe, mask=None):
+    """(D, H, W) float32 sum of |illumination|^2 at each object pixel over
+    all positions (``mask`` (N,) optionally weighs them)."""
+    return _psi_precond_math(cfg, psi, scan, probe, mask)
+
+
+def probe_preconditioner(cfg: PtychoConfig, psi, scan, mask=None):
+    """(D, P, P) float32 sum of |object patches|^2 over all positions."""
+    return _probe_precond_math(cfg, psi, scan, mask)
+
+
+def update_preconditioners(
+    cfg: PtychoConfig,
+    parameters: PtychoParameters,
+    batches=None,
+) -> PtychoParameters:
+    """Refresh the object and probe preconditioners: write them into
+    ``object_options.preconditioner`` and ``probe_options.preconditioner``
+    (each where those options are set) and return ``parameters``.
+
+    With ``batches``, the ``(indices, mask)`` pair of
+    ``cluster.batches_padded``, one slice takes the FFT formulation and
+    several the gather one summed batch by batch, and the preconditioners
+    are complex64, as in the JAX package. Without, the gather formulation
+    runs over the whole scan and they are float32. The parameters' arrays
+    are made tensors on one device first (psi's, or the card for host
+    arrays), in place.
+    """
+    device = _device_fields(parameters)
+    p = parameters
+    if batches is None:
+        if p.object_options:
+            p.object_options.preconditioner = psi_preconditioner(cfg, p.psi, p.scan, p.probe)
+        if p.probe_options:
+            p.probe_options.preconditioner = probe_preconditioner(cfg, p.psi, p.scan)
+        return p
+    batch_idx, batch_mask = batches
+    psi_pre, probe_pre = _batched_preconditioners(
+        cfg,
+        p.psi,
+        p.scan,
+        p.probe,
+        torch.as_tensor(batch_idx, dtype=torch.int64, device=device),
+        torch.as_tensor(batch_mask, dtype=torch.float32, device=device),
+        use_fft=cfg.nslices == 1,
+        want_psi=p.object_options is not None,
+        want_probe=p.probe_options is not None,
+    )
+    if p.object_options is not None:
+        p.object_options.preconditioner = psi_pre.to(torch.complex64)
+    if p.probe_options is not None:
+        p.probe_options.preconditioner = probe_pre.to(torch.complex64)
+    return p

@@ -26,6 +26,12 @@ epochs. The eigen probes are constrained (``constrain_variable_probe``,
 after the probe constraints and the photon rescale, on probe-recovery
 epochs) only where the plan asks for it: on the per-epoch path, as the JAX
 package's per-epoch loop does and its fused program does not.
+
+:func:`solver_epoch`, the body of the per-epoch solver functions
+``solvers.rpie`` and ``solvers.lstsq_grad``, runs steps 2 and 3 alone: the
+preconditioners come from the options (``update_preconditioners``), no
+constraint or rescale runs, and the checked momenta decide on the host
+from the cost history, as the JAX package's functions of those names do.
 """
 
 from __future__ import annotations
@@ -36,17 +42,14 @@ import typing
 import numpy as np
 import torch
 
-from ... import linalg, opt
+from ... import opt
 from ...ops.ptycho import PtychoConfig
+from ...precision import as_tensor, to_numpy
 from .. import object as object_module
 from .. import probe as probe_module
 from ..stream import iter_batches
-from ._preconditioner import (
-    _probe_precond_fft_math,
-    _probe_precond_math,
-    _psi_precond_fft_math,
-    _psi_precond_math,
-)
+from ._preconditioner import _batched_preconditioners
+from .options import _batch_tensors, _device_fields
 from .lstsq import (
     _POS_EDGE,
     _fz,
@@ -115,6 +118,10 @@ class EpochPlan:
     # constrain_variable_probe at the start of probe-recovery epochs (the
     # per-epoch path with eigen probes)
     constrain_eigen: bool = False
+    # the checked momenta decide on the host from EpochState.errors
+    # (opt.momentum_checked, the per-epoch solver functions) rather than on
+    # the device from EpochState.err_hist
+    checked_on_host: bool = False
 
     def recover_now(self, total_e: int) -> bool:
         """Whether the probe is updated in epoch ``total_e``."""
@@ -132,7 +139,9 @@ class EpochState:
     None without ``use_adaptive_moment``. ``obj_v``/``obj_m`` and
     ``probe_v``/``probe_m`` are the object and probe moment states of the
     plan's moment kinds (None where a kind keeps none), and ``err_hist``
-    the (3,) tail of the epoch-cost series that the checked momenta read.
+    the (3,) tail of the epoch-cost series that the checked momenta read
+    on the device; ``errors`` the host list of the last epoch costs that
+    they read with ``plan.checked_on_host``.
     """
 
     psi: torch.Tensor
@@ -147,6 +156,7 @@ class EpochState:
     probe_v: typing.Optional[torch.Tensor] = None
     probe_m: typing.Optional[torch.Tensor] = None
     err_hist: typing.Optional[torch.Tensor] = None
+    errors: typing.Optional[typing.List[float]] = None
 
 
 @dataclasses.dataclass
@@ -221,7 +231,6 @@ def _epoch_begin_math(
     constraints run whenever the probe is recovered. Only rPIE reads the
     probe preconditioner; the LSQML epoch does not compute it.
     """
-    cfg = plan.cfg
     probe = state.probe
     if plan.recover_probe:
         constrained, pwr = _probe_constraints_math(plan, probe)
@@ -243,31 +252,17 @@ def _epoch_begin_math(
         state.eigen_probe, state.eigen_weights = probe_module.constrain_variable_probe(
             state.eigen_probe, state.eigen_weights
         )
-
-    psi, scan = state.psi, state.scan
-    want_probe_pre = plan.solver == "rpie" and plan.recover_probe
-    psi_pre = torch.zeros(
-        (cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=psi.device
+    psi_pre, probe_pre = _batched_preconditioners(
+        plan.cfg,
+        state.psi,
+        state.scan,
+        probe,
+        batch_idx,
+        batch_mask,
+        use_fft=plan.fft_precond,
+        want_psi=plan.recover_psi,
+        want_probe=plan.solver == "rpie" and plan.recover_probe,
     )
-    probe_pre = None
-    if plan.fft_precond:
-        w_all = torch.zeros(scan.shape[0], dtype=torch.float32, device=psi.device)
-        w_all.index_add_(0, batch_idx.reshape(-1), batch_mask.reshape(-1))
-        if plan.recover_psi:
-            psi_pre = _psi_precond_fft_math(cfg, scan, probe, w_all)
-        if want_probe_pre:
-            probe_pre = _probe_precond_fft_math(cfg, psi, scan, w_all)
-        return pwr, psi_pre, probe_pre
-    if want_probe_pre:
-        probe_pre = torch.zeros(
-            (cfg.nslices, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
-            device=psi.device,
-        )
-    for idx, bmask in zip(batch_idx, batch_mask):
-        if plan.recover_psi:
-            psi_pre = psi_pre + _psi_precond_math(cfg, psi, scan[idx], probe, bmask)
-        if want_probe_pre:
-            probe_pre = probe_pre + _probe_precond_math(cfg, psi, scan[idx], bmask)
     return pwr, psi_pre, probe_pre
 
 
@@ -460,14 +455,17 @@ def _position_step(plan: EpochPlan, state: EpochState, pos_num, pos_den):
 
 
 def _checked(plan: EpochPlan, state: EpochState, g, which: str, total_e, beta=1.0):
-    """``momentum_checked_traced`` on the ``which`` ('obj' or 'probe')
-    moment states; returns the new states and the direction."""
+    """The checked momentum on the ``which`` ('obj' or 'probe') moment
+    states, ``momentum_checked`` with ``plan.checked_on_host``, else
+    ``momentum_checked_traced``; returns the direction and the new
+    states."""
     v, m = getattr(state, which + "_v"), getattr(state, which + "_m")
-    d, v, m = opt.momentum_checked_traced(
-        g, v, m, getattr(plan, which + "_mdecay"), state.err_hist, total_e + 1,
-        beta=beta,
+    mdecay = getattr(plan, which + "_mdecay")
+    if plan.checked_on_host:
+        return opt.momentum_checked(g, v, m, mdecay, state.errors, beta=beta)
+    return opt.momentum_checked_traced(
+        g, v, m, mdecay, state.err_hist, total_e + 1, beta=beta
     )
-    return d, v, m
 
 
 def _compact_end(plan, state, sums, beta_obj_mean, psi_pre, probe_pre, recover_now, total_e):
@@ -549,11 +547,67 @@ def _epoch_end_math(
     if plan.clip_magnitude:
         psi = object_module.clip_magnitude(psi, a_max=1.0)
     if plan.rescale_mean_abs and (total_e + 1) % plan.rescale_period == 0:
-        W = psi_pre / linalg.mnorm(psi_pre)
-        object_norm = 2 * torch.sqrt(torch.mean(torch.square(torch.abs(psi)) * W))
-        psi = psi / object_norm
-        state.probe = state.probe * object_norm
+        psi, state.probe = object_module.remove_object_ambiguity(
+            psi, state.probe, psi_pre
+        )
     state.psi = psi
+
+
+def _start_sums(plan: EpochPlan, state: EpochState) -> _Sums:
+    """Zeros for what the plan's batches add up."""
+    sums = _Sums()
+    if plan.compact:
+        sums.psi = torch.zeros_like(state.psi)
+        if plan.solver == "rpie":
+            sums.probe = torch.zeros(
+                (state.psi.shape[0], *state.probe.shape),
+                dtype=state.probe.dtype,
+                device=state.probe.device,
+            )
+    if plan.recover_positions:
+        sums.pos_num = torch.zeros_like(state.scan)
+        sums.pos_den = torch.zeros_like(state.scan)
+    if plan.solver == "lstsq" and plan.probe_moment == "checked":
+        sums.pcomb = torch.zeros_like(state.probe)
+        sums.pbeta = torch.zeros((), dtype=torch.float32, device=state.probe.device)
+    return sums
+
+
+def _sweep(
+    plan: EpochPlan,
+    batches,
+    batch_idx,
+    batch_mask,
+    batch_real,
+    state: EpochState,
+    sums: _Sums,
+    psi_pre,
+    probe_pre,
+    exitwave_options,
+    recover_now: bool,
+):
+    """Run :func:`_batch_update_math` on each ``(n, data_n)`` of
+    ``batches``, in their order. Returns the (nb,) batch costs in batch
+    order and the mean LSQML object step, as device tensors."""
+    nb = batch_idx.shape[0]
+    costs, betas = [None] * nb, []
+    for n, data_n in batches:
+        costs[n], beta_obj = _batch_update_math(
+            plan,
+            data_n,
+            batch_idx[n],
+            batch_mask[n],
+            batch_real[n],
+            state,
+            sums,
+            psi_pre,
+            probe_pre,
+            exitwave_options,
+            recover_now,
+            nb,
+        )
+        betas.append(beta_obj)
+    return torch.stack(costs), torch.stack(betas).mean()
 
 
 def _epoch_math(
@@ -582,46 +636,28 @@ def _epoch_math(
     pwr, psi_pre, probe_pre = _epoch_begin_math(
         plan, state, batch_idx, batch_mask, recover_now, total_e
     )
-    sums = _Sums()
-    if plan.compact:
-        sums.psi = torch.zeros_like(state.psi)
-        if plan.solver == "rpie":
-            sums.probe = torch.zeros(
-                (state.psi.shape[0], *state.probe.shape),
-                dtype=state.probe.dtype,
-                device=state.probe.device,
-            )
-    if plan.recover_positions:
-        sums.pos_num = torch.zeros_like(state.scan)
-        sums.pos_den = torch.zeros_like(state.scan)
-    if plan.solver == "lstsq" and plan.probe_moment == "checked":
-        sums.pcomb = torch.zeros_like(state.probe)
-        sums.pbeta = torch.zeros((), dtype=torch.float32, device=state.probe.device)
-    costs, betas = [None] * nb, []
-    for n, data_n in iter_batches(data, order):
-        costs[n], beta_obj = _batch_update_math(
-            plan,
-            data_n,
-            batch_idx[n],
-            batch_mask[n],
-            batch_real[n],
-            state,
-            sums,
-            psi_pre,
-            probe_pre,
-            exitwave_options,
-            recover_now,
-            nb,
-        )
-        betas.append(beta_obj)
-    epoch_cost = torch.stack(costs).mean()
+    sums = _start_sums(plan, state)
+    costs, beta_obj_mean = _sweep(
+        plan,
+        iter_batches(data, order),
+        batch_idx,
+        batch_mask,
+        batch_real,
+        state,
+        sums,
+        psi_pre,
+        probe_pre,
+        exitwave_options,
+        recover_now,
+    )
+    epoch_cost = costs.mean()
     if state.err_hist is not None:
         state.err_hist = torch.cat([state.err_hist[1:], epoch_cost.reshape(1)])
     _epoch_end_math(
         plan,
         state,
         sums,
-        torch.stack(betas).mean(),
+        beta_obj_mean,
         psi_pre,
         probe_pre,
         recover_now,
@@ -629,3 +665,176 @@ def _epoch_math(
         nb,
     )
     return epoch_cost, pwr
+
+
+def plan_fields(cfg: PtychoConfig, parameters, solver: str, recover_probe: bool) -> dict:
+    """The :class:`EpochPlan` fields that follow from the parameters'
+    options alone: the solver and its batching, the noise model, what is
+    recovered, the position step and the moment kinds of the JAX package
+    (rPIE: per-batch AdaM, checked momentum when compact; LSQML: per-batch
+    classical momentum for the object, checked when compact, and the
+    epoch-end checked momentum for the probe). The probe's moment is kept
+    only where ``recover_probe``."""
+    p = parameters
+    popts, oopts, posopts = p.probe_options, p.object_options, p.position_options
+    compact = p.algorithm_options.batch_method == "compact"
+    rpie = solver == "rpie"
+    obj_moment = "none"
+    if oopts is not None and oopts.use_adaptive_moment:
+        obj_moment = "checked" if compact else ("adam" if rpie else "momentum")
+    probe_moment = "none"
+    if recover_probe and popts.use_adaptive_moment:
+        probe_moment = "adam" if rpie and not compact else "checked"
+    return dict(
+        cfg=cfg,
+        solver=solver,
+        compact=compact,
+        noise_model=p.exitwave_options.noise_model,
+        steplength_usemodes=p.exitwave_options.step_length_usemodes,
+        recover_psi=oopts is not None,
+        recover_probe=recover_probe,
+        alpha=float(getattr(p.algorithm_options, "alpha", 0.05)),
+        has_eigen=p.eigen_weights is not None,
+        obj_moment=obj_moment,
+        probe_moment=probe_moment,
+        obj_vdecay=oopts.vdecay if oopts else 0.999,
+        obj_mdecay=oopts.mdecay if oopts else 0.9,
+        probe_vdecay=popts.vdecay if popts else 0.999,
+        probe_mdecay=popts.mdecay if popts else 0.9,
+        recover_positions=posopts is not None and not rpie,
+        pos_update_start=posopts.update_start if posopts else 0,
+        pos_use_adaptive_moment=posopts.use_adaptive_moment if posopts else False,
+        pos_vdecay=posopts.vdecay if posopts else 0.999,
+        pos_mdecay=posopts.mdecay if posopts else 0.9,
+        pos_update_magnitude_limit=(
+            posopts.update_magnitude_limit if posopts else 0.0
+        ),
+    )
+
+
+def _preconditioner_of(options, name: str, device):
+    """The float32 preconditioner that ``update_preconditioners`` wrote
+    into ``options``."""
+    if options.preconditioner is None:
+        raise ValueError(
+            f"{name}.preconditioner is not set; call update_preconditioners "
+            "before each epoch"
+        )
+    pre = torch.as_tensor(options.preconditioner, device=device)
+    return (pre.real if pre.is_complex() else pre).to(torch.float32)
+
+
+def solver_epoch(
+    solver: str,
+    parameters,
+    data,
+    batches,
+    *,
+    op: PtychoConfig,
+    epoch: int,
+    rng: typing.Optional[np.random.Generator] = None,
+):
+    """One epoch of ``solver`` ('rpie' or 'lstsq') over all mini-batches:
+    the body of the per-epoch functions ``solvers.rpie`` and
+    ``solvers.lstsq_grad``.
+
+    ``batches`` is the ``(indices, mask)`` pair of
+    ``cluster.batches_padded``; ``data`` holds the patterns batch-major
+    (nb, L, DET, DET) or flat (N, DET, DET), as a tensor or a host array
+    (copied to the parameters' device). The batches run in order for
+    compact batching, else in a permutation drawn from ``rng``. The
+    preconditioners are those already in the options
+    (``update_preconditioners``), the probe is recovered where
+    ``probe_options.recover_probe(epoch)`` says, and no probe or object
+    constraint is applied. The epoch's mean batch cost is appended to
+    ``algorithm_options.costs`` (read to the host before the epoch-end
+    updates, whose checked momenta decide on it), the moment states are
+    kept in the options, and ``parameters`` is returned with its fields
+    updated.
+    """
+    rng = np.random.default_rng() if rng is None else rng
+    p = parameters
+    if solver == "lstsq" and op.nslices != 1:
+        raise ValueError("LSQML is single-slice; multislice objects take rPIE")
+    device = _device_fields(p)
+    algo, oopts, popts, posopts = (
+        p.algorithm_options, p.object_options, p.probe_options, p.position_options
+    )
+    # The probe gate applied here, so the plan recovers it every epoch it
+    # recovers it at all; no constraint, no rescale, the checked momenta
+    # decided on the host.
+    recover_probe = popts is not None and popts.recover_probe(epoch)
+    plan = EpochPlan(
+        **plan_fields(op, p, solver, recover_probe),
+        update_start=0,
+        update_period=1,
+        rescale_mean_abs=False,
+        rescale_period=1,
+        checked_on_host=True,
+    )
+    batch_idx, batch_mask, batch_real = _batch_tensors(batches, device)
+    nb = batch_idx.shape[0]
+    order = range(nb) if plan.compact else rng.permutation(nb).tolist()
+    data = as_tensor(data, torch.float32, device)
+    batch_data = (
+        ((n, data[n]) for n in order)
+        if data.dim() == 4
+        else ((n, data[batch_idx[n]]) for n in order)
+    )
+    if oopts is not None:
+        psi_pre = _preconditioner_of(oopts, "object_options", device)
+    else:
+        psi_pre = torch.ones((1, op.nz, op.n), dtype=torch.float32, device=device)
+    probe_pre = None
+    if solver == "rpie" and recover_probe:
+        probe_pre = _preconditioner_of(popts, "probe_options", device)
+
+    state = EpochState(
+        psi=p.psi,
+        probe=p.probe,
+        scan=p.scan,
+        eigen_probe=p.eigen_probe,
+        eigen_weights=p.eigen_weights,
+    )
+    def kept(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+
+    if plan.obj_moment != "none":
+        state.obj_v, state.obj_m = kept(oopts.v), kept(oopts.m)
+    if plan.probe_moment != "none":
+        state.probe_v, state.probe_m = kept(popts.v), kept(popts.m)
+    if plan.recover_positions and plan.pos_use_adaptive_moment:
+        momentum = posopts._momentum
+        if momentum is None:
+            momentum = torch.zeros((*p.scan.shape[:-1], 4), device=device)
+        state.pos_v, state.pos_m = momentum[..., 0:2], momentum[..., 2:4]
+
+    sums = _start_sums(plan, state)
+    costs, beta_obj_mean = _sweep(
+        plan,
+        batch_data,
+        batch_idx,
+        batch_mask,
+        batch_real,
+        state,
+        sums,
+        psi_pre,
+        probe_pre,
+        p.exitwave_options,
+        True,
+    )
+    algo.costs.append([float(np.mean(to_numpy(costs)))])
+    state.errors = [float(c[0]) for c in algo.costs[-3:]]
+    _epoch_end_math(
+        plan, state, sums, beta_obj_mean, psi_pre, probe_pre, True, epoch, nb
+    )
+
+    p.psi, p.probe, p.scan = state.psi, state.probe, state.scan
+    p.eigen_probe, p.eigen_weights = state.eigen_probe, state.eigen_weights
+    if plan.obj_moment != "none":
+        oopts.v, oopts.m = state.obj_v, state.obj_m
+    if plan.probe_moment != "none":
+        popts.v, popts.m = state.probe_v, state.probe_m
+    if plan.recover_positions and plan.pos_use_adaptive_moment:
+        posopts._momentum = torch.cat([state.pos_v, state.pos_m], dim=-1)
+    return p

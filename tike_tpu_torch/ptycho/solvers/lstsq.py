@@ -4,11 +4,16 @@ Counterpart of :mod:`tike_tpu.ptycho.solvers.lstsq` (Odstrcil, Menzel,
 Guizar-Sicairos 2018, Optics Express): object and probe updated together
 with jointly-optimal step sizes from a per-position 2x2 least-squares
 solve, plus the eigen-probe (OPR) updates and the gradient terms of
-position correction. Single slice; Gaussian or Poisson noise model.
+position correction. Single slice; Gaussian or Poisson noise model. How the
+batches become an epoch is ``epoch.py``'s business, and so is the body of
+:func:`lstsq_grad`, the per-epoch solver function.
 """
 
 from __future__ import annotations
 
+import typing
+
+import numpy as np
 import torch
 
 from ... import linalg
@@ -286,3 +291,30 @@ def _lstsq_batch_math(
     if x2 is not None:
         out["beta_probe"] = beta(x2)
     return out
+
+
+def lstsq_grad(
+    parameters,
+    data,
+    batches: typing.Tuple[np.ndarray, np.ndarray],
+    *,
+    op: PtychoConfig,
+    epoch: int,
+    rng: typing.Optional[np.random.Generator] = None,
+):
+    """One LSQML epoch over all mini-batches, as ``tike_tpu``'s
+    ``solvers.lstsq_grad``: the batches in order for compact batching,
+    else in a permutation drawn from ``rng``; the object preconditioner
+    already in the options; the probe (and eigen probes and weights)
+    updated where ``probe_options.recover_probe(epoch)`` says; per-batch
+    object momentum, or the compact object's and the probe's checked
+    momenta (decided on the host), where the options ask; the positions
+    stepped once with ``position_options`` from epoch
+    ``position_options.update_start``, clamped into the object; no probe or
+    object constraint; the mean batch cost appended to
+    ``algorithm_options.costs``. Single slice. Returns ``parameters``,
+    updated. See :func:`~tike_tpu_torch.ptycho.solvers.epoch.solver_epoch`.
+    """
+    from .epoch import solver_epoch
+
+    return solver_epoch("lstsq", parameters, data, batches, op=op, epoch=epoch, rng=rng)

@@ -6,8 +6,9 @@ objects. Its arrays are numpy on the host and tensors after
 :meth:`PtychoParameters.copy_to_device`.
 
 The resize helpers of :meth:`PtychoParameters.resample` (multigrid) are
-host numpy and scipy, copies of the JAX package's: tensors go through the
-host, so both packages resample the same bits. :func:`crop_fourier_space`
+host numpy and scipy, copies of the JAX package's (the image-space ones
+through :func:`tike_tpu_torch.view.resize_complex_image`): tensors go
+through the host, so both packages resample the same bits. :func:`crop_fourier_space`
 also takes a tensor and stays on its device.
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ...precision import as_tensor, cfloating, floating, to_numpy
+from ...view import resize_complex_image
 from ..exitwave import ExitWaveOptions
 from ..object import ObjectOptions
 from ..position import PositionOptions, check_allowed_positions
@@ -305,6 +307,45 @@ class PtychoParameters:
         )
 
 
+def _device_fields(parameters: PtychoParameters) -> torch.device:
+    """Make the arrays of ``parameters`` tensors on one device, in place,
+    and return that device: psi's if psi is a tensor, else the card
+    ('cuda'), the default of the port's entry points. Arrays already there
+    stay the objects they are."""
+    p = parameters
+    device = p.psi.device if isinstance(p.psi, torch.Tensor) else torch.device("cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the parameters hold host arrays, which go to the card, but "
+            "torch.cuda.is_available() is false; copy them to a device "
+            "with PtychoParameters.copy_to_device"
+        )
+    p.psi = as_tensor(p.psi, torch.complex64, device)
+    p.probe = as_tensor(p.probe, torch.complex64, device)
+    p.scan = as_tensor(p.scan, torch.float32, device)
+    if p.eigen_probe is not None:
+        p.eigen_probe = as_tensor(p.eigen_probe, torch.complex64, device)
+    if p.eigen_weights is not None:
+        p.eigen_weights = as_tensor(p.eigen_weights, torch.float32, device)
+    p.exitwave_options = p.exitwave_options.copy_to_device(device)
+    if p.position_options is not None:
+        p.position_options = p.position_options.copy_to_device(device)
+    return device
+
+
+def _batch_tensors(batches, device):
+    """The ``(indices, mask)`` pair of ``cluster.batches_padded`` on
+    ``device``: ``(batch_idx (nb, L) int64, batch_mask (nb, L) float32,
+    batch_real)``, ``batch_real[n]`` the int64 slots of batch n whose mask
+    is above 0."""
+    idx, mask = (to_numpy(b) for b in batches)
+    return (
+        torch.as_tensor(idx, dtype=torch.int64, device=device),
+        torch.as_tensor(mask, dtype=torch.float32, device=device),
+        [torch.as_tensor(np.flatnonzero(m > 0), device=device) for m in mask],
+    )
+
+
 def _resize_spline(x: np.ndarray, f: float) -> np.ndarray:
     import scipy.ndimage
 
@@ -360,46 +401,12 @@ def _resize_fft(x: np.ndarray, f: float) -> np.ndarray:
     )
 
 
-def _lanczos_resample_matrix(n_in: int, n_out: int, a: int = 4) -> np.ndarray:
-    """Dense (n_out, n_in) Lanczos-a resampling matrix (rows normalized)."""
-    scale = n_out / n_in
-    center = (np.arange(n_out) + 0.5) / scale - 0.5
-    t = center[:, None] - np.arange(n_in)[None, :]
-    w = np.sinc(t) * np.sinc(t / a) * (np.abs(t) < a)
-    return w / w.sum(axis=-1, keepdims=True)
-
-
-def _resize_complex_image(img0, scale_factor=(1, 1), interpolation=None):
-    """Resize a complex image by (horizontal, vertical) scale factors:
-    OpenCV's codes 0 or 1 (linear) and 2 (cubic) by scipy spline zoom of
-    the real and imaginary parts, 4 by a separable Lanczos-4 resample, as
-    ``tike_tpu.view.resize_complex_image`` does."""
-    if interpolation == 4:
-        h, w = img0.shape[-2:]
-        hn = int(round(h * scale_factor[1]))
-        wn = int(round(w * scale_factor[0]))
-        ry = _lanczos_resample_matrix(h, hn)
-        rx = _lanczos_resample_matrix(w, wn)
-        return np.einsum("ay,...yx,bx->...ab", ry, img0, rx).astype(img0.dtype)
-
-    import scipy.ndimage
-
-    order = 1 if interpolation in (None, 0, 1) else 3
-    zoom = (scale_factor[1], scale_factor[0])
-    return (
-        scipy.ndimage.zoom(img0.real, zoom, order=order, grid_mode=True,
-                           mode="grid-constant")
-        + 1j * scipy.ndimage.zoom(img0.imag, zoom, order=order, grid_mode=True,
-                                  mode="grid-constant")
-    ).astype(img0.dtype)
-
-
 def _resize_cv(x: np.ndarray, f: float, interpolation: int) -> np.ndarray:
     """Image-space resize of the last 2 dims of x, image by image."""
     shape = x.shape
     flat = x.reshape(-1, *shape[-2:])
     out = [
-        _resize_complex_image(img, scale_factor=(f, f), interpolation=interpolation)
+        resize_complex_image(img, scale_factor=(f, f), interpolation=interpolation)
         for img in flat
     ]
     return np.asarray(out).reshape(*shape[:-2], *out[0].shape[-2:])

@@ -7,11 +7,15 @@ backpropagated object and probe numerators, for each object slice: with
 D > 1 slices the exit-wave difference is propagated back from the last
 slice to the first by the adjoint Fresnel propagator. How the numerators
 become steps (per batch, or summed over the epoch in compact mode) is the
-epoch's business (``epoch.py``).
+epoch's business (``epoch.py``), and so is the body of :func:`rpie`, the
+per-epoch solver function.
 """
 
 from __future__ import annotations
 
+import typing
+
+import numpy as np
 import torch
 
 from ... import linalg
@@ -150,3 +154,29 @@ def _normalize_eigen_weights(eigen_weights):
     return eigen_weights / (
         linalg.mnorm(eigen_weights, dim=-3, keepdim=True) + 1e-32
     )
+
+
+def rpie(
+    parameters,
+    data,
+    batches: typing.Tuple[np.ndarray, np.ndarray],
+    *,
+    op: PtychoConfig,
+    epoch: int,
+    rng: typing.Optional[np.random.Generator] = None,
+):
+    """One rPIE epoch over all mini-batches, as ``tike_tpu``'s
+    ``solvers.rpie``: the batches in order for compact batching, else in a
+    permutation drawn from ``rng``; the preconditioners already in the
+    options; the probe updated where ``probe_options.recover_probe(epoch)``
+    says, with AdaM (per batch) or checked momentum (compact, decided on
+    the host) on mode 0 where the options ask, and likewise the object;
+    the eigen weights normalized; no probe or object constraint; the mean
+    batch cost appended to ``algorithm_options.costs``. ``data`` is
+    batch-major (nb, L, DET, DET) or flat (N, DET, DET). Returns
+    ``parameters``, updated. See
+    :func:`~tike_tpu_torch.ptycho.solvers.epoch.solver_epoch`.
+    """
+    from .epoch import solver_epoch
+
+    return solver_epoch("rpie", parameters, data, batches, op=op, epoch=epoch, rng=rng)
