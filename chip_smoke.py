@@ -224,6 +224,24 @@ After phase 19, the rest of the public API by hand:
     and its plain path on 1,000 windows on the card, and
     ``get_absorbtion_image`` of the 10,000 patterns (a host time).
 
+After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
+
+21. (a) phase 5's LSQML slice on a mesh of two shards, both on the card,
+    against the same mesh on the CPU at phase 5's tolerance, and a
+    one-shard mesh against no mesh, bit for bit; (b) the main path on two
+    shards: its costs, each patch kernel launched twice as often as in
+    phase 6 (once a shard), s/epoch, set-up and peak memory beside phase
+    6's, one traced epoch, and the final cost, psi and probe against phase
+    6's (``MESH_PSI_TOL``, ``MESH_PROBE_TOL``); (c) phase 11's cgrad with
+    the angles over two shards, costs within ``MESH_LAMINO_RTOL`` of phase
+    11's, s/iteration beside it; (d) the tiled Bucket kernels on the two
+    64-row x-slabs of 128^3 / 64 angles / precision 3 against their plain
+    versions (no point outside its window; the slabs' forwards summed
+    within the rounding bound of the full lattice's), their times beside
+    the full lattice's per voxel; ``obj_split=2`` at phase 16's problem,
+    s/iteration beside phase 16's; and the golden protocol on a 2 x 2 (data
+    x volume) mesh.
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
@@ -244,8 +262,11 @@ launches in phase 6 as
 ``launches_lamino_cgrad`` and in its CGLS as ``launches_lamino_cgls``; the
 probes' in phase 12, the Lanczos kernels' in phase 19c; every kernel's
 launches in phase 18b's timed run as ``launches_multislice``, in 19c as
-``launches_align`` and in phase 20b's timed epochs of both solvers as
-``launches_api``); its error against the plain version, its time, the
+``launches_align``, in phase 20b's timed epochs of both solvers as
+``launches_api`` and on phase 21's mesh as ``launches_mesh``: 21b's for the
+patch kernels, 21c's for the KB kernels, 21d's ``obj_split=2`` for the
+Bucket kernels, whose slab times come as ``ms_slab0`` / ``ms_slab1`` with
+their bounds); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic; each probe's launch floor ``floor_ms``, for gridded and
@@ -282,7 +303,8 @@ from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_usfft_cases as cases_usfft
 from tike_tpu_torch import (
-    checkpoint, cluster, kernel_sweep, kernels, linalg, opt, profile_epoch, toolchain_probe,
+    checkpoint, cluster, kernel_sweep, kernels, linalg, opt, parallel, profile_epoch,
+    toolchain_probe,
 )
 from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import alignment as ops_alignment
@@ -999,7 +1021,7 @@ def path_parameters(scan, psi, probe, config2=False):
     )
 
 
-def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=False,
+def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=False, mesh=None,
            **optics) -> dict:
     """Simulate the data on the card from ``psi`` (``optics`` go to
     ``simulate_device``), unless ``data`` is given, then enter a
@@ -1008,7 +1030,7 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
     run and read just after, and, with ``trace``, one more epoch traced
     (``_traced_epoch``). Checks what every path shares: 4 finite,
     decreasing costs, both patch kernels launched, a finite result of the
-    start's shapes."""
+    start's shapes. ``mesh`` runs the Reconstruction data-parallel on it."""
     if data is None:
         start = time.perf_counter()
         data = tp.simulate_device(DET, probe, scan, psi, device=device, **optics)
@@ -1021,7 +1043,7 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
 
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    context = tp.Reconstruction(data, params, device=device, random_seed=0)
+    context = tp.Reconstruction(data, params, device=device, random_seed=0, mesh=mesh)
     context.__enter__()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
@@ -1069,33 +1091,36 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
     log(f"[{tag}] kernel launches in iterate(3) "
         f"{ {k: launches[k] for k in patch.LAUNCHES} }")
     # Each kernel's bound per launch on this path: the mean, over the
-    # batches at their starting positions, of what a batch's positions
-    # need (cases.roofline).
+    # batches at their starting positions (each shard's slots of them on a
+    # mesh), of what a launch's positions need (cases.roofline).
+    shards = 1 if mesh is None else mesh.size
     batch_scan = torch.as_tensor(scan[context.order[context.batches[0]]], device=device)
     bounds = {
         name: statistics.mean(
             cases.roofline(name, b, probe.shape[-1], params.psi.shape[-2:], torch.complex64)[
                 "bound_ms"
             ]
-            for b in batch_scan
+            for batch in batch_scan
+            for b in torch.chunk(batch, shards)
         )
         for name in patch.LAUNCHES
     }
     log(f"[{tag}] bound per launch, mean over the {len(batch_scan)} batches of "
-        f"{batch_scan.shape[1]}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items())
-        + f" ({card})")
+        f"{batch_scan.shape[1]} in {shards} shard(s): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items()) + f" ({card})")
     return dict(launches=launches, result=result, scan1=scan1, data=data, setup_s=setup_s,
                 epoch_s=epoch_s, costs=costs, breakdown=breakdown, plan=plan, fused=fused)
 
 
-def phase_main_path(device, scan, psi, probe, card: str):
+def phase_main_path(device, scan, psi, probe, card: str) -> dict:
     """The main path, and one more epoch traced after the timed ones;
-    returns its kernel counts, its s/epoch and the traced epoch's
-    breakdown."""
+    returns :func:`_drive`'s record of it (its kernel counts, s/epoch,
+    costs, result and the traced epoch's breakdown), less the data."""
     params = path_parameters(scan, psi, probe)
     out = _drive("main", device, probe, scan, psi, card, params, trace=True)
     log_breakdown("main", out["breakdown"], card)
-    return out["launches"], out["epoch_s"], out["breakdown"]
+    del out["data"]
+    return out
 
 
 def log_breakdown(tag: str, b: dict, card: str) -> None:
@@ -1530,7 +1555,7 @@ def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
         raise AssertionError(f"{tag}: first timed cost {costs[0]} != warm-up's {warm['cost'][0]}")
     log(f"[{tag}] the warm-up run twice and the {LAMINO_ROUNDS} timed runs from the same start: "
         "costs and volumes bitwise equal")
-    return launches
+    return dict(launches=launches, costs=costs, per_iter=statistics.median(rounds))
 
 
 def phase_probes(device, card: str, parent_form):
@@ -2351,7 +2376,7 @@ def phase_bucket(device, card: str) -> dict:
     log(f"[bucket] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); kernel launches "
         f"{ {k: launches[k] for k in BUCKET_KERNELS} }; line-search host reads {reads}; points "
         f"outside their tile's window {outside} ({card})")
-    return launches
+    return dict(launches=launches, costs=costs, per_iter=per_iter)
 
 
 class _LevelSpy(tpp.Reconstruction):
@@ -3209,6 +3234,262 @@ def phase_api_helpers(device, scan, psi, card: str, *, data, batches, lstsq) -> 
         f"{len(scan)} patterns in {absorbtion_s:.2f} s on the host ({card})")
 
 
+def _on_card_mesh(device, shards: int) -> "parallel.Mesh":
+    """A 1-D mesh of ``shards`` shards, all on the card ``device``."""
+    return parallel.make_mesh(devices=[device] * shards)
+
+
+def phase_mesh_slice(device) -> None:
+    """21a: phase 5's small LSQML slice on a mesh of two shards, on the card
+    (both on cuda:0) against the same mesh on the CPU at phase 5's
+    tolerance; and a one-shard mesh on the card against no mesh, bit for
+    bit."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
+
+    def run(dev, mesh):
+        params = _small_slice_parameters(scan, probe, psi0, det)
+        with tp.Reconstruction(data, params, device=dev, random_seed=0, mesh=mesh) as context:
+            context.iterate(3)
+            return context.get_result(), context.batches[0].shape
+
+    ref, shape = run("cpu", parallel.make_mesh(devices=["cpu", "cpu"]))
+    got, _ = run(device, _on_card_mesh(device, 2))
+    c_ref = np.asarray(ref.algorithm_options.costs).ravel()
+    c_got = np.asarray(got.algorithm_options.costs).ravel()
+    if not (np.all(np.isfinite(c_got)) and c_got[-1] < c_got[0]):
+        raise AssertionError(f"mesh slice: costs not finite and decreasing: {c_got}")
+    np.testing.assert_allclose(c_got, c_ref, rtol=SLICE_TOL)
+    errs = {}
+    for key in ("psi", "probe"):
+        a, b = getattr(got, key), getattr(ref, key)
+        np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+        errs[key] = float(np.max(np.abs(a - b)) / np.abs(b).max())
+    log(f"[mesh-slice] 3 epochs on a mesh of 2 shards on {device} vs 2 CPU shards (batches "
+        f"{shape}): costs {c_got.tolist()} vs {c_ref.tolist()} (rtol {SLICE_TOL:g}); "
+        f"max|err| / max|value| { {k: f'{v:.2e}' for k, v in errs.items()} } (tol {SLICE_TOL:g})")
+    none, _ = run(device, None)
+    one, _ = run(device, _on_card_mesh(device, 1))
+    for key in ("psi", "probe", "scan"):
+        if not np.array_equal(getattr(one, key), getattr(none, key)):
+            raise AssertionError(f"mesh slice: a one-shard mesh's {key} differs from no mesh's")
+    if one.algorithm_options.costs != none.algorithm_options.costs:
+        raise AssertionError("mesh slice: a one-shard mesh's costs differ from no mesh's")
+    log(f"[mesh-slice] a one-shard mesh on {device} against no mesh: psi, probe, scan and "
+        "costs bitwise equal")
+
+
+# 21b against phase 6: the two runs differ by more than rounding only
+# through the padding of each batch to a multiple of the mesh's size, held
+# at the cross-check tolerances of the bench start
+# (tests/test_torch_reconstruct.py: psi 5e-3, probe 1e-2 of the largest
+# value).
+MESH_PSI_TOL, MESH_PROBE_TOL = 5e-3, 1e-2
+
+
+def phase_mesh_main(device, scan, psi, probe, card: str, main: dict) -> dict:
+    """21b: the main path on a mesh of two shards on the card: its kernel
+    counts (each patch kernel launched once per shard, twice as often as
+    in phase 6), s/epoch, set-up and peak memory beside phase 6's, one
+    traced epoch, and the final cost, psi and probe against phase 6's."""
+    params = path_parameters(scan, psi, probe)
+    out = _drive("mesh", device, probe, scan, psi, card, params, trace=True,
+                 mesh=_on_card_mesh(device, 2))
+    log_breakdown("mesh", out["breakdown"], card)
+    launches = out["launches"]
+    for name in patch.LAUNCHES:
+        if launches[name] != 2 * main["launches"][name]:
+            raise AssertionError(
+                f"mesh: {name} launched {launches[name]} times in iterate(3), not twice phase "
+                f"6's {main['launches'][name]}"
+            )
+    gaps = {}
+    for key, tol in (("psi", MESH_PSI_TOL), ("probe", MESH_PROBE_TOL)):
+        a, b = getattr(out["result"], key), getattr(main["result"], key)
+        gaps[key] = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+        if not gaps[key] <= tol:
+            raise AssertionError(f"mesh: {key} differs from phase 6's by {gaps[key]:.3e} (tol {tol})")
+    cost_gap = abs(out["costs"][-1] - main["costs"][-1]) / abs(main["costs"][-1])
+    log(f"[mesh] 2 shards on {device}: {out['epoch_s']:.4f} s/epoch against phase 6's "
+        f"{main['epoch_s']:.4f} ({out['epoch_s'] / main['epoch_s']:.3f}x); set-up "
+        f"{out['setup_s']:.2f} s against {main['setup_s']:.2f} s; final cost "
+        f"{out['costs'][-1]:.6e} against {main['costs'][-1]:.6e} (relative gap {cost_gap:.3e}); "
+        f"max|diff| / max|value| psi {gaps['psi']:.3e} (tol {MESH_PSI_TOL:g}), probe "
+        f"{gaps['probe']:.3e} (tol {MESH_PROBE_TOL:g}); patch launches "
+        f"{ {k: launches[k] for k in patch.LAUNCHES} } against "
+        f"{ {k: main['launches'][k] for k in patch.LAUNCHES} } ({card})")
+    return dict(launches)
+
+
+# 21c against phase 11: tests/parallel/test_lamino_mesh.py's bound.
+MESH_LAMINO_RTOL = 1e-3
+
+
+def phase_mesh_lamino(device, card: str, problem, cgrad: dict) -> dict:
+    """21c: phase 11's USFFT cgrad with the angles split over two shards on
+    the card: 1 + LAMINO_TIMED outer iterations, the KB kernel counts of the
+    timed ones (each shard's transforms launch their own), its costs against
+    phase 11's at MESH_LAMINO_RTOL and its s/iteration beside phase 11's."""
+    volume, theta, data = problem
+    mesh = _on_card_mesh(device, 2)
+    kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device,
+                  mesh=mesh)
+
+    def run(num_iter):
+        start = time.perf_counter()
+        result = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad",
+                                num_iter=num_iter, **kwargs)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    warm, first_s = run(1)
+    _reset_launches()
+    result, timed_s = run(LAMINO_TIMED)
+    launches = _read_launches("mesh-lamino")
+    costs = result["cost"]
+    if len(costs) != LAMINO_TIMED or not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"mesh-lamino: costs not {LAMINO_TIMED} finite, decreasing: {costs}")
+    for name in usfft.LAUNCHES:
+        if not launches[name] > 0:
+            raise AssertionError(f"mesh-lamino launched no {name} kernel: {launches}")
+    gap = float(np.max(np.abs(costs - cgrad["costs"]) / np.abs(cgrad["costs"])))
+    if not gap <= MESH_LAMINO_RTOL:
+        raise AssertionError(f"mesh-lamino: costs {costs} differ from phase 11's "
+                             f"{cgrad['costs']} by {gap:.3e} (rtol {MESH_LAMINO_RTOL:g})")
+    per_iter = timed_s / LAMINO_TIMED
+    log(f"[mesh-lamino] cgrad with {theta.shape[0]} angles over 2 shards on {device}: costs "
+        f"{costs.tolist()} against phase 11's {cgrad['costs'].tolist()} (max relative gap "
+        f"{gap:.3e}, rtol {MESH_LAMINO_RTOL:g}); {per_iter:.4f} s/iteration against "
+        f"{cgrad['per_iter']:.4f} ({per_iter / cgrad['per_iter']:.3f}x); first call "
+        f"{first_s:.3f} s; KB launches { {k: launches[k] for k in usfft.LAUNCHES} } against "
+        f"phase 11's { {k: cgrad['launches'][k] for k in usfft.LAUNCHES} } ({card})")
+    return {name: launches[name] for name in usfft.LAUNCHES}
+
+
+def phase_mesh_bucket_slabs(device, card: str, full: dict) -> dict:
+    """21d.1: the tiled Bucket kernels on the two 64-row x-slabs of 128^3 /
+    64 angles / precision 3 (the two shards of obj_split=2): each against
+    its plain version on the slab (the adjoint bitwise, the forward within
+    the rounding bound of its sums), no point outside its window, the slabs'
+    forwards summed against the full lattice's plain forward within the same
+    bound; each slab kernel's time (a CUDA graph) beside the full-lattice
+    kernel's per voxel."""
+    c = cases_bucket.FULL
+    cfg = bucket.BucketConfig.from_eps(c["n"], c["tilt"], c["eps"])
+    n = cfg.n
+    th = cases_usfft.lamino_theta(c["ntheta"], device)
+    trig = bucket.bucket_trig(cfg, th)
+    u = cases_bucket.volume(n, device=device)
+    d = cases_bucket.planes(th.shape[0], n, device=device)
+    total = None
+    out = {name: {} for name in BUCKET_KERNELS}
+    for rank in range(2):
+        x0, rows = bucket.slab_of(n, 2, rank)
+        part = u[x0 : x0 + rows]
+        e = cases_bucket.check_bucket_kernels(cfg, part, d, th, slab=(x0, rows))
+        fwd = bucket.bucket_fwd_cuda(cfg, part, th, None, trig, (x0, rows))
+        total = fwd if total is None else total + fwd
+        calls = {
+            "bucket_fwd": lambda: bucket.bucket_fwd_cuda(cfg, part, th, None, trig, (x0, rows)),
+            "bucket_adj": lambda: bucket.bucket_adj_cuda(cfg, d, th, None, trig, (x0, rows)),
+        }
+        for name, fn in calls.items():
+            ms = statistics.median(graph_ms_per_call(fn, reps=3) for _ in range(3))
+            bound = bucket.roofline(cfg, rows * n * n, th.shape[0], name)
+            per_voxel = ms / (rows * n * n)
+            full_per_voxel = full[name]["ms"] / n**3
+            out[name].update({
+                f"ms_slab{rank}": ms,
+                f"bound_ms_slab{rank}": bound["bound_ms"],
+                f"roofline_share_slab{rank}": bound["bound_ms"] / ms,
+                f"max_abs_err_slab{rank}": e[f"{name.split('_')[1]}_abs"],
+                f"outside_windows_slab{rank}": e["outside"],
+            })
+            log(f"[mesh-bucket] {name} on slab {(x0, rows)} of {n}^3 ({th.shape[0]} angles, "
+                f"precision {cfg.precision}): {ms:.4f} ms (CUDA graph), bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({100 * bound['bound_ms'] / ms:.1f}%); {1e6 * per_voxel:.4f} ns a voxel against "
+                f"the full lattice's {1e6 * full_per_voxel:.4f} ({per_voxel / full_per_voxel:.3f}x) "
+                f"({card})")
+        log(f"[mesh-bucket] slab {(x0, rows)}: fwd {e['fwd_rounding']:.3f} of its rounding "
+            f"bound (tol 1), adj bitwise equal to plain {e['adj_bitwise']}, points outside "
+            f"windows {e['outside']}")
+    torch.cuda.synchronize()
+    ratio = cases_bucket.fwd_rounding_ratio(cfg, total, bucket.bucket_fwd_plain(cfg, u, th, None, trig),
+                                            u, th, None, trig)
+    if not ratio <= 1.0:
+        raise AssertionError(f"mesh-bucket: the slabs' forwards summed differ from the full "
+                             f"lattice's by {ratio:.3f} times the rounding bound")
+    log(f"[mesh-bucket] the two slabs' forwards summed against the full lattice's plain forward: "
+        f"{ratio:.3f} of the rounding bound of its float32 sums (tol 1) ({card})")
+    return out
+
+
+def phase_mesh_bucket(device, card: str, full: dict) -> dict:
+    """21d.2: phase 16's Bucket problem with ``obj_split=2`` (two slabs on
+    the card): 1 + BUCKET_TIMED outer iterations, costs finite and
+    decreasing, the Bucket kernels launched on slabs and none outside its
+    window, s/iteration beside phase 16's."""
+    c = cases_bucket.FULL
+    volume = torch.as_tensor(lamino_volume(c["n"]), device=device)
+    theta = cases_usfft.lamino_theta(c["ntheta"], device)
+    data = tlb.simulate(volume, theta, c["tilt"], eps=c["eps"], device=device)
+    kwargs = dict(eps=c["eps"], cg_iter=c["cg_iter"], device=device, obj_split=2)
+
+    def run(num_iter):
+        start = time.perf_counter()
+        result = tlb.reconstruct(data, theta, c["tilt"], num_iter=num_iter, **kwargs)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    warm, first_s = run(1)
+    bucket.reset_outside_windows(device)
+    _reset_launches()
+    result, timed_s = run(BUCKET_TIMED)
+    launches = _read_launches("mesh-bucket")
+    outside = bucket.outside_windows(device)
+    costs = result["cost"]
+    if len(costs) != BUCKET_TIMED or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"mesh-bucket: costs are not {BUCKET_TIMED} finite values: {costs}")
+    if not (costs[-1] < costs[0] and np.all(np.diff(costs) <= 0)):
+        raise AssertionError(f"mesh-bucket: costs do not decrease: {costs}")
+    if outside:
+        raise AssertionError(f"mesh-bucket: {outside} points fell outside their tile's window")
+    for name in BUCKET_KERNELS:
+        if not launches[name] > 0:
+            raise AssertionError(f"mesh-bucket launched no {name} kernel: {launches}")
+    if not bool(torch.isfinite(result["obj"]).all()):
+        raise AssertionError("mesh-bucket: the volume is not finite")
+    per_iter = timed_s / BUCKET_TIMED
+    log(f"[mesh-bucket] obj_split=2 on {device}: costs {costs.tolist()} against phase 16's "
+        f"{full['costs'].tolist()}; {per_iter:.4f} s/iteration against {full['per_iter']:.4f} "
+        f"({per_iter / full['per_iter']:.3f}x); first call {first_s:.3f} s; launches "
+        f"{ {k: launches[k] for k in BUCKET_KERNELS} } against phase 16's "
+        f"{ {k: full['launches'][k] for k in BUCKET_KERNELS} }; points outside windows "
+        f"{outside} ({card})")
+    return {name: launches[name] for name in BUCKET_KERNELS}
+
+
+def phase_mesh_bucket_golden(device, card: str) -> None:
+    """21d.3: the golden protocol (phase 16b) on a 2 x 2 (data x volume)
+    mesh of four shards on the card, against lamino_bucket at atol 1e-3."""
+    mesh = parallel.Mesh(np.array([device] * 4, dtype=object).reshape(2, 2), ("d", "v"))
+    start = time.perf_counter()
+    obj, standard, costs = cases_bucket.golden_reconstruct(device, mesh=mesh)
+    seconds = time.perf_counter() - start
+    if not (np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        raise AssertionError(f"mesh-bucket golden: costs {costs}")
+    np.testing.assert_allclose(obj, standard, atol=cases_bucket.GOLDEN_ATOL)
+    err = float(np.max(np.abs(obj - standard)))
+    log(f"[mesh-bucket-golden] 2 x 2 (data x volume) mesh on {device}: 1 + 30 outer iterations "
+        f"in {seconds:.2f} s: max|obj - lamino_bucket| {err:.3e} (atol "
+        f"{cases_bucket.GOLDEN_ATOL:g}); costs {costs[0]:.6e} -> {costs[-1]:.6e} ({card})")
+
+
+SCRIPT_START = time.perf_counter()
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -3222,8 +3503,9 @@ def main() -> None:
     phase_small_slice(device)
     phase_small_slice(device, config2=True)
     phase_rpie_slices(device)
-    launches, main_epoch_s, main_breakdown = phase_main_path(
-        device, scan, psi, probe, env["nvidia_smi"]
+    main_path = phase_main_path(device, scan, psi, probe, env["nvidia_smi"])
+    launches, main_epoch_s, main_breakdown = (
+        main_path["launches"], main_path["epoch_s"], main_path["breakdown"]
     )
     launches2 = phase_config2(device, scan, psi, probe, env["nvidia_smi"])
     launches3 = phase_rpie(device, scan, psi, probe, env["nvidia_smi"])
@@ -3238,7 +3520,8 @@ def main() -> None:
         raise AssertionError(f"lamino: simulate on the card differs from the CPU's by {err:.3e}")
     log(f"[lamino] simulate {tuple(data.shape)} at {volume.shape[0]}^3 on the card vs the "
         f"CPU: max|err| / max|value| {err:.2e} (tol {LAMINO_SIM_TOL:g})")
-    lamino_launches = {alg: phase_lamino(device, alg, card, problem) for alg in ("cgrad", "cgls")}
+    lamino_runs = {alg: phase_lamino(device, alg, card, problem) for alg in ("cgrad", "cgls")}
+    lamino_launches = {alg: run["launches"] for alg, run in lamino_runs.items()}
     probe_launches, probe_timings = phase_probes(device, card, parent_form)
     phase_stream_slices(device)
     phase_stopping_slices(device)
@@ -3248,7 +3531,8 @@ def main() -> None:
     phase_stream_compare(device, card)
     bucket_timings = phase_bucket_parity(device, card)
     phase_bucket_golden(device, card)
-    launches_bucket = phase_bucket(device, card)
+    bucket_run = phase_bucket(device, card)
+    launches_bucket = bucket_run["launches"]
     launches_multigrid = phase_multigrid(device, scan, psi, probe, card)
     phase_ptycho_rest(device, scan, psi, probe, card)
     phase_multislice_slice(device)
@@ -3261,9 +3545,18 @@ def main() -> None:
     phase_api_slice(device)
     phase_api_helpers(device, scan, psi, card, **api)
     del api
+    mesh_start = time.perf_counter()
+    phase_mesh_slice(device)
+    launches_mesh = phase_mesh_main(device, scan, psi, probe, card, main_path)
+    launches_mesh.update(phase_mesh_lamino(device, card, problem, lamino_runs["cgrad"]))
+    slab_timings = phase_mesh_bucket_slabs(device, card, bucket_timings)
+    launches_mesh.update(phase_mesh_bucket(device, card, bucket_run))
+    phase_mesh_bucket_golden(device, card)
+    log(f"[mesh] phase 21 took {time.perf_counter() - mesh_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
-        launches_api=launches_api[name],
+        launches_api=launches_api[name], launches_mesh=launches_mesh[name],
     )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [
@@ -3332,6 +3625,7 @@ def main() -> None:
             "launches_stream": launches_stream[name],
             **later(name),
             **bucket_timings[name],
+            **slab_timings[name],
         }
         for name in BUCKET_KERNELS
     ] + [

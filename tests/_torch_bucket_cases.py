@@ -82,16 +82,19 @@ def inner64(a, b) -> complex:
     return complex(torch.sum(torch.conj(a.to(torch.complex128)) * b.to(torch.complex128)))
 
 
-def fwd_rounding_ratio(cfg: bucket.BucketConfig, got, want, u, th, grid=None, trig=None) -> float:
+def fwd_rounding_ratio(cfg: bucket.BucketConfig, got, want, u, th, grid=None, trig=None,
+                       slab=None) -> float:
     """The largest |got - want| of the forward (each of the real and the
     imaginary part) over its rounding bound FWD_ROUNDING k u S, cell by
     cell: k the cell's points and S its sum of |terms|, both from the plain
     version (on a volume of ones, and of |Re u| + i |Im u|). At most 1 when
-    the two differ only by the order of their float32 sums."""
-    counts = bucket.bucket_fwd_plain(cfg, torch.ones_like(u), th, grid, trig).real
+    the two differ only by the order of their float32 sums. ``u`` holds the
+    voxels of ``grid``, or of the lattice's ``slab``."""
+    counts = bucket.bucket_fwd_plain(cfg, torch.ones_like(u), th, grid, trig, slab).real
     k = torch.round(counts / bucket._weight(cfg))
     v = u.reshape(-1)
-    s = bucket.bucket_fwd_plain(cfg, torch.complex(v.real.abs(), v.imag.abs()), th, grid, trig)
+    s = bucket.bucket_fwd_plain(cfg, torch.complex(v.real.abs(), v.imag.abs()), th, grid, trig,
+                                slab)
     ratio = 0.0
     for part in (torch.real, torch.imag):
         bound = FWD_ROUNDING * k * UNIT_ROUNDOFF * part(s)
@@ -154,13 +157,22 @@ def cell_mismatches(cfg: bucket.BucketConfig, th, grid=None) -> int:
     return bad
 
 
-def tile_corners(cfg: bucket.BucketConfig, grid: torch.Tensor) -> torch.Tensor:
+def tile_corners(cfg: bucket.BucketConfig, grid: torch.Tensor, x0: int = 0) -> torch.Tensor:
     """The lowest corner (float32) of the lattice tile of bucket.TILE^3 voxels
-    that holds each voxel of ``grid`` ((G, 3) int32 coordinates)."""
+    that holds each voxel of ``grid`` ((G, 3) int32 coordinates), the tiles
+    of axis 0 counted from row ``x0`` (a slab's first row, as the kernels
+    count them)."""
     lo = -(cfg.n // 2) - cfg.n % 2
+    lo = torch.tensor([lo + x0, lo, lo])
     return (lo + torch.div(grid - lo, bucket.TILE, rounding_mode="floor") * bucket.TILE).to(
         torch.float32
     )
+
+
+def _slab_grid(cfg: bucket.BucketConfig, slab) -> tuple:
+    """The voxels of ``slab`` ((x0, rows), None: the lattice) and x0."""
+    x0, rows = (0, cfg.n) if slab is None else slab
+    return torch.as_tensor(bucket.make_grid_full(cfg.n)[x0 : x0 + rows].reshape(-1, 3)), x0
 
 
 def window_origins(corner: torch.Tensor, row: torch.Tensor):
@@ -173,14 +185,14 @@ def window_origins(corner: torch.Tensor, row: torch.Tensor):
     return torch.floor(by).to(torch.int64), torch.floor(bz).to(torch.int64)
 
 
-def points_outside_windows(cfg: bucket.BucketConfig, th) -> tuple:
+def points_outside_windows(cfg: bucket.BucketConfig, th, slab=None) -> tuple:
     """(points outside their tile's window, points whose cell wraps) over
-    the whole lattice at the angles ``th`` (on the CPU): each point's floor(y)
-    and floor(z) from the plain version's float32 operations, less its
-    window's origin, against the window's rows and columns; what the
-    lattice kernels' counter counts on the card."""
-    grid = torch.as_tensor(bucket.make_grid(cfg.n))
-    corner = tile_corners(cfg, grid)
+    the whole lattice, or its ``slab`` (x0, rows), at the angles ``th`` (on
+    the CPU): each point's floor(y) and floor(z) from the plain version's
+    float32 operations, less its window's origin, against the window's rows
+    and columns; what the lattice kernels' counter counts on the card."""
+    grid, x0 = _slab_grid(cfg, slab)
+    corner = tile_corners(cfg, grid, x0)
     table = bucket.bucket_trig(cfg, th.cpu())
     outside = wrapped = 0
     for row in table:
@@ -195,16 +207,17 @@ def points_outside_windows(cfg: bucket.BucketConfig, th) -> tuple:
     return outside, wrapped
 
 
-def points_outside_boxes(cfg: bucket.BucketConfig, th) -> int:
+def points_outside_boxes(cfg: bucket.BucketConfig, th, slab=None) -> int:
     """Points that leave their voxel's 3 x 3 box of cells, or whose box
     leaves its window and the 2 rows and columns past it, in the forward
     kernel's counting of precisions 3-5 (``csrc/bucket.cu``: the box from
     the floor of the voxel's lowest y and z less 1/32, here in float32
     without its FMAs, which the margin covers). Such a point still reaches
-    its cell, one shared atomic for it alone."""
-    grid = torch.as_tensor(bucket.make_grid(cfg.n))
+    its cell, one shared atomic for it alone. ``slab`` (x0, rows) takes a
+    slab's tiles instead of the lattice's."""
+    grid, x0 = _slab_grid(cfg, slab)
     g = grid.to(torch.float32)
-    corner = tile_corners(cfg, grid)
+    corner = tile_corners(cfg, grid, x0)
     table = bucket.bucket_trig(cfg, th.cpu())
     c = torch.as_tensor(bucket.bucket_offsets(cfg.precision))
     c0, cl = c[0], c[-1]
@@ -229,26 +242,27 @@ def points_outside_boxes(cfg: bucket.BucketConfig, th) -> int:
     return missed
 
 
-def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None) -> dict:
+def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None, slab=None) -> dict:
     """Both kernels against their plain versions on the same inputs (u the
     volume, d the planes, th the angles, all on the card), and against
     adjointness; two adjoint launches bitwise equal; the forward of a
     volume of ones (each cell's count of points times the weight) equal to
     the plain version's where the weight is a power of two, so that every
     sum is exact; no point of the lattice kernels outside its window (the
-    card's counter, set to 0 first, still 0). Raises AssertionError; returns
-    the errors."""
+    card's counter, set to 0 first, still 0). ``slab`` (x0, rows) checks the
+    kernels on that slab of the lattice, ``u`` holding its voxels. Raises
+    AssertionError; returns the errors."""
     bucket.reset_outside_windows(th.device)
     trig = bucket.bucket_trig(cfg, th)
-    fwd = bucket.bucket_fwd_cuda(cfg, u, th, grid, trig)
-    adj = bucket.bucket_adj_cuda(cfg, d, th, grid, trig)
-    adj2 = bucket.bucket_adj_cuda(cfg, d, th, grid, trig)
-    fwd_plain = bucket.bucket_fwd_plain(cfg, u, th, grid, trig)
-    adj_plain = bucket.bucket_adj_plain(cfg, d, th, grid, trig)
+    fwd = bucket.bucket_fwd_cuda(cfg, u, th, grid, trig, slab)
+    adj = bucket.bucket_adj_cuda(cfg, d, th, grid, trig, slab)
+    adj2 = bucket.bucket_adj_cuda(cfg, d, th, grid, trig, slab)
+    fwd_plain = bucket.bucket_fwd_plain(cfg, u, th, grid, trig, slab)
+    adj_plain = bucket.bucket_adj_plain(cfg, d, th, grid, trig, slab)
     torch.cuda.synchronize()
     out = {
         "fwd": max_rel(fwd, fwd_plain),
-        "fwd_rounding": fwd_rounding_ratio(cfg, fwd, fwd_plain, u, th, grid, trig),
+        "fwd_rounding": fwd_rounding_ratio(cfg, fwd, fwd_plain, u, th, grid, trig, slab),
         "fwd_abs": float(torch.max(torch.abs(fwd - fwd_plain))),
         "adj": max_rel(adj, adj_plain),
         "adj_abs": float(torch.max(torch.abs(adj - adj_plain))),
@@ -256,7 +270,9 @@ def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None) -> dict:
     }
     lhs, rhs = inner64(fwd, d), inner64(u.reshape(-1), adj)
     out["adjoint"] = abs(lhs - rhs) / max(abs(lhs), abs(rhs), 1e-30)
-    what = f"bucket n={cfg.n} precision={cfg.precision} angles={th.shape[0]}"
+    what = f"bucket n={cfg.n} precision={cfg.precision} angles={th.shape[0]}" + (
+        "" if slab is None else f" slab {tuple(slab)}"
+    )
     if not out["fwd_rounding"] <= 1.0:
         raise AssertionError(
             f"{what}: bucket_fwd differs from plain by {out['fwd_rounding']:.3g} times the "
@@ -270,8 +286,8 @@ def check_bucket_kernels(cfg: bucket.BucketConfig, u, d, th, grid=None) -> dict:
         raise AssertionError(f"{what}: two bucket_adj launches differ")
     if cfg.precision in (1, 2, 4):
         ones = torch.ones_like(u)
-        counts = bucket.bucket_fwd_cuda(cfg, ones, th, grid, trig)
-        if not torch.equal(counts, bucket.bucket_fwd_plain(cfg, ones, th, grid, trig)):
+        counts = bucket.bucket_fwd_cuda(cfg, ones, th, grid, trig, slab)
+        if not torch.equal(counts, bucket.bucket_fwd_plain(cfg, ones, th, grid, trig, slab)):
             raise AssertionError(f"{what}: bucket_fwd's points per cell differ from plain")
     out["outside"] = bucket.outside_windows(th.device)
     if out["outside"]:
@@ -284,16 +300,17 @@ def load_golden(name: str):
         return pickle.load(f)
 
 
-def golden_reconstruct(device):
-    """The reference's golden protocol on ``device``: 1 outer iteration from
-    zeros, then 30 more, at eps=1 (precision 1) on lamino_setup. Returns
-    (volume, the standard lamino_bucket, costs)."""
+def golden_reconstruct(device, mesh=None):
+    """The reference's golden protocol on ``device`` (and ``mesh``, if
+    given): 1 outer iteration from zeros, then 30 more, at eps=1 (precision
+    1) on lamino_setup. Returns (volume, the standard lamino_bucket,
+    costs)."""
     data, original, th, tilt = load_golden("lamino_setup.pickle.lzma")
     standard = load_golden("lamino_bucket.pickle.lzma")
     first, more = GOLDEN_ITERS
     r = tlb.reconstruct(data, th, tilt, obj=np.zeros_like(original), num_iter=first,
-                        eps=1, device=device)
+                        eps=1, device=device, mesh=mesh)
     costs = list(r["cost"])
     r = tlb.reconstruct(data, th, tilt, obj=r["obj"], num_iter=more, eps=1,
-                        device=device)
+                        device=device, mesh=mesh)
     return r["obj"], standard, np.asarray(costs + list(r["cost"]))

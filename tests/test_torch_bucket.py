@@ -84,6 +84,39 @@ def test_cells_match_jax(n, ntheta, precision, shift):
     assert off_edge == 0
 
 
+@pytest.mark.parametrize("n, size, precision", [(16, 2, 3), (16, 4, 2), (13, 3, 4), (64, 3, 3)])
+def test_slab_cells_match_jax(n, size, precision):
+    """``test_cells_match_jax`` on the x-slabs of a mesh's shards
+    (``slab_of``, ``make_grid(n, size, rank)``): the plain version on a slab
+    takes exactly the slab's voxels, every point's cell is tike_tpu's, and
+    with the tiles counted from the slab's first row every point stays in
+    its tile's window and box (the kernels' placement, mirrored on the CPU;
+    at 64^3 the windows alone, on slabs of 22, 21 and 21 rows whose tiles
+    lie off the lattice's)."""
+    jcfg, tcfg = _configs(n, precision)
+    ntheta = 5
+    th = _theta(ntheta, 0.0)
+    trig = tb.bucket_trig(tcfg, th)
+    for rank in range(size):
+        x0, rows = tb.slab_of(n, size, rank)
+        grid = jb.make_grid(n, size, rank)
+        np.testing.assert_array_equal(
+            tb._grid_tensor(tcfg, None, "cpu", (x0, rows)).numpy(), grid
+        )
+        if n < 64:
+            for t in range(ntheta):
+                for off in jb._subsample_offsets(precision):
+                    want = np.asarray(jb._plane_flat_indices(
+                        jcfg, jnp.asarray(grid), jnp.asarray(off), jnp.float32(th[t])))
+                    got = tb.plane_flat_indices(
+                        tcfg, torch.as_tensor(grid), torch.as_tensor(off), trig[t])
+                    np.testing.assert_array_equal(got.numpy(), want)
+        th_t = torch.as_tensor(th)
+        assert cases.points_outside_windows(tcfg, th_t, (x0, rows))[0] == 0
+        if 3 <= precision <= 5:
+            assert cases.points_outside_boxes(tcfg, th_t, (x0, rows)) == 0
+
+
 def test_trig_table_is_rounded_float64():
     tcfg = tb.BucketConfig(n=8, tilt=TILT)
     th = _theta(7)
@@ -226,9 +259,11 @@ def test_reconstruct_at_cg_iter_4_decreases():
 def test_reconstruct_refuses_what_is_not_ported():
     data = np.zeros((4, 8, 8), np.complex64)
     th = _theta(4)
-    with pytest.raises(NotImplementedError, match="obj_split"):
-        tlb.reconstruct(data, th, TILT, obj_split=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # Volume parallelism runs (tests/test_torch_mesh_lamino.py); what it
+    # cannot split raises, as in tike_tpu.
+    with pytest.raises(ValueError, match="whole x-slab"):
+        tlb.reconstruct(data, th, TILT, obj_split=3, device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
         tlb.reconstruct(data, th, TILT, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not an available"):
         tlb.reconstruct(data, th, TILT, algorithm="sirt", device="cpu")

@@ -125,7 +125,9 @@ def test_cgls_matches_on_a_small_linear_problem():
 
 def test_reconstruct_refuses_what_is_not_ported():
     data = np.zeros((NTHETA, N, N), np.complex64)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # A mesh runs (tests/test_torch_mesh_lamino.py); one that is not a
+    # tike_tpu_torch.parallel.Mesh raises.
+    with pytest.raises(TypeError, match="mesh"):
         tl.reconstruct(data, _theta(), TILT, "cgrad", mesh=object(), device="cpu")
     # Bucket laminography has its own driver: the reference's ValueError,
     # sending the caller to the port's module, not to the other package's.

@@ -181,9 +181,11 @@ def test_multigrid_levels_compose_with_a_seed(slice_data):
 def test_multigrid_refuses_what_is_not_ported(slice_data):
     scan, probe, psi0, data = slice_data
     params = _parameters(tp, scan, probe, psi0)
-    for kw in (dict(num_gpu=2), dict(mesh=object()), dict(object_sharding="striped")):
+    for kw in (dict(num_gpu=2), dict(use_mpi=True), dict()):
         with pytest.raises(NotImplementedError, match="not ported"):
-            tp.reconstruct_multigrid(data, params, device="cpu", **kw)
+            tp.reconstruct_multigrid(data, params, device="cpu", object_sharding="striped", **kw)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        tp.reconstruct_multigrid(data, params, device="cpu", mesh=object())
     assert params.psi is psi0  # nothing resampled or run
 
 

@@ -56,7 +56,11 @@
 // ms (ops/bucket.py::roofline), and every integer instruction a point
 // spends on its cell or on memory comes on top, on the same issue slots.
 //
-// The design (the lattice, grid == NULL, which the solver runs):
+// The design (the lattice, grid == NULL, which the solver runs, whole or as
+// an x-slab of rows x0 .. x0 + rows - 1 of axis 0, as a mesh's shards own
+// it: the tiles are counted and placed from row x0 and cut at the slab's
+// last row, and the window columns of the table, relative to a tile's
+// corner, serve any slab unchanged):
 //   - cells without a floor-mod. floor(y) is the bit pattern of
 //     __fadd_rd(y, 1.5 2^23) less that of 1.5 2^23 (exact for |y| < 2^22,
 //     which a lattice of n <= 46340 keeps), one FP32 add. A block owns a
@@ -258,25 +262,28 @@ __device__ __forceinline__ void for_each_point(const Angle& a, const Offsets& of
   }
 }
 
-// This thread's voxel of the block's tile of the n^3 lattice (make_grid(n):
-// axis 0 slowest, each axis from -ceil(n/2)), the warps' voxels spread or
-// in rows (kFwdSpread). blockIdx.y is the tile's place on axis 0,
-// blockIdx.x its place on axes 1 and 2.
+// This thread's voxel of the block's tile of the x-slab of the n^3 lattice
+// (make_grid(n): axis 0 slowest, each axis from -ceil(n/2)) that holds rows
+// x0 .. x0 + rows - 1 of axis 0, the whole lattice at x0 = 0, rows = n; the
+// warps' voxels spread or in rows (kFwdSpread). blockIdx.y is the tile's
+// place on axis 0 from x0, blockIdx.x its place on axes 1 and 2. The flat
+// index is the slab's own, and tiles past the slab's last row are cut as
+// the lattice's edge tiles are.
 struct Tile {
   float corner[3];  // the tile's lowest voxel coordinates
   float g[3];       // this thread's voxel's
-  long long index;  // its flat index
-  bool inside;      // whether it lies in the lattice (edge tiles are cut)
+  long long index;  // its flat index in the slab
+  bool inside;      // whether it lies in the slab (edge tiles are cut)
 };
 
 template <bool kSpread>
-__device__ __forceinline__ Tile tile_of(int n) {
+__device__ __forceinline__ Tile tile_of(int n, int x0, int rows) {
   const int tiles = (n + kTile - 1) / kTile;
   const int a1 = blockIdx.x / tiles;
   const int a2 = blockIdx.x - a1 * tiles;
   const int a0 = blockIdx.y;
   const int lo = (n + 1) / 2;
-  int v0, v1, v2;
+  int v0, v1, v2;  // v0 from the slab's first row
   if constexpr (kSpread) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     v0 = a0 * kTile + ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((warp >> 3) & 1);
@@ -288,14 +295,14 @@ __device__ __forceinline__ Tile tile_of(int n) {
     v2 = a2 * kTile + threadIdx.x % kTile;
   }
   Tile t;
-  t.corner[0] = static_cast<float>(a0 * kTile - lo);
+  t.corner[0] = static_cast<float>(x0 + a0 * kTile - lo);
   t.corner[1] = static_cast<float>(a1 * kTile - lo);
   t.corner[2] = static_cast<float>(a2 * kTile - lo);
-  t.g[0] = static_cast<float>(v0 - lo);
+  t.g[0] = static_cast<float>(x0 + v0 - lo);
   t.g[1] = static_cast<float>(v1 - lo);
   t.g[2] = static_cast<float>(v2 - lo);
   t.index = (static_cast<long long>(v0) * n + v1) * n + v2;
-  t.inside = v0 < n && v1 < n && v2 < n;
+  t.inside = v0 < rows && v1 < n && v2 < n;
   return t;
 }
 
@@ -465,9 +472,10 @@ __global__ void __launch_bounds__(kTileThreads, kFwdBlocks)
 bucket_fwd_kernel(const float2* __restrict__ u, const float* __restrict__ table,
                   float2* __restrict__ planes, const __grid_constant__ Offsets offs,
                   unsigned long long* __restrict__ outside, int angles, int angles_per_block,
-                  int n, int precision, float weight, int pitch, int window_cells) {
+                  int n, int precision, float weight, int pitch, int window_cells, int x0,
+                  int rows) {
   extern __shared__ float2 windows[];  // two of kWindowCopies of rows x pitch
-  const Tile tile = tile_of<kFwdSpread>(n);
+  const Tile tile = tile_of<kFwdSpread>(n, x0, rows);
   const long long plane_cells = static_cast<long long>(n) * n;
   float2 value = make_float2(0.0f, 0.0f);
   if (tile.inside) {
@@ -554,9 +562,9 @@ __global__ void __launch_bounds__(kTileThreads, kAdjBlocks)
 bucket_adj_kernel(const float2* __restrict__ planes, const float* __restrict__ table,
                   float2* __restrict__ out, const __grid_constant__ Offsets offs,
                   unsigned long long* __restrict__ outside, int angles, int n, int precision,
-                  float weight, int pitch, int window_cells) {
+                  float weight, int pitch, int window_cells, int x0, int rows) {
   extern __shared__ float2 windows[];  // kStages of rows x pitch
-  const Tile tile = tile_of<kAdjSpread>(n);
+  const Tile tile = tile_of<kAdjSpread>(n, x0, rows);
   const long long plane_cells = static_cast<long long>(n) * n;
   float2 acc = make_float2(0.0f, 0.0f);
   bool missed = false;
@@ -672,6 +680,13 @@ bool valid(long long voxels, int angles, int n, int precision, int pitch, int wi
          pitch >= 1 && pitch <= kStageCols && window_cells >= pitch;
 }
 
+// The lattice's slab: rows x0 .. x0 + rows - 1 of axis 0, all of whose
+// voxels the volume holds.
+bool valid_slab(long long voxels, int n, int x0, int rows) {
+  return x0 >= 0 && rows >= 0 && x0 + rows <= n &&
+         voxels == static_cast<long long>(rows) * n * n;
+}
+
 Offsets offsets_of(const void* offsets, int precision) {
   Offsets o{};
   const int given = precision < kParamOffsets ? precision : kParamOffsets;
@@ -703,14 +718,18 @@ void by_precision(int precision, Launch&& launch) {
 // or NULL for the full n^3 lattice in make_grid's order) for the angles of
 // table (angles x 12 float32, see above), each point weighted by weight
 // (1 / precision^3 as float32), at the sub-voxel offsets (precision float32
-// values in host memory). The lattice's kernels add each point outside its
-// window to *outside (one unsigned 64-bit counter on the card) and use
-// windows of at most window_cells values, pitch a row. Returns a cudaError_t.
+// values in host memory). Without a grid, u holds the x-slab of the lattice
+// whose rows of axis 0 are x0 .. x0 + rows - 1 (x0 = 0, rows = n: all of
+// it); with a grid, x0 and rows are not read. The lattice's kernels add
+// each point outside its window to *outside (one unsigned 64-bit counter on
+// the card) and use windows of at most window_cells values, pitch a row.
+// Returns a cudaError_t.
 extern "C" int tike_bucket_fwd(const void* u, const void* grid, const void* table, void* planes,
                                void* outside, const void* offsets, long long voxels, int angles,
                                int n, int precision, float weight, int pitch, int window_cells,
-                               void* stream) {
-  if (!valid(voxels, angles, n, precision, pitch, window_cells)) {
+                               int x0, int rows, void* stream) {
+  if (!valid(voxels, angles, n, precision, pitch, window_cells) ||
+      (grid == nullptr && !valid_slab(voxels, n, x0, rows))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -725,17 +744,20 @@ extern "C" int tike_bucket_fwd(const void* u, const void* grid, const void* tabl
   float2* pp = static_cast<float2*>(planes);
   if (grid == nullptr) {
     const long long tiles = (n + kTile - 1) / kTile;
-    const long long tile_count = tiles * tiles * tiles;
+    const long long slab_tiles = (rows + kTile - 1) / kTile;
+    const long long tile_count = tiles * tiles * slab_tiles;
     long long groups = (kTargetBlocks + tile_count - 1) / tile_count;
     groups = groups < angles ? groups : angles;
     const int per_block = static_cast<int>((angles + groups - 1) / groups);
-    const dim3 blocks(static_cast<unsigned int>(tiles * tiles), static_cast<unsigned int>(tiles),
+    const dim3 blocks(static_cast<unsigned int>(tiles * tiles),
+                      static_cast<unsigned int>(slab_tiles),
                       static_cast<unsigned int>((angles + per_block - 1) / per_block));
     const size_t shared = fwd_shared(window_cells);
     auto* counter = static_cast<unsigned long long*>(outside);
     by_precision(precision, [&](auto p) {
       bucket_fwd_kernel<decltype(p)::value><<<blocks, kTileThreads, shared, s>>>(
-          uu, tt, pp, offs, counter, angles, per_block, n, precision, weight, pitch, window_cells);
+          uu, tt, pp, offs, counter, angles, per_block, n, precision, weight, pitch, window_cells,
+          x0, rows);
       err = cudaGetLastError();
     });
     return static_cast<int>(err);
@@ -753,12 +775,14 @@ extern "C" int tike_bucket_fwd(const void* u, const void* grid, const void* tabl
 }
 
 // out (voxels complex64), every value written = the adjoint of
-// tike_bucket_fwd applied to planes (angles x n x n complex64).
+// tike_bucket_fwd applied to planes (angles x n x n complex64), on the same
+// grid or slab.
 extern "C" int tike_bucket_adj(const void* planes, const void* grid, const void* table,
                                void* out, void* outside, const void* offsets, long long voxels,
                                int angles, int n, int precision, float weight, int pitch,
-                               int window_cells, void* stream) {
-  if (!valid(voxels, angles, n, precision, pitch, window_cells)) {
+                               int window_cells, int x0, int rows, void* stream) {
+  if (!valid(voxels, angles, n, precision, pitch, window_cells) ||
+      (grid == nullptr && !valid_slab(voxels, n, x0, rows))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (voxels == 0) return static_cast<int>(cudaGetLastError());
@@ -769,12 +793,12 @@ extern "C" int tike_bucket_adj(const void* planes, const void* grid, const void*
   float2* oo = static_cast<float2*>(out);
   if (grid == nullptr) {
     const unsigned int tiles = static_cast<unsigned int>((n + kTile - 1) / kTile);
-    const dim3 blocks(tiles * tiles, tiles);
+    const dim3 blocks(tiles * tiles, static_cast<unsigned int>((rows + kTile - 1) / kTile));
     const size_t shared = adj_shared(window_cells);
     auto* counter = static_cast<unsigned long long*>(outside);
     by_precision(precision, [&](auto p) {
       bucket_adj_kernel<decltype(p)::value><<<blocks, kTileThreads, shared, s>>>(
-          pp, tt, oo, offs, counter, angles, n, precision, weight, pitch, window_cells);
+          pp, tt, oo, offs, counter, angles, n, precision, weight, pitch, window_cells, x0, rows);
     });
     return static_cast<int>(cudaGetLastError());
   }

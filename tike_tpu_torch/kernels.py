@@ -70,11 +70,11 @@ SIGNATURES = {
     },
     "bucket": {
         # (u, grid or NULL, table, planes, outside, offsets (host), voxels,
-        # angles, n, precision, weight, pitch, window_cells, stream)
-        "tike_bucket_fwd": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 2 + [_PTR], _INT),
+        # angles, n, precision, weight, pitch, window_cells, x0, rows, stream)
+        "tike_bucket_fwd": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 4 + [_PTR], _INT),
         # (planes, grid or NULL, table, out, outside, offsets (host), voxels,
-        # angles, n, precision, weight, pitch, window_cells, stream)
-        "tike_bucket_adj": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 2 + [_PTR], _INT),
+        # angles, n, precision, weight, pitch, window_cells, x0, rows, stream)
+        "tike_bucket_adj": ([_PTR] * 6 + [_LL] + [_INT] * 3 + [_FLOAT] + [_INT] * 4 + [_PTR], _INT),
     },
     "interp": {
         # (image, points, out, images, npoints, h, w, m, shared_points,

@@ -14,7 +14,8 @@ import logging
 import numpy as np
 import torch
 
-from ..ops.lamino import LaminoConfig, LaminoPlan, _plan, lamino_fwd
+from ..ops.lamino import LaminoConfig, LaminoPlan, MeshLaminoPlan, _plan, lamino_fwd
+from ..parallel import home_device
 from ..precision import as_tensor, to_numpy
 from . import solvers
 
@@ -64,8 +65,12 @@ def reconstruct(
     ``"bucket"`` raises ``ValueError``, as in ``tike_tpu``: its solver is
     :func:`tike_tpu_torch.lamino.bucket.reconstruct`. Returns a dict:
     ``obj``, ``cost`` (one per outer iteration, always a numpy array) and
-    what the solver returns besides. ``mesh`` (several devices) is not
-    ported.
+    what the solver returns besides. ``mesh``
+    (:func:`tike_tpu_torch.parallel.make_mesh`) splits the angles over its
+    shards (their number must divide the angles'), as the JAX package
+    shards theta: the projections and angles stay on the first shard's
+    device, whose type ``device`` must name, and each shard transforms its
+    own angles (:class:`~tike_tpu_torch.ops.lamino.MeshLaminoPlan`).
 
     ``data``, ``theta`` and ``obj`` are arrays or tensors. What comes back
     follows ``data``: numpy arrays for an array; for a tensor, tensors on
@@ -73,10 +78,13 @@ def reconstruct(
     makes a trip through the host (joint ADMM fits its volume so). ``plan``
     is the geometry's :class:`~tike_tpu_torch.ops.lamino.LaminoPlan`, for a
     caller that solves many problems at one set of angles; without one, a
-    plan is built for the call.
+    plan is built for the call. With a mesh, a plan must be the mesh's
+    :class:`~tike_tpu_torch.ops.lamino.MeshLaminoPlan`.
     """
     if mesh is not None:
-        raise NotImplementedError("multi-device laminography (mesh) is not ported")
+        device = home_device(mesh, device)
+        if plan is not None and not isinstance(plan, MeshLaminoPlan):
+            raise ValueError("with a mesh, plan must be a MeshLaminoPlan of that mesh")
     if algorithm == "bucket":
         raise ValueError(
             "Use tike_tpu_torch.lamino.bucket.reconstruct for the bucket solver."
@@ -104,6 +112,8 @@ def reconstruct(
 
     # The geometry never changes within the call: one plan for every
     # transform of every iteration.
+    if mesh is not None and plan is None:
+        plan = MeshLaminoPlan(cfg, theta_d, mesh)
     plan = _plan(plan, cfg, theta_d)
     result = {"obj": obj_d}
     costs = []

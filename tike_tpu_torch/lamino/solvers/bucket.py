@@ -1,12 +1,16 @@
 """Conjugate-gradient solver for the Bucket laminography operator (PyTorch).
 
-Counterpart of :mod:`tike_tpu.lamino.solvers.bucket` for one device:
-Dai-Yuan directions and a backtracking line search on the least-squares
-cost of :func:`~tike_tpu_torch.ops.bucket.bucket_fwd`, with the gradient
-through :func:`~tike_tpu_torch.ops.bucket.bucket_adj`. ``tike_tpu`` traces
-the whole outer iteration into one device program; here it is the eager
-loop of :func:`tike_tpu_torch.opt.conjugate_gradient`, as the port's
-``cgrad`` runs it.
+Counterpart of :mod:`tike_tpu.lamino.solvers.bucket`: Dai-Yuan directions
+and a backtracking line search on the least-squares cost of
+:func:`~tike_tpu_torch.ops.bucket.bucket_fwd`, with the gradient through
+:func:`~tike_tpu_torch.ops.bucket.bucket_adj`, on one device, or on a mesh
+through the cost, gradient and step scale of
+:func:`~tike_tpu_torch.ops.bucket.sharded_bucket_ops` (or ``_2d``), which
+the caller passes as ``raw_cost``, ``raw_grad`` and ``step_scale_op``, as
+the JAX package's ``reconstruct`` passes its sharded operators.
+``tike_tpu`` traces the whole outer iteration into one device program;
+here it is the eager loop of :func:`tike_tpu_torch.opt.conjugate_gradient`,
+as the port's ``cgrad`` runs it.
 """
 
 from __future__ import annotations
@@ -27,6 +31,18 @@ from ...ops.bucket import (
 logger = logging.getLogger(__name__)
 
 
+def _single_device_raw(cfg: BucketConfig):
+    """The cost and gradient of the operator on one device."""
+
+    def cost_raw(data, u, theta, grid=None, trig=None):
+        return bucket_cost(data, bucket_fwd(cfg, u, theta, grid, trig))
+
+    def grad_raw(data, u, theta, grid=None, trig=None):
+        return bucket_grad(cfg, data, theta, bucket_fwd(cfg, u, theta, grid, trig), grid, trig)
+
+    return cost_raw, grad_raw
+
+
 def bucket(
     cfg: BucketConfig,
     data,
@@ -36,6 +52,9 @@ def bucket(
     cg_iter=4,
     step_length=1,
     trig=None,
+    raw_cost=None,
+    raw_grad=None,
+    step_scale_op=None,
     **kwargs,
 ):
     """One outer iteration (``cg_iter`` CG steps) for the Bucket
@@ -43,17 +62,24 @@ def bucket(
     cost a float, the step length the one this iteration started from.
     ``grid`` (None: the full lattice) and ``trig`` (the angles' table,
     :func:`~tike_tpu_torch.ops.bucket.bucket_trig`) are the caller's, if it
-    keeps them."""
+    keeps them. ``raw_cost(data, u, theta, grid, trig)``, ``raw_grad(data,
+    u, theta, grid, trig)`` and ``step_scale_op(u, theta)`` default to the
+    operators of one device."""
+    if raw_cost is None or raw_grad is None:
+        raw_cost, raw_grad = _single_device_raw(cfg)
+    if step_scale_op is None:
+
+        def step_scale_op(u, theta_):
+            return bucket_step_scale(cfg, u, theta_, grid, trig)
 
     def cost(u):
-        return bucket_cost(data, bucket_fwd(cfg, u, theta, grid, trig))
+        return raw_cost(data, u, theta, grid, trig)
 
     def grad(u):
-        fd = bucket_fwd(cfg, u, theta, grid, trig)
-        return bucket_grad(cfg, data, theta, fd, grid, trig).reshape(u.shape)
+        return raw_grad(data, u, theta, grid, trig).reshape(u.shape)
 
     if step_length == 1:
-        s = float(bucket_step_scale(cfg, obj, theta, grid, trig))
+        s = float(step_scale_op(obj, theta))
         step_length = s if np.isfinite(s) and s > 0 else 1.0
     obj, cost_d, _ = opt.conjugate_gradient(
         obj, cost_function=cost, grad=grad, num_iter=cg_iter, step_length=step_length

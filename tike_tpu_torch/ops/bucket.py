@@ -35,8 +35,15 @@ land in a window of the plane whose extent the host computes
 shared memory and gathers from it; the forward accumulates into it and adds
 each nonzero cell to the plane once. A point outside its window (none, when
 the extents are right) adds 1 to a counter on the card
-(:func:`outside_windows`) and takes the global path. A caller's grid takes
-one thread per voxel.
+(:func:`outside_windows`) and takes the global path. ``slab=(x0, rows)``
+stands for the x-slab of the lattice that holds rows x0 .. x0 + rows - 1 of
+axis 0 (:func:`slab_of`: the part of a shard of a mesh, :func:`make_grid`'s
+``rank`` of ``size``), which the kernels tile from row x0 as they tile the
+lattice. A caller's grid takes one thread per voxel.
+
+:func:`sharded_bucket_ops` and :func:`sharded_bucket_ops_2d` run the
+operator over a mesh (``tike_tpu_torch.parallel``), each shard on its own
+slab, as the JAX package's ``obj_split`` does.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch
 
 from .. import kernels
 from .. import linalg
+from ..parallel import all_reduce
 
 LAUNCHES = {"bucket_fwd": 0, "bucket_adj": 0}
 """How many times each CUDA kernel has been launched in this process.
@@ -118,9 +126,18 @@ def make_grid(n: int, size: int = 1, rank: int = 0) -> np.ndarray:
 
 
 def make_grid_full(n: int) -> np.ndarray:
-    """The (n, n, n, 3) origin-centred voxel coordinate lattice."""
+    """The (n, n, n, 3) origin-centred voxel coordinate lattice. Its rows
+    of axis 0 split as :func:`slab_of` splits them are :func:`make_grid`'s
+    x-slabs."""
     lo, hi = -n // 2, n // 2
     return np.stack(np.mgrid[lo:hi, lo:hi, lo:hi], axis=-1).astype(np.int32)
+
+
+def slab_of(n: int, size: int = 1, rank: int = 0) -> tuple:
+    """``(x0, rows)``: the rows of axis 0 of the n^3 lattice in part ``rank``
+    of ``size``, as ``np.array_split`` splits them (:func:`make_grid`)."""
+    bounds = np.cumsum([0] + [len(a) for a in np.array_split(np.arange(n), size)])
+    return int(bounds[rank]), int(bounds[rank + 1] - bounds[rank])
 
 
 def _subsample_offsets(precision: int) -> np.ndarray:
@@ -214,10 +231,12 @@ def _weight(cfg: BucketConfig) -> float:
     return float(np.float32(1.0 / cfg.precision**3))
 
 
-def _grid_tensor(cfg: BucketConfig, grid, device) -> torch.Tensor:
-    """The voxel coordinates as an (G, 3) int32 tensor on ``device``."""
+def _grid_tensor(cfg: BucketConfig, grid, device, slab=None) -> torch.Tensor:
+    """The voxel coordinates as an (G, 3) int32 tensor on ``device``: the
+    caller's grid, or the lattice's ``slab`` (the whole lattice for None)."""
+    x0, rows = _slab(cfg, grid, slab)
     if grid is None:
-        grid = make_grid(cfg.n)
+        grid = make_grid_full(cfg.n)[x0 : x0 + rows]
     if isinstance(grid, torch.Tensor):
         return grid.to(device=device, dtype=torch.int32).reshape(-1, 3)
     return torch.as_tensor(np.asarray(grid, np.int32).reshape(-1, 3), device=device)
@@ -249,6 +268,19 @@ def plane_flat_indices(cfg: BucketConfig, grid: torch.Tensor, offset, trig_row):
     return iy * n + iz
 
 
+def _slab(cfg: BucketConfig, grid, slab) -> tuple:
+    """``slab`` checked, ``(0, n)`` for None; a grid and a slab together
+    raise."""
+    if slab is None:
+        return 0, cfg.n
+    if grid is not None:
+        raise ValueError("pass a grid or a slab, not both")
+    x0, rows = (int(v) for v in slab)
+    if x0 < 0 or rows < 0 or x0 + rows > cfg.n:
+        raise ValueError(f"slab {slab} is not a run of rows of 0 .. {cfg.n - 1}")
+    return x0, rows
+
+
 def _trig_for(cfg: BucketConfig, theta, trig):
     """``trig`` checked against theta, or the table of theta."""
     if trig is None:
@@ -260,13 +292,13 @@ def _trig_for(cfg: BucketConfig, theta, trig):
     return trig
 
 
-def bucket_fwd_plain(cfg: BucketConfig, u, theta, grid=None, trig=None):
+def bucket_fwd_plain(cfg: BucketConfig, u, theta, grid=None, trig=None, slab=None):
     """Plain PyTorch ``bucket_fwd``: for each angle and offset, the cells
     of all voxels and an ``index_add_`` of the weighted values into a
     float-pair view of the plane. Returns (T, n, n) complex64."""
     device = u.device
     trig = _trig_for(cfg, theta, trig).to(device)
-    g = _grid_tensor(cfg, grid, device)
+    g = _grid_tensor(cfg, grid, device, slab)
     uf = torch.view_as_real(u.reshape(-1).to(torch.complex64)) * torch.tensor(
         _weight(cfg), dtype=torch.float32, device=device
     )
@@ -278,13 +310,13 @@ def bucket_fwd_plain(cfg: BucketConfig, u, theta, grid=None, trig=None):
     return torch.view_as_complex(out).reshape(-1, cfg.n, cfg.n)
 
 
-def bucket_adj_plain(cfg: BucketConfig, data, theta, grid=None, trig=None):
+def bucket_adj_plain(cfg: BucketConfig, data, theta, grid=None, trig=None, slab=None):
     """Plain PyTorch ``bucket_adj``: for each angle (outer) and offset
     (inner), gather the plane at every voxel's cell and add it times the
     weight. Returns (G,) complex64."""
     device = data.device
     trig = _trig_for(cfg, theta, trig).to(device)
-    g = _grid_tensor(cfg, grid, device)
+    g = _grid_tensor(cfg, grid, device, slab)
     w = torch.tensor(_weight(cfg), dtype=torch.float32, device=device)
     offsets = torch.as_tensor(_subsample_offsets(cfg.precision), device=device)
     planes = torch.view_as_real(data.to(torch.complex64)).reshape(trig.shape[0], -1, 2)
@@ -327,15 +359,21 @@ def reset_outside_windows(device) -> None:
     OUTSIDE.reset(device)
 
 
-def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device):
+def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device, slab):
     """The table and the grid (or None) as the kernels take them, checked."""
     trig = _trig_for(cfg, theta, trig)
     _check("trig", trig, torch.float32, (theta.shape[0], TABLE_WIDTH))
     if trig.device != device:
         raise ValueError(f"trig is on {trig.device}, the values on {device}")
     if grid is None:
-        if voxels != cfg.n**3:
+        _, rows = _slab(cfg, None, slab)
+        if slab is None and voxels != cfg.n**3:
             raise ValueError(f"without a grid the volume must hold n^3 = {cfg.n**3} voxels")
+        if voxels != rows * cfg.n**2:
+            raise ValueError(
+                f"without a grid the volume must hold the slab's {rows} x n^2 = "
+                f"{rows * cfg.n**2} voxels"
+            )
         return trig, None
     if not isinstance(grid, torch.Tensor):
         grid = torch.as_tensor(np.asarray(grid, np.int32), device=device)
@@ -346,11 +384,12 @@ def _kernel_inputs(cfg: BucketConfig, voxels: int, theta, grid, trig, device):
     return trig, grid
 
 
-def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig):
+def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig, slab):
     """Launch ``tike_<name>`` on ``values`` into ``out``."""
     device = values.device
-    trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, device)
-    rows, pitch = window_limits(cfg)
+    trig, grid = _kernel_inputs(cfg, voxels, theta, grid, trig, device, slab)
+    x0, rows = _slab(cfg, grid, slab)
+    window_rows, pitch = window_limits(cfg)
     offsets = bucket_offsets(cfg.precision)
     counter = OUTSIDE.tensor(device)
     lib = kernels.load("bucket")
@@ -358,7 +397,7 @@ def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig
         rc = getattr(lib, f"tike_{name}")(
             values.data_ptr(), None if grid is None else grid.data_ptr(), trig.data_ptr(),
             out.data_ptr(), counter.data_ptr(), offsets.ctypes.data, voxels, trig.shape[0],
-            cfg.n, cfg.precision, _weight(cfg), pitch, rows * pitch,
+            cfg.n, cfg.precision, _weight(cfg), pitch, window_rows * pitch, x0, rows,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(name, rc)
@@ -366,21 +405,24 @@ def _launch(name: str, cfg: BucketConfig, values, out, voxels, theta, grid, trig
     return out
 
 
-def bucket_fwd_cuda(cfg: BucketConfig, u, theta, grid=None, trig=None):
+def bucket_fwd_cuda(cfg: BucketConfig, u, theta, grid=None, trig=None, slab=None):
     """Launch the CUDA ``bucket_fwd`` kernel (``csrc/bucket.cu``)."""
     u = u.reshape(-1)
     voxels = u.shape[0]
     _check("u", u, torch.complex64, (voxels,))
     out = torch.empty((theta.shape[0], cfg.n, cfg.n), dtype=torch.complex64, device=u.device)
-    return _launch("bucket_fwd", cfg, u, out, voxels, theta, grid, trig)
+    return _launch("bucket_fwd", cfg, u, out, voxels, theta, grid, trig, slab)
 
 
-def bucket_adj_cuda(cfg: BucketConfig, data, theta, grid=None, trig=None):
+def bucket_adj_cuda(cfg: BucketConfig, data, theta, grid=None, trig=None, slab=None):
     """Launch the CUDA ``bucket_adj`` kernel (``csrc/bucket.cu``)."""
     _check("data", data, torch.complex64, (theta.shape[0], cfg.n, cfg.n))
-    voxels = cfg.n**3 if grid is None else int(np.prod(grid.shape)) // 3
+    if grid is None:
+        voxels = _slab(cfg, None, slab)[1] * cfg.n**2
+    else:
+        voxels = int(np.prod(grid.shape)) // 3
     out = torch.empty((voxels,), dtype=torch.complex64, device=data.device)
-    return _launch("bucket_adj", cfg, data, out, voxels, theta, grid, trig)
+    return _launch("bucket_adj", cfg, data, out, voxels, theta, grid, trig, slab)
 
 
 def _on_cpu(*tensors) -> bool:
@@ -392,21 +434,22 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def bucket_fwd(cfg: BucketConfig, u, theta, grid=None, trig=None):
+def bucket_fwd(cfg: BucketConfig, u, theta, grid=None, trig=None, slab=None):
     """Forward projection: volume (any shape holding the G voxels of
-    ``grid``, complex64) -> (T, n, n) complex64 planes. ``trig`` is
-    :func:`bucket_trig` of ``theta``, if the caller keeps it. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    ``grid``, or of the lattice's ``slab``, complex64) -> (T, n, n)
+    complex64 planes. ``trig`` is :func:`bucket_trig` of ``theta``, if the
+    caller keeps it. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if _on_cpu(u, theta, grid, trig):
-        return bucket_fwd_plain(cfg, u, theta, grid, trig)
-    return bucket_fwd_cuda(cfg, u, theta, grid, trig)
+        return bucket_fwd_plain(cfg, u, theta, grid, trig, slab)
+    return bucket_fwd_cuda(cfg, u, theta, grid, trig, slab)
 
 
-def bucket_adj(cfg: BucketConfig, data, theta, grid=None, trig=None):
+def bucket_adj(cfg: BucketConfig, data, theta, grid=None, trig=None, slab=None):
     """Adjoint projection: (T, n, n) planes -> (G,) complex64 volume."""
     if _on_cpu(data, theta, grid, trig):
-        return bucket_adj_plain(cfg, data, theta, grid, trig)
-    return bucket_adj_cuda(cfg, data, theta, grid, trig)
+        return bucket_adj_plain(cfg, data, theta, grid, trig, slab)
+    return bucket_adj_cuda(cfg, data, theta, grid, trig, slab)
 
 
 def bucket_cost(data, fwd_data):
@@ -465,3 +508,124 @@ def roofline(cfg: BucketConfig, voxels: int, angles: int, kernel: str = "bucket_
         bound_ms_first_count=max(bytes_ms, 1e3 * POINT_FLOPS * n_points / FP32_FLOPS_PER_S),
         points=n_points,
     )
+
+
+class _MeshOps:
+    """The Bucket operator over a grid of shards, ``devices`` (D, V): the
+    angles split over the D data groups (rows), the lattice's x-slabs
+    (:func:`slab_of`) over the V shards of a group. Volumes, projections
+    and tables come and go as whole tensors on the first shard's device;
+    each shard reads its angles and its slab from there (a view where it
+    lies on that device)."""
+
+    def __init__(self, cfg: BucketConfig, devices: np.ndarray):
+        self.cfg = cfg
+        self.devices = devices
+        self.home = devices.flat[0]
+        groups, slabs = devices.shape
+        if cfg.n % slabs:
+            raise ValueError(
+                f"the volume mesh axis ({slabs}) must evenly divide the volume side ({cfg.n})"
+            )
+        self.slabs = [slab_of(cfg.n, slabs, v) for v in range(slabs)]
+
+    def _groups(self, theta, trig):
+        """Each data group's angles and table, checked against its size."""
+        groups = self.devices.shape[0]
+        if theta.shape[0] % groups:
+            raise ValueError(
+                f"the data mesh axis ({groups}) must evenly divide the number of angles "
+                f"({theta.shape[0]})"
+            )
+        trig = _trig_for(self.cfg, theta, trig)
+        return zip(torch.chunk(theta, groups), torch.chunk(trig, groups))
+
+    def fwd(self, u, theta, trig=None) -> torch.Tensor:
+        """(T, n, n) projections of the volume: each group's shards project
+        their slabs at the group's angles, and the partial projections of a
+        group are summed (``parallel.all_reduce``)."""
+        cfg, out = self.cfg, []
+        u = u.reshape(cfg.n, cfg.n, cfg.n)
+        for row, (th, tr) in zip(self.devices, self._groups(theta, trig)):
+            parts = [
+                bucket_fwd(cfg, u[x0 : x0 + rows].to(d), th.to(d), None, tr.to(d), (x0, rows))
+                for d, (x0, rows) in zip(row, self.slabs)
+            ]
+            out.append(all_reduce(parts, list(row))[0].to(self.home))
+        return torch.cat(out)
+
+    def adj(self, data, theta, trig=None) -> torch.Tensor:
+        """(n, n, n) adjoint: each shard gathers its slab's voxels from its
+        group's projections, the groups' parts of a slab are summed
+        (``parallel.all_reduce`` down a column), and the slabs joined."""
+        cfg = self.cfg
+        groups = list(self._groups(theta, trig))
+        slabs = []
+        for v, (x0, rows) in enumerate(self.slabs):
+            column = list(self.devices[:, v])
+            parts = [
+                bucket_adj(cfg, d_g.to(d), th.to(d), None, tr.to(d), (x0, rows))
+                for d, d_g, (th, tr) in zip(
+                    column, torch.chunk(data, len(groups)), groups
+                )
+            ]
+            slabs.append(all_reduce(parts, column)[0].to(self.home))
+        return torch.cat(slabs).reshape(cfg.n, cfg.n, cfg.n)
+
+    def cost(self, data, u, theta, grid=None, trig=None):
+        _no_grid(grid)
+        return bucket_cost(data, self.fwd(u, theta, trig))
+
+    def grad(self, data, u, theta, grid=None, trig=None):
+        _no_grid(grid)
+        g = self.adj(self.fwd(u, theta, trig) - data, theta, trig)
+        return g / (data.shape[-3] * self.cfg.n**3)
+
+    def step_scale(self, u, theta, trig=None):
+        back = self.adj(self.fwd(u, theta, trig), theta, trig)
+        return 2 * linalg.norm(back) / (linalg.norm(u) + 1e-32)
+
+    def ops(self) -> tuple:
+        return self.fwd, self.adj, self.cost, self.grad, self.step_scale
+
+
+def _no_grid(grid) -> None:
+    if grid is not None:
+        raise ValueError("the mesh's operators tile the lattice's slabs; they take no grid")
+
+
+def sharded_bucket_ops(cfg: BucketConfig, mesh, axis: str) -> tuple:
+    """Volume-parallel Bucket operators over the mesh axis ``axis``, as
+    :func:`tike_tpu.ops.bucket.sharded_bucket_ops`: each shard owns an x-slab
+    of the lattice (the tiled kernels on a slab), the shards' partial
+    projections are summed, and the adjoint is owner-local, each shard's
+    slab gathered from the whole projections.
+
+    Returns ``(fwd, adj, cost, grad, step_scale)``: ``fwd(u, theta,
+    trig=None)``, ``adj(data, theta, trig=None)``, ``cost(data, u, theta,
+    grid=None, trig=None)``, ``grad(data, u, theta, grid=None, trig=None)``
+    and ``step_scale(u, theta, trig=None)``, on whole (n, n, n) volumes and
+    (T, n, n) projections on the mesh's first device (``trig`` the angles'
+    :func:`bucket_trig`, if the caller keeps it; a grid raises).
+    """
+    if list(mesh.axis_names) != [axis]:
+        raise ValueError(f"a 1-D mesh over {axis!r} is needed; got {mesh.axis_names}")
+    return _MeshOps(cfg, mesh.devices.reshape(1, -1)).ops()
+
+
+def sharded_bucket_ops_2d(cfg: BucketConfig, mesh, data_axis: str, vol_axis: str) -> tuple:
+    """(data x volume) parallel Bucket operators, as
+    :func:`tike_tpu.ops.bucket.sharded_bucket_ops_2d`: the angles split over
+    ``data_axis``, the lattice's x-slabs over ``vol_axis``; partial
+    projections are summed within a data group, and each slab's gradient
+    across the data groups. The same five callables as
+    :func:`sharded_bucket_ops`.
+    """
+    if sorted(mesh.axis_names) != sorted([data_axis, vol_axis]) or data_axis == vol_axis:
+        raise ValueError(
+            f"a 2-D mesh over {data_axis!r} and {vol_axis!r} is needed; got {mesh.axis_names}"
+        )
+    devices = mesh.devices
+    if mesh.axis_names[0] != data_axis:
+        devices = devices.T
+    return _MeshOps(cfg, devices).ops()

@@ -14,6 +14,13 @@ builds a :class:`LaminoPlan` once and hands it to every function here as
 ``plan=``: the frequencies, the KB kernels' geometry plans and the
 deapodization then stay on the device between calls. Without one, each
 call builds what it needs.
+
+A :class:`MeshLaminoPlan` splits the angles over the shards of a mesh (the
+JAX package's ``mesh=``, theta sharded): one :class:`LaminoPlan` a shard at
+its angles, on its device. Given one, the forward joins the shards'
+projections in mesh order and the adjoints sum the shards' volumes
+(``parallel.all_reduce``), so that the cost, the gradient and the solvers
+above them run unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import functools
 import torch
 
 from .. import linalg
+from ..parallel import Mesh, all_reduce, batch_sharding, put
 from .usfft import _parameters, deapodization, eq2us, gather_tile, kb_plan, spread, us2eq
 
 
@@ -135,7 +143,37 @@ class LaminoPlan:
         return deapodization(c.n, c.eps, c.upsample, c.kernel, torch.float32, self.theta.device)
 
 
-def _plan(plan, cfg: LaminoConfig, theta) -> LaminoPlan:
+class MeshLaminoPlan:
+    """The angles ``theta`` split over the shards of ``mesh`` in equal
+    runs, in mesh order, with a :class:`LaminoPlan` of each shard's angles
+    on its device. Results come back on theta's device."""
+
+    def __init__(self, cfg: LaminoConfig, theta: torch.Tensor, mesh: Mesh):
+        if theta.shape[0] % mesh.size:
+            raise ValueError(
+                f"the mesh's {mesh.size} shards must divide the {theta.shape[0]} angles"
+            )
+        self.cfg, self.theta, self.mesh = cfg, theta, mesh
+        self.devices = mesh.flat
+        self.plans = [
+            LaminoPlan(cfg, t) for t in put(theta, batch_sharding(mesh))
+        ]
+
+    def fwd(self, u) -> torch.Tensor:
+        """:func:`lamino_fwd` of each shard's angles, joined."""
+        parts = [lamino_fwd(self.cfg, u.to(d), p.theta, p) for d, p in zip(self.devices, self.plans)]
+        return torch.cat([x.to(self.theta.device) for x in parts])
+
+    def adj(self, fn, data) -> torch.Tensor:
+        """``fn`` (an adjoint) of each shard's projections, summed."""
+        parts = [
+            fn(self.cfg, x.to(d), p.theta, p)
+            for x, d, p in zip(torch.split(data, len(self.plans[0].theta)), self.devices, self.plans)
+        ]
+        return all_reduce(parts, self.devices)[0].to(self.theta.device)
+
+
+def _plan(plan, cfg: LaminoConfig, theta):
     """``plan`` if it is for this geometry, else a new one for the call."""
     if plan is None:
         return LaminoPlan(cfg, theta)
@@ -166,6 +204,8 @@ def lamino_fwd(cfg: LaminoConfig, u, theta, plan=None):
     """Forward laminography: volume (n,n,n) -> projections (ntheta, n, n)."""
     n = cfg.n
     plan = _plan(plan, cfg, theta)
+    if isinstance(plan, MeshLaminoPlan):
+        return plan.fwd(u)
     F = eq2us(u, plan.rows, n, cfg.eps, cfg.upsample, cfg.kernel, plan.gather, plan.deapod)
     return _centered_ifft2(F.reshape(theta.shape[0], n, n))
 
@@ -176,6 +216,8 @@ def lamino_adj(cfg: LaminoConfig, data, theta, plan=None):
     ``upsample=1`` (Nyquist-row aliasing); see :func:`lamino_adj_exact`."""
     n = cfg.n
     plan = _plan(plan, cfg, theta)
+    if isinstance(plan, MeshLaminoPlan):
+        return plan.adj(lamino_adj, data)
     F = _centered_fft2(data).reshape(theta.shape[0] * n, n)
     u = us2eq(
         F, plan.rows_negated, n, cfg.eps, cfg.upsample, cfg.kernel,
@@ -189,6 +231,8 @@ def lamino_adj_exact(cfg: LaminoConfig, data, theta, plan=None):
     at +xi, true inverse 3D FFT, crop, deapodize. CGLS requires it."""
     n = cfg.n
     plan = _plan(plan, cfg, theta)
+    if isinstance(plan, MeshLaminoPlan):
+        return plan.adj(lamino_adj_exact, data)
     upsampled, pad, _, _ = _parameters(n, cfg.eps, cfg.upsample, cfg.kernel)
     # Adjoint of the trailing centered ifft2 (normalized 1/n^2): fft2 / n^2.
     F = _centered_fft2(data).reshape(theta.shape[0] * n, n) / (n * n)

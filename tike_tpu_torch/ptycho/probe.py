@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import linalg
+from ..parallel import Sum, run_local
 from ..precision import as_tensor, cfloating, floating, to_numpy
 from ..utils.ndimage import (
     center_of_mass2d,
@@ -157,6 +158,19 @@ def update_eigen_probe(
     Returns new ``(eigen_probe, weights)``; the inputs are not modified.
     The ``1e-32`` guards are the JAX package's, kept so both round alike.
     """
+    return run_local(
+        update_eigen_probe_steps(R, eigen_probe, weights, patches, diff, valid, β=β, c=c, m=m)
+    )
+
+
+def update_eigen_probe_steps(
+    R, eigen_probe, weights, patches, diff, valid=None, *, β=0.1, c=1, m=0
+):
+    """:func:`update_eigen_probe` on one shard's slots of a batch split over
+    a mesh: a generator that yields its partial sums over the slots
+    (``parallel.Sum``) and goes on with the sums over all shards
+    (``parallel.run_shards``). Returns the new eigen probe (the same on
+    every shard) and this shard's new weights."""
     v = (
         torch.ones(R.shape[0], dtype=R.real.dtype, device=R.device)
         if valid is None
@@ -164,20 +178,24 @@ def update_eigen_probe(
     )
     v5 = v[:, None, None, None, None]
     w = weights[:, c : c + 1, m : m + 1, None, None]
-    norm_weights = torch.sum(torch.square(w) * v5, dim=0, keepdim=True) + 1e-32
+    norm_weights, nvalid = yield Sum(
+        (torch.sum(torch.square(w) * v5, dim=0, keepdim=True), torch.sum(v))
+    )
+    norm_weights = norm_weights + 1e-32
+    nvalid = nvalid + 1e-32
 
     proj = (
         torch.real(R.conj() * eigen_probe[:, c - 1 : c, m : m + 1, :, :]) + w
     ) / norm_weights
-    nvalid = torch.sum(v) + 1e-32
     update = (
-        torch.sum(
-            R * torch.mean(proj, dim=(-2, -1), keepdim=True) * v5,
-            dim=0,
-            keepdim=True,
+        yield Sum(
+            torch.sum(
+                R * torch.mean(proj, dim=(-2, -1), keepdim=True) * v5,
+                dim=0,
+                keepdim=True,
+            )
         )
-        / nvalid
-    )
+    ) / nvalid
 
     update_norm = linalg.mnorm(update, dim=(-2, -1), keepdim=True) + 1e-32
     new_eigen = eigen_probe[:, c - 1 : c, m : m + 1, :, :] + (
@@ -195,7 +213,7 @@ def update_eigen_probe(
         torch.real(diff[:, :, m : m + 1, :, :] * phi.conj()), dim=(-1, -2)
     )
     d = torch.mean(torch.square(torch.abs(phi)), dim=(-1, -2))
-    d_mean = torch.sum(d * v[:, None, None], dim=0, keepdim=True) / nvalid
+    d_mean = (yield Sum(torch.sum(d * v[:, None, None], dim=0, keepdim=True))) / nvalid
     weight_update = (n / (d + 0.1 * d_mean)) * v[:, None, None]
     weights = weights.clone()
     weights[:, c : c + 1, m : m + 1] += weight_update.reshape(

@@ -1,7 +1,8 @@
 """User-facing ptychography entry points: reconstruct, Reconstruction, simulate.
 
-Counterpart of :mod:`tike_tpu.ptycho.ptycho` for one device and the
-replicated layout. :class:`Reconstruction`, :func:`reconstruct` and
+Counterpart of :mod:`tike_tpu.ptycho.ptycho` for one device, or one
+process driving a mesh of devices (``mesh=``, :mod:`tike_tpu_torch.parallel`),
+with the object replicated. :class:`Reconstruction`, :func:`reconstruct` and
 :func:`simulate` run on the CUDA card (``device="cuda"``) unless the caller
 passes another ``torch.device`` (or its name), such as ``"cpu"``; with no
 card they raise rather than fall back to the CPU. The diffraction data
@@ -18,13 +19,20 @@ batch method (compact batches in order, the others in a permutation drawn
 per epoch), any number of shared probe modes, eigen probes and weights
 (OPR), position correction for LSQML, the per-epoch probe and object
 constraints, object and probe adaptive moments, the Gaussian and Poisson
-noise models, and both rescale methods. As in the JAX package,
+noise models, and both rescale methods, on one device or data-parallel on
+a mesh (the slots of each batch split over the shards, padded to a
+multiple of the mesh's size as the JAX package pads them). As in the JAX
+package,
 :meth:`Reconstruction.iterate` has two paths: all epochs of the call
 enqueued with one host read at the end (the counterpart of its fused
 program), and a per-epoch loop that reads each epoch's cost, which a finite
 ``time_limit``, the affine position regularization, position options with
-rPIE and host streaming take. Any option outside that raises
-``NotImplementedError`` when the Reconstruction is created.
+rPIE and host streaming take. ``num_gpu`` and ``use_mpi`` are accepted and
+not read, as in the JAX package, where ``mesh`` supersedes them. Any option
+outside that raises ``NotImplementedError`` when the Reconstruction is
+created: the striped object (``object_sharding="striped"``), and host
+streaming with a mesh, which the JAX package runs only in its multi-process
+layout.
 """
 
 from __future__ import annotations
@@ -46,11 +54,19 @@ from ..ops.ptycho import (
     ptycho_fwd,
     simulate_intensity,
 )
+from ..parallel import all_reduce, home_device
 from ..precision import as_tensor, to_numpy
 from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
 from .solvers import _preconditioner
-from .solvers.epoch import EpochPlan, EpochState, _epoch_math, plan_fields, seed_err_hist
+from .solvers.epoch import (
+    EpochPlan,
+    EpochState,
+    ShardedBatches,
+    _epoch_math,
+    plan_fields,
+    seed_err_hist,
+)
 from .solvers.options import PtychoParameters, _batch_tensors, _resize_fft, crop_fourier_space
 from .stream import StreamedBatches, iter_batches, pinned_batches
 
@@ -216,21 +232,15 @@ _RESCALE_METHODS = ("mean_of_abs_object", "constant_probe_photons")
 
 def _unsupported(
     parameters: PtychoParameters,
-    num_gpu=1,
-    use_mpi: bool = False,
-    mesh=None,
     object_sharding: str = "replicated",
 ) -> typing.List[str]:
     """What in ``parameters`` or in the entry point's other arguments asks
     for something not ported yet."""
     algo = parameters.algorithm_options
     checks = {
-        f"num_gpu = {num_gpu!r} (one device only: 1 or (1,))": (
-            num_gpu not in (1, (1,))
+        "object_sharding='striped' (tike_tpu.parallel.striped)": (
+            object_sharding == "striped"
         ),
-        "use_mpi": bool(use_mpi),
-        "a mesh": mesh is not None,
-        "object_sharding='striped'": object_sharding == "striped",
         f"algorithm {algo.name!r} (only 'lstsq_grad' and 'rpie')": (
             algo.name not in ("lstsq_grad", "rpie")
         ),
@@ -313,11 +323,16 @@ class Reconstruction:
     resident run from one seed give the same bits.
 
     The parameters before ``device`` are the JAX package's, in its order.
-    Of those, what is not ported raises ``NotImplementedError``: ``num_gpu``
-    other than 1 or ``(1,)``, ``use_mpi``, a ``mesh`` and
-    ``object_sharding="striped"``. LSQML with more than one object slice
-    raises ``ValueError``, as the JAX package refuses it. ``device`` is
-    keyword-only.
+    ``num_gpu`` and ``use_mpi`` are accepted and not read, as there.
+    ``mesh`` (:func:`tike_tpu_torch.parallel.make_mesh`) runs the
+    reconstruction data-parallel: the slots of each batch, padded to a
+    multiple of ``mesh.size``, are split over the shards, and the object,
+    probe and solver state stay on the first shard's device, which each
+    shard reads; ``device`` must then name the mesh's type of device.
+    ``object_sharding="striped"`` and host streaming with a mesh
+    (``store_data_on_device=False``) raise ``NotImplementedError``. LSQML
+    with more than one object slice raises ``ValueError``, as the JAX
+    package refuses it. ``device`` is keyword-only.
     """
 
     def __init__(
@@ -361,21 +376,32 @@ class Reconstruction:
                 f"and data shape {tuple(data.shape)} are incompatible. "
                 "The probe width/height must be <= the data width/height."
             )
-        missing = _unsupported(parameters, num_gpu, use_mpi, mesh, object_sharding)
+        missing = _unsupported(parameters, object_sharding)
         if missing:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
             )
         _check_single_slice_lstsq(parameters)
+        self.mesh = mesh
+        if mesh is not None:
+            device = home_device(mesh, device)
         self.device = _resolve_device(
             device, data=data, **_parameter_tensors(parameters)
         )
+        if mesh is not None and store_data_on_device is False:
+            raise NotImplementedError(
+                "not ported to tike_tpu_torch yet: host streaming "
+                "(store_data_on_device=False) with a mesh, which tike_tpu runs "
+                "in its multi-process layout (tike_tpu.parallel.distributed)"
+            )
         if isinstance(data, torch.Tensor) and data.device.type != "cpu":
             if store_data_on_device is False:
                 raise ValueError(
                     "store_data_on_device=False (host streaming) requires "
                     "host data, but data is already device-resident."
                 )
+            store_data_on_device = True
+        if store_data_on_device is None and mesh is not None:
             store_data_on_device = True
         if store_data_on_device is None:
             store_data_on_device = _data_fits_on_device(
@@ -443,7 +469,11 @@ class Reconstruction:
             rng=self._rng,
         )
         self.order = order[0]
-        self.batches = cluster.batches_padded(batches[0])
+        # Each batch's slots split evenly over the mesh's shards, as the JAX
+        # package pads them.
+        self.batches = cluster.batches_padded(
+            batches[0], multiple_of=1 if self.mesh is None else self.mesh.size
+        )
         batch_idx = self.batches[0]
         # The real (unpadded) slots of each batch: eigen weights are
         # written back through these alone.
@@ -471,6 +501,10 @@ class Reconstruction:
             else:
                 data = as_tensor(np.asarray(data)[perm], torch.float32, self.device)
             self.data = data.reshape(*batch_idx.shape, *data.shape[-2:])
+            if self.mesh is not None:
+                self.data = ShardedBatches.split(
+                    self.mesh, self.data, self._batch_idx, self._batch_mask
+                )
 
         stored = time.perf_counter()
         popts = self.parameters.probe_options
@@ -951,15 +985,17 @@ def reconstruct_multigrid(
     indexing, so data on the device stays there), then
     ``algorithm_options.num_iter`` epochs, and the result resampled by 2
     for the next level. Returns the finest level's result. The parameters
-    before ``device`` are the JAX package's, in its order; what
-    :class:`Reconstruction` refuses raises ``NotImplementedError`` before
-    any level runs. ``random_seed`` seeds every level's batches (the JAX
-    package leaves them unseeded).
+    before ``device`` are the JAX package's, in its order; ``mesh`` runs
+    every level on it, and what :class:`Reconstruction` refuses raises
+    ``NotImplementedError`` before any level runs. ``random_seed`` seeds
+    every level's batches (the JAX package leaves them unseeded).
     """
-    missing = _unsupported(parameters, num_gpu, use_mpi, mesh, object_sharding)
+    missing = _unsupported(parameters, object_sharding)
     if missing:
         raise NotImplementedError("not ported to tike_tpu_torch yet: " + "; ".join(missing))
     _check_single_slice_lstsq(parameters)
+    if mesh is not None:
+        home_device(mesh, device)
     interp = _resize_fft if interp is None else interp
     if (data.shape[-1] * 0.5 ** (num_levels - 1)) < 64:
         warnings.warn(
@@ -999,23 +1035,36 @@ def _rescale_probe(
     """Rescale the probe so modeled and measured total intensity match.
 
     ``data`` is batch-major (num_batch, L, DET, DET), resident or streamed
-    from the host batch by batch; padded slots (mask 0) are not counted.
-    Sets ``probe_photons`` from the rescaled probe when it is unset.
+    from the host batch by batch, or split over a mesh's shards
+    (:class:`~.solvers.epoch.ShardedBatches`), each of which sums its own
+    slots before the shards' sums are added; padded slots (mask 0) are not
+    counted. Sets ``probe_photons`` from the rescaled probe when it is
+    unset.
     """
-    w = parameters.exitwave_options.measured_pixels.to(torch.float32)
-    s_data = torch.zeros((), device=w.device)
-    s_model = torch.zeros((), device=w.device)
-    for n, data_b in iter_batches(data, range(batch_idx.shape[0])):
-        idx, bmask = batch_idx[n], batch_mask[n]
-        intensity = intensity_from_farplane(
-            ptycho_fwd(
-                cfg, parameters.psi, parameters.scan[idx], parameters.probe[:, 0]
+    if isinstance(data, ShardedBatches):
+        shards = zip(data.devices, data.data, data.idx, data.mask)
+        devices = data.devices
+    else:
+        devices = [parameters.psi.device]
+        shards = [(devices[0], data, batch_idx, batch_mask)]
+    parts = []
+    for device, data_s, idx_s, mask_s in shards:
+        w = parameters.exitwave_options.measured_pixels.to(device, torch.float32)
+        psi, scan, probe = (parameters.psi.to(device), parameters.scan.to(device),
+                            parameters.probe.to(device))
+        s_data = torch.zeros((), device=device)
+        s_model = torch.zeros((), device=device)
+        for n, data_b in iter_batches(data_s, range(idx_s.shape[0])):
+            idx, bmask = idx_s[n], mask_s[n]
+            intensity = intensity_from_farplane(
+                ptycho_fwd(cfg, psi, scan[idx], probe[:, 0])
             )
-        )
-        s_data = s_data + torch.sum(torch.sum(data_b * w, dim=(-2, -1)) * bmask)
-        s_model = s_model + torch.sum(
-            torch.sum(intensity * w, dim=(-2, -1)) * bmask
-        )
+            s_data = s_data + torch.sum(torch.sum(data_b * w, dim=(-2, -1)) * bmask)
+            s_model = s_model + torch.sum(
+                torch.sum(intensity * w, dim=(-2, -1)) * bmask
+            )
+        parts.append((s_data, s_model))
+    s_data, s_model = (x.to(parameters.psi.device) for x in all_reduce(parts, devices)[0])
     rescale = torch.sqrt(s_data / (s_model + 1e-32))
     logger.info("Probe rescaled by %f", float(rescale))
     parameters.probe = parameters.probe * rescale

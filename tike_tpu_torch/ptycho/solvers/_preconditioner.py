@@ -32,6 +32,7 @@ import torch
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import fresnel_fwd
 from ...ops.ptycho import PtychoConfig
+from ...parallel import all_reduce
 from .options import PtychoParameters, _device_fields
 
 # The (8, 128) tile the JAX gather formulation works in; only the cost
@@ -211,36 +212,57 @@ def _batched_preconditioners(
     use_fft: bool,
     want_psi: bool,
     want_probe: bool,
+    shards=None,
 ):
     """Both preconditioners of the positions in the padded batches
     ``batch_idx`` (nb, L) int64 and ``batch_mask`` (nb, L) float32, in
     float32: the FFT formulation over the mask's weight at each position
     (one slice), or the gather one summed batch by batch.
 
+    On a mesh, ``shards`` (``epoch.ShardedBatches``) holds each shard's
+    slots: each shard computes its part on its device (the point weights,
+    or the gather sums of its slots) and the parts are summed in mesh order
+    (``parallel.all_reduce``).
+
     Returns ``(psi_pre (D, H, W), probe_pre (D, P, P))``; psi_pre is zeros
     unless ``want_psi``, probe_pre None unless ``want_probe``.
     """
-    psi_pre = torch.zeros((cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=psi.device)
+    if shards is None:
+        devices, idxs, masks = [psi.device], [batch_idx], [batch_mask]
+    else:
+        devices, idxs, masks = shards.devices, shards.idx, shards.mask
+    home = psi.device
+    psi_pre = torch.zeros((cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=home)
     probe_pre = None
     if use_fft:
-        w_all = torch.zeros(scan.shape[0], dtype=torch.float32, device=psi.device)
-        w_all.index_add_(0, batch_idx.reshape(-1), batch_mask.reshape(-1))
+        parts = []
+        for device, idx, mask in zip(devices, idxs, masks):
+            w = torch.zeros(scan.shape[0], dtype=torch.float32, device=device)
+            parts.append(w.index_add_(0, idx.reshape(-1), mask.reshape(-1)))
+        w_all = all_reduce(parts, devices)[0].to(home)
         if want_psi:
             psi_pre = _psi_precond_fft_math(cfg, scan, probe, w_all)
         if want_probe:
             probe_pre = _probe_precond_fft_math(cfg, psi, scan, w_all)
         return psi_pre, probe_pre
-    if want_probe:
-        probe_pre = torch.zeros(
-            (cfg.nslices, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
-            device=psi.device,
-        )
-    for idx, bmask in zip(batch_idx, batch_mask):
-        if want_psi:
-            psi_pre = psi_pre + _psi_precond_math(cfg, psi, scan[idx], probe, bmask)
+    parts = []
+    for device, idx_s, mask_s in zip(devices, idxs, masks):
+        psi_s, scan_s, probe_s = psi.to(device), scan.to(device), probe.to(device)
+        psi_part = torch.zeros_like(psi_pre, device=device)
+        probe_part = None
         if want_probe:
-            probe_pre = probe_pre + _probe_precond_math(cfg, psi, scan[idx], bmask)
-    return psi_pre, probe_pre
+            probe_part = torch.zeros(
+                (cfg.nslices, cfg.probe_shape, cfg.probe_shape), dtype=torch.float32,
+                device=device,
+            )
+        for idx, bmask in zip(idx_s, mask_s):
+            if want_psi:
+                psi_part = psi_part + _psi_precond_math(cfg, psi_s, scan_s[idx], probe_s, bmask)
+            if want_probe:
+                probe_part = probe_part + _probe_precond_math(cfg, psi_s, scan_s[idx], bmask)
+        parts.append((psi_part, probe_part))
+    psi_pre, probe_pre = all_reduce(parts, devices)[0]
+    return psi_pre.to(home), None if probe_pre is None else probe_pre.to(home)
 
 
 def psi_preconditioner(cfg: PtychoConfig, psi, scan, probe, mask=None):

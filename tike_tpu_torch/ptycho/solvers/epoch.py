@@ -27,6 +27,17 @@ after the probe constraints and the photon rescale, on probe-recovery
 epochs) only where the plan asks for it: on the per-epoch path, as the JAX
 package's per-epoch loop does and its fused program does not.
 
+On a mesh (``data`` a :class:`ShardedBatches`) each batch's slots are
+split over the shards: each shard runs the batch math on its slots, on its
+device, with the replicated state copied there, and the shards' partial
+sums over slots are reduced where the JAX package's GSPMD program reduces
+them (``parallel.run_shards``; see ``lstsq._lstsq_batch_steps`` and
+``rpie._batch_gradients_steps``), as are the preconditioners' point
+densities. Every shard then holds the whole batch's result, and the first
+shard's is applied once to the state, which lives on the first shard's
+device: the shards read it from there at the next batch. A mesh of one
+shard computes what no mesh computes, bit for bit.
+
 :func:`solver_epoch`, the body of the per-epoch solver functions
 ``solvers.rpie`` and ``solvers.lstsq_grad``, runs steps 2 and 3 alone: the
 preconditioners come from the options (``update_preconditioners``), no
@@ -44,6 +55,7 @@ import torch
 
 from ... import opt
 from ...ops.ptycho import PtychoConfig
+from ...parallel import Mesh, put, batch_sharding, run_local, run_shards
 from ...precision import as_tensor, to_numpy
 from .. import object as object_module
 from .. import probe as probe_module
@@ -53,11 +65,58 @@ from .options import _batch_tensors, _device_fields
 from .lstsq import (
     _POS_EDGE,
     _fz,
-    _lstsq_batch_math,
+    _lstsq_batch_steps,
     _precondition_object_update,
     _trim_mean,
 )
-from .rpie import _batch_gradients_math, _normalize_eigen_weights
+from .rpie import _batch_gradients_steps, _normalize_eigen_weights
+
+
+class _Shards(typing.NamedTuple):
+    """One batch's slots split over a mesh: per shard, in mesh order, its
+    device, data (B/k, DET, DET), indices (B/k,) and mask (B/k,)."""
+
+    devices: list
+    data: list
+    idx: list
+    mask: list
+
+
+@dataclasses.dataclass
+class ShardedBatches:
+    """Batch-major data and slots split over the shards of a mesh.
+
+    The slots of each of the nb batches (``cluster.batches_padded(...,
+    multiple_of=mesh.size)``) split into ``mesh.size`` equal runs in mesh
+    order, each on its shard's device: ``data[s]`` (nb, L/k, DET, DET),
+    ``idx[s]`` (nb, L/k) int64, ``mask[s]`` (nb, L/k) float32. Shards on
+    the device of the whole tensor take views of it, not copies.
+    """
+
+    devices: list
+    data: list
+    idx: list
+    mask: list
+
+    @classmethod
+    def split(cls, mesh: Mesh, data, batch_idx, batch_mask) -> "ShardedBatches":
+        sharding = batch_sharding(mesh, axis=1)
+        return cls(
+            mesh.flat,
+            put(data, sharding),
+            put(batch_idx, sharding),
+            put(batch_mask, sharding),
+        )
+
+    def batches(self, order):
+        """``(n, _Shards of batch n)`` for each n of ``order``."""
+        for n in order:
+            yield n, _Shards(
+                self.devices,
+                [d[n] for d in self.data],
+                [i[n] for i in self.idx],
+                [m[n] for m in self.mask],
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,7 +275,8 @@ def _probe_constraints_math(plan: EpochPlan, probe):
 
 
 def _epoch_begin_math(
-    plan: EpochPlan, state: EpochState, batch_idx, batch_mask, recover_now, total_e
+    plan: EpochPlan, state: EpochState, batch_idx, batch_mask, recover_now, total_e,
+    shards=None,
 ):
     """Start of an epoch: the probe constraints and rescale (into
     ``state.probe``) and the whole-epoch preconditioners.
@@ -225,6 +285,8 @@ def _epoch_begin_math(
     constrained on probe-recovery epochs (into ``state``), as the JAX
     package's per-epoch loop does after its probe constraints.
 
+    On a mesh (``shards`` the :class:`ShardedBatches`) each shard adds up
+    its own slots' part of the preconditioners and the parts are summed.
     Returns ``(pwr (modes,), psi_pre (D, H, W), probe_pre (D, P, P) or
     None)``, one preconditioner per object slice. As in ``fused.py``, ``pwr`` is the power of the constrained
     probe even on epochs where the constraints are not applied, so the
@@ -262,6 +324,7 @@ def _epoch_begin_math(
         use_fft=plan.fft_precond,
         want_psi=plan.recover_psi,
         want_probe=plan.solver == "rpie" and plan.recover_probe,
+        shards=shards,
     )
     return pwr, psi_pre, probe_pre
 
@@ -354,6 +417,56 @@ def _rpie_batch(plan, nums, state, sums, idx_n, psi_pre, probe_pre, recover_now)
         state.probe = probe
 
 
+def _batch_steps(
+    plan: EpochPlan, device, data_n, idx_n, mask_n, state: EpochState, psi_pre,
+    exitwave_options, nb: int, n_slots: int,
+):
+    """The batch math of one shard's slots on its ``device``, the state
+    read there (a copy where it lives on another device), as a generator
+    for ``parallel.run_shards`` or ``run_local``: LSQML's dict, or rPIE's
+    ``(costs, psi_num, probe_num, eigen_delta)``, of the whole batch."""
+    ew = exitwave_options
+
+    def on(x):
+        return None if x is None else x.to(device)
+
+    args = (
+        plan.cfg,
+        data_n,
+        on(state.scan),
+        idx_n,
+        mask_n,
+        on(state.psi),
+        on(state.probe),
+        on(state.eigen_probe) if plan.has_eigen else None,
+        on(state.eigen_weights) if plan.has_eigen else None,
+        on(ew.measured_pixels),
+    )
+    steps = (ew.step_length_start, ew.step_length_weight, ew.unmeasured_pixels_scaling)
+    modes = dict(
+        noise_model=plan.noise_model, steplength_usemodes=plan.steplength_usemodes
+    )
+    if plan.solver == "lstsq":
+        return (
+            yield from _lstsq_batch_steps(
+                *args,
+                on(psi_pre),
+                *steps,
+                num_batch=float(nb),
+                recover_psi=plan.recover_psi,
+                recover_probe=plan.recover_probe,
+                recover_positions=plan.recover_positions,
+                n_slots=n_slots,
+                **modes,
+            )
+        )
+    return (
+        yield from _batch_gradients_steps(
+            *args, *steps, recover_probe=plan.recover_probe, **modes
+        )
+    )
+
+
 def _batch_update_math(
     plan: EpochPlan,
     data_n,
@@ -374,46 +487,38 @@ def _batch_update_math(
     new eigen weights are written back through those alone. A padded slot
     repeats a real position's index, and a scatter with repeated indices
     leaves the write order undefined (``tike_tpu``'s ``.at[idx].set``
-    lets the padded slot's stale copy win; see ROADMAP.md §3).
+    lets the padded slot's stale copy win; see ROADMAP.md §3). On a mesh,
+    ``data_n`` is the batch's :class:`_Shards`; the whole batch's result
+    comes back from every shard, and the first shard's is applied here.
 
     Updates ``state`` in place of the old tensors and adds into ``sums``;
     returns ``(cost, beta_object)``, the batch's masked mean cost and its
     LSQML object step (0 for rPIE), as 0-d tensors.
     """
-    ew = exitwave_options
-    args = (
-        plan.cfg,
-        data_n,
-        state.scan,
-        idx_n,
-        mask_n,
-        state.psi,
-        state.probe,
-        state.eigen_probe if plan.has_eigen else None,
-        state.eigen_weights if plan.has_eigen else None,
-        ew.measured_pixels,
-    )
-    steps = (ew.step_length_start, ew.step_length_weight, ew.unmeasured_pixels_scaling)
-    modes = dict(
-        noise_model=plan.noise_model, steplength_usemodes=plan.steplength_usemodes
-    )
-    if plan.solver == "lstsq":
-        out = _lstsq_batch_math(
-            *args,
-            psi_pre,
-            *steps,
-            num_batch=float(nb),
-            recover_psi=plan.recover_psi,
-            recover_probe=plan.recover_probe,
-            recover_positions=plan.recover_positions,
-            **modes,
+    n_slots = idx_n.shape[0]
+    if isinstance(data_n, _Shards):
+        result = run_shards(
+            data_n.devices,
+            [
+                _batch_steps(
+                    plan, device, d, i, m, state, psi_pre, exitwave_options, nb, n_slots
+                )
+                for device, d, i, m in zip(*data_n)
+            ],
+        )[0]
+    else:
+        result = run_local(
+            _batch_steps(
+                plan, state.psi.device, data_n, idx_n, mask_n, state, psi_pre,
+                exitwave_options, nb, n_slots,
+            )
         )
+    if plan.solver == "lstsq":
+        out = result
         costs = out["costs"]
         beta_obj = _lstsq_batch(plan, out, state, sums, idx_n, real_n, recover_now, nb)
     else:
-        costs, *nums = _batch_gradients_math(
-            *args, *steps, recover_probe=plan.recover_probe, **modes
-        )
+        costs, *nums = result
         _rpie_batch(plan, nums, state, sums, idx_n, psi_pre, probe_pre, recover_now)
         beta_obj = torch.zeros((), dtype=torch.float32, device=state.psi.device)
     cost = torch.sum(costs * mask_n) / torch.clamp(torch.sum(mask_n), min=1)
@@ -625,7 +730,8 @@ def _epoch_math(
 
     data (nb, L, DET, DET) float32, a tensor on the device or host data
     behind a :class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`, which
-    copies each batch in while the one before computes; batch_idx (nb, L)
+    copies each batch in while the one before computes, or the
+    :class:`ShardedBatches` of a mesh; batch_idx (nb, L)
     int64 and batch_mask (nb, L) float32 on the device; batch_real[n] the int64 slots of
     batch n with a mask above 0; order a sequence of the nb batch numbers.
     Updates ``state`` and returns ``(epoch_cost, pwr)`` as device tensors;
@@ -633,13 +739,14 @@ def _epoch_math(
     """
     nb = batch_idx.shape[0]
     recover_now = plan.recover_now(total_e)
+    shards = data if isinstance(data, ShardedBatches) else None
     pwr, psi_pre, probe_pre = _epoch_begin_math(
-        plan, state, batch_idx, batch_mask, recover_now, total_e
+        plan, state, batch_idx, batch_mask, recover_now, total_e, shards
     )
     sums = _start_sums(plan, state)
     costs, beta_obj_mean = _sweep(
         plan,
-        iter_batches(data, order),
+        iter_batches(data, order) if shards is None else shards.batches(order),
         batch_idx,
         batch_mask,
         batch_real,

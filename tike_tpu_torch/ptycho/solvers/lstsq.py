@@ -26,7 +26,8 @@ from ..exitwave import (
     poisson_steplength_dominant_mode,
 )
 from ..position import gaussian_gradient
-from ..probe import get_varying_probe, update_eigen_probe
+from ...parallel import Gather, Sum, run_local
+from ..probe import get_varying_probe, update_eigen_probe_steps
 
 # Largest float margin below the valid-position limit dim - P: positions
 # clamp to dim - P - _POS_EDGE, whose floor is dim - P - 1, the exact upper
@@ -68,7 +69,23 @@ def _precondition_object_update(
     )
 
 
-def _lstsq_batch_math(
+def _lstsq_batch_math(*args, **kwargs):
+    """One LSQML mini-batch: gradients, optimal step sizes, OPR and
+    position terms. :func:`_lstsq_batch_steps` on one device.
+
+    Same signature and returned dict as the JAX function: ``costs`` (B,),
+    ``object_upd_sum`` (1, H, W), ``object_update_precond``,
+    ``m_probe_update`` (1, 1, M, P, P), ``beta_object`` (1,),
+    ``beta_object_solo`` (1,) and ``beta_probe`` (1, 1, 1, 1); with eigen
+    weights and probe recovery also ``eigen_probe`` (None without eigen
+    probes) and ``w_b`` (B, EIGEN+1, M), the batch's new weight rows; with
+    ``recover_positions`` also ``pos_num`` and ``pos_den`` (B, 2), masked.
+    ``step_length_*`` are read by the Poisson model alone.
+    """
+    return run_local(_lstsq_batch_steps(*args, **kwargs))
+
+
+def _lstsq_batch_steps(
     cfg: PtychoConfig,
     data_b,
     scan,
@@ -90,21 +107,23 @@ def _lstsq_batch_math(
     recover_psi: bool,
     recover_probe: bool,
     recover_positions: bool,
+    n_slots: typing.Optional[int] = None,
 ):
-    """One LSQML mini-batch: gradients, optimal step sizes, OPR and
-    position terms.
-
-    Same signature and returned dict as the JAX function: ``costs`` (B,),
-    ``object_upd_sum`` (1, H, W), ``object_update_precond``,
-    ``m_probe_update`` (1, 1, M, P, P), ``beta_object`` (1,),
-    ``beta_object_solo`` (1,) and ``beta_probe`` (1, 1, 1, 1); with eigen
-    weights and probe recovery also ``eigen_probe`` (None without eigen
-    probes) and ``w_b`` (B, EIGEN+1, M), the batch's new weight rows; with
-    ``recover_positions`` also ``pos_num`` and ``pos_den`` (B, 2), masked.
-    ``step_length_*`` are read by the Poisson model alone.
+    """:func:`_lstsq_batch_math` on one shard's slots of a batch split over
+    a mesh (``idx``, ``bmask`` and ``data_b`` this shard's; the rest
+    replicated), as a generator for ``parallel.run_shards``. It yields
+    where the JAX package's program reduces over the batch's slots: the
+    object and probe numerators, which must be summed before the object
+    step is gathered again; the eigen probes' sums; the slot means of the
+    step-size matrices; the masked sums of the steps; and at the end the
+    per-slot outputs, gathered, so that it returns the whole batch's dict
+    on every shard. ``n_slots`` is the batch's number of slots over all
+    shards (this shard's by default), padded slots included: their terms
+    enter the slot means, as in the JAX package.
     """
     nmodes = probe.shape[-3]
     m = 0  # the mode used for the step-size, eigen and position solves
+    n_slots = idx.shape[0] if n_slots is None else n_slots
     scan_b = scan[idx]
     p = cfg.probe_shape
     if eigen_weights is not None:
@@ -151,9 +170,13 @@ def _lstsq_batch_math(
     chi = _crop_from_detector(propagation_adj(chi_far), cfg)  # (B,1,M,P,P)
     chi = chi * bmask[:, None, None, None, None]
 
-    out = {"costs": costs}
+    out = {}
 
-    # (24b)/(25b) object gradient: sum over modes and positions.
+    # (24b)/(25b) object gradient: sum over modes and positions; (24a)/(25a)
+    # probe gradient: simple average over batch. Both summed over all slots
+    # before the object step and dPO are formed from them.
+    bpatches = patches2d[:, None, None]  # (B, 1, 1, P, P)
+    object_upd_sum = probe_sum = None
     if recover_psi:
         object_update_proj = unique_probe.conj() * chi
         object_upd_sum = patch_adj(
@@ -161,15 +184,14 @@ def _lstsq_batch_math(
             scan_b,
             (cfg.nz, cfg.n),
         )[None]
-        out["object_upd_sum"] = object_upd_sum
-
-    # (24a)/(25a) probe gradient: simple average over batch.
-    bpatches = patches2d[:, None, None]  # (B, 1, 1, P, P)
     if recover_probe:
         bprobe_update = bpatches.conj() * chi  # (B, 1, M, P, P)
-        m_probe_update = (
-            torch.sum(bprobe_update, dim=0, keepdim=True) / num_batch
-        )  # (1, 1, M, P, P)
+        probe_sum = torch.sum(bprobe_update, dim=0, keepdim=True)
+    object_upd_sum, probe_sum = yield Sum((object_upd_sum, probe_sum))
+    if recover_psi:
+        out["object_upd_sum"] = object_upd_sum
+    if recover_probe:
+        m_probe_update = probe_sum / num_batch  # (1, 1, M, P, P)
         out["m_probe_update"] = m_probe_update
 
     # Eigen probe (OPR) updates.
@@ -190,7 +212,7 @@ def _lstsq_batch_math(
             )
             for c in range(1, eigen_probe.shape[-4] + 1):
                 if m < eigen_probe.shape[-3]:
-                    eigen_probe, w_b = update_eigen_probe(
+                    eigen_probe, w_b = yield from update_eigen_probe_steps(
                         R,
                         eigen_probe,
                         w_b,
@@ -208,7 +230,6 @@ def _lstsq_batch_math(
                             dim=(-2, -1),
                         )
         out["eigen_probe"] = eigen_probe
-        out["w_b"] = w_b
 
     # Position gradient terms.
     if recover_positions:
@@ -233,8 +254,8 @@ def _lstsq_batch_math(
             ],
             dim=-1,
         )
-        out["pos_num"] = pos_num * bmask[:, None]
-        out["pos_den"] = pos_den * bmask[:, None]
+        pos_num = pos_num * bmask[:, None]
+        pos_den = pos_den * bmask[:, None]
 
     # Optimal step sizes.
     eps = 1e-9 / (p * p)
@@ -246,11 +267,20 @@ def _lstsq_batch_math(
         proj = patch_fwd(object_update_precond[0], scan_b, p)
         dOP = proj[:, None, None] * unique_probe[..., m : m + 1, :, :]
         A1 = torch.sum((dOP * dOP.conj()).real + eps, dim=(-2, -1))
-        A1 = A1 + 0.5 * torch.mean(A1, dim=-3)
     if recover_probe:
         dPO = m_probe_update[..., m : m + 1, :, :] * bpatches
         A4 = torch.sum((dPO * dPO.conj()).real + eps, dim=(-2, -1))
-        A4 = A4 + 0.5 * torch.mean(A4, dim=-3)
+    # The means over the slot axis B, padded slots included.
+    A1_sum, A4_sum = yield Sum(
+        (
+            torch.sum(A1, dim=-3) if recover_psi else None,
+            torch.sum(A4, dim=-3) if recover_probe else None,
+        )
+    )
+    if recover_psi:
+        A1 = A1 + 0.5 * (A1_sum / n_slots)
+    if recover_probe:
+        A4 = A4 + 0.5 * (A4_sum / n_slots)
 
     chi_m = chi[..., m : m + 1, :, :]
     x1 = x2 = x1_solo = None
@@ -277,19 +307,41 @@ def _lstsq_batch_math(
         b2 = torch.sum((dPO.conj() * chi_m).real, dim=(-2, -1))
         x2 = b2 / A4
 
-    nvalid = torch.sum(bmask) + 1e-32
     wmask = bmask[:, None, None, None, None]
 
-    def beta(x):
+    def step_sum(x):
+        if x is None:
+            return None
         step = 0.9 * torch.clamp(_fz(x[..., None, None].real), min=0)
-        return torch.sum(step * wmask, dim=0) / nvalid
+        return torch.sum(step * wmask, dim=0)
 
+    nvalid, *betas = yield Sum(
+        (torch.sum(bmask), step_sum(x1), step_sum(x1_solo), step_sum(x2))
+    )
+    nvalid = nvalid + 1e-32
+    beta_object, beta_object_solo, beta_probe = (
+        None if b is None else b / nvalid for b in betas
+    )
     if x1 is not None:
-        out["beta_object"] = beta(x1)[0, 0, 0]
+        out["beta_object"] = beta_object[0, 0, 0]
     if x1_solo is not None:
-        out["beta_object_solo"] = beta(x1_solo)[0, 0, 0]
+        out["beta_object_solo"] = beta_object_solo[0, 0, 0]
     if x2 is not None:
-        out["beta_probe"] = beta(x2)
+        out["beta_probe"] = beta_probe
+
+    # The per-slot outputs of the whole batch, in slot order.
+    out["costs"], w_b, pos_num, pos_den = yield Gather(
+        (
+            costs,
+            w_b if recover_probe and eigen_weights is not None else None,
+            pos_num if recover_positions else None,
+            pos_den if recover_positions else None,
+        )
+    )
+    if recover_probe and eigen_weights is not None:
+        out["w_b"] = w_b
+    if recover_positions:
+        out["pos_num"], out["pos_den"] = pos_num, pos_den
     return out
 
 

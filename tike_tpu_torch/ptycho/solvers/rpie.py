@@ -28,6 +28,7 @@ from ...ops.ptycho import (
     intensity_from_farplane,
     ptycho_fwd_with_probes,
 )
+from ...parallel import Gather, Sum, run_local
 from ..exitwave import (
     poisson_steplength_all_modes,
     poisson_steplength_dominant_mode,
@@ -36,7 +37,24 @@ from ..probe import get_varying_probe
 from .lstsq import _masked_mean_each_pattern
 
 
-def _batch_gradients_math(
+def _batch_gradients_math(*args, **kwargs):
+    """Forward model, exitwave step and numerators for one batch.
+
+    data_b (B, DET, DET) is the batch's data; idx (B,) indexes the full
+    scan and eigen weights; bmask (B,) zeroes padded slots. Returns
+    ``(costs (B,), psi_num (D, H, W), probe_num (D, 1, 1, M, P, P),
+    eigen_delta (B,) or None)``; ``eigen_delta`` is the change of each
+    position's shared-component weight of mode 0, 0 in padded slots, from
+    slice 0's windows and the difference propagated back to slice 0.
+
+    The object windows are gathered again for the probe numerator, as the
+    JAX package does by default, rather than kept from the forward model.
+    :func:`_batch_gradients_steps` on one device.
+    """
+    return run_local(_batch_gradients_steps(*args, **kwargs))
+
+
+def _batch_gradients_steps(
     cfg: PtychoConfig,
     data_b,
     scan,
@@ -55,18 +73,11 @@ def _batch_gradients_math(
     steplength_usemodes: str,
     recover_probe: bool,
 ):
-    """Forward model, exitwave step and numerators for one batch.
-
-    data_b (B, DET, DET) is the batch's data; idx (B,) indexes the full
-    scan and eigen weights; bmask (B,) zeroes padded slots. Returns
-    ``(costs (B,), psi_num (D, H, W), probe_num (D, 1, 1, M, P, P),
-    eigen_delta (B,) or None)``; ``eigen_delta`` is the change of each
-    position's shared-component weight of mode 0, 0 in padded slots, from
-    slice 0's windows and the difference propagated back to slice 0.
-
-    The object windows are gathered again for the probe numerator, as the
-    JAX package does by default, rather than kept from the forward model.
-    """
+    """:func:`_batch_gradients_math` on one shard's slots of a batch split
+    over a mesh, as a generator for ``parallel.run_shards``: the object and
+    probe numerators are summed over the shards, and the per-slot costs and
+    eigen deltas gathered, so that it returns the whole batch's result on
+    every shard."""
     nmodes = probe.shape[-3]
     p = cfg.probe_shape
     scan_b = scan[idx]
@@ -145,6 +156,8 @@ def _batch_gradients_math(
         )
         eigen_denominator = torch.sum(torch.abs(OP) ** 2, dim=(-1, -2)) + 1e-32
         eigen_delta = 0.1 * (eigen_numerator / eigen_denominator)[:, 0] * bmask
+    psi_num, probe_num = yield Sum((psi_num, probe_num))
+    costs, eigen_delta = yield Gather((costs, eigen_delta))
     return costs, psi_num, probe_num, eigen_delta
 
 
