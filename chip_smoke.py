@@ -240,7 +240,27 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     within the rounding bound of the full lattice's), their times beside
     the full lattice's per voxel; ``obj_split=2`` at phase 16's problem,
     s/iteration beside phase 16's; and the golden protocol on a 2 x 2 (data
-    x volume) mesh.
+    x volume) mesh; (e) host streaming on the mesh: phase 5's slice
+    streamed on two card shards against the same mesh resident (on the
+    per-epoch path both), bit for bit, and the main path streamed on two
+    shards from host data, s/epoch, set-up, peak memory and the copy
+    stream's busy and wait times beside 21b's, the final psi and probe
+    against phase 6's (``MESH_PSI_TOL``, ``MESH_PROBE_TOL``).
+
+22. The striped object (``object_sharding="striped"``) on two stripes,
+    both on the card: (a) ``tests/_torch_striped_cases.py``'s 160^2 LSQML
+    problem, 3 epochs on the card against the same stripes on the CPU at
+    phase 5's tolerance, and streamed against resident on the card, bit
+    for bit; (b) the main path's LSQML (10,000 x 128^2, 1500^2,
+    ``num_batch=10``, compact, seeded) striped: hs = 750, halo = 137,
+    windows of 1024 x 1500; iterate(1) then a timed iterate(3) with every
+    kernel count set to 0 just before it, s/epoch, set-up, peak memory and
+    patch launches, and one more epoch traced; its psi against phase 6's replicated result by the
+    interior correlation of ``tests/parallel/test_striped.py`` (> 0.95) and
+    its final cost within that test's factor; then the same configuration
+    host-streamed (its psi against the resident stripes' at phase 5's
+    tolerance, the final cost too) and rPIE resident; (c) the halo
+    cross-fade's time at the windows' shape.
 
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
@@ -263,9 +283,12 @@ launches in phase 6 as
 probes' in phase 12, the Lanczos kernels' in phase 19c; every kernel's
 launches in phase 18b's timed run as ``launches_multislice``, in 19c as
 ``launches_align``, in phase 20b's timed epochs of both solvers as
-``launches_api`` and on phase 21's mesh as ``launches_mesh``: 21b's for the
+``launches_api``, on phase 21's mesh as ``launches_mesh``: 21b's for the
 patch kernels, 21c's for the KB kernels, 21d's ``obj_split=2`` for the
-Bucket kernels, whose slab times come as ``ms_slab0`` / ``ms_slab1`` with
+Bucket kernels, in 21e's streamed main path as ``launches_mesh_stream`` and
+in 22b's striped LSQML, its streamed run and its rPIE as
+``launches_striped``, ``launches_striped_stream`` and
+``launches_striped_rpie``, whose slab times come as ``ms_slab0`` / ``ms_slab1`` with
 their bounds); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
@@ -301,6 +324,7 @@ from tests import _torch_bucket_cases as cases_bucket
 from tests import _torch_interp_cases as cases_interp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
+from tests import _torch_striped_cases as cases_striped
 from tests import _torch_usfft_cases as cases_usfft
 from tike_tpu_torch import (
     checkpoint, cluster, kernel_sweep, kernels, linalg, opt, parallel, profile_epoch,
@@ -311,6 +335,7 @@ from tike_tpu_torch.ops import alignment as ops_alignment
 from tike_tpu_torch.ops import bucket, interp, patch, shift, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
 from tike_tpu_torch.ops.ptycho import PtychoConfig
+from tike_tpu_torch.parallel import halo as parallel_halo
 from tike_tpu_torch.ptycho import learn
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
@@ -3490,6 +3515,268 @@ def phase_mesh_bucket_golden(device, card: str) -> None:
 SCRIPT_START = time.perf_counter()
 
 
+def phase_mesh_stream_slice(device) -> None:
+    """21e: phase 5's LSQML slice on two card shards, host-streamed against
+    resident, both on the per-epoch path (a finite ``time_limit``): bit
+    for bit."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
+    out = {}
+    for store in (True, False):
+        params = _small_slice_parameters(scan, probe, psi0, det)
+        params.algorithm_options.time_limit = 1e9
+        with tp.Reconstruction(data, params, device=device, random_seed=0,
+                               mesh=_on_card_mesh(device, 2),
+                               store_data_on_device=store) as context:
+            context.iterate(3)
+            out[store] = context.get_result()
+    for key in ("psi", "probe", "scan"):
+        if not np.array_equal(getattr(out[False], key), getattr(out[True], key)):
+            raise AssertionError(f"mesh stream slice: streamed {key} differs from resident")
+    if out[False].algorithm_options.costs != out[True].algorithm_options.costs:
+        raise AssertionError("mesh stream slice: streamed costs differ from resident")
+    log(f"[mesh-stream-slice] 3 epochs on 2 card shards, streamed against resident: psi, "
+        f"probe, scan and costs bitwise equal ({out[False].algorithm_options.costs})")
+
+
+def _timed_context(tag, context, card, stream_stats=None) -> dict:
+    """iterate(1), then iterate(3) timed with every kernel count set to 0
+    just before it and read just after; the peak device memory since the
+    caller reset it. ``stream_stats`` turns on and reads the copy
+    stream's timing for the timed epochs."""
+    start = time.perf_counter()
+    context.iterate(1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    if stream_stats is not None:
+        stream_stats(True)
+    _reset_launches()
+    start = time.perf_counter()
+    context.iterate(3)
+    torch.cuda.synchronize()
+    epoch_s = (time.perf_counter() - start) / 3
+    launches = _read_launches(tag)
+    copies = stream_stats(False) if stream_stats is not None else None
+    costs = [c[0] for c in context.get_convergence()[0]]
+    if len(costs) != 4 or not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"{tag}: costs are not 4 finite decreasing values: {costs}")
+    for name in patch.LAUNCHES:
+        if not launches[name] > 0:
+            raise AssertionError(f"{tag}: iterate(3) launched no {name} kernel: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] per-epoch costs {costs}; iterate(1) {first_s:.3f} s; iterate(3) "
+        f"{epoch_s:.4f} s/epoch; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+        f"patch launches {({k: launches[k] for k in patch.LAUNCHES})} ({card})")
+    if copies is not None:
+        log(f"[{tag}] copy stream over the timed epochs, by shard or stripe: {copies} ({card})")
+    return dict(launches=launches, costs=costs, epoch_s=epoch_s, peak=peak,
+                result=context.get_result())
+
+
+def _shard_stream_stats(shards):
+    """A ``stream_stats`` for :func:`_timed_context` over ``shards``, the
+    StreamedBatches of a streamed mesh or striped run."""
+    def stats(start):
+        if start:
+            for s in shards:
+                s.timing = True
+                s.stats()
+            return None
+        out = [s.stats() for s in shards]
+        for s in shards:
+            s.timing = False
+        return [{k: (round(v, 3) if isinstance(v, float) else v) for k, v in o.items()}
+                for o in out]
+    return stats
+
+
+def _field_gaps(result, reference, keys=("psi", "probe")) -> dict:
+    return {
+        key: float(np.max(np.abs(getattr(result, key) - getattr(reference, key)))
+                   / np.max(np.abs(getattr(reference, key))))
+        for key in keys
+    }
+
+
+def phase_mesh_stream(device, scan, psi, probe, card: str, main: dict, data_host) -> dict:
+    """21e: the main path on two card shards, streamed from host data (the
+    per-epoch loop, which streaming takes): s/epoch, set-up, peak memory,
+    the copy streams' times, and the final psi and probe against phase 6's
+    at 21b's tolerances."""
+    params = path_parameters(scan, psi, probe)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    context = tp.Reconstruction(data_host, params, device=device, random_seed=0,
+                                mesh=_on_card_mesh(device, 2), store_data_on_device=False)
+    context.__enter__()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    out = _timed_context("mesh-stream", context, card, _shard_stream_stats(context.data.data))
+    context.__exit__(None, None, None)
+    gaps = _field_gaps(out["result"], main["result"])
+    for key, tol in (("psi", MESH_PSI_TOL), ("probe", MESH_PROBE_TOL)):
+        if not gaps[key] <= tol:
+            raise AssertionError(f"mesh-stream: {key} differs from phase 6's by {gaps[key]:.3e}")
+    log(f"[mesh-stream] 2 shards streamed on {device}: {out['epoch_s']:.4f} s/epoch against "
+        f"phase 6's {main['epoch_s']:.4f}; set-up {setup_s:.2f} s "
+        f"({ {k: round(v, 2) for k, v in context.setup_seconds.items()} }); final cost "
+        f"{out['costs'][-1]:.6e} against {main['costs'][-1]:.6e}; max|diff| / max|value| psi "
+        f"{gaps['psi']:.3e}, probe {gaps['probe']:.3e} ({card})")
+    return out["launches"]
+
+
+# 22b against phase 6: tests/parallel/test_striped.py's bounds for a striped
+# result against the replicated one (interior correlation, final cost
+# within a factor and an offset).
+STRIPED_CORR, STRIPED_COST_FACTOR, STRIPED_COST_OFFSET = 0.95, 2.0, 0.05
+
+
+def phase_striped_slice(device) -> None:
+    """22a: ``tests/_torch_striped_cases.py``'s LSQML problem on two stripes
+    of the card against two CPU stripes at phase 5's tolerance, and
+    streamed against resident on the card, bit for bit."""
+    psi, probe, scan, data = cases_striped.problem(n=128)
+    psi0 = cases_striped.start(psi)
+
+    def run(dev, mesh, store=True):
+        params = cases_striped.parameters(tp, probe, psi0, scan, "lstsq")
+        with tp.Reconstruction(data, params, device=dev, random_seed=0, mesh=mesh,
+                               object_sharding="striped", store_data_on_device=store) as ctx:
+            ctx.iterate(3)
+            return ctx.get_result()
+
+    ref = run("cpu", parallel.make_mesh(devices=["cpu", "cpu"]))
+    got = run(device, _on_card_mesh(device, 2))
+    c_ref = np.asarray(ref.algorithm_options.costs).ravel()
+    c_got = np.asarray(got.algorithm_options.costs).ravel()
+    if not (np.all(np.isfinite(c_got)) and c_got[-1] < c_got[0]):
+        raise AssertionError(f"striped slice: costs not finite and decreasing: {c_got}")
+    np.testing.assert_allclose(c_got, c_ref, rtol=SLICE_TOL)
+    errs = {}
+    for key in ("psi", "probe"):
+        a, b = getattr(got, key), getattr(ref, key)
+        np.testing.assert_allclose(a, b, rtol=SLICE_TOL, atol=SLICE_TOL * np.abs(b).max())
+        errs[key] = float(np.max(np.abs(a - b)) / np.abs(b).max())
+    log(f"[striped-slice] 3 epochs on 2 stripes on {device} vs 2 CPU stripes: costs "
+        f"{c_got.tolist()} vs {c_ref.tolist()} (rtol {SLICE_TOL:g}); max|err| / max|value| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {SLICE_TOL:g})")
+    streamed = run(device, _on_card_mesh(device, 2), store=False)
+    for key in ("psi", "probe", "scan"):
+        if not np.array_equal(getattr(streamed, key), getattr(got, key)):
+            raise AssertionError(f"striped slice: streamed {key} differs from resident")
+    if streamed.algorithm_options.costs != got.algorithm_options.costs:
+        raise AssertionError("striped slice: streamed costs differ from resident")
+    log(f"[striped-slice] streamed against resident on {device}: psi, probe, scan and costs "
+        "bitwise equal")
+
+
+def _drive_striped(tag, device, params, data_host, card, store=True, trace=False) -> dict:
+    """Enter a striped Reconstruction of ``params`` on two stripes of the
+    card and run :func:`_timed_context`, and with ``trace`` one more epoch
+    traced; returns its record with the set-up's seconds and the stripe
+    geometry."""
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    context = tp.Reconstruction(data_host, params, device=device, random_seed=0,
+                                mesh=_on_card_mesh(device, 2), object_sharding="striped",
+                                store_data_on_device=store)
+    context.__enter__()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    state = context._striped
+    plan = state.plan
+    window = tuple(state.states[0].psi.shape)
+    log(f"[{tag}] entered in {setup_s:.2f} s "
+        f"({ {k: round(v, 2) for k, v in context.setup_seconds.items()} }): hs "
+        f"{plan.stripe_height}, halo {plan.halo}, windows {window} complex64 "
+        f"({np.prod(window) * 8 / 1e6:.1f} MB each), positions a stripe "
+        f"{plan.counts.tolist()}, batches {tuple(state.batch_idx[0].shape)} a stripe, "
+        f"fft_precond {state.epoch_plan.fft_precond} ({card})")
+    stats = None if store else _shard_stream_stats(state.data)
+    out = _timed_context(tag, context, card, stats)
+    if trace:
+        log_breakdown(tag, _traced_epoch(context, tag), card)
+    context.__exit__(None, None, None)
+    result = out["result"]
+    if result.psi.shape != params.psi.shape or not np.all(np.isfinite(result.psi)):
+        raise AssertionError(f"{tag}: stitched psi is not finite or has the wrong shape")
+    out.update(setup_s=setup_s, plan=plan, window=window)
+    return out
+
+
+def phase_striped(device, scan, psi, probe, card: str, main: dict, data_host) -> dict:
+    """22b and 22c: the main path's LSQML striped over two stripes of the
+    card, resident and host-streamed, and rPIE resident; the halo
+    cross-fade's time. Returns each run's kernel counts."""
+    started = time.perf_counter()
+    lsq = _drive_striped("striped", device, path_parameters(scan, psi, probe), data_host, card,
+                         trace=True)
+    plan = lsq["plan"]
+    # hs = ceil(H / 2) and halo = P + 1 + 8: at the main path's width 750,
+    # 137 and windows of 1024 x 1500.
+    hs, halo = -(-psi.shape[-2] // 2), probe.shape[-1] + 9
+    if (plan.stripe_height, plan.halo, lsq["window"][-2:]) != (
+        hs, halo, (hs + 2 * halo, psi.shape[-1])
+    ):
+        raise AssertionError(f"striped: geometry {plan} {lsq['window']} is not the expected")
+    corr = cases_striped.interior_correlation(lsq["result"].psi, main["result"].psi)
+    bound = STRIPED_COST_FACTOR * max(main["costs"][-1], 1e-3) + STRIPED_COST_OFFSET
+    if not corr > STRIPED_CORR:
+        raise AssertionError(f"striped: interior correlation with phase 6 {corr:.6f}")
+    if not lsq["costs"][-1] < bound:
+        raise AssertionError(f"striped: final cost {lsq['costs'][-1]} >= {bound}")
+    log(f"[striped] 2 stripes on {device}: {lsq['epoch_s']:.4f} s/epoch against phase 6's "
+        f"{main['epoch_s']:.4f} ({lsq['epoch_s'] / main['epoch_s']:.3f}x); set-up "
+        f"{lsq['setup_s']:.2f} s against phase 6's {main['setup_s']:.2f} s; final cost "
+        f"{lsq['costs'][-1]:.6e} against phase 6's {main['costs'][-1]:.6e} (bound {bound:.4g}); "
+        f"interior correlation of psi with phase 6's {corr:.6f} (> {STRIPED_CORR}) ({card})")
+    streamed = _drive_striped("striped-stream", device, path_parameters(scan, psi, probe),
+                              data_host, card, store=False)
+    gaps = _field_gaps(streamed["result"], lsq["result"])
+    np.testing.assert_allclose(streamed["costs"], lsq["costs"], rtol=SLICE_TOL)
+    for key, gap in gaps.items():
+        if not gap <= SLICE_TOL:
+            raise AssertionError(f"striped-stream: {key} differs from resident by {gap:.3e}")
+    log(f"[striped-stream] {streamed['epoch_s']:.4f} s/epoch against resident "
+        f"{lsq['epoch_s']:.4f}; set-up {streamed['setup_s']:.2f} s; peak "
+        f"{streamed['peak'] / 2**30:.3f} GiB against {lsq['peak'] / 2**30:.3f} GiB; "
+        f"max|diff| / max|value| against resident psi {gaps['psi']:.3e}, probe "
+        f"{gaps['probe']:.3e} (tol {SLICE_TOL:g}) ({card})")
+    rpie_params = path_parameters(scan, psi, probe)
+    rpie_params.algorithm_options = tp.RpieOptions(
+        num_batch=NUM_BATCH, num_iter=1, batch_method="compact"
+    )
+    rpie = _drive_striped("striped-rpie", device, rpie_params, data_host, card)
+    log(f"[striped-rpie] {rpie['epoch_s']:.4f} s/epoch; set-up {rpie['setup_s']:.2f} s; peak "
+        f"{rpie['peak'] / 2**30:.3f} GiB ({card})")
+    # 22c: the cross-fade of one stripe's seams at the windows' shape.
+    window = torch.ones((1, *lsq["window"][-2:]), dtype=torch.complex64, device=device)
+    seams = torch.ones((2, 2, 1, 2 * plan.halo, window.shape[-1]), dtype=torch.complex64,
+                       device=device)
+    blend_ms = _events_ms(
+        lambda: parallel_halo.cross_fade(window, seams, 0, plan.stripe_height, plan.halo)
+    )
+    log(f"[striped] cross-fade of one window {tuple(window.shape)}: {blend_ms:.4f} ms a "
+        f"stripe, once an epoch, against {lsq['epoch_s'] * 1e3:.1f} ms an epoch ({card})")
+    log(f"[striped] phase 22b-c took {time.perf_counter() - started:.1f} s ({card})")
+    return dict(striped=lsq["launches"], striped_stream=streamed["launches"],
+                striped_rpie=rpie["launches"])
+
+
+def _events_ms(fn, repeats: int = 20) -> float:
+    """The mean time of ``fn`` on the card over ``repeats`` calls after
+    one warm-up, from CUDA events."""
+    fn()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    return begin.elapsed_time(end) / repeats
+
+
 def main() -> None:
     env = phase_environment()
     device = torch.device("cuda", 0)
@@ -3552,11 +3839,22 @@ def main() -> None:
     slab_timings = phase_mesh_bucket_slabs(device, card, bucket_timings)
     launches_mesh.update(phase_mesh_bucket(device, card, bucket_run))
     phase_mesh_bucket_golden(device, card)
+    phase_mesh_stream_slice(device)
+    data_host = tp.simulate(DET, probe, scan, psi, device=device)
+    launches_mesh_stream = phase_mesh_stream(device, scan, psi, probe, card, main_path, data_host)
     log(f"[mesh] phase 21 took {time.perf_counter() - mesh_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    striped_start = time.perf_counter()
+    phase_striped_slice(device)
+    launches_striped = phase_striped(device, scan, psi, probe, card, main_path, data_host)
+    del data_host
+    log(f"[striped] phase 22 took {time.perf_counter() - striped_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
         launches_api=launches_api[name], launches_mesh=launches_mesh[name],
+        launches_mesh_stream=launches_mesh_stream[name],
+        **{f"launches_{run}": counts[name] for run, counts in launches_striped.items()},
     )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [

@@ -196,16 +196,12 @@ def test_num_gpu_and_use_mpi_are_accepted_and_not_read(slice_data):
 
 
 def test_what_a_mesh_still_refuses(slice_data):
-    """Host streaming with a mesh (tike_tpu runs it in its multi-process
-    layout), a mesh that is not a ``parallel.Mesh``, and a device of
-    another type than the mesh's raise before anything runs."""
+    """A mesh that is not a ``parallel.Mesh``, and a device of another type
+    than the mesh's, raise before anything runs."""
     scan, probe, psi0, data = slice_data
     params = convert.parameters_from_jax(
         H.fused_parameters(jp, scan, probe, psi0, "lstsq_wobbly_momentum", DET)
     )
-    with pytest.raises(NotImplementedError, match="tike_tpu.parallel.distributed"):
-        tp.Reconstruction(data, params, mesh=cpu_mesh(2), store_data_on_device=False,
-                          device="cpu")
     with pytest.raises(TypeError, match="parallel.Mesh"):
         tp.Reconstruction(data, params, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="cpu devices"):

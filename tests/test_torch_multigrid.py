@@ -178,12 +178,23 @@ def test_multigrid_levels_compose_with_a_seed(slice_data):
     np.testing.assert_allclose(got["costs"], want["costs"], rtol=TOL)
 
 
-def test_multigrid_refuses_what_is_not_ported(slice_data):
+def test_multigrid_refuses_what_is_not_ported(slice_data, monkeypatch):
+    """Before any level runs: the striped object without a mesh
+    (``ValueError``, as in tike_tpu), and on a mesh in a process group of
+    several (not ported yet), and a mesh that is not the port's."""
+    import tike_tpu_torch.parallel as tpar
+
     scan, probe, psi0, data = slice_data
     params = _parameters(tp, scan, probe, psi0)
     for kw in (dict(num_gpu=2), dict(use_mpi=True), dict()):
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="requires a mesh"):
             tp.reconstruct_multigrid(data, params, device="cpu", object_sharding="striped", **kw)
+    with monkeypatch.context() as m:
+        m.setattr(torch.distributed, "is_initialized", lambda: True)
+        m.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+        with pytest.raises(NotImplementedError, match="tike_tpu.parallel.distributed"):
+            tp.reconstruct_multigrid(data, params, device="cpu", object_sharding="striped",
+                                     mesh=tpar.make_mesh(devices=["cpu"] * 2))
     with pytest.raises(TypeError, match="parallel.Mesh"):
         tp.reconstruct_multigrid(data, params, device="cpu", mesh=object())
     assert params.psi is psi0  # nothing resampled or run

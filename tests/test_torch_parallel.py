@@ -48,16 +48,31 @@ def test_make_mesh_and_placements():
     )
     with pytest.raises(ValueError, match="equal shards"):
         tpar.put(torch.zeros(10), tpar.batch_sharding(mesh))
-    with pytest.raises(ValueError, match="2 devices given"):
-        tpar.make_mesh(3, devices=["cpu", "cpu"])
+    # As tike_tpu's make_mesh, n_devices is not read where devices are given.
+    assert tpar.make_mesh(3, devices=["cpu", "cpu"]).size == 2
     with pytest.raises(ValueError, match="1-D or 2-D"):
         tpar.Mesh(["cpu"] * 2, ("a", "b"))
 
 
 def test_make_mesh_without_devices_takes_the_cards(monkeypatch):
+    """No card: a refusal, never the CPU unasked. Cards: the first
+    ``n_devices`` of them, or all where fewer are visible, as
+    tike_tpu's ``make_mesh`` takes ``jax.devices()[:n]``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="devices="):
         tpar.make_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert tpar.make_mesh().flat == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert tpar.make_mesh(1).flat == [torch.device("cuda", 0)]
+    assert tpar.make_mesh(8).size == 2
+    assert jpar.make_mesh(64).size == len(jax.devices())
+
+
+def test_make_mesh_ignores_n_devices_where_devices_are_given():
+    assert tpar.make_mesh(8, devices=["cpu"] * 3).size == 3
+    assert jpar.make_mesh(8, devices=jax.devices()[:3]).size == 3
 
 
 def test_all_reduce_adds_in_mesh_order_and_repeats():

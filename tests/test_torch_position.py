@@ -162,29 +162,47 @@ def test_position_options_split_join_and_copies(adam):
 
 
 def test_ptycho_parameters_join_matches_jax():
+    """``PtychoParameters.join`` of 1, 2 and 3 parts, each with its own psi,
+    against tike_tpu's with the same ``stripe_start``: bit for bit."""
+    for n_parts in (1, 2, 3):
+        _check_join(n_parts)
+
+
+def _check_join(n_parts):
     scan, _, probe, psi0 = H.opr_inputs(npos=40)
     eig, weights = H.bench_eigen(probe, len(scan))
     weights[:, 1] = np.arange(len(scan))[:, None]
     order = H.rng(39).permutation(len(scan))
     reorder = np.argsort(order)
+    cuts = np.array_split(order, n_parts)
+    stripe_start = [0, 50, 97][:n_parts]
+    gen = H.rng(40)
+    psis = [(psi0 + 0.1 * H.crandn(gen, *psi0.shape)).astype(np.complex64) for _ in cuts]
 
     def parts(pkg):
         x = pkg.PtychoParameters(
             probe=probe, psi=psi0, scan=scan, eigen_probe=eig, eigen_weights=weights,
             position_options=_position_options(pkg, scan, True),
         )
-        return pkg.PtychoParameters.split(order, x=x)
+        out = []
+        for cut, psi in zip(cuts, psis):
+            part = pkg.PtychoParameters.split(cut, x=x)
+            part.psi = psi
+            out.append(part)
+        return out
 
-    want = jopts.PtychoParameters.join([parts(jp)], reorder, stripe_start=[0])
-    got = topts.PtychoParameters.join([parts(tp)], reorder)
+    want = jopts.PtychoParameters.join(parts(jp), reorder, stripe_start=stripe_start)
+    got = topts.PtychoParameters.join(parts(tp), reorder, stripe_start=stripe_start)
     for key in ("probe", "psi", "scan", "eigen_probe", "eigen_weights"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
     np.testing.assert_array_equal(got.eigen_weights, weights)
     np.testing.assert_array_equal(
         got.position_options._momentum, want.position_options._momentum
     )
-    with pytest.raises(NotImplementedError, match="stripes"):
-        topts.PtychoParameters.join([parts(tp), parts(tp)], reorder)
+    if n_parts > 1:
+        w = probe.shape[-2] // 2
+        np.testing.assert_array_equal(got.psi[:, 50 + w : 97 + w if n_parts > 2 else None],
+                                      psis[1][:, 50 + w : 97 + w if n_parts > 2 else None])
 
 
 @pytest.fixture(scope="module")

@@ -129,22 +129,35 @@ def test_num_gpu_in_third_place_is_not_a_device(slice_data, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "match, kwargs",
+    "error, match, kwargs, processes",
     [
-        ("object_sharding='striped'", dict(object_sharding="striped")),
-        ("object_sharding='striped'", dict(object_sharding="striped", mesh=object())),
-        ("tike_tpu.parallel.striped", dict(object_sharding="striped", num_gpu=2)),
+        pytest.param(ValueError, "requires a mesh", dict(object_sharding="striped"), 1,
+                     id="object_sharding='striped'-kwargs0"),
+        pytest.param(TypeError, "parallel.Mesh", dict(object_sharding="striped", mesh=object()),
+                     1, id="object_sharding='striped'-kwargs1"),
+        pytest.param(NotImplementedError, "tike_tpu.parallel.distributed",
+                     dict(object_sharding="striped", num_gpu=2), 2,
+                     id="tike_tpu.parallel.striped-kwargs2"),
     ],
 )
-def test_unported_entry_point_arguments_raise(slice_data, match, kwargs):
-    """What is still not ported raises, naming the module that will port
-    it; ``num_gpu``, ``use_mpi`` and a mesh are accepted
-    (``tests/test_torch_mesh_ptycho.py``)."""
+def test_unported_entry_point_arguments_raise(slice_data, monkeypatch, error, match, kwargs,
+                                             processes):
+    """The striped object wants a mesh (``ValueError``, as in tike_tpu) of
+    the port's (``TypeError``), in one process: in a process group of
+    several it raises ``NotImplementedError`` naming
+    ``tike_tpu.parallel.distributed``, not ported yet. ``num_gpu``,
+    ``use_mpi`` and a mesh are accepted (``tests/test_torch_mesh_ptycho.py``)."""
     scan, _, probe, psi0, data = slice_data
     params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
-    with pytest.raises(NotImplementedError, match=match):
+    if processes > 1:
+        import tike_tpu_torch.parallel as tpar
+
+        kwargs = dict(kwargs, mesh=tpar.make_mesh(devices=["cpu"] * 2))
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: processes)
+    with pytest.raises(error, match=match):
         tp.Reconstruction(data, params, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tp.reconstruct(data, params, device="cpu", **kwargs)
     with pytest.raises(ValueError, match="object_sharding"):
         tp.Reconstruction(data, params, device="cpu", object_sharding="rows")

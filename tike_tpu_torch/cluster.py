@@ -1,10 +1,10 @@
 """Host-side scan-position partitioning into mini-batches (numpy).
 
-A verbatim copy of the parts of :mod:`tike_tpu.cluster` that the
-single-device solvers run: the batch methods ``compact``,
-``wobbly_center``, ``wobbly_center_random_bootstrap`` and
-``random_batches``, and ``stripes_equal_count``,
-``by_scan_stripes_contiguous`` and ``batches_padded``. It is copied rather
+A verbatim copy of :mod:`tike_tpu.cluster`: the batch methods
+``compact``, ``wobbly_center``, ``wobbly_center_random_bootstrap`` and
+``random_batches``, the stripe clusterings ``stripes_equal_count``,
+``by_scan_stripes`` and ``by_scan_grid``, and ``by_scan_stripes_contiguous``
+and ``batches_padded``. It is copied rather
 than imported because importing ``tike_tpu`` imports jax. The same
 ``numpy.random.Generator`` state gives the same batches in both packages.
 """
@@ -31,6 +31,64 @@ def stripes_equal_count(
     if num_cluster == 1 or num_cluster >= len(population):
         return np.array_split(np.arange(population.shape[0]), num_cluster)
     return np.array_split(np.argsort(population[:, dim]), num_cluster)
+
+
+def by_scan_stripes(
+    scan,
+    n: int,
+    fly: int = 1,
+    axis: int = 0,
+) -> typing.List[np.ndarray]:
+    """Return n boolean masks splitting the field of view into stripes.
+
+    The original tike's stripe clustering, as :func:`tike_tpu.cluster.by_scan_stripes`:
+    ``n`` equal-width stripes of the positions' range along ``axis``, the
+    positions of one fly group kept together (the group's first position
+    decides its stripe).
+    """
+    scan = np.asarray(scan)
+    if scan.ndim != 2:
+        raise ValueError("scan must have two dimensions.")
+    if n < 1:
+        raise ValueError("The number of stripes must be > 0.")
+    nscan = scan.shape[0]
+    if (nscan // fly) * fly != nscan:
+        raise ValueError(
+            "The number of scan positions must be an integer multiple of "
+            "the number of fly positions."
+        )
+    grouped = scan.reshape(nscan // fly, fly, 2)
+    edges = np.linspace(
+        grouped[..., axis].min(), grouped[..., axis].max(), n + 1, endpoint=True
+    )
+    edges[0] -= 1
+    edges[-1] += 1
+    return [
+        np.logical_and(
+            edges[i] < grouped[:, 0, axis], grouped[:, 0, axis] <= edges[i + 1]
+        ).repeat(fly)
+        for i in range(n)
+    ]
+
+
+def by_scan_grid(
+    scan,
+    shape: typing.Tuple[int, int],
+    fly: int = 1,
+) -> typing.List[np.ndarray]:
+    """Split the field of view into a 2-D grid of contiguous regions.
+
+    As :func:`tike_tpu.cluster.by_scan_grid`: the pairwise intersections of
+    :func:`by_scan_stripes` along rows (``shape[0]`` stripes) and columns
+    (``shape[1]``), in row-major order, as index arrays into ``scan``.
+    """
+    if len(shape) != 2:
+        raise ValueError("The grid shape must have two dimensions.")
+    scan = np.asarray(scan)
+    vstripes = by_scan_stripes(scan, shape[0], axis=0, fly=fly)
+    hstripes = by_scan_stripes(scan, shape[1], axis=1, fly=fly)
+    order = np.arange(scan.shape[-2])
+    return [order[np.logical_and(v, h)] for v in vstripes for h in hstripes]
 
 
 def wobbly_center(

@@ -470,6 +470,18 @@ def bucket_step_scale(cfg: BucketConfig, u, theta, grid=None, trig=None):
     return 2 * linalg.norm(back) / (linalg.norm(u) + 1e-32)
 
 
+def bucket_cost_program(cfg: BucketConfig, data, u, theta, grid=None, trig=None):
+    """``cost(data, fwd(u))`` in one call, as
+    :func:`tike_tpu.ops.bucket.bucket_cost_program` composes it."""
+    return bucket_cost(data, bucket_fwd(cfg, u, theta, grid, trig))
+
+
+def bucket_grad_program(cfg: BucketConfig, data, u, theta, grid=None, trig=None):
+    """The least-squares gradient of the Bucket model at ``u`` in one call,
+    as :func:`tike_tpu.ops.bucket.bucket_grad_program` composes it."""
+    return bucket_grad(cfg, data, theta, bucket_fwd(cfg, u, theta, grid, trig), grid, trig)
+
+
 def points(cfg: BucketConfig, voxels: int, angles: int) -> int:
     """Point projections of one forward or adjoint: one per voxel, angle
     and offset."""

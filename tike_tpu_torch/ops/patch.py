@@ -127,6 +127,19 @@ def patch_adj_plain(
     return acc.reshape(h, w)
 
 
+def patch_adj_scatter(
+    patches: torch.Tensor,
+    positions: torch.Tensor,
+    images_shape: typing.Tuple[int, int],
+    images: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``patch_adj`` as one scatter-add, on any device: the oracle
+    formulation of :func:`tike_tpu.ops.patch.patch_adj_scatter`, which
+    :func:`patch_adj_plain` computes (``index_add_``). The hand-written
+    kernel behind :func:`patch_adj` is the production version."""
+    return patch_adj_plain(patches, positions, images_shape, images)
+
+
 def _real_view(x: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(x) if x.is_complex() else x
 

@@ -28,10 +28,11 @@ collective returns its own part (what a mesh of one shard computes).
 
 The data-parallel decomposition is that of the JAX package: diffraction
 data and scan slots are split over the mesh, the object, probe and solver
-state are replicated. Several processes (``tike_tpu.parallel.distributed``)
-and the striped object (``tike_tpu.parallel.striped``) are not ported yet:
-the placement functions raise ``NotImplementedError`` in a process group of
-more than one process.
+state are replicated. :mod:`.striped` splits the object itself into row
+stripes, one a shard, whose epochs meet at the same requests. Several
+processes (``tike_tpu.parallel.distributed``) are not ported yet: the
+placement functions and the striped set-up raise ``NotImplementedError`` in
+a process group of more than one process.
 """
 
 from ._mesh import (  # noqa: F401

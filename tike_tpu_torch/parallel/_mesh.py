@@ -99,8 +99,10 @@ def home_device(mesh, device) -> torch.device:
 
 def make_mesh(n_devices: typing.Optional[int] = None, devices=None) -> Mesh:
     """A 1-D mesh over the pattern (data-parallel) axis :data:`BATCH_AXIS`:
-    ``devices`` (which may repeat a device), or else every visible CUDA
-    device, the first ``n_devices`` of them where given."""
+    ``devices`` (which may repeat a device; ``n_devices`` is then not read),
+    or else the visible CUDA devices, the first ``n_devices`` of them where
+    given (all of them where fewer are visible), as
+    :func:`tike_tpu.parallel.make_mesh` takes ``jax.devices()[:n]``."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -110,11 +112,7 @@ def make_mesh(n_devices: typing.Optional[int] = None, devices=None) -> Mesh:
             )
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if n_devices is not None:
-            if n_devices > len(devices):
-                raise ValueError(f"{n_devices} devices asked for, {len(devices)} visible")
             devices = devices[:n_devices]
-    elif n_devices is not None and n_devices != len(devices):
-        raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
     return Mesh(list(devices), (BATCH_AXIS,))
 
 

@@ -65,3 +65,38 @@ def swap_edges(
         new[:, -overlap:, :] = bottom
         out.append(new)
     return out
+
+
+def cross_fade(
+    window: torch.Tensor, seams: torch.Tensor, index: int, hs: int, halo: int
+) -> torch.Tensor:
+    """The seams of stripe ``index``'s psi window cross-faded with its
+    neighbours', as the striped epoch of the JAX package blends them
+    (``tike_tpu/ptycho/solvers/fused.py``, its stripe reconciliation).
+
+    ``window`` (D, R, W) holds the stripe's ``hs`` interior rows between
+    two halos of ``halo`` rows (R = hs + 2 halo); its top seam is rows
+    ``[0, 2 halo)`` and its bottom seam rows ``[hs, hs + 2 halo)``, each
+    the same global rows as a neighbour's opposite seam. ``seams`` (size,
+    2, D, 2 halo, W) holds every stripe's (top, bottom) seams in mesh order
+    (a ``parallel.Gather``). Each seam becomes a linear cross-fade of the
+    two copies, from the upper stripe's weight to the lower's, leaving out
+    both ends; the first stripe keeps its top seam and the last its bottom
+    one. Unlike :func:`swap_edges`, the bottom seam is written first and
+    the top seam last, so where the two overlap (``2 halo > hs``) the top
+    seam's rows win, as in the JAX package. Returns the new window.
+    """
+    size = seams.shape[0]
+    w2 = 2 * halo
+    top, bottom = window[:, :w2], window[:, hs : hs + w2]
+    ramp = _blend_ramp(w2, torch.float32, window.device)[None, :, None]
+    out = window.clone()
+    if index < size - 1:
+        from_below = seams[index + 1, 0].to(window.device)
+        out[:, hs : hs + w2] = (1 - ramp) * bottom + ramp * from_below
+    if index > 0:
+        from_above = seams[index - 1, 1].to(window.device)
+        out[:, :w2] = (1 - ramp) * from_above + ramp * top
+    else:
+        out[:, :w2] = top
+    return out

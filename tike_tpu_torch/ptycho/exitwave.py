@@ -56,8 +56,6 @@ class ExitWaveOptions:
         """A host copy whose mask keeps the lowest frequencies of a
         detector ``factor`` times as wide (``crop_fourier_space``; for
         ``factor > 1`` it repeats rows, as the JAX package's does)."""
-        from .solvers.options import crop_fourier_space
-
         mask = to_numpy(self.measured_pixels)
         return dataclasses.replace(
             self,
@@ -123,3 +121,24 @@ def poisson_steplength_dominant_mode(
             (1 - weight_avg) * step_length + weight_avg * numer_over_denom
         )
     return step_length
+
+
+def _fourier_rows(size: int, w: int) -> np.ndarray:
+    """The indices of the w lowest frequencies of a length-``size`` axis
+    with zero frequency in the corner."""
+    half1 = w // 2
+    half0 = w - half1
+    return np.r_[0:half0, (size - half1) : size]
+
+
+def crop_fourier_space(x, w: int):
+    """Crop x assuming 2D frequency space with zero frequency in corner.
+
+    ``x`` is a numpy array or a tensor (which stays on its device)."""
+    assert x.shape[-2] == x.shape[-1], "Only works on square arrays right now."
+    cols = _fourier_rows(x.shape[-1], w)
+    rows = _fourier_rows(x.shape[-2], w)
+    if isinstance(x, torch.Tensor):
+        cols = torch.as_tensor(cols, device=x.device)
+        rows = torch.as_tensor(rows, device=x.device)
+    return x[..., rows, :][..., :, cols]

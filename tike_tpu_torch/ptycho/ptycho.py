@@ -2,10 +2,12 @@
 
 Counterpart of :mod:`tike_tpu.ptycho.ptycho` for one device, or one
 process driving a mesh of devices (``mesh=``, :mod:`tike_tpu_torch.parallel`),
-with the object replicated. :class:`Reconstruction`, :func:`reconstruct` and
-:func:`simulate` run on the CUDA card (``device="cuda"``) unless the caller
-passes another ``torch.device`` (or its name), such as ``"cpu"``; with no
-card they raise rather than fall back to the CPU. The diffraction data
+with the object replicated or split into row stripes
+(``object_sharding="striped"``, :mod:`tike_tpu_torch.parallel.striped`).
+:class:`Reconstruction`, :func:`reconstruct` and :func:`simulate` run on
+the CUDA card (``device="cuda"``) unless the caller passes another
+``torch.device`` (or its name), such as ``"cpu"``; with no card they raise
+rather than fall back to the CPU. The diffraction data
 stays on that device for the whole reconstruction, or, with
 ``store_data_on_device=False``, in pinned host memory from which each
 batch is copied in while the batch before computes (:mod:`.stream`).
@@ -27,17 +29,19 @@ package,
 enqueued with one host read at the end (the counterpart of its fused
 program), and a per-epoch loop that reads each epoch's cost, which a finite
 ``time_limit``, the affine position regularization, position options with
-rPIE and host streaming take. ``num_gpu`` and ``use_mpi`` are accepted and
+rPIE and host streaming take. The striped object runs the same epochs on
+each stripe's window of the object, the stripes reduced and their seams
+cross-faded once an epoch. ``num_gpu`` and ``use_mpi`` are accepted and
 not read, as in the JAX package, where ``mesh`` supersedes them. Any option
 outside that raises ``NotImplementedError`` when the Reconstruction is
-created: the striped object (``object_sharding="striped"``), and host
-streaming with a mesh, which the JAX package runs only in its multi-process
-layout.
+created, as does a process group of several processes (the JAX package's
+multi-process layout, ``tike_tpu.parallel.distributed``).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 import time
 import typing
@@ -54,7 +58,8 @@ from ..ops.ptycho import (
     ptycho_fwd,
     simulate_intensity,
 )
-from ..parallel import all_reduce, home_device
+from ..parallel import all_reduce, home_device, striped
+from ..parallel._mesh import _multi_process_check
 from ..precision import as_tensor, to_numpy
 from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
@@ -238,9 +243,6 @@ def _unsupported(
     for something not ported yet."""
     algo = parameters.algorithm_options
     checks = {
-        "object_sharding='striped' (tike_tpu.parallel.striped)": (
-            object_sharding == "striped"
-        ),
         f"algorithm {algo.name!r} (only 'lstsq_grad' and 'rpie')": (
             algo.name not in ("lstsq_grad", "rpie")
         ),
@@ -252,6 +254,13 @@ def _unsupported(
         ),
     }
     return [k for k, on in checks.items() if on]
+
+
+def _check_striped_mesh(object_sharding: str, mesh) -> None:
+    """The striped object is split over a mesh's shards, so it needs one,
+    as the JAX package says."""
+    if object_sharding == "striped" and mesh is None:
+        raise ValueError("object_sharding='striped' requires a mesh")
 
 
 def _check_single_slice_lstsq(parameters: PtychoParameters) -> None:
@@ -328,9 +337,12 @@ class Reconstruction:
     reconstruction data-parallel: the slots of each batch, padded to a
     multiple of ``mesh.size``, are split over the shards, and the object,
     probe and solver state stay on the first shard's device, which each
-    shard reads; ``device`` must then name the mesh's type of device.
-    ``object_sharding="striped"`` and host streaming with a mesh
-    (``store_data_on_device=False``) raise ``NotImplementedError``. LSQML
+    shard reads; ``device`` must then name the mesh's type of device. Host
+    streaming on a mesh copies each shard's slots of a batch to its device.
+    ``object_sharding="striped"`` splits the object into row stripes over
+    the mesh (:mod:`tike_tpu_torch.parallel.striped`), which needs host
+    data; the probe is then rescaled from a sample of the measurements at
+    set-up, as in the JAX package. LSQML
     with more than one object slice raises ``ValueError``, as the JAX
     package refuses it. ``device`` is keyword-only.
     """
@@ -376,24 +388,31 @@ class Reconstruction:
                 f"and data shape {tuple(data.shape)} are incompatible. "
                 "The probe width/height must be <= the data width/height."
             )
+        _check_striped_mesh(object_sharding, mesh)
+        self.object_sharding = object_sharding
         missing = _unsupported(parameters, object_sharding)
         if missing:
             raise NotImplementedError(
                 "not ported to tike_tpu_torch yet: " + "; ".join(missing)
             )
         _check_single_slice_lstsq(parameters)
+        if (
+            object_sharding == "striped"
+            and isinstance(data, torch.Tensor)
+            and data.device.type != "cpu"
+        ):
+            raise NotImplementedError(
+                "device-resident data requires the replicated "
+                "single-process layout; pass host data for striped runs."
+            )
         self.mesh = mesh
         if mesh is not None:
             device = home_device(mesh, device)
+        if object_sharding == "striped":
+            _multi_process_check("the striped object")
         self.device = _resolve_device(
             device, data=data, **_parameter_tensors(parameters)
         )
-        if mesh is not None and store_data_on_device is False:
-            raise NotImplementedError(
-                "not ported to tike_tpu_torch yet: host streaming "
-                "(store_data_on_device=False) with a mesh, which tike_tpu runs "
-                "in its multi-process layout (tike_tpu.parallel.distributed)"
-            )
         if isinstance(data, torch.Tensor) and data.device.type != "cpu":
             if store_data_on_device is False:
                 raise ValueError(
@@ -459,9 +478,11 @@ class Reconstruction:
                 "All data should be non-negative and finite.",
                 UserWarning,
             )
+        if self.object_sharding == "striped":
+            return self._enter_striped()
         # Order the data by batches, contiguous on the device.
         started = time.perf_counter()
-        order, batches, _ = cluster.by_scan_stripes_contiguous(
+        order, batches, self.stripe_start = cluster.by_scan_stripes_contiguous(
             scan=to_numpy(self.parameters_host.scan),
             num_stripes=1,
             batch_method=self.parameters_host.algorithm_options.batch_method,
@@ -493,6 +514,10 @@ class Reconstruction:
                 pinned_batches(data, perm, batch_idx.shape, self.device),
                 self.device,
             )
+            if self.mesh is not None:
+                self.data = ShardedBatches.split(
+                    self.mesh, self.data, self._batch_idx, self._batch_mask
+                )
         else:
             if isinstance(data, torch.Tensor):
                 data = as_tensor(data, torch.float32, self.device)[
@@ -534,6 +559,130 @@ class Reconstruction:
                 "rescaled probe)"
             )
         return self
+
+    def _enter_striped(self):
+        """Set up the striped object (:mod:`tike_tpu_torch.parallel.striped`):
+        each shard of the mesh owns a row stripe of psi and the positions in
+        it; the probe is reduced and the halo rows cross-faded every epoch.
+        As in the JAX package, the probe is rescaled from a sample of the
+        measurements (``striped.estimate_probe_rescale``, on the host), and
+        ``constant_probe_photons`` needs ``probe_photons``."""
+        started = time.perf_counter()
+        p = self.parameters_host
+        algo = p.algorithm_options
+        data = to_numpy(self.data_host)
+        probe = to_numpy(p.probe)
+        if p.probe_options is not None and p.probe_options.init_rescale_from_measurements:
+            scale = striped.estimate_probe_rescale(
+                data, to_numpy(p.psi), probe, to_numpy(p.scan), rng=self._rng
+            )
+            logger.info("Probe rescaled by %f (striped mode)", scale)
+            probe = probe * scale
+            if np.isnan(p.probe_options.probe_photons):
+                p.probe_options.probe_photons = float(np.sum(np.square(np.abs(probe))))
+        if algo.rescale_method == "constant_probe_photons" and (
+            p.probe_options is None or not np.isfinite(p.probe_options.probe_photons)
+        ):
+            raise ValueError(
+                "rescale_method='constant_probe_photons' requires "
+                "probe_options.probe_photons (set it explicitly, or enable "
+                "init_rescale_from_measurements to derive it from the "
+                "rescaled probe)"
+            )
+        rescaled = time.perf_counter()
+        self.parameters = copy.deepcopy(p)
+        # The striped epoch clamps the positions even with rPIE, which
+        # leaves them in place otherwise, as in the JAX package.
+        plan = dataclasses.replace(
+            self._make_plan(), recover_positions=p.position_options is not None
+        )
+        ew = p.exitwave_options
+        popt = p.position_options
+        self._striped = striped.setup_striped_full(
+            data,
+            to_numpy(p.psi),
+            probe,
+            to_numpy(p.scan),
+            mesh=self.mesh,
+            epoch_plan=plan,
+            batch_method=algo.batch_method,
+            num_batch=int(algo.num_batch),
+            store_data_on_device=self.store_data_on_device,
+            eigen_probe=to_numpy(p.eigen_probe),
+            eigen_weights=to_numpy(p.eigen_weights),
+            measured_pixels=to_numpy(ew.measured_pixels),
+            step_length_start=float(ew.step_length_start),
+            step_length_weight=float(ew.step_length_weight),
+            unmeasured_pixels_scaling=float(ew.unmeasured_pixels_scaling),
+            position_margin=8,
+            pos_momentum=None
+            if popt is None or popt._momentum is None
+            else to_numpy(popt._momentum),
+            prev_costs=[float(c[0]) for c in algo.costs],
+            rng=self._rng,
+            epochs_done=len(algo.times),
+        )
+        self.order = np.arange(p.scan.shape[0])
+        self.stripe_start = None
+        self.data = self._striped.data
+        self.setup_seconds = {
+            "rescale": rescaled - started,
+            **self._striped.setup_seconds,
+        }
+        return self
+
+    def _iterate_striped(self, num_iter: int) -> None:
+        """The striped object's epochs, as the JAX package runs them: in
+        chunks of ``convergence_window // 2`` epochs (all epochs at once
+        without a window), each chunk's costs read once, the ``time_limit``
+        and :func:`~tike_tpu_torch.opt.is_converged` held between chunks.
+        With ``use_position_regularization`` the chunks are one epoch long
+        and the affine position model is fitted and applied after each;
+        otherwise it is fitted once at the end. Each fit draws from a
+        generator seeded with ``1000 + epochs done``, as in the JAX
+        package."""
+        algo = self.parameters.algorithm_options
+        popt = self.parameters.position_options
+        regularize = popt is not None and popt.use_position_regularization
+        window = algo.convergence_window
+        chunk = num_iter if window < 2 else max(1, window // 2)
+        if regularize:
+            chunk = 1
+        state = self._striped
+        done = 0
+        while done < num_iter:
+            if np.sum(algo.times) > algo.time_limit:
+                logger.info("Maximum reconstruction time exceeded.")
+                break
+            step = min(chunk, num_iter - done)
+            start = time.perf_counter()
+            costs = striped.striped_iterate(state, step)
+            if regularize:
+                scan_g, popt = affine_position_regularization(
+                    striped.striped_scan_global(state),
+                    popt,
+                    rng=np.random.default_rng(1000 + state.epochs_done),
+                )
+                self.parameters.position_options = popt
+                striped.striped_set_scan(state, scan_g)
+            elapsed = time.perf_counter() - start
+            popts = self.parameters.probe_options
+            for e, cost in enumerate(costs):
+                algo.costs.append([cost])
+                algo.times.append(elapsed / step)
+                if popts is not None:
+                    popts.power.append(state.last_powers[e])
+            logger.info("striped cost is %+1.3e", costs[-1])
+            done += step
+            if is_converged(algo):
+                break
+        if popt is not None and not regularize:
+            _, popt = affine_position_regularization(
+                striped.striped_scan_global(state),
+                popt,
+                rng=np.random.default_rng(1000 + state.epochs_done),
+            )
+            self.parameters.position_options = popt
 
     def _fused_eligible(self) -> bool:
         """Whether :meth:`iterate` can enqueue all its epochs at once."""
@@ -692,6 +841,8 @@ class Reconstruction:
         options with rPIE and host-streamed data take the per-epoch loop
         (:meth:`_iterate_per_epoch`).
         """
+        if self.object_sharding == "striped":
+            return self._iterate_striped(num_iter)
         if num_iter < 1:
             return
         algo = self.parameters.algorithm_options
@@ -824,12 +975,28 @@ class Reconstruction:
         """Return the current parameter estimates as host copies, with the
         per-position arrays (scan, eigen weights, position options) in the
         user's order."""
+        if self.object_sharding == "striped":
+            res = striped.striped_full_result(self._striped)
+            result = self.parameters
+            result.psi, result.probe, result.scan = res["psi"], res["probe"], res["scan"]
+            if result.eigen_probe is not None:
+                result.eigen_probe = res["eigen_probe"]
+            if result.eigen_weights is not None:
+                result.eigen_weights = res["eigen_weights"]
+            popt = result.position_options
+            if popt is not None and "position_momentum" in res:
+                popt._momentum = res["position_momentum"]
+            return result
         return PtychoParameters.join(
-            [self.parameters.copy_to_host()], np.argsort(self.order)
+            [self.parameters.copy_to_host()],
+            np.argsort(self.order),
+            stripe_start=self.stripe_start,
         )
 
     def get_psi(self) -> np.ndarray:
         """Return the current object as a numpy array."""
+        if self.object_sharding == "striped":
+            return striped.striped_result(self._striped)[0]
         return to_numpy(self.parameters.psi)
 
     def get_probe(self):
@@ -994,8 +1161,11 @@ def reconstruct_multigrid(
     if missing:
         raise NotImplementedError("not ported to tike_tpu_torch yet: " + "; ".join(missing))
     _check_single_slice_lstsq(parameters)
+    _check_striped_mesh(object_sharding, mesh)
     if mesh is not None:
         home_device(mesh, device)
+    if object_sharding == "striped":
+        _multi_process_check("the striped object")
     interp = _resize_fft if interp is None else interp
     if (data.shape[-1] * 0.5 ** (num_levels - 1)) < 64:
         warnings.warn(

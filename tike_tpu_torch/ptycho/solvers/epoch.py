@@ -38,6 +38,14 @@ shard's is applied once to the state, which lives on the first shard's
 device: the shards read it from there at the next batch. A mesh of one
 shard computes what no mesh computes, bit for bit.
 
+The striped object (:mod:`tike_tpu_torch.parallel.striped`) runs this
+epoch once a stripe, on the stripe's window of psi, as a generator
+(:func:`_epoch_steps` with a :class:`StripeComm`) that yields where the
+stripes reduce: the probe preconditioner, the epoch cost, the probe's and
+eigen probes' weighted means, the seams' cross-fade and the mean-abs
+rescale. Without a comm it makes no request, so the paths above compute
+what they did before, bit for bit.
+
 :func:`solver_epoch`, the body of the per-epoch solver functions
 ``solvers.rpie`` and ``solvers.lstsq_grad``, runs steps 2 and 3 alone: the
 preconditioners come from the options (``update_preconditioners``), no
@@ -55,17 +63,19 @@ import torch
 
 from ... import opt
 from ...ops.ptycho import PtychoConfig
-from ...parallel import Mesh, put, batch_sharding, run_local, run_shards
+from ...parallel import Gather, Mesh, Sum, put, batch_sharding, run_local, run_shards
+from ...parallel.halo import cross_fade
 from ...precision import as_tensor, to_numpy
 from .. import object as object_module
 from .. import probe as probe_module
-from ..stream import iter_batches
+from ..stream import StreamedBatches, iter_batches
 from ._preconditioner import _batched_preconditioners
 from .options import _batch_tensors, _device_fields
 from .lstsq import (
     _POS_EDGE,
     _fz,
     _lstsq_batch_steps,
+    _masked_trim_mean,
     _precondition_object_update,
     _trim_mean,
 )
@@ -90,7 +100,11 @@ class ShardedBatches:
     multiple_of=mesh.size)``) split into ``mesh.size`` equal runs in mesh
     order, each on its shard's device: ``data[s]`` (nb, L/k, DET, DET),
     ``idx[s]`` (nb, L/k) int64, ``mask[s]`` (nb, L/k) float32. Shards on
-    the device of the whole tensor take views of it, not copies.
+    the device of the whole tensor take views of it, not copies. Host data
+    (:class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`) stays on the
+    host: ``data[s]`` streams the shard's run of slots, a view of the host
+    tensor, to its device, each shard through buffers and a copy stream of
+    its own.
     """
 
     devices: list
@@ -101,19 +115,24 @@ class ShardedBatches:
     @classmethod
     def split(cls, mesh: Mesh, data, batch_idx, batch_mask) -> "ShardedBatches":
         sharding = batch_sharding(mesh, axis=1)
-        return cls(
-            mesh.flat,
-            put(data, sharding),
-            put(batch_idx, sharding),
-            put(batch_mask, sharding),
-        )
+        if isinstance(data, StreamedBatches):
+            k = data.shape[1] // mesh.size
+            parts = [
+                StreamedBatches(data.host[:, s * k : (s + 1) * k], device, data.timing)
+                for s, device in enumerate(mesh.flat)
+            ]
+        else:
+            parts = put(data, sharding)
+        return cls(mesh.flat, parts, put(batch_idx, sharding), put(batch_mask, sharding))
 
     def batches(self, order):
         """``(n, _Shards of batch n)`` for each n of ``order``."""
+        order = list(order)
+        streams = [iter_batches(d, order) for d in self.data]
         for n in order:
             yield n, _Shards(
                 self.devices,
-                [d[n] for d in self.data],
+                [next(stream)[1] for stream in streams],
                 [i[n] for i in self.idx],
                 [m[n] for m in self.mask],
             )
@@ -230,6 +249,33 @@ class _Sums:
     pos_den: typing.Optional[torch.Tensor] = None
     pcomb: typing.Optional[torch.Tensor] = None
     pbeta: typing.Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StripeComm:
+    """One stripe's place in the striped object (:mod:`tike_tpu_torch.parallel.striped`).
+
+    Counterpart of :class:`tike_tpu.ptycho.solvers.fused.StripeComm`. With
+    it, an epoch runs on one stripe's window of psi (``R = hs + 2 halo``
+    rows) and its positions, and yields :class:`~tike_tpu_torch.parallel.Sum`
+    or :class:`~tike_tpu_torch.parallel.Gather` where the JAX package's
+    striped epoch reduces over stripes, so that ``parallel.run_shards``
+    drives the stripes' epochs in lockstep.
+
+    ``index`` is the stripe's place among ``size``, ``hs`` its interior
+    rows, ``halo`` the rows it shares with each neighbour and ``height``
+    the global object's rows; ``row_mask`` (R,) float32 marks the interior
+    rows that lie inside the object, ``pos_mask`` (cap,) float32 the real
+    (not padded) positions.
+    """
+
+    index: int
+    size: int
+    halo: int
+    hs: int
+    height: int
+    row_mask: torch.Tensor
+    pos_mask: torch.Tensor
 
 
 def seed_err_hist(prev_costs) -> np.ndarray:
@@ -525,12 +571,18 @@ def _batch_update_math(
     return cost, beta_obj
 
 
-def _position_step(plan: EpochPlan, state: EpochState, pos_num, pos_den):
+def _position_step(plan: EpochPlan, state: EpochState, pos_num, pos_den, comm=None):
     """The once-per-epoch position update from the summed gradient terms.
 
     Clip to the magnitude limit, subtract the 5% trimmed mean (no global
     drift), optionally take the AdaM direction, then clamp the positions to
     ``check_allowed_positions``'s window ``[1, dim - P - 1/256]``.
+
+    On a stripe (``comm``) the trimmed mean counts the real positions alone
+    and the padded ones do not move; the rows are clamped to the stripe's
+    window less 2 rows, and to the global window mapped into the stripe's
+    rows (the first stripe's upper halo and the last one's lower halo lie
+    outside the object).
     """
     cfg = plan.cfg
     palpha = 0.05
@@ -540,7 +592,11 @@ def _position_step(plan: EpochPlan, state: EpochState, pos_num, pos_den):
     limit = plan.pos_update_magnitude_limit
     if limit > 0:
         step = torch.clamp(step, -limit, limit)
-    step = step - _trim_mean(step, 0.05, dim=0)
+    if comm is None:
+        step = step - _trim_mean(step, 0.05, dim=0)
+    else:
+        step = step - _masked_trim_mean(step, comm.pos_mask, 0.05)
+        step = step * comm.pos_mask[:, None]
     if plan.pos_use_adaptive_moment:
         step, state.pos_v, state.pos_m = opt.adam(
             step,
@@ -550,9 +606,20 @@ def _position_step(plan: EpochPlan, state: EpochState, pos_num, pos_den):
             mdecay=plan.pos_mdecay,
         )
     scan = state.scan - step
+    lo0, hi0 = 1.0, cfg.nz - cfg.probe_shape - _POS_EDGE
+    if comm is not None:
+        # The JAX package's float32 arithmetic of the bounds.
+        off = np.float32(comm.halo) - np.float32(comm.index) * np.float32(comm.hs)
+        lo0 = float(max(np.float32(1.0), np.float32(1.0) + off))
+        hi0 = float(
+            min(
+                np.float32(cfg.nz - cfg.probe_shape - 2.0),
+                np.float32(comm.height - cfg.probe_shape - _POS_EDGE) + off,
+            )
+        )
     state.scan = torch.stack(
         [
-            torch.clamp(scan[:, 0], 1.0, cfg.nz - cfg.probe_shape - _POS_EDGE),
+            torch.clamp(scan[:, 0], lo0, hi0),
             torch.clamp(scan[:, 1], 1.0, cfg.n - cfg.probe_shape - _POS_EDGE),
         ],
         dim=-1,
@@ -607,7 +674,50 @@ def _compact_end(plan, state, sums, beta_obj_mean, psi_pre, probe_pre, recover_n
         state.probe = probe
 
 
-def _epoch_end_math(
+def _reconcile_stripes(plan: EpochPlan, state: EpochState, comm: StripeComm):
+    """The end of a stripe's epoch, in the JAX package's order: the probe
+    (and its moment states) and the eigen probes become their means over
+    the stripes weighted by each stripe's real positions (an empty stripe
+    weighs 0), then the seams of psi are cross-faded with the neighbours'
+    (:func:`~tike_tpu_torch.parallel.halo.cross_fade`). A generator of
+    :class:`~tike_tpu_torch.parallel.Sum` and ``Gather`` requests."""
+    w = torch.sum(comm.pos_mask)
+    means = []
+    if plan.recover_probe:
+        means.append("probe")
+        if plan.probe_moment != "none":
+            means += ["probe_v", "probe_m"]
+    if plan.has_eigen and state.eigen_probe is not None:
+        means.append("eigen_probe")
+    total, *sums = yield Sum((w, *(getattr(state, k) * w for k in means)))
+    den = torch.clamp(total, min=1.0)
+    for k, value in zip(means, sums):
+        setattr(state, k, value / den)
+    seams = yield Gather(
+        torch.stack(
+            [state.psi[:, : 2 * comm.halo], state.psi[:, comm.hs : comm.hs + 2 * comm.halo]]
+        )[None]
+    )
+    state.psi = cross_fade(state.psi, seams, comm.index, comm.hs, comm.halo)
+
+
+def _stripe_rescale_steps(psi, psi_pre, comm: StripeComm):
+    """The mean-abs rescale factor of a striped object: the statistics of
+    ``remove_object_ambiguity`` over every stripe's interior rows inside
+    the object (halo and padding rows are copies or background), summed
+    over the stripes, so that all take the same factor."""
+    rm = comm.row_mask[None, :, None]
+    W = psi_pre.real * rm
+    count, wsq = yield Sum(
+        (torch.sum(rm) * psi_pre.shape[0] * psi_pre.shape[-1], torch.sum(W * W))
+    )
+    count = torch.clamp(count, min=1.0)
+    Wn = W / torch.clamp(torch.sqrt(wsq / count), min=1e-32)
+    weighted = yield Sum(torch.sum(torch.square(torch.abs(psi)) * Wn))
+    return 2 * torch.sqrt(weighted / count)
+
+
+def _epoch_end_steps(
     plan: EpochPlan,
     state: EpochState,
     sums: _Sums,
@@ -617,11 +727,18 @@ def _epoch_end_math(
     recover_now: bool,
     total_e: int,
     nb: int,
+    comm: typing.Optional[StripeComm] = None,
 ):
     """Everything after the batch sweep; updates ``state`` in place of the
-    old tensors. ``state.err_hist`` already ends with this epoch's cost."""
+    old tensors. ``state.err_hist`` already ends with this epoch's cost.
+
+    A generator that makes no request without ``comm``; on a stripe it
+    yields where the stripes are reduced: their reconciliation
+    (:func:`_reconcile_stripes`) and the mean-abs rescale. The eigen
+    weights of rPIE are normalized over the real positions alone there.
+    """
     if plan.recover_positions and total_e >= plan.pos_update_start:
-        _position_step(plan, state, sums.pos_num, sums.pos_den)
+        _position_step(plan, state, sums.pos_num, sums.pos_den, comm)
     if plan.compact:
         _compact_end(
             plan, state, sums, beta_obj_mean, psi_pre, probe_pre, recover_now, total_e
@@ -640,8 +757,19 @@ def _epoch_end_math(
         probe = state.probe.clone()
         probe[..., 0, :, :] += d2
         state.probe = probe
+    if comm is not None:
+        yield from _reconcile_stripes(plan, state, comm)
     if plan.has_eigen and plan.solver == "rpie":
-        state.eigen_weights = _normalize_eigen_weights(state.eigen_weights)
+        if comm is None:
+            state.eigen_weights = _normalize_eigen_weights(state.eigen_weights)
+        else:
+            w = state.eigen_weights
+            norm = torch.sqrt(
+                torch.sum((w * w.conj()).real * comm.pos_mask[:, None, None], dim=-3,
+                          keepdim=True)
+                / torch.clamp(torch.sum(comm.pos_mask), min=1.0)
+            )
+            state.eigen_weights = w / (norm + 1e-32)
     if not plan.recover_psi:
         return
     psi = state.psi
@@ -652,10 +780,34 @@ def _epoch_end_math(
     if plan.clip_magnitude:
         psi = object_module.clip_magnitude(psi, a_max=1.0)
     if plan.rescale_mean_abs and (total_e + 1) % plan.rescale_period == 0:
-        psi, state.probe = object_module.remove_object_ambiguity(
-            psi, state.probe, psi_pre
-        )
+        if comm is None:
+            psi, state.probe = object_module.remove_object_ambiguity(
+                psi, state.probe, psi_pre
+            )
+        else:
+            scale = yield from _stripe_rescale_steps(psi, psi_pre, comm)
+            psi, state.probe = psi / scale, state.probe * scale
     state.psi = psi
+
+
+def _epoch_end_math(
+    plan: EpochPlan,
+    state: EpochState,
+    sums: _Sums,
+    beta_obj_mean,
+    psi_pre,
+    probe_pre,
+    recover_now: bool,
+    total_e: int,
+    nb: int,
+):
+    """:func:`_epoch_end_steps` of an epoch on one device or data-parallel
+    on a mesh (no stripes)."""
+    run_local(
+        _epoch_end_steps(
+            plan, state, sums, beta_obj_mean, psi_pre, probe_pre, recover_now, total_e, nb
+        )
+    )
 
 
 def _start_sums(plan: EpochPlan, state: EpochState) -> _Sums:
@@ -715,7 +867,7 @@ def _sweep(
     return torch.stack(costs), torch.stack(betas).mean()
 
 
-def _epoch_math(
+def _epoch_steps(
     plan: EpochPlan,
     data,
     batch_idx,
@@ -725,8 +877,9 @@ def _epoch_math(
     state: EpochState,
     exitwave_options,
     total_e: int,
+    comm: typing.Optional[StripeComm] = None,
 ):
-    """One full epoch, its batches in ``order``.
+    """One full epoch, its batches in ``order``, as a generator.
 
     data (nb, L, DET, DET) float32, a tensor on the device or host data
     behind a :class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`, which
@@ -736,6 +889,12 @@ def _epoch_math(
     batch n with a mask above 0; order a sequence of the nb batch numbers.
     Updates ``state`` and returns ``(epoch_cost, pwr)`` as device tensors;
     the epoch cost is the mean of the batch costs taken in batch order.
+
+    Without ``comm`` it makes no request (:func:`_epoch_math` runs it). On
+    a stripe of the striped object it yields where the JAX package's
+    striped epoch reduces over the stripes: the probe preconditioner is
+    summed over them, the epoch cost is the mean over every stripe's real
+    slots, and the epoch ends with :func:`_epoch_end_steps`'s requests.
     """
     nb = batch_idx.shape[0]
     recover_now = plan.recover_now(total_e)
@@ -743,6 +902,8 @@ def _epoch_math(
     pwr, psi_pre, probe_pre = _epoch_begin_math(
         plan, state, batch_idx, batch_mask, recover_now, total_e, shards
     )
+    if comm is not None and probe_pre is not None:
+        probe_pre = yield Sum(probe_pre)
     sums = _start_sums(plan, state)
     costs, beta_obj_mean = _sweep(
         plan,
@@ -757,10 +918,15 @@ def _epoch_math(
         exitwave_options,
         recover_now,
     )
-    epoch_cost = costs.mean()
+    if comm is None:
+        epoch_cost = costs.mean()
+    else:
+        slots = torch.sum(batch_mask, dim=1)
+        num, den = yield Sum((torch.sum(costs * slots), torch.sum(slots)))
+        epoch_cost = num / torch.clamp(den, min=1.0)
     if state.err_hist is not None:
         state.err_hist = torch.cat([state.err_hist[1:], epoch_cost.reshape(1)])
-    _epoch_end_math(
+    yield from _epoch_end_steps(
         plan,
         state,
         sums,
@@ -770,8 +936,30 @@ def _epoch_math(
         recover_now,
         total_e,
         nb,
+        comm,
     )
     return epoch_cost, pwr
+
+
+def _epoch_math(
+    plan: EpochPlan,
+    data,
+    batch_idx,
+    batch_mask,
+    batch_real,
+    order,
+    state: EpochState,
+    exitwave_options,
+    total_e: int,
+):
+    """:func:`_epoch_steps` of an epoch on one device or data-parallel on
+    a mesh (no stripes); returns ``(epoch_cost, pwr)``."""
+    return run_local(
+        _epoch_steps(
+            plan, data, batch_idx, batch_mask, batch_real, order, state,
+            exitwave_options, total_e,
+        )
+    )
 
 
 def plan_fields(cfg: PtychoConfig, parameters, solver: str, recover_probe: bool) -> dict:

@@ -49,6 +49,19 @@ def _trim_mean(x, proportion=0.05, dim=0):
     return torch.mean(s.narrow(dim, k, n - 2 * k), dim=dim, keepdim=True)
 
 
+def _masked_trim_mean(x, mask, proportion=0.05):
+    """:func:`_trim_mean` over dim 0 of the rows with ``mask > 0`` alone:
+    the striped object pads each stripe's positions to a common capacity,
+    and the padded rows must not count. ``x`` (N, C), ``mask`` (N,)."""
+    valid = mask > 0
+    s = torch.sort(torch.where(valid[:, None], x, torch.inf), dim=0).values
+    nv = int(torch.sum(valid))
+    k = int(np.float32(proportion) * np.float32(nv))
+    keep = slice(k, max(nv - k, k))
+    count = max(nv - 2 * k, 1)
+    return torch.sum(s[keep], dim=0, keepdim=True) / count
+
+
 def _masked_mean_each_pattern(elem, pixel_mask):
     """Per-pattern mean over measured pixels only.
 

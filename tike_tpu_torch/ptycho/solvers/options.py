@@ -24,7 +24,7 @@ import torch
 
 from ...precision import as_tensor, cfloating, floating, to_numpy
 from ...view import resize_complex_image
-from ..exitwave import ExitWaveOptions
+from ..exitwave import ExitWaveOptions, crop_fourier_space  # noqa: F401
 from ..object import ObjectOptions
 from ..position import PositionOptions, check_allowed_positions
 from ..probe import ProbeOptions
@@ -278,31 +278,44 @@ class PtychoParameters:
 
     @staticmethod
     def join(
-        x: typing.Sequence["PtychoParameters"], reorder
+        x: typing.Sequence["PtychoParameters"],
+        reorder,
+        stripe_start: typing.Optional[typing.Sequence[int]],
     ) -> "PtychoParameters":
-        """Return host parameters with the per-position arrays (scan, eigen
-        weights, position options) put back in the order ``reorder``.
-
-        ``x`` holds the parameters of each device; the port runs on one, so
-        ``x`` has one element (joining object stripes is not ported).
+        """Return host parameters joined from the parts ``x``, one for each
+        stripe of positions, as :meth:`tike_tpu.ptycho.solvers.PtychoParameters.join`
+        joins them: the per-position arrays (scan, eigen weights, position
+        options) concatenated in part order and put in the order
+        ``reorder``, the probe and eigen probes of the first part, and psi
+        that of the first part with the rows ``stripe_start[i] + w`` up to
+        ``stripe_start[i + 1] + w`` (to the end for the last part) taken
+        from part ``i``, ``w`` half the probe's width. With one part
+        ``stripe_start`` is not read.
         """
-        if len(x) != 1:
-            raise NotImplementedError("joining object stripes is not ported yet")
-        (p,) = x
+
+        def join_psi(parts):
+            joined = np.array(parts[0], copy=True)
+            w = x[0].probe.shape[-2] // 2
+            for i in range(1, len(parts)):
+                lo = stripe_start[i] + w
+                hi = stripe_start[i + 1] + w if i + 1 < len(parts) else parts[0].shape[1]
+                joined[:, lo:hi, :] = parts[i][:, lo:hi, :]
+            return joined
+
         return PtychoParameters(
-            probe=to_numpy(p.probe),
-            psi=to_numpy(p.psi),
-            scan=to_numpy(p.scan)[reorder],
-            eigen_probe=to_numpy(p.eigen_probe),
+            probe=to_numpy(x[0].probe),
+            psi=join_psi([to_numpy(e.psi) for e in x]),
+            scan=np.concatenate([to_numpy(e.scan) for e in x], axis=0)[reorder],
+            eigen_probe=to_numpy(x[0].eigen_probe),
             eigen_weights=None
-            if p.eigen_weights is None
-            else to_numpy(p.eigen_weights)[reorder],
-            algorithm_options=p.algorithm_options,
-            exitwave_options=p.exitwave_options,
-            probe_options=p.probe_options,
-            object_options=p.object_options,
+            if x[0].eigen_weights is None
+            else np.concatenate([to_numpy(e.eigen_weights) for e in x], axis=0)[reorder],
+            algorithm_options=x[0].algorithm_options,
+            exitwave_options=x[0].exitwave_options,
+            probe_options=x[0].probe_options,
+            object_options=x[0].object_options,
             position_options=PositionOptions.join(
-                [p.position_options], reorder
+                [e.position_options for e in x], reorder
             ),
         )
 
@@ -352,27 +365,6 @@ def _resize_spline(x: np.ndarray, f: float) -> np.ndarray:
     return scipy.ndimage.zoom(
         x, zoom=[1] * (x.ndim - 2) + [f, f], grid_mode=True, prefilter=False
     )
-
-
-def _fourier_rows(size: int, w: int) -> np.ndarray:
-    """The indices of the w lowest frequencies of a length-``size`` axis
-    with zero frequency in the corner."""
-    half1 = w // 2
-    half0 = w - half1
-    return np.r_[0:half0, (size - half1) : size]
-
-
-def crop_fourier_space(x, w: int):
-    """Crop x assuming 2D frequency space with zero frequency in corner.
-
-    ``x`` is a numpy array or a tensor (which stays on its device)."""
-    assert x.shape[-2] == x.shape[-1], "Only works on square arrays right now."
-    cols = _fourier_rows(x.shape[-1], w)
-    rows = _fourier_rows(x.shape[-2], w)
-    if isinstance(x, torch.Tensor):
-        cols = torch.as_tensor(cols, device=x.device)
-        rows = torch.as_tensor(rows, device=x.device)
-    return x[..., rows, :][..., :, cols]
 
 
 def pad_fourier_space(x: np.ndarray, w: int) -> np.ndarray:
