@@ -262,6 +262,24 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     tolerance, the final cost too) and rPIE resident; (c) the halo
     cross-fade's time at the windows' shape.
 
+23. Two processes (``tike_tpu_torch.parallel.distributed``): the script
+    starts two workers of itself (``--worker``), each a gloo rank with one
+    shard on ``cuda:0`` (NCCL refuses two ranks on one card), after the
+    kernels were built and after it ran the one-process references; a
+    worker that fails or hangs fails the phase. (a) phase 5's slice in the
+    multi-process layout, each process from its ``stripe_for_process``
+    rows, the ranks bit for bit equal and against one process's
+    ``_force_stripes=2`` run on two shards of the card (held at 1e-6); (b)
+    the main path at full width, each rank holding its 5,000 patterns on
+    the host: s/epoch, set-up, peak memory, the collectives' calls, ms and
+    bytes an epoch a rank, beside 21b's and the one-process layout's
+    s/epoch, the ranks bit for bit equal and psi within 1e-5 of the
+    one-process ``_force_stripes=2`` run; (c) the striped object, one stripe
+    a process, each from its ``striped_local_indices`` rows, against 22b's
+    two stripes in one process; (d) phase 11's cgrad with 32 of the 64
+    angles a process, its costs against 21c's, and phase 16's Bucket
+    problem with a 64-row slab a process against 21d's.
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
@@ -288,7 +306,10 @@ patch kernels, 21c's for the KB kernels, 21d's ``obj_split=2`` for the
 Bucket kernels, in 21e's streamed main path as ``launches_mesh_stream`` and
 in 22b's striped LSQML, its streamed run and its rPIE as
 ``launches_striped``, ``launches_striped_stream`` and
-``launches_striped_rpie``, whose slab times come as ``ms_slab0`` / ``ms_slab1`` with
+``launches_striped_rpie``, and in phase 23's timed runs as
+``launches_distributed_main``, ``_striped``, ``_lamino`` and ``_bucket``,
+a list of one count a rank, each the count that rank read in that run;
+the Bucket kernels' slab times come as ``ms_slab0`` / ``ms_slab1`` with
 their bounds); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
@@ -335,7 +356,9 @@ from tike_tpu_torch.ops import alignment as ops_alignment
 from tike_tpu_torch.ops import bucket, interp, patch, shift, usfft
 from tike_tpu_torch.ops.lamino import LaminoPlan
 from tike_tpu_torch.ops.ptycho import PtychoConfig
+from tike_tpu_torch.parallel import distributed
 from tike_tpu_torch.parallel import halo as parallel_halo
+from tike_tpu_torch.parallel import striped as parallel_striped
 from tike_tpu_torch.ptycho import learn
 
 # The main path's configuration (bench.py: 10,000 x 128^2 from a 1500^2
@@ -3344,7 +3367,7 @@ def phase_mesh_main(device, scan, psi, probe, card: str, main: dict) -> dict:
         f"{gaps['probe']:.3e} (tol {MESH_PROBE_TOL:g}); patch launches "
         f"{ {k: launches[k] for k in patch.LAUNCHES} } against "
         f"{ {k: main['launches'][k] for k in patch.LAUNCHES} } ({card})")
-    return dict(launches)
+    return dict(launches=dict(launches), epoch_s=out["epoch_s"])
 
 
 # 21c against phase 11: tests/parallel/test_lamino_mesh.py's bound.
@@ -3389,7 +3412,8 @@ def phase_mesh_lamino(device, card: str, problem, cgrad: dict) -> dict:
         f"{cgrad['per_iter']:.4f} ({per_iter / cgrad['per_iter']:.3f}x); first call "
         f"{first_s:.3f} s; KB launches { {k: launches[k] for k in usfft.LAUNCHES} } against "
         f"phase 11's { {k: cgrad['launches'][k] for k in usfft.LAUNCHES} } ({card})")
-    return {name: launches[name] for name in usfft.LAUNCHES}
+    return dict(launches={name: launches[name] for name in usfft.LAUNCHES}, costs=costs,
+                per_iter=per_iter)
 
 
 def phase_mesh_bucket_slabs(device, card: str, full: dict) -> dict:
@@ -3493,7 +3517,8 @@ def phase_mesh_bucket(device, card: str, full: dict) -> dict:
         f"{ {k: launches[k] for k in BUCKET_KERNELS} } against phase 16's "
         f"{ {k: full['launches'][k] for k in BUCKET_KERNELS} }; points outside windows "
         f"{outside} ({card})")
-    return {name: launches[name] for name in BUCKET_KERNELS}
+    return dict(launches={name: launches[name] for name in BUCKET_KERNELS}, costs=costs,
+                per_iter=per_iter)
 
 
 def phase_mesh_bucket_golden(device, card: str) -> None:
@@ -3540,24 +3565,26 @@ def phase_mesh_stream_slice(device) -> None:
         f"probe, scan and costs bitwise equal ({out[False].algorithm_options.costs})")
 
 
-def _timed_context(tag, context, card, stream_stats=None) -> dict:
+def _timed_context(tag, context, card, timed_stats=None) -> dict:
     """iterate(1), then iterate(3) timed with every kernel count set to 0
     just before it and read just after; the peak device memory since the
-    caller reset it. ``stream_stats`` turns on and reads the copy
-    stream's timing for the timed epochs."""
+    caller reset it. ``timed_stats(True)`` starts counters just before the
+    timed epochs and ``timed_stats(False)`` reads them just after (the copy
+    streams' timing, or the collectives'); the reading is logged and
+    returned as ``timed``."""
     start = time.perf_counter()
     context.iterate(1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - start
-    if stream_stats is not None:
-        stream_stats(True)
+    if timed_stats is not None:
+        timed_stats(True)
     _reset_launches()
     start = time.perf_counter()
     context.iterate(3)
     torch.cuda.synchronize()
     epoch_s = (time.perf_counter() - start) / 3
     launches = _read_launches(tag)
-    copies = stream_stats(False) if stream_stats is not None else None
+    timed = timed_stats(False) if timed_stats is not None else None
     costs = [c[0] for c in context.get_convergence()[0]]
     if len(costs) != 4 or not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"{tag}: costs are not 4 finite decreasing values: {costs}")
@@ -3568,14 +3595,14 @@ def _timed_context(tag, context, card, stream_stats=None) -> dict:
     log(f"[{tag}] per-epoch costs {costs}; iterate(1) {first_s:.3f} s; iterate(3) "
         f"{epoch_s:.4f} s/epoch; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
         f"patch launches {({k: launches[k] for k in patch.LAUNCHES})} ({card})")
-    if copies is not None:
-        log(f"[{tag}] copy stream over the timed epochs, by shard or stripe: {copies} ({card})")
-    return dict(launches=launches, costs=costs, epoch_s=epoch_s, peak=peak,
+    if timed is not None:
+        log(f"[{tag}] over the timed epochs, by shard or stripe: {timed} ({card})")
+    return dict(launches=launches, costs=costs, epoch_s=epoch_s, peak=peak, timed=timed,
                 result=context.get_result())
 
 
 def _shard_stream_stats(shards):
-    """A ``stream_stats`` for :func:`_timed_context` over ``shards``, the
+    """A ``timed_stats`` for :func:`_timed_context` over ``shards``, the
     StreamedBatches of a streamed mesh or striped run."""
     def stats(start):
         if start:
@@ -3761,7 +3788,359 @@ def phase_striped(device, scan, psi, probe, card: str, main: dict, data_host) ->
         f"stripe, once an epoch, against {lsq['epoch_s'] * 1e3:.1f} ms an epoch ({card})")
     log(f"[striped] phase 22b-c took {time.perf_counter() - started:.1f} s ({card})")
     return dict(striped=lsq["launches"], striped_stream=streamed["launches"],
-                striped_rpie=rpie["launches"])
+                striped_rpie=rpie["launches"]), lsq
+
+
+# 23: two processes on the one card. NCCL refuses two ranks on one device,
+# so the workers join a gloo group, which the mesh's collectives stage
+# through page-locked host memory.
+DIST_WORLD, DIST_TIMEOUT_S, DIST_DEVICE = 2, 480, "cuda:0"
+# The check of gloo's all_gather on CUDA tensors sends this many bytes a
+# rank, about the mean part of 23b's exchanges, and times this many calls.
+GLOO_CHECK_BYTES, GLOO_CHECK_REPEATS = 2**22, 10
+# 23b and 23c against one process running the same global program (the
+# largest |psi|), and 23d's costs against 21c's and 21d's: the runs are the
+# same programs, so the gaps should be 0 (each is logged); the Bucket
+# forward's float atomics round differently from run to run (ROADMAP.md
+# section 3), so 23d holds both at MESH_LAMINO_RTOL.
+DIST_PSI_TOL = 1e-5
+
+
+def _dist_slice(mesh, device, single):
+    """23a's run: phase 5's small LSQML slice in the multi-process layout,
+    each process from its ``stripe_for_process`` rows, or in one process
+    (``_force_stripes=2``) from all of them."""
+    scan, psi, probe, psi0 = _slice_inputs(np.random.default_rng(1), _random_phase_probe)
+    det = 24
+    data = tp.simulate(det, probe, scan, psi, device="cpu")
+    kw = dict(_force_stripes=2) if single else {}
+    if not single:
+        data = data[distributed.stripe_for_process(scan)]
+    params = _small_slice_parameters(scan, probe, psi0, det)
+    with tp.Reconstruction(data, params, device=device, random_seed=0, mesh=mesh,
+                           **kw) as context:
+        context.iterate(3)
+        result = context.get_result()
+    return {"psi": result.psi, "probe": result.probe, "scan": result.scan,
+            "costs": np.asarray(result.algorithm_options.costs, np.float64).ravel()}
+
+
+def _dist_context(tag, context, card) -> tuple:
+    """Enter ``context`` and run :func:`_timed_context`, the collectives
+    counted over the timed epochs; returns (record, arrays)."""
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    context.__enter__()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    setup_parts = {k: round(v, 3) for k, v in context.setup_seconds.items()}
+    def collectives(start):
+        if start:
+            parallel.collective_stats.reset()
+            return None
+        return parallel.collective_stats.as_dict()
+
+    out = _timed_context(tag, context, card, collectives)
+    stats = out["timed"]
+    context.__exit__(None, None, None)
+    result = out["result"]
+    record = dict(
+        epoch_s=out["epoch_s"], setup_s=setup_s, setup_parts=setup_parts, peak=out["peak"],
+        costs=out["costs"], launches=out["launches"],
+        collective_ms_epoch=stats["ms"] / 3, collective_bytes_epoch=stats["bytes"] / 3,
+        collective_calls_epoch=stats["calls"] / 3,
+    )
+    return record, {"psi": result.psi, "probe": result.probe, "scan": result.scan}
+
+
+def _dist_lamino(mesh, device, card, rank):
+    """23d: phase 11's cgrad (1 + LAMINO_TIMED outer iterations) with each
+    process's contiguous half of the angles, and phase 16's Bucket problem
+    with the volume's x-slabs over the processes."""
+    volume, theta, data = lamino_problem(device)
+    data, theta = distributed.split_for_process(data, theta)
+    kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device,
+                  mesh=mesh)
+    tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad", num_iter=1, **kwargs)
+    _reset_launches()
+    parallel.collective_stats.reset()
+    start = time.perf_counter()
+    result = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad",
+                            num_iter=LAMINO_TIMED, **kwargs)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - start) / LAMINO_TIMED
+    lamino = dict(costs=np.asarray(result["cost"]).tolist(), per_iter=per_iter,
+                  launches=_read_launches("dist-lamino"),
+                  collectives=parallel.collective_stats.as_dict())
+    log(f"[dist-lamino] rank {rank}: {theta.shape[0]} angles, {per_iter:.4f} s/iteration, "
+        f"costs {lamino['costs']}, collectives {lamino['collectives']} ({card})")
+    c = cases_bucket.FULL
+    volume = torch.as_tensor(lamino_volume(c["n"]), device=device)
+    theta = cases_usfft.lamino_theta(c["ntheta"], device)
+    # Every process takes rank 0's projections: the Bucket forward's float
+    # atomics give each simulation other last bits.
+    data = tlb.simulate(volume, theta, c["tilt"], eps=c["eps"], device=device).cpu()
+    torch.distributed.broadcast(torch.view_as_real(data), src=0)
+    kwargs = dict(eps=c["eps"], cg_iter=c["cg_iter"], device=device, mesh=mesh)
+    tlb.reconstruct(data, theta, c["tilt"], num_iter=1, **kwargs)
+    bucket.reset_outside_windows(device)
+    _reset_launches()
+    parallel.collective_stats.reset()
+    start = time.perf_counter()
+    result = tlb.reconstruct(data, theta, c["tilt"], num_iter=BUCKET_TIMED, **kwargs)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - start) / BUCKET_TIMED
+    slabs = dict(costs=np.asarray(result["cost"]).tolist(), per_iter=per_iter,
+                 launches=_read_launches("dist-bucket"),
+                 outside=int(bucket.outside_windows(device)),
+                 collectives=parallel.collective_stats.as_dict())
+    log(f"[dist-bucket] rank {rank}: a 64-row slab, {per_iter:.4f} s/iteration, costs "
+        f"{slabs['costs']}, collectives {slabs['collectives']} ({card})")
+    return lamino, slabs
+
+
+def _gloo_cuda_all_gather(mesh, device, rank: int) -> dict:
+    """Whether gloo's all_gather takes CUDA tensors: one call on a CUDA
+    buffer of GLOO_CHECK_BYTES, each rank's filled with its rank + 1, its
+    result checked; where it is taken and right, the mean ms of
+    GLOO_CHECK_REPEATS such calls. Beside it, the mean ms of as many of the
+    mesh's exchanges of the same buffer, which stage it through page-locked
+    host memory (``parallel._mesh._with_remote``)."""
+    import torch.distributed as dist
+
+    from tike_tpu_torch.parallel import _mesh
+
+    mine = torch.full((GLOO_CHECK_BYTES,), rank + 1, dtype=torch.uint8, device=device)
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(GLOO_CHECK_REPEATS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) / GLOO_CHECK_REPEATS * 1e3
+
+    staged_ms = timed(lambda: _mesh._with_remote([mine], mesh.flat))
+    everyone = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    try:
+        dist.all_gather(everyone, mine)
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError) as error:
+        return dict(accepted=False, error=str(error).splitlines()[0], staged_ms=staged_ms)
+    right = all(bool((t == r + 1).all()) for r, t in enumerate(everyone))
+    direct_ms = timed(lambda: dist.all_gather(everyone, mine)) if right else None
+    return dict(accepted=True, right=right, direct_ms=direct_ms, staged_ms=staged_ms)
+
+
+def dist_worker(argv) -> None:
+    """One of phase 23's processes: ``chip_smoke.py --worker RANK STORE
+    OUT``. Joins the gloo group through the file STORE, runs 23a-23d on
+    its one shard of ``cuda:0`` and writes its records to ``OUT.RANK.json``
+    and its arrays to ``OUT.RANK.npz``; the kernels were built by the
+    parent. It never prints the script's result lines."""
+    import datetime
+
+    rank, store, out = int(argv[0]), argv[1], argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DIST_WORLD))
+    distributed.initialize(
+        init_method=f"file://{store}", num_processes=DIST_WORLD, process_id=rank,
+        backend="gloo", timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S // 2),
+    )
+    device = torch.device(DIST_DEVICE)
+    card = nvidia_smi_line()
+    mesh = distributed.global_mesh(local_devices=[device])
+    records, arrays = {"gloo_cuda": _gloo_cuda_all_gather(mesh, device, rank)}, {}
+    for key, value in _dist_slice(mesh, device, False).items():
+        arrays[f"slice/{key}"] = value
+    scan, psi, probe = make_inputs(N_PATTERNS)
+    data = tp.simulate(DET, probe, scan, psi, device=device)
+    rows = distributed.stripe_for_process(scan)
+    local = data[rows]
+    log(f"[dist-main] rank {rank}: {local.shape[0]} patterns of its stripe on the host "
+        f"({local.nbytes / 1e6:.0f} MB)")
+    records["main"], main_arrays = _dist_context(
+        f"dist-main-{rank}",
+        tp.Reconstruction(local, path_parameters(scan, psi, probe), device=device,
+                          random_seed=0, mesh=mesh),
+        card,
+    )
+    arrays.update({f"main/{k}": v for k, v in main_arrays.items()})
+    own = parallel_striped.striped_local_indices(scan, psi.shape[-2:], probe.shape[-1], mesh)
+    local = data[own]
+    del data
+    records["striped"], striped_arrays = _dist_context(
+        f"dist-striped-{rank}",
+        tp.Reconstruction(local, path_parameters(scan, psi, probe), device=device, mesh=mesh,
+                          object_sharding="striped"),
+        card,
+    )
+    records["striped"]["patterns"] = int(local.shape[0])
+    arrays.update({f"striped/{k}": v for k, v in striped_arrays.items()})
+    del local
+    records["lamino"], records["bucket"] = _dist_lamino(mesh, device, card, rank)
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(records, f)
+    np.savez(f"{out}.{rank}.npz", **arrays)
+    torch.distributed.destroy_process_group()
+
+
+def _launch_dist_workers(card: str) -> tuple:
+    """Start phase 23's two worker processes together and wait for both
+    (each at most DIST_TIMEOUT_S); a worker that fails or hangs fails the
+    phase. Returns each rank's (records, arrays)."""
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    store, out = os.path.join(workdir, "store"), os.path.join(workdir, "out")
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", str(rank),
+                          store, out], cwd=here, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for rank in range(DIST_WORLD)
+    ]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            log(f"  [rank {rank}] {line}")
+        if proc.returncode:
+            raise RuntimeError(f"phase 23: worker {rank} exited with {proc.returncode}")
+    log(f"[dist] the two workers ran 23a-23d in {time.perf_counter() - start:.1f} s, "
+        f"start-up included ({card})")
+    out_ranks = []
+    for rank in range(DIST_WORLD):
+        with open(f"{out}.{rank}.json") as f:
+            records = json.load(f)
+        out_ranks.append((records, dict(np.load(f"{out}.{rank}.npz"))))
+    return out_ranks
+
+
+def _same_or_gap(tag, a: dict, b: dict, keys) -> dict:
+    """Each key's largest |difference| over the largest |value| of ``b``
+    (0.0 where equal bit for bit)."""
+    gaps = {}
+    for key in keys:
+        x, y = np.asarray(a[key]), np.asarray(b[key])
+        if x.shape != y.shape:
+            raise AssertionError(f"{tag}: {key} has shape {x.shape}, not {y.shape}")
+        gaps[key] = 0.0 if np.array_equal(x, y) else float(
+            np.max(np.abs(x - y)) / max(np.max(np.abs(y)), 1e-30)
+        )
+    return gaps
+
+
+def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, striped: dict,
+                      lamino_mesh: dict, bucket_mesh: dict) -> dict:
+    """23: two processes, each with one shard on ``cuda:0`` in a gloo group
+    (``parallel.distributed``). The parent first runs the one-process
+    references of the same global programs on ``[cuda:0, cuda:0]``, then
+    frees the card's cache and starts both workers; 23a-23d as the module's
+    docstring says. Returns the workers' kernel counts, per rank."""
+    started = time.perf_counter()
+    two = _on_card_mesh(device, 2)
+    slice_ref = _dist_slice(two, device, True)
+    data = tp.simulate(DET, probe, scan, psi, device=device)
+    ref, ref_arrays = _dist_context(
+        "dist-force-stripes",
+        tp.Reconstruction(data, path_parameters(scan, psi, probe), device=device,
+                          random_seed=0, mesh=two, _force_stripes=2),
+        card,
+    )
+    del data
+    log(f"[dist] one process, the multi-process layout of 2 (_force_stripes=2) on 2 shards of "
+        f"{device}: {ref['epoch_s']:.4f} s/epoch, set-up {ref['setup_s']:.2f} s "
+        f"{ref['setup_parts']}, peak {ref['peak'] / 2**30:.3f} GiB ({card})")
+    torch.cuda.empty_cache()
+    ranks = _launch_dist_workers(card)
+    (r0, a0), (r1, a1) = ranks
+    log(f"[dist] gloo's all_gather of CUDA tensors ({GLOO_CHECK_BYTES} bytes a rank, mean of "
+        f"{GLOO_CHECK_REPEATS} calls; staged_ms is the mesh's exchange through page-locked "
+        f"host memory): rank 0 {r0['gloo_cuda']}, rank 1 {r1['gloo_cuda']} ({card})")
+    # 23a: phase 5's slice, each rank against the other and the one-process run.
+    keys = ("psi", "probe", "scan", "costs")
+    slices = [{k: a[f"slice/{k}"] for k in keys} for a in (a0, a1)]
+    between = _same_or_gap("23a", slices[1], slices[0], keys)
+    against = _same_or_gap("23a", slices[0], slice_ref, keys)
+    if any(between.values()) or not max(against.values()) <= 1e-6:
+        raise AssertionError(f"23a: ranks differ by {between}; against one process {against}")
+    log(f"[dist-slice] 23a: phase 5's slice in 2 processes on {device}: the ranks equal bit "
+        f"for bit; against one process's _force_stripes=2 on 2 shards, max|diff| / "
+        f"max|value| {against} (0.0 is bit for bit; held at 1e-6) ({card})")
+    # 23b: the main path at full width.
+    mains = [{k: a[f"main/{k}"] for k in ("psi", "probe", "scan")} for a in (a0, a1)]
+    between = _same_or_gap("23b", mains[1], mains[0], ("psi", "probe", "scan"))
+    if any(between.values()) or r0["main"]["costs"] != r1["main"]["costs"]:
+        raise AssertionError(f"23b: the ranks differ: {between}")
+    against = _same_or_gap("23b", mains[0], ref_arrays, ("psi", "probe", "scan"))
+    if not against["psi"] <= DIST_PSI_TOL:
+        raise AssertionError(f"23b: psi differs from one process's by {against['psi']:.3e}")
+    for rank, r in enumerate((r0, r1)):
+        m = r["main"]
+        log(f"[dist-main] 23b rank {rank}: {m['epoch_s']:.4f} s/epoch against 21b's one-process "
+            f"two shards {mesh_main['epoch_s']:.4f} and the one-process layout's "
+            f"{ref['epoch_s']:.4f}; set-up {m['setup_s']:.2f} s {m['setup_parts']}; peak "
+            f"{m['peak'] / 2**30:.3f} GiB; collectives an epoch "
+            f"{m['collective_calls_epoch']:.0f} calls, {m['collective_ms_epoch']:.1f} ms, "
+            f"{m['collective_bytes_epoch'] / 1e6:.1f} MB; patch launches "
+            f"{ {k: m['launches'][k] for k in patch.LAUNCHES} } ({card})")
+    log(f"[dist-main] 23b: the ranks equal bit for bit; against one process's "
+        f"_force_stripes=2 run max|diff| / max|value| {against} (psi held at "
+        f"{DIST_PSI_TOL:g}); final cost {r0['main']['costs'][-1]:.6e} against "
+        f"{ref['costs'][-1]:.6e} ({card})")
+    # 23c: the striped object, one stripe a process, against 22b's stripes.
+    strip = [{k: a[f"striped/{k}"] for k in ("psi", "probe", "scan")} for a in (a0, a1)]
+    between = _same_or_gap("23c", strip[1], strip[0], ("psi", "probe", "scan"))
+    reference = {k: getattr(striped["result"], k) for k in ("psi", "probe", "scan")}
+    against = _same_or_gap("23c", strip[0], reference, ("psi", "probe", "scan"))
+    if any(between.values()) or not against["psi"] <= DIST_PSI_TOL:
+        raise AssertionError(f"23c: ranks {between}; against 22b {against}")
+    for rank, r in enumerate((r0, r1)):
+        s = r["striped"]
+        log(f"[dist-striped] 23c rank {rank}: {s['patterns']} patterns of its stripe; "
+            f"{s['epoch_s']:.4f} s/epoch against 22b's {striped['epoch_s']:.4f}; set-up "
+            f"{s['setup_s']:.2f} s {s['setup_parts']}; peak {s['peak'] / 2**30:.3f} GiB; "
+            f"collectives an epoch {s['collective_calls_epoch']:.0f} calls, "
+            f"{s['collective_ms_epoch']:.1f} ms, {s['collective_bytes_epoch'] / 1e6:.1f} MB "
+            f"({card})")
+    log(f"[dist-striped] 23c: the ranks equal bit for bit; against 22b's two stripes in one "
+        f"process max|diff| / max|value| {against} ({card})")
+    # 23d: laminography.
+    for kind, ref_run in (("lamino", lamino_mesh), ("bucket", bucket_mesh)):
+        c0, c1, cr = (np.asarray(x) for x in (r0[kind]["costs"], r1[kind]["costs"],
+                                              ref_run["costs"]))
+        gap = float(np.max(np.abs(c0 - cr) / np.abs(cr)))
+        if not np.array_equal(c0, c1) or not gap <= MESH_LAMINO_RTOL or not c0[-1] < c0[0]:
+            raise AssertionError(f"23d {kind}: costs {c0} / {c1} against 21's {cr}")
+        if kind == "bucket" and (r0[kind]["outside"] or r1[kind]["outside"]):
+            raise AssertionError("23d bucket: points fell outside their tile's window")
+        log(f"[dist-{kind}] 23d: {r0[kind]['per_iter']:.4f} / {r1[kind]['per_iter']:.4f} "
+            f"s/iteration (rank 0 / 1) against 21's one-process two shards "
+            f"{ref_run['per_iter']:.4f}; costs equal across the ranks, max relative gap to 21's "
+            f"{gap:.3e} (rtol {MESH_LAMINO_RTOL:g}; 0 is bit for bit) ({card})")
+    log(f"[dist] phase 23 took {time.perf_counter() - started:.1f} s ({card})")
+    # Each run's counts of every kernel, as its rank read them.
+    counts = {}
+    for rank, r in enumerate((r0, r1)):
+        for run, path_kernels in (("main", patch.LAUNCHES), ("striped", patch.LAUNCHES),
+                                  ("lamino", usfft.LAUNCHES), ("bucket", BUCKET_KERNELS)):
+            launches = r[run]["launches"]
+            if not all(launches[k] > 0 for k in path_kernels):
+                raise AssertionError(f"23 {run} rank {rank}: a kernel of the path was not "
+                                     f"launched: {launches}")
+            counts.setdefault(f"launches_distributed_{run}", []).append(launches)
+    return counts
 
 
 def _events_ms(fn, repeats: int = 20) -> float:
@@ -3834,10 +4213,13 @@ def main() -> None:
     del api
     mesh_start = time.perf_counter()
     phase_mesh_slice(device)
-    launches_mesh = phase_mesh_main(device, scan, psi, probe, card, main_path)
-    launches_mesh.update(phase_mesh_lamino(device, card, problem, lamino_runs["cgrad"]))
+    mesh_main = phase_mesh_main(device, scan, psi, probe, card, main_path)
+    launches_mesh = dict(mesh_main["launches"])
+    lamino_mesh = phase_mesh_lamino(device, card, problem, lamino_runs["cgrad"])
+    launches_mesh.update(lamino_mesh["launches"])
     slab_timings = phase_mesh_bucket_slabs(device, card, bucket_timings)
-    launches_mesh.update(phase_mesh_bucket(device, card, bucket_run))
+    bucket_mesh = phase_mesh_bucket(device, card, bucket_run)
+    launches_mesh.update(bucket_mesh["launches"])
     phase_mesh_bucket_golden(device, card)
     phase_mesh_stream_slice(device)
     data_host = tp.simulate(DET, probe, scan, psi, device=device)
@@ -3846,15 +4228,24 @@ def main() -> None:
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     striped_start = time.perf_counter()
     phase_striped_slice(device)
-    launches_striped = phase_striped(device, scan, psi, probe, card, main_path, data_host)
+    launches_striped, striped_run = phase_striped(device, scan, psi, probe, card, main_path,
+                                                  data_host)
     del data_host
     log(f"[striped] phase 22 took {time.perf_counter() - striped_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    dist_start = time.perf_counter()
+    launches_dist = phase_distributed(device, scan, psi, probe, card, mesh_main, striped_run,
+                                      lamino_mesh, bucket_mesh)
+    del striped_run
+    log(f"[dist] phase 23 took {time.perf_counter() - dist_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
         launches_api=launches_api[name], launches_mesh=launches_mesh[name],
         launches_mesh_stream=launches_mesh_stream[name],
         **{f"launches_{run}": counts[name] for run, counts in launches_striped.items()},
+        **{run: [ranks[name] for ranks in counts]
+           for run, counts in launches_dist.items()},
     )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [
@@ -3955,4 +4346,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        dist_worker(sys.argv[2:])
+    else:
+        main()

@@ -180,8 +180,9 @@ def test_multigrid_levels_compose_with_a_seed(slice_data):
 
 def test_multigrid_refuses_what_is_not_ported(slice_data, monkeypatch):
     """Before any level runs: the striped object without a mesh
-    (``ValueError``, as in tike_tpu), and on a mesh in a process group of
-    several (not ported yet), and a mesh that is not the port's."""
+    (``ValueError``, as in tike_tpu), and a mesh that is not the port's;
+    and as its level opens, on a mesh across the processes of a process
+    group, a data block that is not this process's stripe."""
     import tike_tpu_torch.parallel as tpar
 
     scan, probe, psi0, data = slice_data
@@ -192,9 +193,10 @@ def test_multigrid_refuses_what_is_not_ported(slice_data, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(torch.distributed, "is_initialized", lambda: True)
         m.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-        with pytest.raises(NotImplementedError, match="tike_tpu.parallel.distributed"):
-            tp.reconstruct_multigrid(data, params, device="cpu", object_sharding="striped",
-                                     mesh=tpar.make_mesh(devices=["cpu"] * 2))
+        m.setattr(torch.distributed, "get_rank", lambda *a: 0)
+        with pytest.raises(ValueError, match="this process's stripe"):
+            tp.reconstruct_multigrid(data[:5], params, device="cpu", num_levels=1,
+                                     mesh=tpar.Mesh(["cpu", tpar.Remote(1, "cpu")]))
     with pytest.raises(TypeError, match="parallel.Mesh"):
         tp.reconstruct_multigrid(data, params, device="cpu", mesh=object())
     assert params.psi is psi0  # nothing resampled or run

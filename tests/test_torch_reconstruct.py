@@ -135,32 +135,59 @@ def test_num_gpu_in_third_place_is_not_a_device(slice_data, monkeypatch):
                      id="object_sharding='striped'-kwargs0"),
         pytest.param(TypeError, "parallel.Mesh", dict(object_sharding="striped", mesh=object()),
                      1, id="object_sharding='striped'-kwargs1"),
-        pytest.param(NotImplementedError, "tike_tpu.parallel.distributed",
-                     dict(object_sharding="striped", num_gpu=2), 2,
+        pytest.param(ValueError, "this process's stripe", dict(num_gpu=2), 2,
                      id="tike_tpu.parallel.striped-kwargs2"),
     ],
 )
 def test_unported_entry_point_arguments_raise(slice_data, monkeypatch, error, match, kwargs,
                                              processes):
     """The striped object wants a mesh (``ValueError``, as in tike_tpu) of
-    the port's (``TypeError``), in one process: in a process group of
-    several it raises ``NotImplementedError`` naming
-    ``tike_tpu.parallel.distributed``, not ported yet. ``num_gpu``,
-    ``use_mpi`` and a mesh are accepted (``tests/test_torch_mesh_ptycho.py``)."""
+    the port's (``TypeError``). In a process group of several, a mesh
+    across the processes takes the multi-process layout, whose data is all
+    the patterns or this process's stripe of them: another block raises
+    ``ValueError`` as the context opens, as in tike_tpu, before any
+    collective. ``num_gpu``, ``use_mpi`` and a mesh are accepted
+    (``tests/test_torch_mesh_ptycho.py``)."""
     scan, _, probe, psi0, data = slice_data
     params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
     if processes > 1:
         import tike_tpu_torch.parallel as tpar
 
-        kwargs = dict(kwargs, mesh=tpar.make_mesh(devices=["cpu"] * 2))
+        kwargs = dict(kwargs, mesh=tpar.Mesh(["cpu", "cpu", tpar.Remote(1, "cpu"),
+                                              tpar.Remote(1, "cpu")]))
+        data = data[:5]
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: processes)
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
     with pytest.raises(error, match=match):
-        tp.Reconstruction(data, params, device="cpu", **kwargs)
+        with tp.Reconstruction(data, params, device="cpu", **kwargs):
+            pass
     with pytest.raises(error, match=match):
         tp.reconstruct(data, params, device="cpu", **kwargs)
     with pytest.raises(ValueError, match="object_sharding"):
         tp.Reconstruction(data, params, device="cpu", object_sharding="rows")
+
+
+def test_striped_across_processes_refuses_another_block(slice_data, monkeypatch):
+    """On a mesh across two processes (faked: this one holds shards 0 and
+    1), the striped object takes all the patterns or this process's
+    ``striped_local_indices`` rows of them; another block raises
+    ``ValueError`` as the context opens, as in tike_tpu, before any
+    collective (the probe is not rescaled, whose sample is gathered
+    first)."""
+    import tike_tpu_torch.parallel as tpar
+
+    scan, _, probe, psi0, data = slice_data
+    params = convert.parameters_from_jax(_jax_parameters(scan, probe, psi0))
+    params.probe_options.init_rescale_from_measurements = False
+    mesh = tpar.Mesh(["cpu", "cpu", tpar.Remote(1, "cpu"), tpar.Remote(1, "cpu")])
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
+    with pytest.raises(ValueError, match="this process's stripes"):
+        with tp.Reconstruction(data[:5], params, device="cpu", mesh=mesh,
+                               object_sharding="striped"):
+            pass
 
 
 @pytest.mark.parametrize("fft_precond", [False, True])

@@ -78,7 +78,9 @@ def reconstruct(
     (:func:`~tike_tpu_torch.ops.bucket.sharded_bucket_ops_2d`); the mesh's
     axes must divide the volume's side and the angles. The volume, data
     and angles stay on the mesh's first device, whose type ``device`` must
-    name. Returns a dict: ``obj``, ``cost`` (one per outer iteration, a
+    name. On a mesh across processes
+    (:func:`tike_tpu_torch.parallel.distributed.global_mesh`) every process
+    passes the whole data and angles and computes its own shards' slabs. Returns a dict: ``obj``, ``cost`` (one per outer iteration, a
     numpy array) and the solver's ``step_length``; numpy arrays for an
     array ``data``, tensors on ``device`` for a tensor.
     """
@@ -90,6 +92,16 @@ def reconstruct(
         mesh = _split_mesh(obj_split, device)
     if mesh is not None:
         device = home_device(mesh, device)
+    data_d = as_tensor(data, torch.complex64, device)
+    theta_d = as_tensor(theta, torch.float32, device)
+    if obj is None:
+        obj_d = torch.zeros((n, n, n), dtype=torch.complex64, device=data_d.device)
+    else:
+        obj_d = as_tensor(obj, torch.complex64, device)
+    # The angles never change within the call: one table for every
+    # projection of every iteration.
+    trig = bucket_trig(cfg, theta_d)
+    if mesh is not None:
         if len(mesh.axis_names) == 2:
             ops = sharded_bucket_ops_2d(cfg, mesh, *mesh.axis_names)
         else:
@@ -103,15 +115,6 @@ def reconstruct(
         kwargs.setdefault("raw_cost", cost_op)
         kwargs.setdefault("raw_grad", grad_op)
         kwargs.setdefault("step_scale_op", lambda u, t_: step_op(u, t_, trig))
-    data_d = as_tensor(data, torch.complex64, device)
-    theta_d = as_tensor(theta, torch.float32, device)
-    if obj is None:
-        obj_d = torch.zeros((n, n, n), dtype=torch.complex64, device=data_d.device)
-    else:
-        obj_d = as_tensor(obj, torch.complex64, device)
-    # The angles never change within the call: one table for every
-    # projection of every iteration.
-    trig = bucket_trig(cfg, theta_d)
 
     logger.info(
         "{} on {:,d} by {:,d} by {:,d} volume for {:,d} "

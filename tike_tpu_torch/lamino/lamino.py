@@ -70,7 +70,12 @@ def reconstruct(
     shards (their number must divide the angles'), as the JAX package
     shards theta: the projections and angles stay on the first shard's
     device, whose type ``device`` must name, and each shard transforms its
-    own angles (:class:`~tike_tpu_torch.ops.lamino.MeshLaminoPlan`).
+    own angles (:class:`~tike_tpu_torch.ops.lamino.MeshLaminoPlan`). On a
+    mesh across processes
+    (:func:`tike_tpu_torch.parallel.distributed.global_mesh`) each process
+    passes its own contiguous run of the angles and their projections
+    (``distributed.split_for_process``), each as many, and every process
+    gets the same volume and costs.
 
     ``data``, ``theta`` and ``obj`` are arrays or tensors. What comes back
     follows ``data``: numpy arrays for an array; for a tensor, tensors on

@@ -11,7 +11,13 @@ from __future__ import annotations
 import logging
 
 from ... import opt
-from ...ops.lamino import LaminoConfig, LaminoPlan, lamino_adj_exact, lamino_fwd
+from ...ops.lamino import (
+    LaminoConfig,
+    LaminoPlan,
+    MeshLaminoPlan,
+    lamino_adj_exact,
+    lamino_fwd,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -38,6 +44,7 @@ def cgls(
         b=data,
         x0=obj,
         num_iter=cg_iter,
+        **({"sum_squares": plan.sum_squares} if isinstance(plan, MeshLaminoPlan) else {}),
     )
     cost = float(cost)
     logger.info("%10s cost is %+12.5e", "object", cost)

@@ -55,7 +55,8 @@ import torch
 
 from .. import kernels
 from .. import linalg
-from ..parallel import all_reduce
+from ..parallel import all_gather, all_reduce
+from ..parallel._mesh import _is_local
 
 LAUNCHES = {"bucket_fwd": 0, "bucket_adj": 0}
 """How many times each CUDA kernel has been launched in this process.
@@ -526,20 +527,34 @@ class _MeshOps:
     """The Bucket operator over a grid of shards, ``devices`` (D, V): the
     angles split over the D data groups (rows), the lattice's x-slabs
     (:func:`slab_of`) over the V shards of a group. Volumes, projections
-    and tables come and go as whole tensors on the first shard's device;
-    each shard reads its angles and its slab from there (a view where it
-    lies on that device)."""
+    and tables come and go as whole tensors on this process's first
+    shard's device; each shard reads its angles and its slab from there (a
+    view where it lies on that device).
+
+    On a mesh across processes each process computes its own shards'
+    parts; a group that spans processes is reduced across them, and the
+    groups' results that this process lacks (another process's rows of
+    projections, or slabs) are gathered along a row or column that holds
+    one shard of each. Every process holds the whole data and angles."""
 
     def __init__(self, cfg: BucketConfig, devices: np.ndarray):
         self.cfg = cfg
         self.devices = devices
-        self.home = devices.flat[0]
+        local = np.vectorize(_is_local, otypes=[bool])(devices)
+        self.home = devices[local][0]
         groups, slabs = devices.shape
         if cfg.n % slabs:
             raise ValueError(
                 f"the volume mesh axis ({slabs}) must evenly divide the volume side ({cfg.n})"
             )
         self.slabs = [slab_of(cfg.n, slabs, v) for v in range(slabs)]
+        # Whether each process holds a shard of every row (column): else
+        # the rows' (columns') results are gathered. Computed from the
+        # owners, which every process knows alike.
+        owners = np.vectorize(lambda d: d.rank if not _is_local(d) else -1)(devices)
+        every = set(owners.reshape(-1).tolist())
+        self._rows_whole = all(set(r.tolist()) == every for r in owners)
+        self._columns_whole = all(set(c.tolist()) == every for c in owners.T)
 
     def _groups(self, theta, trig):
         """Each data group's angles and table, checked against its size."""
@@ -556,15 +571,21 @@ class _MeshOps:
         """(T, n, n) projections of the volume: each group's shards project
         their slabs at the group's angles, and the partial projections of a
         group are summed (``parallel.all_reduce``)."""
-        cfg, out = self.cfg, []
+        cfg, out = self.cfg, {}
         u = u.reshape(cfg.n, cfg.n, cfg.n)
-        for row, (th, tr) in zip(self.devices, self._groups(theta, trig)):
+        for g, (row, (th, tr)) in enumerate(zip(self.devices, self._groups(theta, trig))):
             parts = [
                 bucket_fwd(cfg, u[x0 : x0 + rows].to(d), th.to(d), None, tr.to(d), (x0, rows))
                 for d, (x0, rows) in zip(row, self.slabs)
+                if _is_local(d)
             ]
-            out.append(all_reduce(parts, list(row))[0].to(self.home))
-        return torch.cat(out)
+            if parts:
+                out[g] = all_reduce(parts, list(row))[0].to(self.home)
+        if self._rows_whole:
+            return torch.cat(list(out.values()))
+        column = list(self.devices[:, 0])
+        mine = [out[g] for g, d in enumerate(column) if _is_local(d)]
+        return all_gather(mine, column)[0].to(self.home)
 
     def adj(self, data, theta, trig=None) -> torch.Tensor:
         """(n, n, n) adjoint: each shard gathers its slab's voxels from its
@@ -572,7 +593,7 @@ class _MeshOps:
         (``parallel.all_reduce`` down a column), and the slabs joined."""
         cfg = self.cfg
         groups = list(self._groups(theta, trig))
-        slabs = []
+        slabs = {}
         for v, (x0, rows) in enumerate(self.slabs):
             column = list(self.devices[:, v])
             parts = [
@@ -580,9 +601,15 @@ class _MeshOps:
                 for d, d_g, (th, tr) in zip(
                     column, torch.chunk(data, len(groups)), groups
                 )
+                if _is_local(d)
             ]
-            slabs.append(all_reduce(parts, column)[0].to(self.home))
-        return torch.cat(slabs).reshape(cfg.n, cfg.n, cfg.n)
+            if parts:
+                slabs[v] = all_reduce(parts, column)[0].to(self.home)
+        if self._columns_whole:
+            return torch.cat(list(slabs.values())).reshape(cfg.n, cfg.n, cfg.n)
+        row = list(self.devices[0])
+        mine = [slabs[v] for v, d in enumerate(row) if _is_local(d)]
+        return all_gather(mine, row)[0].to(self.home).reshape(cfg.n, cfg.n, cfg.n)
 
     def cost(self, data, u, theta, grid=None, trig=None):
         _no_grid(grid)

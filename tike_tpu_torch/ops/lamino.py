@@ -18,9 +18,12 @@ call builds what it needs.
 A :class:`MeshLaminoPlan` splits the angles over the shards of a mesh (the
 JAX package's ``mesh=``, theta sharded): one :class:`LaminoPlan` a shard at
 its angles, on its device. Given one, the forward joins the shards'
-projections in mesh order and the adjoints sum the shards' volumes
-(``parallel.all_reduce``), so that the cost, the gradient and the solvers
-above them run unchanged.
+projections in mesh order, the adjoints sum the shards' volumes
+(``parallel.all_reduce``) and the cost sums the shards' parts, so that the
+gradient and the solvers above them run unchanged. On a mesh across
+processes each process holds its own contiguous run of the angles and of
+the projections (the original tike's ``MPIio_lamino``): the forward gives
+this process's projections, and the sums take in every process's shards.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import functools
 import torch
 
 from .. import linalg
-from ..parallel import Mesh, all_reduce, batch_sharding, put
+from ..parallel import Mesh, all_reduce, batch_sharding, put_process_local
+from ..parallel._mesh import gather_objects
 from .usfft import _parameters, deapodization, eq2us, gather_tile, kb_plan, spread, us2eq
 
 
@@ -146,17 +150,29 @@ class LaminoPlan:
 class MeshLaminoPlan:
     """The angles ``theta`` split over the shards of ``mesh`` in equal
     runs, in mesh order, with a :class:`LaminoPlan` of each shard's angles
-    on its device. Results come back on theta's device."""
+    on its device. Results come back on theta's device. On a mesh across
+    processes ``theta`` is this process's run of the angles (each process
+    holds as many), split over its shards; ``angles`` counts them all."""
 
     def __init__(self, cfg: LaminoConfig, theta: torch.Tensor, mesh: Mesh):
-        if theta.shape[0] % mesh.size:
+        count = theta.shape[0]
+        if mesh.process_count > 1:
+            counts = gather_objects(int(count))
+            if len(set(counts)) != 1:
+                raise ValueError(
+                    f"every process must hold as many angles; they hold {counts}"
+                )
+            count = sum(counts)
+        if count % mesh.size:
             raise ValueError(
-                f"the mesh's {mesh.size} shards must divide the {theta.shape[0]} angles"
+                f"the mesh's {mesh.size} shards must divide the {count} angles"
             )
-        self.cfg, self.theta, self.mesh = cfg, theta, mesh
-        self.devices = mesh.flat
+        self.cfg, self.theta, self.mesh, self.angles = cfg, theta, mesh, count
+        self.group = mesh.flat
+        self.devices = mesh.local_devices
         self.plans = [
-            LaminoPlan(cfg, t) for t in put(theta, batch_sharding(mesh))
+            LaminoPlan(cfg, t)
+            for t in put_process_local(theta, batch_sharding(mesh), count)
         ]
 
     def fwd(self, u) -> torch.Tensor:
@@ -164,13 +180,19 @@ class MeshLaminoPlan:
         parts = [lamino_fwd(self.cfg, u.to(d), p.theta, p) for d, p in zip(self.devices, self.plans)]
         return torch.cat([x.to(self.theta.device) for x in parts])
 
+    def _split(self, data):
+        return zip(torch.split(data, len(self.plans[0].theta)), self.devices, self.plans)
+
     def adj(self, fn, data) -> torch.Tensor:
         """``fn`` (an adjoint) of each shard's projections, summed."""
-        parts = [
-            fn(self.cfg, x.to(d), p.theta, p)
-            for x, d, p in zip(torch.split(data, len(self.plans[0].theta)), self.devices, self.plans)
-        ]
-        return all_reduce(parts, self.devices)[0].to(self.theta.device)
+        parts = [fn(self.cfg, x.to(d), p.theta, p) for x, d, p in self._split(data)]
+        return all_reduce(parts, self.group)[0].to(self.theta.device)
+
+    def sum_squares(self, data) -> torch.Tensor:
+        """The sum of ``|data|^2`` over every shard's projections: each
+        shard's part, the parts added in mesh order."""
+        parts = [torch.sum((x * torch.conj(x)).real.to(d)) for x, d, _ in self._split(data)]
+        return all_reduce(parts, self.group)[0].to(self.theta.device)
 
 
 def _plan(plan, cfg: LaminoConfig, theta):
@@ -246,6 +268,8 @@ def lamino_adj_exact(cfg: LaminoConfig, data, theta, plan=None):
 def lamino_cost(cfg: LaminoConfig, data, theta, obj, plan=None):
     """Least-squares cost: a 0-d float32 tensor."""
     diff = lamino_fwd(cfg, obj, theta, plan) - data
+    if isinstance(plan, MeshLaminoPlan):
+        return plan.sum_squares(diff)
     return torch.sum((diff * torch.conj(diff)).real)
 
 
@@ -253,7 +277,8 @@ def lamino_grad(cfg: LaminoConfig, data, theta, obj, plan=None):
     """Least-squares gradient through :func:`lamino_adj`."""
     plan = _plan(plan, cfg, theta)
     out = lamino_adj(cfg, lamino_fwd(cfg, obj, theta, plan) - data, theta, plan)
-    return out / (data.shape[-3] * cfg.n**3)
+    angles = plan.angles if isinstance(plan, MeshLaminoPlan) else data.shape[-3]
+    return out / (angles * cfg.n**3)
 
 
 def lamino_step_scale(cfg: LaminoConfig, obj, theta, plan=None):

@@ -304,11 +304,17 @@ def conjugate_gradient(x, cost_function, grad, num_iter=1, step_length=1,
     return x, cost, step
 
 
-def cgls(fwd, adj, b, x0, num_iter=4):
+def _sum_squares(x):
+    return torch.sum((x * torch.conj(x)).real)
+
+
+def cgls(fwd, adj, b, x0, num_iter=4, sum_squares=_sum_squares):
     """CGLS, conjugate gradients on the normal equations of a LINEAR
     ``fwd``: one ``fwd`` and one ``adj`` per iteration with optimal step
     lengths, the residual kept incrementally. The loop of
     ``tike_tpu.opt.cgls_traced``; every decision stays on the device.
+    ``sum_squares`` takes ``|q|^2`` summed over a value of ``fwd`` (the
+    sum over several processes, where each holds a part of it).
 
     Returns ``(x, cost)``, cost = |fwd(x) - b|^2 as a 0-d tensor.
     """
@@ -319,7 +325,7 @@ def cgls(fwd, adj, b, x0, num_iter=4):
     x = x0
     for _ in range(num_iter):
         q = fwd(p)
-        qq = torch.sum((q * torch.conj(q)).real)
+        qq = sum_squares(q)
         # A zero q means p is in the null space measured by the data: no
         # step can help, so freeze.
         alpha = torch.where(qq == 0, 0.0, gamma / torch.where(qq == 0, 1.0, qq))
@@ -330,4 +336,4 @@ def cgls(fwd, adj, b, x0, num_iter=4):
         beta = torch.where(gamma == 0, 0.0, gamma_new / torch.where(gamma == 0, 1.0, gamma))
         gamma = gamma_new
         p = s + beta * p
-    return x, torch.sum((r * torch.conj(r)).real)
+    return x, sum_squares(r)

@@ -29,22 +29,29 @@ collective returns its own part (what a mesh of one shard computes).
 The data-parallel decomposition is that of the JAX package: diffraction
 data and scan slots are split over the mesh, the object, probe and solver
 state are replicated. :mod:`.striped` splits the object itself into row
-stripes, one a shard, whose epochs meet at the same requests. Several
-processes (``tike_tpu.parallel.distributed``) are not ported yet: the
-placement functions and the striped set-up raise ``NotImplementedError`` in
-a process group of more than one process.
+stripes, one a shard, whose epochs meet at the same requests.
+
+Several processes (:mod:`.distributed`, the counterpart of
+``tike_tpu.parallel.distributed``) share one global mesh, process-major,
+in which another process's shard is a :class:`Remote`: each process runs
+its own shards, and the collectives fetch the other processes' parts
+through ``torch.distributed`` and add every part in mesh order, so all
+processes compute the same bits, and the bits of one process holding
+every shard. :data:`collective_stats` counts those exchanges.
 """
 
 from ._mesh import (  # noqa: F401
     BATCH_AXIS,
     Gather,
     Mesh,
+    Remote,
     Sharding,
     Sum,
     all_gather,
     all_reduce,
     batch_sharding,
     broadcast,
+    collective_stats,
     fetch_global,
     home_device,
     make_mesh,

@@ -5,7 +5,8 @@ Counterpart of :mod:`tike_tpu.parallel.halo` (the original tike's
 the shards of a mesh, neighbouring stripes share an overlap of rows that is
 blended with a linear cross-fade, so the seam stays consistent. Where the
 JAX package sends the edge rows to the neighbours with ``lax.ppermute``,
-here each stripe reads its neighbours' edge rows from their devices.
+here every stripe's edge rows are gathered (across processes on a mesh
+that spans several) and each stripe reads its neighbours'.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import typing
 
 import torch
 
-from ._mesh import Mesh
+from ._mesh import Mesh, all_gather
 
 
 def _blend_ramp(overlap: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -29,7 +30,8 @@ def swap_edges(
     """Blend the overlapping halo rows of a row-striped psi across a mesh.
 
     ``psi_striped`` holds the (D, H / size, W) stripe of each shard of
-    ``mesh``, in mesh order, on its device (``parallel.put`` of a (D, H, W)
+    ``mesh`` (of this process, on a mesh across processes, whose edge rows
+    are then exchanged), in mesh order, on its device (``parallel.put`` of a (D, H, W)
     tensor with ``batch_sharding(mesh, axis=1)``, which raises where H does
     not split evenly). The ``overlap`` rows at each inner seam become a
     linear cross-fade of the two neighbours' values; the outer edges of the
@@ -38,8 +40,9 @@ def swap_edges(
     """
     stripes = list(psi_striped)
     size = mesh.size
-    if len(stripes) != size:
-        raise ValueError(f"{len(stripes)} stripes for a mesh of {size} shards")
+    ours = mesh.local
+    if len(stripes) != len(ours):
+        raise ValueError(f"{len(stripes)} stripes for a mesh of {len(ours)} shards in this process")
     if size == 1 or overlap == 0:
         return stripes
     rows = stripes[0].shape[-2]
@@ -47,15 +50,19 @@ def swap_edges(
         raise ValueError("the stripes must all have one shape")
     if overlap > rows:
         raise ValueError(f"the overlap ({overlap} rows) is wider than a stripe ({rows} rows)")
+    # Every stripe's (top, bottom) edge rows, from their processes.
+    edges = all_gather(
+        [torch.stack([s[:, :overlap], s[:, -overlap:]])[None] for s in stripes], mesh.flat
+    )[0]
     out = []
-    for i, local in enumerate(stripes):
+    for i, local in zip(ours, stripes):
         ramp = _blend_ramp(overlap, local.real.dtype, local.device)[None, :, None]
         top, bottom = local[:, :overlap, :], local[:, -overlap:, :]
         if i > 0:
-            from_above = stripes[i - 1][:, -overlap:, :].to(local.device)
+            from_above = edges[i - 1, 1].to(local.device)
             top = (1 - ramp) * from_above + ramp * top
         if i < size - 1:
-            from_below = stripes[i + 1][:, :overlap, :].to(local.device)
+            from_below = edges[i + 1, 0].to(local.device)
             rramp = torch.flip(ramp, dims=(1,))
             bottom = (1 - rramp) * from_below + rramp * bottom
         # Both written, the bottom last, as in the JAX package: where the

@@ -31,10 +31,12 @@ correction, adaptive moments, the probe constraints and schedule, the
 object constraints and both rescale methods. The patch kernels of
 ``csrc/patch.cu`` run on each stripe's window.
 
-One process only: the multi-process layout (``tike_tpu.parallel.distributed``,
-``estimate_probe_rescale_multihost``, ``striped_local_indices``) is not
-ported yet, and setting up in a process group of several raises
-``NotImplementedError``.
+Across processes (a mesh of :func:`~tike_tpu_torch.parallel.distributed.global_mesh`),
+each process sets up and runs its own shards' stripes alone, from the full
+data or from its :func:`striped_local_indices` rows, and the stripes meet
+through the mesh's collectives; a process whose stripes hold no position
+takes part with a block of no rows. The stitched results are gathered from
+every process, so every process must call the functions that return them.
 """
 
 from __future__ import annotations
@@ -61,12 +63,13 @@ from ..ptycho.solvers.epoch import (
 from ..ptycho.solvers.lstsq import _POS_EDGE
 from ..ptycho.solvers.options import _batch_tensors
 from ..ptycho.stream import StreamedBatches, pinned_batches
-from ._mesh import Mesh, _multi_process_check, run_shards
+from ._mesh import Mesh, all_gather, gather_objects, run_shards
 
 __all__ = [
     "StripePlan",
     "StripedState",
     "estimate_probe_rescale",
+    "estimate_probe_rescale_multihost",
     "local_row_lookup",
     "plan_stripes",
     "reconstruct_striped",
@@ -78,6 +81,7 @@ __all__ = [
     "striped_iterate",
     "striped_result",
     "striped_scan_global",
+    "striped_local_indices",
     "striped_set_scan",
 ]
 
@@ -160,6 +164,58 @@ def estimate_probe_rescale(
     return float(np.sqrt(measured / (model + 1e-32)))
 
 
+def estimate_probe_rescale_multihost(
+    data_local,
+    local_indices: np.ndarray,
+    psi: np.ndarray,
+    probe: np.ndarray,
+    scan: np.ndarray,
+    sample: int = 256,
+    rng: typing.Optional[np.random.Generator] = None,
+) -> float:
+    """:func:`estimate_probe_rescale` over data spread across processes, as
+    :func:`tike_tpu.parallel.striped.estimate_probe_rescale_multihost`
+    computes it. Every process passes the same psi, probe and scan and an
+    identically seeded ``rng`` (so the sample agrees), and its own data
+    block, whose rows are ``scan[local_indices]``. The model's power comes
+    from the shared arrays in every process. The sampled patterns are
+    gathered from the processes that hold them and summed in the sample's
+    order, so where the blocks cover the sample the scale is
+    :func:`estimate_probe_rescale`'s of the whole data, bit for bit (the
+    JAX package adds the processes' partial sums, which rounds otherwise).
+    Every process must call it."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    sel = _rescale_sample(scan.shape[0], sample, rng)
+    model = _sampled_model_power(psi, probe, scan, sel)
+    data_local = to_numpy(data_local)
+    rows = local_row_lookup(scan.shape[0], local_indices)[sel]
+    mine = np.flatnonzero(rows >= 0)
+    sampled = np.empty((len(sel), *data_local.shape[1:]), data_local.dtype)
+    found = np.zeros(len(sel), bool)
+    for where, patterns in gather_objects((mine, data_local[rows[mine]])):
+        sampled[where] = patterns
+        found[where] = True
+    measured = float(np.sum(sampled[found]))
+    return float(np.sqrt(measured / (model + 1e-32)))
+
+
+def striped_local_indices(
+    scan: np.ndarray,
+    object_shape: typing.Tuple[int, int],
+    probe_width: int,
+    mesh: Mesh,
+    position_margin: int = 8,
+) -> np.ndarray:
+    """The global scan indices whose stripes this process owns, ascending:
+    the rows of the data that this process loads and passes to the striped
+    set-up (the original ``MPIio_ptycho``'s contract)."""
+    plan = plan_stripes(
+        np.asarray(scan), object_shape, probe_width, mesh.size,
+        position_margin=position_margin,
+    )
+    return np.flatnonzero(np.isin(plan.assignment, mesh.local))
+
+
 def local_row_lookup(n: int, local_indices: np.ndarray) -> np.ndarray:
     """(n,) map from global position index to this process's data row:
     entry i is the row of the local block holding global position i, or -1
@@ -199,8 +255,9 @@ def _sampled_model_power(
 
 @dataclasses.dataclass
 class StripedState:
-    """A striped reconstruction in progress: per stripe, in mesh order, its
-    solver state (an ``EpochState`` on its device, psi its window), its
+    """A striped reconstruction in progress: per stripe of this process
+    (``own``; every stripe in one process), in mesh order, its solver
+    state (an ``EpochState`` on its device, psi its window), its
     batch-major data (a tensor on its device, or a
     :class:`~tike_tpu_torch.ptycho.stream.StreamedBatches` of host data),
     its padded batches and its :class:`StripeComm`."""
@@ -217,6 +274,7 @@ class StripedState:
     batch_real: typing.List[list]
     comms: typing.List[StripeComm]
     exitwave_options: typing.List[ExitWaveOptions]
+    own: typing.List[int]  # the stripes of this process, as states
     epochs_done: int = 0
     last_powers: typing.Any = None  # (E, modes) per-epoch probe mode power
     setup_seconds: dict = dataclasses.field(default_factory=dict)
@@ -231,7 +289,10 @@ class StripedState:
 def _stripe_data(data, rows: np.ndarray, device, resident: bool):
     """Stripe data (nb, L, DET, DET) float32 whose slot ``(b, l)`` holds
     ``data[rows[b, l]]``, and zeros where ``rows`` is -1 (padding): on
-    ``device``, or streamed to it from the host (pinned for a card)."""
+    ``device``, or streamed to it from the host (pinned for a card). A
+    stripe without positions may come with data of no rows."""
+    if data.shape[0] == 0:
+        data = torch.zeros((1, *data.shape[1:]), dtype=torch.float32)
     host = pinned_batches(
         data, np.maximum(rows, 0).reshape(-1), rows.shape, "cpu" if resident else device
     )
@@ -274,8 +335,12 @@ def setup_striped_full(
     common capacity, as :func:`tike_tpu.parallel.striped.setup_striped_full`
     lays them out. With ``store_data_on_device=False`` each stripe's data
     stays on the host and is streamed one batch at a time.
+
+    On a mesh across processes this process sets up its own stripes alone
+    (the plan and the clustering are computed alike everywhere, so pass
+    an identically seeded ``rng``), and ``data`` is the full array or this
+    process's :func:`striped_local_indices` rows.
     """
-    _multi_process_check("the striped object")
     started = time.perf_counter()
     rng = np.random.default_rng(0) if rng is None else rng
     ndev = mesh.size
@@ -289,6 +354,16 @@ def setup_striped_full(
     det = data.shape[-1]
     plan = plan_stripes(scan, (h, w), p, ndev, position_margin=position_margin)
     num_batch = max(1, int(num_batch))
+    own = mesh.local
+    lookup = None
+    if len(own) < ndev and data.shape[0] != scan.shape[0]:
+        local_idx = np.flatnonzero(np.isin(plan.assignment, own))
+        if data.shape[0] != len(local_idx):
+            raise ValueError(
+                f"data has {data.shape[0]} patterns but this process's stripes "
+                f"cover {len(local_idx)} (or pass the full {scan.shape[0]})"
+            )
+        lookup = local_row_lookup(scan.shape[0], local_idx)
 
     # Per-stripe mini-batch clustering.
     method = cluster.BATCH_METHODS[batch_method]
@@ -339,7 +414,8 @@ def setup_striped_full(
     eh = seed_err_hist(prev_costs)
     gshape = (p, p) if plan_static.solver == "rpie" else (1, 1, p, p)
     states, datas, idxs, masks, reals, comms, ews = [], [], [], [], [], [], []
-    for k, device in enumerate(devices):
+    for k in own:
+        device = devices[k]
         sel = order[k]
         nk = len(sel)
         idx_k, mask_k = per_stripe[k]
@@ -412,6 +488,8 @@ def setup_striped_full(
                     (3, *gshape), dtype=torch.complex64, device=device
                 )
         states.append(state)
+        if lookup is not None:
+            rows = np.where(rows >= 0, lookup[np.maximum(rows, 0)], -1)
         datas.append(_stripe_data(data, rows, device, store_data_on_device))
         idx_t, mask_t, real_t = _batch_tensors((bidx, bmask), device)
         idxs.append(idx_t)
@@ -451,6 +529,7 @@ def setup_striped_full(
         batch_real=reals,
         comms=comms,
         exitwave_options=ews,
+        own=own,
         epochs_done=epochs_done,
         setup_seconds={
             "clustering": clustered - started,
@@ -488,7 +567,7 @@ def striped_iterate(state: StripedState, n_epochs: int) -> typing.List[float]:
                 state.epochs_done,
                 state.comms[k],
             )
-            for k in range(state.mesh.size)
+            for k in range(len(state.states))
         ]
         cost, pwr = run_shards(state.mesh.flat, steps)[0]
         costs.append(cost)
@@ -504,8 +583,10 @@ def striped_epoch(state: StripedState) -> float:
 
 
 def _windows(state: StripedState, name: str) -> np.ndarray:
-    """The stripes' ``name`` field stacked on the host, in mesh order."""
-    return np.stack([to_numpy(getattr(s, name)) for s in state.states])
+    """Every stripe's ``name`` field stacked on the host, in mesh order;
+    across processes gathered from their owners (every process calls)."""
+    parts = [getattr(s, name)[None] for s in state.states]
+    return to_numpy(all_gather(parts, state.mesh.flat)[0])
 
 
 def striped_result(state: StripedState) -> typing.Tuple[np.ndarray, np.ndarray]:
@@ -534,12 +615,13 @@ def striped_set_scan(state: StripedState, scan_g: np.ndarray) -> None:
     The inverse of :func:`striped_scan_global`: re-offsets each stripe's
     rows into its window, clamps them as the epoch's position step does
     (the window less 2 rows, intersected with the global window), and
-    leaves the padded slots as they are.
+    leaves the padded slots as they are. Every process passes the same
+    global positions and writes its own stripes.
     """
     cfg = state.epoch_plan.cfg
     p = cfg.probe_shape
-    for k, sel in enumerate(state.order):
-        s = state.states[k]
+    for k, s in zip(state.own, state.states):
+        sel = state.order[k]
         scan_l = to_numpy(s.scan).copy()
         local = np.asarray(scan_g[sel], np.float32).copy()
         off = state.plan.halo - k * state.plan.stripe_height
@@ -574,11 +656,11 @@ def striped_full_result(state: StripedState) -> dict:
         out["eigen_weights"] = ew_g
     if state.epoch_plan.recover_positions:
         mom = np.zeros((n_total, 4), np.float32)
-        for k, sel in enumerate(state.order):
-            s = state.states[k]
-            if s.pos_v is not None:
-                mom[sel, 0:2] = to_numpy(s.pos_v)[: len(sel)]
-                mom[sel, 2:4] = to_numpy(s.pos_m)[: len(sel)]
+        if first.pos_v is not None:
+            pos_v, pos_m = _windows(state, "pos_v"), _windows(state, "pos_m")
+            for k, sel in enumerate(state.order):
+                mom[sel, 0:2] = pos_v[k, : len(sel)]
+                mom[sel, 2:4] = pos_m[k, : len(sel)]
         out["position_momentum"] = mom
     return out
 

@@ -34,8 +34,12 @@ each stripe's window of the object, the stripes reduced and their seams
 cross-faded once an epoch. ``num_gpu`` and ``use_mpi`` are accepted and
 not read, as in the JAX package, where ``mesh`` supersedes them. Any option
 outside that raises ``NotImplementedError`` when the Reconstruction is
-created, as does a process group of several processes (the JAX package's
-multi-process layout, ``tike_tpu.parallel.distributed``).
+created. Several processes (``torch.distributed``) run the JAX package's
+multi-process layout on a mesh of
+:func:`tike_tpu_torch.parallel.distributed.global_mesh`: each process holds
+its stripe of the patterns (:func:`~tike_tpu_torch.parallel.distributed.stripe_for_process`),
+or of the striped object's (``striped_local_indices``), and all compute the
+same result.
 """
 
 from __future__ import annotations
@@ -58,8 +62,7 @@ from ..ops.ptycho import (
     ptycho_fwd,
     simulate_intensity,
 )
-from ..parallel import all_reduce, home_device, striped
-from ..parallel._mesh import _multi_process_check
+from ..parallel import all_reduce, distributed, home_device, striped
 from ..precision import as_tensor, to_numpy
 from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
@@ -345,6 +348,19 @@ class Reconstruction:
     set-up, as in the JAX package. LSQML
     with more than one object slice raises ``ValueError``, as the JAX
     package refuses it. ``device`` is keyword-only.
+
+    A ``mesh`` across every process of a process group
+    (:func:`~tike_tpu_torch.parallel.distributed.global_mesh`) takes the JAX
+    package's multi-process layout: the patterns striped by their row
+    coordinate, one stripe a process (``distributed.striped_batches``), and
+    ``data`` either every pattern or this process's
+    ``distributed.stripe_for_process(scan)`` rows; the striped object takes
+    the full data or this process's ``striped.striped_local_indices`` rows
+    (none, where its stripes hold no position). Every process draws the
+    same batches (seed 0 where ``random_seed`` is None) and gets the same
+    result. The keyword-only ``_force_stripes=k`` runs that layout of
+    ``k`` processes in one process, on a mesh whose size ``k`` divides,
+    as the JAX package's hook of that name does.
     """
 
     def __init__(
@@ -359,15 +375,22 @@ class Reconstruction:
         object_sharding: str = "replicated",
         *,
         device="cuda",
+        _force_stripes: typing.Optional[int] = None,
     ):
         if object_sharding not in ("replicated", "striped"):
             raise ValueError(
                 "object_sharding must be 'replicated' or 'striped', "
                 f"not {object_sharding!r}"
             )
+        self.object_sharding = object_sharding
+        self.mesh = mesh
+        self._force_stripes = _force_stripes
+        # Across processes, a process whose stripes of the striped object
+        # hold no position takes part with a block of no patterns.
+        striped_across = object_sharding == "striped" and self._spans_processes()
         if (
             data.ndim != 3
-            or data.shape[0] < 1
+            or data.shape[0] < (0 if striped_across else 1)
             or min(data.shape[-2:]) < 1
             or data.shape[-2] != data.shape[-1]
         ):
@@ -376,7 +399,13 @@ class Reconstruction:
                 "It should be (N, W, H), "
                 "where N >= 1 is the number of square diffraction patterns."
             )
-        if data.shape[0] != parameters.scan.shape[0]:
+        if (
+            data.shape[0] != parameters.scan.shape[0]
+            and not self._is_multi_host()
+            and not striped_across
+        ):
+            # Only the multi-process layouts take a process's part of the
+            # data (checked against its stripe when the context opens).
             raise ValueError(
                 f"data shape {tuple(data.shape)} and scan shape "
                 f"{tuple(parameters.scan.shape)} are incompatible. They "
@@ -389,7 +418,6 @@ class Reconstruction:
                 "The probe width/height must be <= the data width/height."
             )
         _check_striped_mesh(object_sharding, mesh)
-        self.object_sharding = object_sharding
         missing = _unsupported(parameters, object_sharding)
         if missing:
             raise NotImplementedError(
@@ -397,19 +425,17 @@ class Reconstruction:
             )
         _check_single_slice_lstsq(parameters)
         if (
-            object_sharding == "striped"
+            (object_sharding == "striped" or self._is_multi_host())
             and isinstance(data, torch.Tensor)
             and data.device.type != "cpu"
         ):
             raise NotImplementedError(
                 "device-resident data requires the replicated "
-                "single-process layout; pass host data for striped runs."
+                "single-process layout; pass host data for striped or "
+                "multi-process runs."
             )
-        self.mesh = mesh
         if mesh is not None:
             device = home_device(mesh, device)
-        if object_sharding == "striped":
-            _multi_process_check("the striped object")
         self.device = _resolve_device(
             device, data=data, **_parameter_tensors(parameters)
         )
@@ -456,11 +482,27 @@ class Reconstruction:
                 else 1e-9
             ),
         )
-        self._rng = np.random.default_rng(random_seed)
+        self._seed = random_seed
+        self._seed_rngs(random_seed)
+
+    def _seed_rngs(self, seed) -> None:
+        self._rng = np.random.default_rng(seed)
         # The affine position fit draws from its own stream, so that it
         # leaves the batch draws of self._rng as they were.
-        self._fit_rng = np.random.default_rng(
-            np.random.SeedSequence(random_seed).spawn(1)[0]
+        self._fit_rng = np.random.default_rng(np.random.SeedSequence(seed).spawn(1)[0])
+
+    def _spans_processes(self) -> bool:
+        """Whether the mesh spans every process of a process group."""
+        count = distributed.process_count()
+        return self.mesh is not None and count > 1 and self.mesh.process_count == count
+
+    def _is_multi_host(self) -> bool:
+        """Whether this run takes the stripe-major multi-process layout of
+        the replicated object: a mesh across every process, or its
+        emulation in one process (``_force_stripes``)."""
+        return self.object_sharding == "replicated" and (
+            self._spans_processes()
+            or (self.mesh is not None and self._force_stripes is not None)
         )
 
     def __enter__(self):
@@ -480,6 +522,8 @@ class Reconstruction:
             )
         if self.object_sharding == "striped":
             return self._enter_striped()
+        if self._is_multi_host():
+            return self._enter_multi_host()
         # Order the data by batches, contiguous on the device.
         started = time.perf_counter()
         order, batches, self.stripe_start = cluster.by_scan_stripes_contiguous(
@@ -548,8 +592,109 @@ class Reconstruction:
             "data": stored - clustered,
             "rescale": time.perf_counter() - stored,
         }
-        algo = self.parameters.algorithm_options
-        if algo.rescale_method == "constant_probe_photons" and (
+        self._check_photons()
+        return self
+
+    def _enter_multi_host(self):
+        """The JAX package's multi-process layout of the replicated object
+        (``tike_tpu.ptycho.Reconstruction._enter_multi_host``): the
+        patterns in stripes along the row coordinate, one a process
+        (``distributed.striped_batches``); each batch's slots stripe after
+        stripe, each stripe padded to a common length, so that splitting
+        the slots over the process-major mesh gives each process its own
+        patterns. This process holds its stripe's block alone, on its shards
+        or streamed from the host; in the one-process emulation
+        (``_force_stripes``) it holds every stripe's. The batch layout is
+        drawn alike in every process, from seed 0 where none is given."""
+        started = time.perf_counter()
+        data = self.data_host
+        emulate = not self._spans_processes()
+        n_proc = self._force_stripes if emulate else distributed.process_count()
+        if n_proc < 1 or self.mesh.size % n_proc:
+            raise ValueError(
+                f"the mesh size ({self.mesh.size}) must be a positive multiple of "
+                f"the process count ({n_proc}) so every process contributes the "
+                "same number of devices"
+            )
+        if self._seed is None:
+            self._seed_rngs(0)
+            logger.info(
+                "multi-process layout: no random_seed given; using 0 so every "
+                "process draws the same batches"
+            )
+        scan_full = to_numpy(self.parameters_host.scan)
+        algo = self.parameters_host.algorithm_options
+        global_order, batch_idx, batch_mask, stripe_slots, self.stripe_start = (
+            distributed.striped_batches(
+                scan_full,
+                n_proc,
+                batch_method=algo.batch_method,
+                num_batch=algo.num_batch,
+                rng=self._rng,
+                local_multiple=self.mesh.size // n_proc,
+            )
+        )
+        self.order = global_order
+        self.batches = (batch_idx, batch_mask)
+        self._batch_idx, self._batch_mask, self._batch_real = _batch_tensors(
+            self.batches, self.device
+        )
+        stripes = distributed.stripe_indices(scan_full, n_proc)
+        offsets = np.cumsum([0] + [len(x) for x in stripes])
+
+        def stripe_rows(pid: int) -> np.ndarray:
+            """(nb, Lp) rows of ``data`` that fill stripe ``pid``'s slots."""
+            segment = global_order[offsets[pid] : offsets[pid + 1]]
+            if data.shape[0] == scan_full.shape[0]:
+                rows = segment
+            elif data.shape[0] == len(stripes[pid]):
+                rows = striped.local_row_lookup(scan_full.shape[0], stripes[pid])[segment]
+            else:
+                raise ValueError(
+                    f"data has {data.shape[0]} patterns but this process's stripe "
+                    f"has {len(stripes[pid])} (or pass the full {scan_full.shape[0]})."
+                )
+            return rows[stripe_slots[pid][0]]
+
+        pids = range(n_proc) if emulate else [distributed.process_index()]
+        perm = np.concatenate([stripe_rows(pid) for pid in pids], axis=1)
+        self.parameters = PtychoParameters.split(
+            self.order, x=self.parameters_host
+        ).copy_to_device(self.device)
+        clustered = time.perf_counter()
+        if self.store_data_on_device:
+            if isinstance(data, torch.Tensor):
+                block = data[torch.as_tensor(perm.reshape(-1))]
+            else:
+                block = np.asarray(data)[perm.reshape(-1)]
+            block = as_tensor(block, torch.float32, self.device)
+            block = block.reshape(*perm.shape, *block.shape[-2:])
+        else:
+            block = StreamedBatches(
+                pinned_batches(data, perm, perm.shape, self.device), self.device
+            )
+        self.data = ShardedBatches.split(
+            self.mesh, block, self._batch_idx, self._batch_mask
+        )
+        stored = time.perf_counter()
+        popts = self.parameters.probe_options
+        if popts is not None and popts.init_rescale_from_measurements:
+            self.parameters = _rescale_probe(
+                self.operator, self.data, self._batch_idx, self._batch_mask,
+                self.parameters,
+            )
+        self.setup_seconds = {
+            "clustering": clustered - started,
+            "data": stored - clustered,
+            "rescale": time.perf_counter() - stored,
+        }
+        self._check_photons()
+        return self
+
+    def _check_photons(self) -> None:
+        p = self.parameters
+        popts = p.probe_options
+        if p.algorithm_options.rescale_method == "constant_probe_photons" and (
             popts is None or not np.isfinite(popts.probe_photons)
         ):
             raise ValueError(
@@ -558,7 +703,6 @@ class Reconstruction:
                 "init_rescale_from_measurements to derive it from the "
                 "rescaled probe)"
             )
-        return self
 
     def _enter_striped(self):
         """Set up the striped object (:mod:`tike_tpu_torch.parallel.striped`):
@@ -566,31 +710,53 @@ class Reconstruction:
         it; the probe is reduced and the halo rows cross-faded every epoch.
         As in the JAX package, the probe is rescaled from a sample of the
         measurements (``striped.estimate_probe_rescale``, on the host), and
-        ``constant_probe_photons`` needs ``probe_photons``."""
+        ``constant_probe_photons`` needs ``probe_photons``. Across processes
+        every process draws the same batches (seed 0 where none is given),
+        and where any process holds only its stripes' patterns, the rescale
+        gathers the sampled patterns from the processes that hold them
+        (``striped.estimate_probe_rescale_multihost``)."""
         started = time.perf_counter()
         p = self.parameters_host
         algo = p.algorithm_options
         data = to_numpy(self.data_host)
         probe = to_numpy(p.probe)
-        if p.probe_options is not None and p.probe_options.init_rescale_from_measurements:
-            scale = striped.estimate_probe_rescale(
-                data, to_numpy(p.psi), probe, to_numpy(p.scan), rng=self._rng
+        multi = self._spans_processes()
+        if multi and self._seed is None:
+            self._seed_rngs(0)
+            logger.info(
+                "striped across processes: no random_seed given; using 0 so "
+                "every process draws the same batches"
             )
+        if p.probe_options is not None and p.probe_options.init_rescale_from_measurements:
+            scan_full = to_numpy(p.scan)
+            # Whether to enter the rescale's collective is decided from
+            # every process's count: a process whose stripes hold every
+            # position has a block the size of the whole data, and one
+            # that decided from its own shape alone would leave the others
+            # waiting in the collective.
+            all_full = not multi or all(
+                n == scan_full.shape[0]
+                for n in distributed.gather_objects(int(data.shape[0]))
+            )
+            if all_full:
+                scale = striped.estimate_probe_rescale(
+                    data, to_numpy(p.psi), probe, scan_full, rng=self._rng
+                )
+            else:
+                local_idx = striped.striped_local_indices(
+                    scan_full, p.psi.shape[-2:], probe.shape[-1], self.mesh,
+                    position_margin=8,
+                )
+                scale = striped.estimate_probe_rescale_multihost(
+                    data, local_idx, to_numpy(p.psi), probe, scan_full, rng=self._rng
+                )
             logger.info("Probe rescaled by %f (striped mode)", scale)
             probe = probe * scale
             if np.isnan(p.probe_options.probe_photons):
                 p.probe_options.probe_photons = float(np.sum(np.square(np.abs(probe))))
-        if algo.rescale_method == "constant_probe_photons" and (
-            p.probe_options is None or not np.isfinite(p.probe_options.probe_photons)
-        ):
-            raise ValueError(
-                "rescale_method='constant_probe_photons' requires "
-                "probe_options.probe_photons (set it explicitly, or enable "
-                "init_rescale_from_measurements to derive it from the "
-                "rescaled probe)"
-            )
         rescaled = time.perf_counter()
         self.parameters = copy.deepcopy(p)
+        self._check_photons()
         # The striped epoch clamps the positions even with rPIE, which
         # leaves them in place otherwise, as in the JAX package.
         plan = dataclasses.replace(
@@ -1037,6 +1203,13 @@ class Reconstruction:
         was given on the device cannot be appended to:
         ``NotImplementedError``; restart with the combined dataset.
         """
+        if self._is_multi_host() or (
+            self.object_sharding == "striped" and self._spans_processes()
+        ):
+            raise NotImplementedError(
+                "append_new_data supports one process; a multi-process run must "
+                "restart with the combined dataset"
+            )
         if isinstance(self.data_host, torch.Tensor) and self.data_host.device.type != "cpu":
             raise NotImplementedError(
                 "append_new_data requires host data (numpy or a CPU tensor); "
@@ -1152,7 +1325,8 @@ def reconstruct_multigrid(
     indexing, so data on the device stays there), then
     ``algorithm_options.num_iter`` epochs, and the result resampled by 2
     for the next level. Returns the finest level's result. The parameters
-    before ``device`` are the JAX package's, in its order; ``mesh`` runs
+    before ``device`` are the JAX package's, in its order; ``mesh`` (also
+    one across processes, each level in the multi-process layout) runs
     every level on it, and what :class:`Reconstruction` refuses raises
     ``NotImplementedError`` before any level runs. ``random_seed`` seeds
     every level's batches (the JAX package leaves them unseeded).
@@ -1164,8 +1338,6 @@ def reconstruct_multigrid(
     _check_striped_mesh(object_sharding, mesh)
     if mesh is not None:
         home_device(mesh, device)
-    if object_sharding == "striped":
-        _multi_process_check("the striped object")
     interp = _resize_fft if interp is None else interp
     if (data.shape[-1] * 0.5 ** (num_levels - 1)) < 64:
         warnings.warn(
@@ -1213,10 +1385,10 @@ def _rescale_probe(
     """
     if isinstance(data, ShardedBatches):
         shards = zip(data.devices, data.data, data.idx, data.mask)
-        devices = data.devices
+        group = data.group
     else:
-        devices = [parameters.psi.device]
-        shards = [(devices[0], data, batch_idx, batch_mask)]
+        group = [parameters.psi.device]
+        shards = [(group[0], data, batch_idx, batch_mask)]
     parts = []
     for device, data_s, idx_s, mask_s in shards:
         w = parameters.exitwave_options.measured_pixels.to(device, torch.float32)
@@ -1234,7 +1406,7 @@ def _rescale_probe(
                 torch.sum(intensity * w, dim=(-2, -1)) * bmask
             )
         parts.append((s_data, s_model))
-    s_data, s_model = (x.to(parameters.psi.device) for x in all_reduce(parts, devices)[0])
+    s_data, s_model = (x.to(parameters.psi.device) for x in all_reduce(parts, group)[0])
     rescale = torch.sqrt(s_data / (s_model + 1e-32))
     logger.info("Probe rescaled by %f", float(rescale))
     parameters.probe = parameters.probe * rescale

@@ -228,9 +228,10 @@ def _batched_preconditioners(
     unless ``want_psi``, probe_pre None unless ``want_probe``.
     """
     if shards is None:
-        devices, idxs, masks = [psi.device], [batch_idx], [batch_mask]
+        group = devices = [psi.device]
+        idxs, masks = [batch_idx], [batch_mask]
     else:
-        devices, idxs, masks = shards.devices, shards.idx, shards.mask
+        group, devices, idxs, masks = shards.group, shards.devices, shards.idx, shards.mask
     home = psi.device
     psi_pre = torch.zeros((cfg.nslices, cfg.nz, cfg.n), dtype=torch.float32, device=home)
     probe_pre = None
@@ -239,7 +240,7 @@ def _batched_preconditioners(
         for device, idx, mask in zip(devices, idxs, masks):
             w = torch.zeros(scan.shape[0], dtype=torch.float32, device=device)
             parts.append(w.index_add_(0, idx.reshape(-1), mask.reshape(-1)))
-        w_all = all_reduce(parts, devices)[0].to(home)
+        w_all = all_reduce(parts, group)[0].to(home)
         if want_psi:
             psi_pre = _psi_precond_fft_math(cfg, scan, probe, w_all)
         if want_probe:
@@ -261,7 +262,7 @@ def _batched_preconditioners(
             if want_probe:
                 probe_part = probe_part + _probe_precond_math(cfg, psi_s, scan_s[idx], bmask)
         parts.append((psi_part, probe_part))
-    psi_pre, probe_pre = all_reduce(parts, devices)[0]
+    psi_pre, probe_pre = all_reduce(parts, group)[0]
     return psi_pre.to(home), None if probe_pre is None else probe_pre.to(home)
 
 

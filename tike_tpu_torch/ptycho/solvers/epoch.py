@@ -83,13 +83,42 @@ from .rpie import _batch_gradients_steps, _normalize_eigen_weights
 
 
 class _Shards(typing.NamedTuple):
-    """One batch's slots split over a mesh: per shard, in mesh order, its
-    device, data (B/k, DET, DET), indices (B/k,) and mask (B/k,)."""
+    """One batch's slots split over a mesh: ``group``, every shard's device
+    in mesh order (another process's a ``parallel.Remote``), and per shard
+    of this process, in mesh order, its device, data (B/k, DET, DET),
+    indices (B/k,) and mask (B/k,)."""
 
+    group: list
     devices: list
     data: list
     idx: list
     mask: list
+
+
+def shard_runs(mesh: Mesh, data, slots: int) -> list:
+    """This process's shards' runs of the ``slots`` slots of each batch of
+    ``data`` (nb, slots, DET, DET), or, on a mesh across processes, of its
+    block of them (nb, slots k_local / k): each on its shard's device, or
+    for host data (:class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`)
+    a view of the host tensor streamed through buffers and a copy stream
+    of the shard's own."""
+    k = slots // mesh.size
+    streamed = isinstance(data, StreamedBatches)
+    host = data.host if streamed else data
+    whole = host.shape[1] == slots
+    if not whole and host.shape[1] != k * len(mesh.local):
+        raise ValueError(
+            f"data has {host.shape[1]} slots a batch; the mesh's shards take {k} each "
+            f"of {slots}"
+        )
+    runs = [
+        host[:, s * k : (s + 1) * k]
+        for s in (mesh.local if whole else range(len(mesh.local)))
+    ]
+    return [
+        StreamedBatches(run, device, data.timing) if streamed else run.to(device)
+        for run, device in zip(runs, mesh.local_devices)
+    ]
 
 
 @dataclasses.dataclass
@@ -98,15 +127,18 @@ class ShardedBatches:
 
     The slots of each of the nb batches (``cluster.batches_padded(...,
     multiple_of=mesh.size)``) split into ``mesh.size`` equal runs in mesh
-    order, each on its shard's device: ``data[s]`` (nb, L/k, DET, DET),
-    ``idx[s]`` (nb, L/k) int64, ``mask[s]`` (nb, L/k) float32. Shards on
-    the device of the whole tensor take views of it, not copies. Host data
+    order; this process keeps its shards' runs, each on its shard's device:
+    ``data[s]`` (nb, L/k, DET, DET), ``idx[s]`` (nb, L/k) int64, ``mask[s]``
+    (nb, L/k) float32. ``group`` lists every shard's device in mesh order
+    and ``devices`` this process's. Shards on the device of the whole tensor
+    take views of it, not copies. Host data
     (:class:`~tike_tpu_torch.ptycho.stream.StreamedBatches`) stays on the
     host: ``data[s]`` streams the shard's run of slots, a view of the host
     tensor, to its device, each shard through buffers and a copy stream of
     its own.
     """
 
+    group: list
     devices: list
     data: list
     idx: list
@@ -114,16 +146,14 @@ class ShardedBatches:
 
     @classmethod
     def split(cls, mesh: Mesh, data, batch_idx, batch_mask) -> "ShardedBatches":
+        """``data`` holds every slot of each batch (nb, L, DET, DET), or, on
+        a mesh across processes, this process's shards' runs of them (nb,
+        L k_local / k); ``batch_idx`` and ``batch_mask`` every slot."""
         sharding = batch_sharding(mesh, axis=1)
-        if isinstance(data, StreamedBatches):
-            k = data.shape[1] // mesh.size
-            parts = [
-                StreamedBatches(data.host[:, s * k : (s + 1) * k], device, data.timing)
-                for s, device in enumerate(mesh.flat)
-            ]
-        else:
-            parts = put(data, sharding)
-        return cls(mesh.flat, parts, put(batch_idx, sharding), put(batch_mask, sharding))
+        return cls(
+            mesh.flat, mesh.local_devices, shard_runs(mesh, data, batch_idx.shape[1]),
+            put(batch_idx, sharding), put(batch_mask, sharding),
+        )
 
     def batches(self, order):
         """``(n, _Shards of batch n)`` for each n of ``order``."""
@@ -131,6 +161,7 @@ class ShardedBatches:
         streams = [iter_batches(d, order) for d in self.data]
         for n in order:
             yield n, _Shards(
+                self.group,
                 self.devices,
                 [next(stream)[1] for stream in streams],
                 [i[n] for i in self.idx],
@@ -544,12 +575,12 @@ def _batch_update_math(
     n_slots = idx_n.shape[0]
     if isinstance(data_n, _Shards):
         result = run_shards(
-            data_n.devices,
+            data_n.group,
             [
                 _batch_steps(
                     plan, device, d, i, m, state, psi_pre, exitwave_options, nb, n_slots
                 )
-                for device, d, i, m in zip(*data_n)
+                for device, d, i, m in zip(*data_n[1:])
             ],
         )[0]
     else:

@@ -83,11 +83,20 @@ class StreamedBatches:
                 "host-streamed data must lie in pinned memory on a CUDA run "
                 "(see pinned_batches)"
             )
+        self._copy_stream = None
+
+    def _start(self) -> None:
+        """The copy stream, the two device buffers and their events, made
+        when the first batch is asked for."""
         self._copy_stream = torch.cuda.Stream(self.device)
         self._buffers = [
-            torch.empty(self.shape[1:], dtype=host.dtype, device=self.device)
+            torch.empty(self.shape[1:], dtype=self.host.dtype, device=self.device)
             for _ in range(2)
         ]
+        # The buffers come from the compute stream's pool, and may reuse
+        # memory that work it has enqueued still reads: the first copies
+        # wait for that work.
+        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
         # ready[s]: the copy into buffer s has landed (copy -> compute);
         # free[s]: the kernels that read buffer s have run (compute -> copy).
         self._ready = [torch.cuda.Event() for _ in range(2)]
@@ -121,6 +130,8 @@ class StreamedBatches:
             for n in order:
                 yield n, self.host[n]
             return
+        if self._copy_stream is None:
+            self._start()
         compute = torch.cuda.current_stream(self.device)
         if order:
             self._enqueue_copy(0, order[0])
