@@ -278,7 +278,28 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     a process, each from its ``striped_local_indices`` rows, against 22b's
     two stripes in one process; (d) phase 11's cgrad with 32 of the 64
     angles a process, its costs against 21c's, and phase 16's Bucket
-    problem with a 64-row slab a process against 21d's.
+    problem with a 64-row slab a process, on projections the parent
+    simulated: timed beside 21d, and at cg_iter 1 against the parent's
+    one-process run on the same projections (from cg_iter 3 the solver's
+    costs on the card differ from run to run, ROADMAP.md section 3).
+
+24. The examples and scripts (``examples/torch/``, ``scripts/torch/``),
+    each loaded by path and run on ``cuda:0`` with every kernel count set
+    to 0 just before it and read just after; a run in which a kernel that
+    the example runs was launched no time fails. (a) Each of the five
+    examples at its own size, checked as the JAX example checks it (scan:
+    every series finite; align: the shift error; lamino: costs finite and
+    falling, the relative error; ptycho: both stages' costs finite and
+    falling; admm: its own ``corr > 0.5`` and falling costs), then at a
+    small size (``tests/_torch_examples_cases.py``) on the card and on
+    the CPU path, held together as the earlier phases hold small slices;
+    (b) ``admm_quality`` with the cube (24 iterations, rho 2) and the blobs
+    (12, rho 0.5), which must reach ``tests/test_admm_quality.py``'s
+    pinned 0.88 and 0.93, their ceilings printed; (c) the striped demo at
+    4096^2 on ``make_mesh()`` and on ``[cuda:0, cuda:0]`` (interior
+    correlation, window, s/epoch), then the long-axis demo at 100,000
+    patterns (a cut: phase 15 runs the same streamed path at 1,000,000).
+    Each run's seconds are logged beside the card's name.
 
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
@@ -306,7 +327,8 @@ patch kernels, 21c's for the KB kernels, 21d's ``obj_split=2`` for the
 Bucket kernels, in 21e's streamed main path as ``launches_mesh_stream`` and
 in 22b's striped LSQML, its streamed run and its rPIE as
 ``launches_striped``, ``launches_striped_stream`` and
-``launches_striped_rpie``, and in phase 23's timed runs as
+``launches_striped_rpie``, in phase 24's runs of the examples and scripts
+at their own sizes as ``launches_examples_<name>``, and in phase 23's timed runs as
 ``launches_distributed_main``, ``_striped``, ``_lamino`` and ``_bucket``,
 a list of one count a rank, each the count that rank read in that run;
 the Bucket kernels' slab times come as ``ms_slab0`` / ``ms_slab1`` with
@@ -322,12 +344,15 @@ launch over its batches. The last line is
 """
 
 import bz2
+import contextlib
+import functools
 import importlib.metadata
 import json
 import lzma
 import os
 import pickle
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -342,13 +367,14 @@ import tike_tpu_torch.lamino.bucket as tlb
 import tike_tpu_torch.ptycho as tp
 import tike_tpu_torch.ptycho.ptycho as tpp
 from tests import _torch_bucket_cases as cases_bucket
+from tests import _torch_examples_cases as cases_examples
 from tests import _torch_interp_cases as cases_interp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
 from tests import _torch_striped_cases as cases_striped
 from tests import _torch_usfft_cases as cases_usfft
 from tike_tpu_torch import (
-    checkpoint, cluster, kernel_sweep, kernels, linalg, opt, parallel, profile_epoch,
+    checkpoint, cluster, convert, kernel_sweep, kernels, linalg, opt, parallel, profile_epoch,
     toolchain_probe,
 )
 from tike_tpu_torch.constants import wavenumber
@@ -518,6 +544,24 @@ API_OPTICS = dict(lambda0=1.24e-9 / 10, dx=20e-9, dis_defocus=800e-6, zone_plate
 API_POWER_TOL = 1e-6
 API_WINDOWS, API_PADDED = 1000, 256
 API_ADJOINT_TOL = 1e-5
+# The examples and scripts (phase 24): the kernels each runs at its own
+# size, which must read more than 0 after its run (the Lanczos pair runs in
+# none: the align example's warp is a shift alone).
+_PATCH, _KB = ("patch_fwd", "patch_adj"), ("usfft_gather_kb", "usfft_scatter_kb")
+EXAMPLE_KERNELS = {
+    "scan": (), "align": (), "lamino": _KB + ("bucket_fwd", "bucket_adj"), "ptycho": _PATCH,
+    "admm": _PATCH + _KB, "admm_quality": _PATCH + _KB, "striped_demo": _PATCH,
+    "longaxis_demo": _PATCH,
+}
+# The align example's shift error at upsample 16 (a 1/16 px grid), in px.
+EXAMPLE_SHIFT_TOL = 0.1
+# admm_quality (tests/test_admm_quality.py): phantom -> (iterations, rho,
+# the pinned volume correlation).
+QUALITY = {"cube": (24, 2.0, 0.88), "blobs": (12, 0.5, 0.93)}
+# The striped demo's size (scripts/striped_demo.py's defaults) and the
+# long-axis demo's pattern count, cut from 1,000,000 (phase 15 runs that).
+STRIPED_DEMO = dict(H=4096, NPOS=4096)
+LONGAXIS_PATTERNS = 100_000
 
 
 def log(*args):
@@ -3799,11 +3843,15 @@ DIST_WORLD, DIST_TIMEOUT_S, DIST_DEVICE = 2, 480, "cuda:0"
 # rank, about the mean part of 23b's exchanges, and times this many calls.
 GLOO_CHECK_BYTES, GLOO_CHECK_REPEATS = 2**22, 10
 # 23b and 23c against one process running the same global program (the
-# largest |psi|), and 23d's costs against 21c's and 21d's: the runs are the
-# same programs, so the gaps should be 0 (each is logged); the Bucket
-# forward's float atomics round differently from run to run (ROADMAP.md
-# section 3), so 23d holds both at MESH_LAMINO_RTOL.
+# largest |psi|), and 23d's costs against 21c's and the parent's Bucket run:
+# the runs are the same programs, so the gaps should be 0 (each is logged);
+# the Bucket forward's float atomics round differently from run to run, so
+# 23d holds both at MESH_LAMINO_RTOL, and the Bucket solver at cg_iter
+# DIST_BUCKET_CG_ITER, where nine runs of the same projections on the card
+# were equal bit for bit; at the problem's cg_iter 4 they spread by 1.29e-3
+# (ROADMAP.md section 3).
 DIST_PSI_TOL = 1e-5
+DIST_BUCKET_CG_ITER, DIST_BUCKET_REPEATS = 1, 9
 
 
 def _dist_slice(mesh, device, single):
@@ -3853,10 +3901,42 @@ def _dist_context(tag, context, card) -> tuple:
     return record, {"psi": result.psi, "probe": result.probe, "scan": result.scan}
 
 
-def _dist_lamino(mesh, device, card, rank):
+def _dist_bucket_reference(mesh, device, card) -> dict:
+    """23d's Bucket reference in one process: phase 16's projections,
+    simulated once (the workers take the same ones), and the solver on
+    ``mesh`` for BUCKET_TIMED outer iterations, DIST_BUCKET_REPEATS times
+    at DIST_BUCKET_CG_ITER and as often at the problem's cg_iter, each
+    set's spread logged. The first run at DIST_BUCKET_CG_ITER is the
+    reference; its repeats must stay within MESH_LAMINO_RTOL of it."""
+    c = cases_bucket.FULL
+    volume = torch.as_tensor(lamino_volume(c["n"]), device=device)
+    theta = cases_usfft.lamino_theta(c["ntheta"], device)
+    data = tlb.simulate(volume, theta, c["tilt"], eps=c["eps"], device=device)
+    runs = {}
+    for cg_iter in (DIST_BUCKET_CG_ITER, c["cg_iter"]):
+        costs = np.asarray([
+            tlb.reconstruct(data, theta, c["tilt"], num_iter=BUCKET_TIMED, eps=c["eps"],
+                            cg_iter=cg_iter, device=device, mesh=mesh)["cost"]
+            for _ in range(DIST_BUCKET_REPEATS)
+        ])
+        runs[cg_iter] = float(np.max(np.abs(costs - costs[0]) / np.abs(costs[0])))
+        if cg_iter == DIST_BUCKET_CG_ITER:
+            reference = costs[0].tolist()
+    log(f"[dist-bucket] one process on 2 shards of {device}, {DIST_BUCKET_REPEATS} runs of the "
+        f"same projections: max relative spread of the costs {runs} by cg_iter; the reference "
+        f"(cg_iter {DIST_BUCKET_CG_ITER}) {reference} ({card})")
+    if not runs[DIST_BUCKET_CG_ITER] <= MESH_LAMINO_RTOL:
+        raise AssertionError(f"23d bucket: one process's runs spread by {runs}")
+    return dict(data=data.cpu().numpy(), costs=reference)
+
+
+def _dist_lamino(mesh, device, card, rank, bucket_data):
     """23d: phase 11's cgrad (1 + LAMINO_TIMED outer iterations) with each
     process's contiguous half of the angles, and phase 16's Bucket problem
-    with the volume's x-slabs over the processes."""
+    on ``bucket_data`` (the parent's projections) with the volume's
+    x-slabs over the processes: 1 + BUCKET_TIMED timed outer iterations at
+    the problem's cg_iter, then BUCKET_TIMED at DIST_BUCKET_CG_ITER for the
+    comparison with the parent's run."""
     volume, theta, data = lamino_problem(device)
     data, theta = distributed.split_for_process(data, theta)
     kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device,
@@ -3875,12 +3955,8 @@ def _dist_lamino(mesh, device, card, rank):
     log(f"[dist-lamino] rank {rank}: {theta.shape[0]} angles, {per_iter:.4f} s/iteration, "
         f"costs {lamino['costs']}, collectives {lamino['collectives']} ({card})")
     c = cases_bucket.FULL
-    volume = torch.as_tensor(lamino_volume(c["n"]), device=device)
     theta = cases_usfft.lamino_theta(c["ntheta"], device)
-    # Every process takes rank 0's projections: the Bucket forward's float
-    # atomics give each simulation other last bits.
-    data = tlb.simulate(volume, theta, c["tilt"], eps=c["eps"], device=device).cpu()
-    torch.distributed.broadcast(torch.view_as_real(data), src=0)
+    data = torch.as_tensor(bucket_data)
     kwargs = dict(eps=c["eps"], cg_iter=c["cg_iter"], device=device, mesh=mesh)
     tlb.reconstruct(data, theta, c["tilt"], num_iter=1, **kwargs)
     bucket.reset_outside_windows(device)
@@ -3894,8 +3970,12 @@ def _dist_lamino(mesh, device, card, rank):
                  launches=_read_launches("dist-bucket"),
                  outside=int(bucket.outside_windows(device)),
                  collectives=parallel.collective_stats.as_dict())
+    held = tlb.reconstruct(data, theta, c["tilt"], num_iter=BUCKET_TIMED,
+                           **{**kwargs, "cg_iter": DIST_BUCKET_CG_ITER})
+    slabs["held_costs"] = np.asarray(held["cost"]).tolist()
     log(f"[dist-bucket] rank {rank}: a 64-row slab, {per_iter:.4f} s/iteration, costs "
-        f"{slabs['costs']}, collectives {slabs['collectives']} ({card})")
+        f"{slabs['costs']}, collectives {slabs['collectives']}; at cg_iter "
+        f"{DIST_BUCKET_CG_ITER} costs {slabs['held_costs']} ({card})")
     return lamino, slabs
 
 
@@ -3936,7 +4016,8 @@ def _gloo_cuda_all_gather(mesh, device, rank: int) -> dict:
 def dist_worker(argv) -> None:
     """One of phase 23's processes: ``chip_smoke.py --worker RANK STORE
     OUT``. Joins the gloo group through the file STORE, runs 23a-23d on
-    its one shard of ``cuda:0`` and writes its records to ``OUT.RANK.json``
+    its one shard of ``cuda:0`` (23d's Bucket projections from
+    ``OUT.bucket.npy``) and writes its records to ``OUT.RANK.json``
     and its arrays to ``OUT.RANK.npz``; the kernels were built by the
     parent. It never prints the script's result lines."""
     import datetime
@@ -3980,21 +4061,24 @@ def dist_worker(argv) -> None:
     records["striped"]["patterns"] = int(local.shape[0])
     arrays.update({f"striped/{k}": v for k, v in striped_arrays.items()})
     del local
-    records["lamino"], records["bucket"] = _dist_lamino(mesh, device, card, rank)
+    records["lamino"], records["bucket"] = _dist_lamino(mesh, device, card, rank,
+                                                        np.load(f"{out}.bucket.npy"))
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(records, f)
     np.savez(f"{out}.{rank}.npz", **arrays)
     torch.distributed.destroy_process_group()
 
 
-def _launch_dist_workers(card: str) -> tuple:
-    """Start phase 23's two worker processes together and wait for both
-    (each at most DIST_TIMEOUT_S); a worker that fails or hangs fails the
-    phase. Returns each rank's (records, arrays)."""
+def _launch_dist_workers(card: str, bucket_data: np.ndarray) -> tuple:
+    """Start phase 23's two worker processes together, handing them 23d's
+    Bucket projections ``bucket_data`` in a file, and wait for both (each
+    at most DIST_TIMEOUT_S); a worker that fails or hangs fails the phase.
+    Returns each rank's (records, arrays)."""
     import tempfile
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     store, out = os.path.join(workdir, "store"), os.path.join(workdir, "out")
+    np.save(f"{out}.bucket.npy", bucket_data)
     here = os.path.dirname(os.path.abspath(__file__))
     start = time.perf_counter()
     procs = [
@@ -4024,6 +4108,7 @@ def _launch_dist_workers(card: str) -> tuple:
         with open(f"{out}.{rank}.json") as f:
             records = json.load(f)
         out_ranks.append((records, dict(np.load(f"{out}.{rank}.npz"))))
+    shutil.rmtree(workdir)
     return out_ranks
 
 
@@ -4062,8 +4147,9 @@ def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, stri
     log(f"[dist] one process, the multi-process layout of 2 (_force_stripes=2) on 2 shards of "
         f"{device}: {ref['epoch_s']:.4f} s/epoch, set-up {ref['setup_s']:.2f} s "
         f"{ref['setup_parts']}, peak {ref['peak'] / 2**30:.3f} GiB ({card})")
+    bucket_ref = _dist_bucket_reference(two, device, card)
     torch.cuda.empty_cache()
-    ranks = _launch_dist_workers(card)
+    ranks = _launch_dist_workers(card, bucket_ref.pop("data"))
     (r0, a0), (r1, a1) = ranks
     log(f"[dist] gloo's all_gather of CUDA tensors ({GLOO_CHECK_BYTES} bytes a rank, mean of "
         f"{GLOO_CHECK_REPEATS} calls; staged_ms is the mesh's exchange through page-locked "
@@ -4116,19 +4202,30 @@ def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, stri
             f"({card})")
     log(f"[dist-striped] 23c: the ranks equal bit for bit; against 22b's two stripes in one "
         f"process max|diff| / max|value| {against} ({card})")
-    # 23d: laminography.
+    # 23d: laminography. cgrad's costs are held to 21c's; the Bucket
+    # solver's, at DIST_BUCKET_CG_ITER, to the parent's run on the same
+    # projections (_dist_bucket_reference), and its timed run's only beside
+    # 21d's.
     for kind, ref_run in (("lamino", lamino_mesh), ("bucket", bucket_mesh)):
-        c0, c1, cr = (np.asarray(x) for x in (r0[kind]["costs"], r1[kind]["costs"],
-                                              ref_run["costs"]))
-        gap = float(np.max(np.abs(c0 - cr) / np.abs(cr)))
-        if not np.array_equal(c0, c1) or not gap <= MESH_LAMINO_RTOL or not c0[-1] < c0[0]:
-            raise AssertionError(f"23d {kind}: costs {c0} / {c1} against 21's {cr}")
+        held = "held_costs" if kind == "bucket" else "costs"
+        ref_costs = bucket_ref["costs"] if kind == "bucket" else ref_run["costs"]
+        c0, c1, h0, h1, cr = (np.asarray(x) for x in (
+            r0[kind]["costs"], r1[kind]["costs"], r0[kind][held], r1[kind][held], ref_costs))
+        gap = float(np.max(np.abs(h0 - cr) / np.abs(cr)))
+        if (not np.array_equal(c0, c1) or not np.array_equal(h0, h1)
+                or not gap <= MESH_LAMINO_RTOL or not c0[-1] < c0[0]):
+            raise AssertionError(f"23d {kind}: costs {c0} / {c1}; held {h0} / {h1} against {cr}")
         if kind == "bucket" and (r0[kind]["outside"] or r1[kind]["outside"]):
             raise AssertionError("23d bucket: points fell outside their tile's window")
+        timed_gap = float(np.max(np.abs(c0 - np.asarray(ref_run["costs"]))
+                                 / np.abs(np.asarray(ref_run["costs"]))))
+        against = ("21's" if kind == "lamino" else
+                   f"one process's at cg_iter {DIST_BUCKET_CG_ITER} on the same projections")
         log(f"[dist-{kind}] 23d: {r0[kind]['per_iter']:.4f} / {r1[kind]['per_iter']:.4f} "
             f"s/iteration (rank 0 / 1) against 21's one-process two shards "
-            f"{ref_run['per_iter']:.4f}; costs equal across the ranks, max relative gap to 21's "
-            f"{gap:.3e} (rtol {MESH_LAMINO_RTOL:g}; 0 is bit for bit) ({card})")
+            f"{ref_run['per_iter']:.4f}; costs equal across the ranks, max relative gap to "
+            f"{against} {gap:.3e} (rtol {MESH_LAMINO_RTOL:g}; 0 is bit for bit); the timed "
+            f"run's to 21's {timed_gap:.3e} ({card})")
     log(f"[dist] phase 23 took {time.perf_counter() - started:.1f} s ({card})")
     # Each run's counts of every kernel, as its rank read them.
     counts = {}
@@ -4141,6 +4238,199 @@ def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, stri
                                      f"launched: {launches}")
             counts.setdefault(f"launches_distributed_{run}", []).append(launches)
     return counts
+
+
+def _example(name: str, run, card: str) -> tuple:
+    """``run()`` with every kernel count set to 0 just before it and read
+    just after; fails if a kernel that EXAMPLE_KERNELS gives ``name`` read
+    0. Returns (its result, the counts, its seconds)."""
+    torch.cuda.synchronize()
+    _reset_launches()
+    start = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _read_launches(name)
+    missing = [k for k in EXAMPLE_KERNELS[name] if not launches[k]]
+    if missing:
+        raise AssertionError(f"examples: {name} launched no {missing}: {launches}")
+    log(f"[examples] {name}: {seconds:.2f} s on the card ({card}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return out, launches, seconds
+
+
+def _examples() -> dict:
+    return {name: cases_examples.load("examples", name) for name in cases_examples.EXAMPLES}
+
+
+def _close_rel(tag: str, got, ref, tol: float) -> float:
+    err = _max_rel(np.asarray(got), np.asarray(ref))
+    if not err <= tol:
+        raise AssertionError(f"examples, small: {tag} differs by {err:.3e} (tol {tol:g})")
+    return err
+
+
+@contextlib.contextmanager
+def _seeded_admm():
+    """Each angle's rPIE drawn from seed 0 (the ADMM leaves it unseeded, as
+    tike_tpu's does) and each volume fit at cg_iter 1, where no line-search
+    trial is a tie (ROADMAP.md section 3): the protocol of
+    tests/test_torch_examples_admm.py, so that the card and the CPU run one
+    computation."""
+    recon, fit = tp.Reconstruction, tadmm.lamino_reconstruct
+    tp.Reconstruction = functools.partial(recon, random_seed=0)
+    tadmm.lamino_reconstruct = lambda **kw: fit(**kw, cg_iter=1)
+    try:
+        yield
+    finally:
+        tp.Reconstruction, tadmm.lamino_reconstruct = recon, fit
+
+
+def phase_examples_small(device) -> None:
+    """24a, the small sizes: each example on the card and on the CPU path
+    from the same inputs (tests/_torch_examples_cases.py's sizes), held
+    together as phases 5, 10 and 13 hold their slices."""
+    ex, c = _examples(), cases_examples
+    got, ref = (ex["scan"].main(figure=None, device=dev) for dev in (device, "cpu"))
+    for key in ("waves", "trajectories"):
+        for name in ref[key]:
+            np.testing.assert_array_equal(np.asarray(got[key][name]), np.asarray(ref[key][name]))
+    got, ref = (ex["align"].main(**c.SMALL_ALIGN, device=dev) for dev in (device, "cpu"))
+    sim = _close_rel("align simulate", got["unaligned"], ref["unaligned"], LAMINO_SIM_TOL)
+    np.testing.assert_allclose(got["shift"], ref["shift"], rtol=0, atol=1e-6)
+    log(f"[examples] align {c.SMALL_ALIGN} on {device} vs cpu: simulate {sim:.2e}, shifts "
+        f"equal within 1e-6 px")
+
+    got, ref = (ex["lamino"].main(**c.SMALL_LAMINO, device=dev) for dev in (device, "cpu"))
+    errs = {
+        "data": _close_rel("lamino data", got["data"], ref["data"], LAMINO_SIM_TOL),
+        "obj": _close_rel("lamino cgrad volume", got["obj"], ref["obj"], LAMINO_SLICE_TOL),
+        "bucket_data": _close_rel("bucket data", got["bucket_data"], ref["bucket_data"],
+                                  LAMINO_SIM_TOL),
+        "bucket_obj": _close_rel("bucket volume", got["bucket_obj"], ref["bucket_obj"],
+                                 LAMINO_SLICE_TOL),
+    }
+    np.testing.assert_allclose(got["cost"], ref["cost"], rtol=LAMINO_SLICE_TOL)
+    np.testing.assert_allclose(got["bucket_cost"], ref["bucket_cost"], rtol=LAMINO_SLICE_TOL)
+    log(f"[examples] lamino {c.SMALL_LAMINO} on {device} vs cpu: costs {got['cost'].tolist()} "
+        f"vs {ref['cost'].tolist()}, bucket {got['bucket_cost'].tolist()} vs "
+        f"{ref['bucket_cost'].tolist()}; max|err| / max|value| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+
+    small = c.SMALL_PTYCHO
+    data, scan, probe, psi = ex["ptycho"].load_dataset(device="cpu")
+    n = small["patterns"]
+    data, scan = data[:n], scan[:n]
+    runs = {}
+    for dev in (device, "cpu"):
+        rpie = ex["ptycho"].rpie_stage(data, scan, probe, psi, small["rpie_iter"], device=dev)
+        rpie_out = {k: np.array(getattr(rpie, k)) for k in ("psi", "probe")}
+        rpie_out["costs"] = np.asarray(rpie.algorithm_options.costs)
+        lsqml = ex["ptycho"].lsqml_stage(data, rpie, small["lsqml_iter"], device=dev)
+        runs[str(dev)] = rpie_out, convert.parameters_to_numpy(lsqml)
+    (rpie, lsqml), (rpie_ref, lsqml_ref) = runs[str(device)], runs["cpu"]
+    for costs in (rpie["costs"], lsqml["costs"]):
+        costs = np.ravel(costs)
+        if not (np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+            raise AssertionError(f"examples, small: ptycho costs {costs}")
+    np.testing.assert_allclose(rpie["costs"], rpie_ref["costs"], rtol=SLICE_TOL)
+    np.testing.assert_allclose(lsqml["costs"], lsqml_ref["costs"], rtol=SLICE_TOL)
+    errs = {f"rpie {k}": _close_rel(f"ptycho rpie {k}", rpie[k], rpie_ref[k], SLICE_TOL)
+            for k in ("psi", "probe")}
+    errs.update({
+        f"lsqml {k}": _close_rel(f"ptycho lsqml {k}", lsqml[k], lsqml_ref[k], SLICE_TOL)
+        for k in ("psi", "probe", "eigen_probe", "eigen_weights")
+    })
+    np.testing.assert_allclose(lsqml["scan"], lsqml_ref["scan"], rtol=0, atol=SLICE_SCAN_TOL)
+    log(f"[examples] ptycho {small} on {device} vs cpu: rPIE costs "
+        f"{np.ravel(rpie['costs']).tolist()}, LSQML {np.ravel(lsqml['costs']).tolist()}; "
+        f"max|err| / max|value| { {k: f'{v:.2e}' for k, v in errs.items()} }; scan "
+        f"{float(np.max(np.abs(lsqml['scan'] - lsqml_ref['scan']))):.2e} px")
+
+    with _seeded_admm():
+        got, ref = (
+            convert.admm_result_to_numpy(ex["admm"].run(**c.SMALL_ADMM, device=dev)["result"])
+            for dev in (device, "cpu")
+        )
+    if not (np.all(np.isfinite(got["costs"])) and got["costs"][-1] < got["costs"][0]):
+        raise AssertionError(f"examples, small: admm costs {got['costs']}")
+    np.testing.assert_allclose(got["costs"], ref["costs"], rtol=SLICE_TOL)
+    errs = {k: _close_rel(f"admm {k}", got[k], ref[k], SLICE_TOL) for k in ("psi", "obj")}
+    log(f"[examples] admm {c.SMALL_ADMM} (seeded rPIE, fits at cg_iter 1) on {device} vs cpu: "
+        f"costs {got['costs'].tolist()} vs {ref['costs'].tolist()}; max|err| / max|value| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+
+
+def phase_examples(device, card: str) -> dict:
+    """24a-c at the examples' and scripts' own sizes; returns each run's
+    kernel counts by name."""
+    ex, launches = _examples(), {}
+    out, launches["scan"], _ = _example(
+        "scan", lambda: ex["scan"].main(figure=None, device=device), card)
+    series = list(out["waves"].values()) + [a for p in out["trajectories"].values() for a in p]
+    if len(series) != 18 or not all(np.all(np.isfinite(x)) for x in series):
+        raise AssertionError("examples: scan series not finite")
+    out, launches["align"], _ = _example("align", lambda: ex["align"].main(device=device), card)
+    if not out["max_shift_error"] <= EXAMPLE_SHIFT_TOL:
+        raise AssertionError(f"examples: align shift error {out['max_shift_error']:.3f} px")
+    log(f"[examples] align: max shift error {out['max_shift_error']:.4f} px (tol "
+        f"{EXAMPLE_SHIFT_TOL:g}), residual after inverting {out['residual']:.4f}")
+    out, launches["lamino"], _ = _example("lamino", lambda: ex["lamino"].main(device=device),
+                                          card)
+    for key in ("cost", "bucket_cost"):
+        if not (np.all(np.isfinite(out[key])) and out[key][-1] < out[key][0]):
+            raise AssertionError(f"examples: lamino {key} {out[key]}")
+    if not out["error"] < 0.5:
+        raise AssertionError(f"examples: lamino relative error {out['error']:.3f}")
+    log(f"[examples] lamino: relative error {out['error']:.4f}; cgrad costs "
+        f"{out['cost'].tolist()}; bucket {out['bucket_cost'].tolist()}")
+    out, launches["ptycho"], _ = _example(
+        "ptycho", lambda: ex["ptycho"].main(figure=None, device=device), card)
+    for key in ("rpie_costs", "lsqml_costs"):
+        if not (np.all(np.isfinite(out[key])) and out[key][-1] < out[key][0]):
+            raise AssertionError(f"examples: ptycho {key} {out[key]}")
+    log(f"[examples] ptycho: rPIE {len(out['rpie_costs'])} epochs {out['rpie_costs'][0]:.4e} -> "
+        f"{out['rpie_costs'][-1]:.4e}; LSQML {len(out['lsqml_costs'])} epochs "
+        f"{out['lsqml_costs'][0]:.4e} -> {out['lsqml_costs'][-1]:.4e}")
+    out, launches["admm"], _ = _example("admm", lambda: ex["admm"].main(device=device), card)
+    log(f"[examples] admm: corr {out['corr']:.4f} (> 0.5), costs {out['costs'].tolist()}")
+
+    quality = cases_examples.load("scripts", "admm_quality")
+    records, launches["admm_quality"], _ = _example("admm_quality", lambda: {
+        phantom: quality.run(iters=iters, rho=rho, phantom=phantom, device=device)
+        for phantom, (iters, rho, _) in QUALITY.items()
+    }, card)
+    for phantom, record in records.items():
+        pinned = QUALITY[phantom][2]
+        log(f"[examples] admm_quality {phantom}: admm_corr {record['admm_corr']} (pinned "
+            f">= {pinned}), ceiling_corr {record['ceiling_corr']}, twostep_corr "
+            f"{record['twostep_corr']}, admm {record['admm_sec']} s ({card})")
+        if not record["admm_corr"] >= pinned:
+            raise AssertionError(f"examples: admm_quality {phantom} {record['admm_corr']} < "
+                                 f"{pinned}")
+
+    demo = cases_examples.load("scripts", "striped_demo")
+    meshes = {"make_mesh()": parallel.make_mesh(), "[cuda:0, cuda:0]": _on_card_mesh(device, 2)}
+    records, launches["striped_demo"], _ = _example("striped_demo", lambda: {
+        name: demo.run(**STRIPED_DEMO, mesh=mesh, device=device)[0] for name, mesh in meshes.items()
+    }, card)
+    for name, record in records.items():
+        log(f"[examples] striped_demo on {name}: {record['devices']} stripes, window "
+            f"{record['window_rows']} rows ({record['window_mb']} of {record['psi_mb']} MB), "
+            f"{record['s_per_epoch']} s/epoch after {record['setup_s']} s of set-up, costs "
+            f"{record['cost_first_last']}, interior corr "
+            f"{record['interior_corr_vs_truth']} ({card})")
+
+    longaxis = cases_examples.load("scripts", "longaxis_demo")
+    (record, _), launches["longaxis_demo"], _ = _example(
+        "longaxis_demo", lambda: longaxis.run(LONGAXIS_PATTERNS, device=device), card)
+    if not np.all(np.isfinite(record["costs"])):
+        raise AssertionError(f"examples: longaxis costs {record['costs']}")
+    log(f"[examples] longaxis_demo at {LONGAXIS_PATTERNS:,} patterns (phase 15 runs 1,000,000): "
+        f"{record['patterns_per_s']} patterns/s, {record['epoch_s']} s/epoch, host data "
+        f"{record['host_data_gb']} GB, peak RSS {record['peak_rss_gb']} GB, peak device "
+        f"{record['peak_device_gb']} GB ({card})")
+    return launches
 
 
 def _events_ms(fn, repeats: int = 20) -> float:
@@ -4239,6 +4529,11 @@ def main() -> None:
     del striped_run
     log(f"[dist] phase 23 took {time.perf_counter() - dist_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    examples_start = time.perf_counter()
+    phase_examples_small(device)
+    launches_examples = phase_examples(device, card)
+    log(f"[examples] phase 24 took {time.perf_counter() - examples_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
         launches_api=launches_api[name], launches_mesh=launches_mesh[name],
@@ -4246,6 +4541,8 @@ def main() -> None:
         **{f"launches_{run}": counts[name] for run, counts in launches_striped.items()},
         **{run: [ranks[name] for ranks in counts]
            for run, counts in launches_dist.items()},
+        **{f"launches_examples_{example}": counts[name]
+           for example, counts in launches_examples.items()},
     )
     admm_shape, stream_shape = list(cases.PATH_SHAPES)
     report = [

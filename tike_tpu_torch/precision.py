@@ -17,8 +17,22 @@ cfloating = np.complex64
 integer = np.int32
 
 
+def checked_device(device) -> torch.device:
+    """Return ``device`` as a torch.device; a CUDA device without a card
+    raises a RuntimeError, whatever PyTorch build this is."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was requested but torch.cuda.is_available() is false"
+        )
+    return device
+
+
 def as_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
-    """Return ``x`` (array or tensor) as a tensor of ``dtype`` on ``device``."""
+    """Return ``x`` (array or tensor) as a tensor of ``dtype`` on ``device``
+    (checked by :func:`checked_device`)."""
+    if device is not None:
+        device = checked_device(device)
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     a = np.asarray(x)

@@ -63,7 +63,7 @@ from ..ops.ptycho import (
     simulate_intensity,
 )
 from ..parallel import all_reduce, distributed, home_device, striped
-from ..precision import as_tensor, to_numpy
+from ..precision import as_tensor, checked_device, to_numpy
 from .position import affine_position_regularization, check_allowed_positions
 from .probe import get_varying_probe
 from .solvers import _preconditioner
@@ -101,12 +101,7 @@ def _resolve_device(device, **inputs) -> torch.device:
             "device must be a torch.device or its name, such as 'cuda' "
             "(the default) or 'cpu'"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} was requested but torch.cuda.is_available() "
-            "is false"
-        )
+    device = checked_device(device)
     for name, x in inputs.items():
         if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
             continue
