@@ -281,7 +281,9 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     problem with a 64-row slab a process, on projections the parent
     simulated: timed beside 21d, and at cg_iter 1 against the parent's
     one-process run on the same projections (from cg_iter 3 the solver's
-    costs on the card differ from run to run, ROADMAP.md section 3).
+    costs on the card differ from run to run, ROADMAP.md section 3); then
+    25d's cgrad with the Gaussian window, the ranks bit for bit equal, its
+    costs held in 25d against the same split in one process.
 
 24. The examples and scripts (``examples/torch/``, ``scripts/torch/``),
     each loaded by path and run on ``cuda:0`` with every kernel count set
@@ -300,6 +302,25 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     correlation, window, s/epoch), then the long-axis demo at 100,000
     patterns (a cut: phase 15 runs the same streamed path at 1,000,000).
     Each run's seconds are logged beside the card's name.
+
+25. The Gaussian window (``kernel="gaussian"``, the original tike's only
+    window) through ``csrc/usfft.cu`` on Gaussian plans, at bench_all.py's
+    laminography geometry (128^3, 64 angles, tilt pi/3, eps 1e-3): (a) the
+    gather and scatter at upsample 1 (m = 2) and 2 (m = 4) against their
+    plain versions at 1e-5 of the largest value, adjointness, three
+    launches of each bitwise equal; their times in CUDA graphs in turns with
+    the KB kernel at the same upsample, the plain version's, the plan's ms
+    and bytes, and the bound pipe by pipe (bytes at 3.35 TB/s, FP32
+    instructions at 33.45e12 a second); (b) ``reconstruct(kernel=
+    "gaussian")`` on phase 11's problem: cgrad at cg_iter 4, one warm-up
+    and 5 timed outer iterations with every kernel count set to 0 before
+    and read after, s/iteration beside phase 11's KB run, costs falling,
+    the Gaussian kernels' launches equal to what the iterations and the
+    line search's trials predict and the KB kernels' 0; then CGLS at
+    cg_iter 1, 5 outer iterations, 10 launches of each; (c) phase 10's
+    slice with the Gaussian window at upsample 1 and 2, card against CPU;
+    (d) cgrad at cg_iter 1 with the angles over ``[cuda:0, cuda:0]``
+    against one device, and phase 23's two processes against it.
 
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
@@ -329,10 +350,17 @@ in 22b's striped LSQML, its streamed run and its rPIE as
 ``launches_striped``, ``launches_striped_stream`` and
 ``launches_striped_rpie``, in phase 24's runs of the examples and scripts
 at their own sizes as ``launches_examples_<name>``, and in phase 23's timed runs as
-``launches_distributed_main``, ``_striped``, ``_lamino`` and ``_bucket``,
+``launches_distributed_main``, ``_striped``, ``_lamino``, ``_bucket`` and
+``_lamino_gaussian``,
 a list of one count a rank, each the count that rank read in that run;
 the Bucket kernels' slab times come as ``ms_slab0`` / ``ms_slab1`` with
-their bounds); its error against the plain version, its time, the
+their bounds; the Gaussian pair, ``usfft_gather_gaussian`` and
+``usfft_scatter_gaussian``, lists 25b's cgrad launches as ``launches`` and
+``launches_lamino_gaussian_cgrad``, its CGLS run's as
+``launches_lamino_gaussian_cgls`` and 25d's as ``launches_gaussian_mesh``,
+25a's times at upsample 1 and, suffixed ``_upsample2``, at upsample 2,
+with the KB kernel's beside them as ``kb_ms`` and the bound pipe by pipe
+as ``bound_bytes_ms`` and ``bound_fp32_ms``); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic; each probe's launch floor ``floor_ms``, for gridded and
@@ -434,6 +462,16 @@ USFFT_KERNELS = {
     "usfft_gather_kb": "tike_tpu/ops/usfft.py:330",
     "usfft_scatter_kb": "tike_tpu/ops/usfft.py:364",
 }
+# The Gaussian window (phase 25) runs the same kernels on Gaussian plans,
+# counted under names of their own; they replace XLA code with no Pallas
+# kernel, tike_tpu's Gaussian tap scans (the original tike's usfft.cu gather
+# and scatter; also vector_gather :461 and vector_scatter :465).
+GAUSSIAN_KERNELS = {
+    "usfft_gather_gaussian": "tike_tpu/ops/usfft.py:401",
+    "usfft_scatter_gaussian": "tike_tpu/ops/usfft.py:431",
+}
+# 25a's upsamples at bench_all.py's 128^3 / 64 angles, eps 1e-3: m = 2 and 4.
+GAUSSIAN_UPSAMPLES = (1, 2)
 # The feature probes' pl.pallas_call lines.
 PROBE_KERNELS = {
     "trivial": "scripts/pallas_probe.py:45",
@@ -1377,14 +1415,14 @@ def _usfft_cases(device):
     }
 
 
-def _timed_plan(x, n, m, beta, tile=None, rounds=3):
-    """A KB plan of these points and the median host ms of building it
-    (synchronised before and after)."""
+def _timed_plan(x, n, m, param, tile=None, rounds=3, window="kb"):
+    """``window``'s plan of these points and the median host ms of building
+    it (synchronised before and after)."""
     times = []
     for _ in range(rounds):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        plan = usfft.kb_plan(x, n, m, beta, tile)
+        plan = usfft.geometry_plan(x, n, m, param, tile, window)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - start))
     return plan, statistics.median(times)
@@ -1400,7 +1438,7 @@ def phase_usfft_parity(device, card: str) -> dict:
     for name, (n, m, beta, x) in _usfft_cases(device).items():
         grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=gen)
         f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=gen)
-        e = cases_usfft.check_kb_kernels(grid, x, f, n, m, beta, name)
+        e = cases_usfft.check_kernels(grid, x, f, n, m, beta, name)
         inputs[name], errs[name] = (grid, x, f, n, m, beta), e
         log(f"[usfft] {name}: grid {n}^3, m = {m}, {x.shape[0]} points: gather "
             f"max|err| {e['usfft_gather_kb_abs']:.3e} ({e['usfft_gather_kb']:.2e} of "
@@ -1535,13 +1573,13 @@ def lamino_volume(n: int) -> np.ndarray:
 
 
 def lamino_problem(device, n=cases_usfft.LAMINO_N, ntheta=cases_usfft.LAMINO_NTHETA,
-                   upsample=1):
+                   upsample=1, kernel="kb"):
     """(volume, theta, data) numpy: bench_all.py's volume and angles, the
-    data simulated on ``device``."""
+    data simulated on ``device`` with the ``kernel`` window."""
     volume = lamino_volume(n)
     theta = cases_usfft.lamino_theta(ntheta).numpy()
     data = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
-                       upsample=upsample, device=device)
+                       upsample=upsample, kernel=kernel, device=device)
     return volume, theta, data
 
 
@@ -1549,32 +1587,35 @@ def _max_rel(a, b) -> float:
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-def phase_lamino_slices(device) -> None:
-    """cgrad and CGLS on a small problem, card against CPU."""
+def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
+                        tag="lamino-slice") -> None:
+    """cgrad and CGLS on a small problem with the ``kernel`` window, card
+    against CPU."""
     c = LAMINO_SLICE
-    volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], c["upsample"])
+    volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], upsample, kernel)
     data_card = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
-                            upsample=c["upsample"], device=device)
+                            upsample=upsample, kernel=kernel, device=device)
     err = _max_rel(data_card, data)
     if not err <= LAMINO_SIM_TOL:
-        raise AssertionError(f"lamino slice: simulate on the card differs by {err:.3e}")
+        raise AssertionError(f"{tag}: simulate on the card differs by {err:.3e}")
     for algorithm, cg_iter in LAMINO_SLICE_CG_ITER.items():
         results = {
             str(dev): tl.reconstruct(
                 data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=c["num_iter"],
-                eps=cases_usfft.LAMINO_EPS, upsample=c["upsample"], cg_iter=cg_iter, device=dev,
+                eps=cases_usfft.LAMINO_EPS, upsample=upsample, cg_iter=cg_iter, kernel=kernel,
+                device=dev,
             )
             for dev in ("cpu", device)
         }
         ref, got = results["cpu"], results[str(device)]
         if not (np.all(np.isfinite(got["cost"])) and np.all(np.diff(got["cost"]) < 0)):
-            raise AssertionError(f"lamino slice {algorithm}: costs {got['cost']}")
+            raise AssertionError(f"{tag} {algorithm}: costs {got['cost']}")
         np.testing.assert_allclose(got["cost"], ref["cost"], rtol=LAMINO_SLICE_TOL)
         obj_err = _max_rel(got["obj"], ref["obj"])
         if not obj_err <= LAMINO_SLICE_TOL:
-            raise AssertionError(f"lamino slice {algorithm}: volume differs by {obj_err:.3e}")
-        log(f"[lamino-slice] {algorithm} (cg_iter {cg_iter}), {c['n']}^3, {c['ntheta']} "
-            f"angles, upsample {c['upsample']}, {c['num_iter']} outer iterations on {device} "
+            raise AssertionError(f"{tag} {algorithm}: volume differs by {obj_err:.3e}")
+        log(f"[{tag}] {algorithm} (cg_iter {cg_iter}), {c['n']}^3, {c['ntheta']} "
+            f"angles, {kernel} window, upsample {upsample}, {c['num_iter']} outer iterations on {device} "
             f"vs cpu: costs {got['cost'].tolist()} vs {ref['cost'].tolist()} (rtol "
             f"{LAMINO_SLICE_TOL:g}); volume max|err| / max|value| {obj_err:.2e}; simulate "
             f"{err:.2e}")
@@ -1613,7 +1654,7 @@ def phase_lamino(device, algorithm: str, card: str, problem) -> dict:
         raise AssertionError(f"costs are not {LAMINO_TIMED} finite values: {costs}")
     if not (costs[-1] < costs[0] and np.all(np.diff(costs) <= 1e-6 * costs[:-1])):
         raise AssertionError(f"costs do not decrease: {costs}")
-    for name in usfft.LAUNCHES:
+    for name in USFFT_KERNELS:
         if not launches[name] > 0:
             raise AssertionError(f"{tag} launched no {name} kernel: {launches}")
     obj = result["obj"]
@@ -3442,7 +3483,7 @@ def phase_mesh_lamino(device, card: str, problem, cgrad: dict) -> dict:
     costs = result["cost"]
     if len(costs) != LAMINO_TIMED or not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"mesh-lamino: costs not {LAMINO_TIMED} finite, decreasing: {costs}")
-    for name in usfft.LAUNCHES:
+    for name in USFFT_KERNELS:
         if not launches[name] > 0:
             raise AssertionError(f"mesh-lamino launched no {name} kernel: {launches}")
     gap = float(np.max(np.abs(costs - cgrad["costs"]) / np.abs(cgrad["costs"])))
@@ -3454,9 +3495,9 @@ def phase_mesh_lamino(device, card: str, problem, cgrad: dict) -> dict:
         f"{costs.tolist()} against phase 11's {cgrad['costs'].tolist()} (max relative gap "
         f"{gap:.3e}, rtol {MESH_LAMINO_RTOL:g}); {per_iter:.4f} s/iteration against "
         f"{cgrad['per_iter']:.4f} ({per_iter / cgrad['per_iter']:.3f}x); first call "
-        f"{first_s:.3f} s; KB launches { {k: launches[k] for k in usfft.LAUNCHES} } against "
-        f"phase 11's { {k: cgrad['launches'][k] for k in usfft.LAUNCHES} } ({card})")
-    return dict(launches={name: launches[name] for name in usfft.LAUNCHES}, costs=costs,
+        f"{first_s:.3f} s; KB launches { {k: launches[k] for k in USFFT_KERNELS} } against "
+        f"phase 11's { {k: cgrad['launches'][k] for k in USFFT_KERNELS} } ({card})")
+    return dict(launches={name: launches[name] for name in USFFT_KERNELS}, costs=costs,
                 per_iter=per_iter)
 
 
@@ -3936,7 +3977,8 @@ def _dist_lamino(mesh, device, card, rank, bucket_data):
     on ``bucket_data`` (the parent's projections) with the volume's
     x-slabs over the processes: 1 + BUCKET_TIMED timed outer iterations at
     the problem's cg_iter, then BUCKET_TIMED at DIST_BUCKET_CG_ITER for the
-    comparison with the parent's run."""
+    comparison with the parent's run; between them 25d's Gaussian cgrad on
+    this process's angles. Returns the three runs' records."""
     volume, theta, data = lamino_problem(device)
     data, theta = distributed.split_for_process(data, theta)
     kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, cg_iter=LAMINO_CG_ITER, device=device,
@@ -3954,6 +3996,13 @@ def _dist_lamino(mesh, device, card, rank, bucket_data):
                   collectives=parallel.collective_stats.as_dict())
     log(f"[dist-lamino] rank {rank}: {theta.shape[0]} angles, {per_iter:.4f} s/iteration, "
         f"costs {lamino['costs']}, collectives {lamino['collectives']} ({card})")
+    _reset_launches()
+    result = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad",
+                            **{**kwargs, **GAUSSIAN_MESH_KWARGS})
+    gaussian = dict(costs=np.asarray(result["cost"]).tolist(),
+                    launches=_read_launches("dist-gaussian"))
+    log(f"[dist-gaussian] rank {rank}: {theta.shape[0]} angles, costs {gaussian['costs']} "
+        f"({card})")
     c = cases_bucket.FULL
     theta = cases_usfft.lamino_theta(c["ntheta"], device)
     data = torch.as_tensor(bucket_data)
@@ -3976,7 +4025,7 @@ def _dist_lamino(mesh, device, card, rank, bucket_data):
     log(f"[dist-bucket] rank {rank}: a 64-row slab, {per_iter:.4f} s/iteration, costs "
         f"{slabs['costs']}, collectives {slabs['collectives']}; at cg_iter "
         f"{DIST_BUCKET_CG_ITER} costs {slabs['held_costs']} ({card})")
-    return lamino, slabs
+    return lamino, gaussian, slabs
 
 
 def _gloo_cuda_all_gather(mesh, device, rank: int) -> dict:
@@ -4061,8 +4110,8 @@ def dist_worker(argv) -> None:
     records["striped"]["patterns"] = int(local.shape[0])
     arrays.update({f"striped/{k}": v for k, v in striped_arrays.items()})
     del local
-    records["lamino"], records["bucket"] = _dist_lamino(mesh, device, card, rank,
-                                                        np.load(f"{out}.bucket.npy"))
+    records["lamino"], records["lamino_gaussian"], records["bucket"] = _dist_lamino(
+        mesh, device, card, rank, np.load(f"{out}.bucket.npy"))
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(records, f)
     np.savez(f"{out}.{rank}.npz", **arrays)
@@ -4127,12 +4176,13 @@ def _same_or_gap(tag, a: dict, b: dict, keys) -> dict:
 
 
 def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, striped: dict,
-                      lamino_mesh: dict, bucket_mesh: dict) -> dict:
+                      lamino_mesh: dict, bucket_mesh: dict) -> tuple:
     """23: two processes, each with one shard on ``cuda:0`` in a gloo group
     (``parallel.distributed``). The parent first runs the one-process
     references of the same global programs on ``[cuda:0, cuda:0]``, then
     frees the card's cache and starts both workers; 23a-23d as the module's
-    docstring says. Returns the workers' kernel counts, per rank."""
+    docstring says. Returns the workers' kernel counts, per rank, and their
+    Gaussian cgrad's costs, which 25d holds."""
     started = time.perf_counter()
     two = _on_card_mesh(device, 2)
     slice_ref = _dist_slice(two, device, True)
@@ -4226,18 +4276,25 @@ def phase_distributed(device, scan, psi, probe, card: str, mesh_main: dict, stri
             f"{ref_run['per_iter']:.4f}; costs equal across the ranks, max relative gap to "
             f"{against} {gap:.3e} (rtol {MESH_LAMINO_RTOL:g}; 0 is bit for bit); the timed "
             f"run's to 21's {timed_gap:.3e} ({card})")
+    g0, g1 = (np.asarray(r["lamino_gaussian"]["costs"]) for r in (r0, r1))
+    if not (np.array_equal(g0, g1) and np.all(np.isfinite(g0)) and g0[-1] < g0[0]):
+        raise AssertionError(f"23d gaussian: costs {g0} / {g1}")
+    log(f"[dist-gaussian] 23d: cgrad with the Gaussian window (cg_iter 1, "
+        f"{GAUSSIAN_MESH_ITER} outer iterations), costs {g0.tolist()} equal across the ranks; "
+        f"held against one process in 25d ({card})")
     log(f"[dist] phase 23 took {time.perf_counter() - started:.1f} s ({card})")
     # Each run's counts of every kernel, as its rank read them.
     counts = {}
     for rank, r in enumerate((r0, r1)):
         for run, path_kernels in (("main", patch.LAUNCHES), ("striped", patch.LAUNCHES),
-                                  ("lamino", usfft.LAUNCHES), ("bucket", BUCKET_KERNELS)):
+                                  ("lamino", USFFT_KERNELS), ("bucket", BUCKET_KERNELS),
+                                  ("lamino_gaussian", GAUSSIAN_KERNELS)):
             launches = r[run]["launches"]
             if not all(launches[k] > 0 for k in path_kernels):
                 raise AssertionError(f"23 {run} rank {rank}: a kernel of the path was not "
                                      f"launched: {launches}")
             counts.setdefault(f"launches_distributed_{run}", []).append(launches)
-    return counts
+    return counts, g0.tolist()
 
 
 def _example(name: str, run, card: str) -> tuple:
@@ -4433,6 +4490,213 @@ def phase_examples(device, card: str) -> dict:
     return launches
 
 
+def phase_gaussian_parity(device, card: str) -> dict:
+    """25a: the Gaussian window's gather and scatter on laminography's
+    points at bench_all.py's 128^3 / 64 angles, at upsample 1 (m = 2) and 2
+    (m = 4): each against its plain version at ``KB_TOL`` of the largest
+    value, adjointness, three launches of each bitwise equal (two on one
+    plan, one building its own); times in CUDA graphs in turns with the KB
+    kernel at the same upsample, the plain version's, the plan's build and
+    bytes, beside the bound pipe by pipe."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    x = cases_usfft.lamino_rows(cases_usfft.LAMINO_N, cases_usfft.LAMINO_NTHETA, device)
+    x = x.reshape(-1, 3)
+    out = {name: {"library_ms": None, "card": card} for name in GAUSSIAN_KERNELS}
+    for upsample in GAUSSIAN_UPSAMPLES:
+        n, m, mu = cases_usfft.gaussian_window_for(cases_usfft.LAMINO_N, cases_usfft.LAMINO_EPS,
+                                                   upsample)
+        _, m_kb, beta = cases_usfft.window_for(cases_usfft.LAMINO_N, cases_usfft.LAMINO_EPS,
+                                               upsample)
+        case = f"128^3 / 64 angles, upsample {upsample}"
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=gen)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=gen)
+        errs = cases_usfft.check_kernels(grid, x, f, n, m, mu, case, "gaussian")
+        # m >= 2: the gather takes the scatter's plan, in bin order, as
+        # LaminoPlan hands it.
+        plan, plan_ms = _timed_plan(x, n, m, mu, window="gaussian")
+        kb_gather_plan = usfft.geometry_plan(x, n, m_kb, beta, usfft.gather_tile(m_kb))
+        kb_plan = usfft.geometry_plan(x, n, m_kb, beta)
+        log(f"[gaussian] {case}: grid {n}^3, m = {m} (KB m = {m_kb}), {x.shape[0]} points: "
+            f"gather max|err| {errs['usfft_gather_gaussian_abs']:.3e} "
+            f"({errs['usfft_gather_gaussian']:.2e} of max|value|), scatter "
+            f"{errs['usfft_scatter_gaussian_abs']:.3e} ({errs['usfft_scatter_gaussian']:.2e}; tol "
+            f"{cases_usfft.KB_TOL:g}); adjointness {errs['adjoint']:.2e} (tol "
+            f"{cases_usfft.ADJOINT_TOL:g}); three gathers and three scatters (two on one plan, "
+            "one building its own) bitwise equal")
+        calls = {
+            "usfft_gather_gaussian": (
+                lambda: usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan),
+                lambda: usfft.gather_kb_cuda(grid, x, n, m_kb, beta, kb_gather_plan),
+                lambda: usfft.gather_gaussian_plain(grid, x, n, m, mu),
+            ),
+            "usfft_scatter_gaussian": (
+                lambda: usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan),
+                lambda: usfft.scatter_kb_cuda(f, x, n, m_kb, beta, kb_plan),
+                lambda: usfft.scatter_gaussian_plain(f, x, n, m, mu),
+            ),
+        }
+        suffix = "" if upsample == 1 else f"_upsample{upsample}"
+        for name, (kernel, kb, plain) in calls.items():
+            ms = graph_ms_in_turns({"gaussian": kernel, "kb": kb})
+            plain_ms = median_ms_in_turns({"plain": plain}, reps=1, rounds=1)["plain"]
+            bound = cases_usfft.gaussian_roofline(name, x, n, m)
+            out[name].update({
+                f"max_abs_err{suffix}": errs[f"{name}_abs"],
+                f"max_rel_err{suffix}": errs[name],
+                f"adjoint_err{suffix}": errs["adjoint"],
+                f"ms{suffix}": ms["gaussian"],
+                f"kb_ms{suffix}": ms["kb"],
+                f"plain_ms{suffix}": plain_ms,
+                f"plan_ms{suffix}": plan_ms,
+                f"plan_bytes{suffix}": plan.nbytes,
+                f"bound_bytes{suffix}": bound["bound_bytes"],
+                f"bound_bytes_ms{suffix}": bound["bound_bytes_ms"],
+                f"bound_fp32_ms{suffix}": bound["bound_fp32_ms"],
+                f"bound_ms{suffix}": bound["bound_ms"],
+                f"bound_by{suffix}": bound["bound_by"],
+                f"roofline_share{suffix}": bound["bound_ms"] / ms["gaussian"],
+                f"m{suffix}": m,
+                "deterministic": True,
+            })
+            log(f"[gaussian] {name} at {case} (m = {m}): kernel {ms['gaussian']:.4f} ms (CUDA "
+                f"graph, plan built beforehand: {plan_ms:.3f} ms, {plan.nbytes} bytes), the KB "
+                f"kernel at m = {m_kb} {ms['kb']:.4f} ms in the same turns, plain "
+                f"{plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                f"{bound['bound_bytes']} bytes {bound['bound_bytes_ms']:.4f} ms at "
+                f"{cases_usfft.HBM_BYTES_PER_S:g} B/s"
+                + (f", {bound['touched_cells']} grid values touched" if bound["touched_cells"]
+                   else "")
+                + f"; {bound['bound_fp32_instructions']} FP32 instructions "
+                f"{bound['bound_fp32_ms']:.4f} ms at {cases_usfft.FP32_INSTRUCTIONS_PER_S:g}/s), "
+                f"{100 * bound['bound_ms'] / ms['gaussian']:.1f}% of it ({card})")
+        del grid, f, plan, kb_gather_plan, kb_plan, calls
+    return out
+
+
+def _cgrad_launches(calls, cg_iter: int, reads: int) -> dict:
+    """The Gaussian kernels' launches that cgrad must make in ``calls``
+    reconstructions of so many outer iterations each, from a zero volume,
+    with ``reads`` line-search trials in all: per outer iteration a gradient
+    (a forward and an adjoint) per CG step and one cost (a forward); the
+    step-length estimate (a forward and an adjoint) in each call's first
+    outer iteration and, since a zero volume's estimate falls back to 1, in
+    its second; a forward per trial."""
+    iterations = sum(calls)
+    estimates = sum(min(2, k) for k in calls)
+    return {
+        "usfft_gather_gaussian": (cg_iter + 1) * iterations + estimates + reads,
+        "usfft_scatter_gaussian": cg_iter * iterations + estimates,
+    }
+
+
+def phase_gaussian_lamino(device, card: str, problem, cgrad: dict) -> dict:
+    """25b: ``reconstruct(kernel="gaussian")`` on phase 11's problem: cgrad
+    at ``cg_iter=4``, one warm-up outer iteration and LAMINO_TIMED timed
+    ones, every kernel count set to 0 just before and read just after,
+    costs finite and falling, s/iteration beside phase 11's KB run, the
+    Gaussian kernels' launches equal to ``_cgrad_launches`` and the KB
+    kernels' 0; then CGLS at cg_iter 1 once, LAMINO_TIMED outer
+    iterations, 2 launches of each Gaussian kernel an iteration."""
+    volume, theta, data = problem
+    kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, kernel="gaussian", device=device)
+
+    def run(algorithm, num_iter, cg_iter):
+        start = time.perf_counter()
+        result = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, algorithm,
+                                num_iter=num_iter, cg_iter=cg_iter, **kwargs)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - start
+
+    def check(tag, costs, count, launches, want):
+        if len(costs) != count or not np.all(np.isfinite(costs)):
+            raise AssertionError(f"{tag}: costs are not {count} finite values: {costs}")
+        if not (costs[-1] < costs[0] and np.all(np.diff(costs) <= 1e-6 * costs[:-1])):
+            raise AssertionError(f"{tag}: costs do not decrease: {costs}")
+        got = {name: launches[name] for name in usfft.LAUNCHES}
+        if got != {**{name: 0 for name in USFFT_KERNELS}, **want}:
+            raise AssertionError(f"{tag}: USFFT launches {got}, predicted {want} and no KB one")
+
+    _reset_launches()
+    opt.HOST_READS["line_search"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    warm, first_s = run("cgrad", 1, LAMINO_CG_ITER)
+    result, timed_s = run("cgrad", LAMINO_TIMED, LAMINO_CG_ITER)
+    launches = _read_launches("gaussian-cgrad")
+    reads = opt.HOST_READS["line_search"]
+    peak = torch.cuda.max_memory_allocated()
+    want = _cgrad_launches((1, LAMINO_TIMED), LAMINO_CG_ITER, reads)
+    costs = result["cost"]
+    check("gaussian-cgrad", costs, LAMINO_TIMED, launches, want)
+    obj = result["obj"]
+    if obj.shape != volume.shape or not np.all(np.isfinite(obj)):
+        raise AssertionError("gaussian-cgrad: the volume is not finite or has the wrong shape")
+    per_iter = timed_s / LAMINO_TIMED
+    log(f"[gaussian-cgrad] costs {costs.tolist()} (warm-up {warm['cost'].tolist()}); "
+        f"{LAMINO_TIMED} outer iterations (cg_iter {LAMINO_CG_ITER}) in {timed_s:.3f} s = "
+        f"{per_iter:.4f} s/iteration against phase 11's KB {cgrad['per_iter']:.4f} "
+        f"({per_iter / cgrad['per_iter']:.3f}x); first call {first_s:.3f} s, so set-up "
+        f"{first_s - per_iter:.3f} s; peak {peak} bytes; launches "
+        f"{ {k: launches[k] for k in usfft.LAUNCHES} } with {reads} line-search trials, as "
+        f"predicted ({card})")
+    _reset_launches()
+    cgls, cgls_s = run("cgls", LAMINO_TIMED, 1)
+    cgls_launches = _read_launches("gaussian-cgls")
+    per_trip = 2 * LAMINO_TIMED
+    check("gaussian-cgls", cgls["cost"], LAMINO_TIMED, cgls_launches,
+          {name: per_trip for name in GAUSSIAN_KERNELS})
+    log(f"[gaussian-cgls] cg_iter 1, {LAMINO_TIMED} outer iterations: costs "
+        f"{cgls['cost'].tolist()}, {cgls_s / LAMINO_TIMED:.4f} s/iteration with its set-up; "
+        f"launches {per_trip} of each Gaussian kernel, as predicted ({card})")
+    return dict(launches=launches, launches_cgls=cgls_launches, per_iter=per_iter)
+
+
+# 25d: the theta split against one device at cg_iter 1, where no line-search
+# trial ties: costs relative, the volume relative to its largest value. Phase
+# 23's workers run the same split across two processes.
+GAUSSIAN_MESH_ITER, GAUSSIAN_MESH_COST_TOL, GAUSSIAN_MESH_OBJ_TOL = 3, 1e-5, 1e-4
+GAUSSIAN_MESH_KWARGS = dict(kernel="gaussian", cg_iter=1, num_iter=GAUSSIAN_MESH_ITER)
+
+
+def phase_gaussian_mesh(device, card: str, problem, dist_costs) -> dict:
+    """25d: cgrad with the Gaussian window at cg_iter 1 on phase 11's
+    problem, the angles split over ``[cuda:0, cuda:0]`` against one device:
+    each shard's transforms launch the Gaussian kernels (counted), costs
+    and volume held together; phase 23's two processes' costs
+    ``dist_costs`` held against the split's."""
+    volume, theta, data = problem
+    kwargs = dict(eps=cases_usfft.LAMINO_EPS, upsample=1, device=device, **GAUSSIAN_MESH_KWARGS)
+    single = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad", **kwargs)
+    _reset_launches()
+    start = time.perf_counter()
+    split = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgrad",
+                           mesh=_on_card_mesh(device, 2), **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _read_launches("gaussian-mesh")
+    for name in GAUSSIAN_KERNELS:
+        if not launches[name] > 0:
+            raise AssertionError(f"gaussian-mesh launched no {name} kernel: {launches}")
+    gap = float(np.max(np.abs(split["cost"] - single["cost"]) / np.abs(single["cost"])))
+    obj_gap = _max_rel(split["obj"], single["obj"])
+    dist_gap = float(np.max(np.abs(np.asarray(dist_costs) - split["cost"])
+                            / np.abs(split["cost"])))
+    if not (gap <= GAUSSIAN_MESH_COST_TOL and obj_gap <= GAUSSIAN_MESH_OBJ_TOL
+            and dist_gap <= GAUSSIAN_MESH_COST_TOL):
+        raise AssertionError(
+            f"gaussian-mesh: costs {split['cost']} against one device's {single['cost']} (gap "
+            f"{gap:.3e}, tol {GAUSSIAN_MESH_COST_TOL:g}), volume gap {obj_gap:.3e} (tol "
+            f"{GAUSSIAN_MESH_OBJ_TOL:g}); two processes' costs {dist_costs} (gap "
+            f"{dist_gap:.3e})")
+    log(f"[gaussian-mesh] cgrad (cg_iter 1, {GAUSSIAN_MESH_ITER} outer iterations) with "
+        f"{theta.shape[0]} angles over 2 shards on {device}: costs {split['cost'].tolist()} "
+        f"against one device's {single['cost'].tolist()} (max relative gap {gap:.3e}, tol "
+        f"{GAUSSIAN_MESH_COST_TOL:g}); volume gap {obj_gap:.3e} of its largest value (tol "
+        f"{GAUSSIAN_MESH_OBJ_TOL:g}); phase 23's two processes' costs against the split's: "
+        f"max relative gap {dist_gap:.3e} (0 is bit for bit); {seconds:.3f} s; launches "
+        f"{ {k: launches[k] for k in GAUSSIAN_KERNELS} } ({card})")
+    return {name: launches[name] for name in GAUSSIAN_KERNELS}
+
+
 def _events_ms(fn, repeats: int = 20) -> float:
     """The mean time of ``fn`` on the card over ``repeats`` calls after
     one warm-up, from CUDA events."""
@@ -4524,8 +4788,8 @@ def main() -> None:
     log(f"[striped] phase 22 took {time.perf_counter() - striped_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     dist_start = time.perf_counter()
-    launches_dist = phase_distributed(device, scan, psi, probe, card, mesh_main, striped_run,
-                                      lamino_mesh, bucket_mesh)
+    launches_dist, dist_gaussian_costs = phase_distributed(
+        device, scan, psi, probe, card, mesh_main, striped_run, lamino_mesh, bucket_mesh)
     del striped_run
     log(f"[dist] phase 23 took {time.perf_counter() - dist_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
@@ -4533,6 +4797,14 @@ def main() -> None:
     phase_examples_small(device)
     launches_examples = phase_examples(device, card)
     log(f"[examples] phase 24 took {time.perf_counter() - examples_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    gaussian_start = time.perf_counter()
+    gaussian_timings = phase_gaussian_parity(device, card)
+    gaussian_run = phase_gaussian_lamino(device, card, problem, lamino_runs["cgrad"])
+    for upsample in GAUSSIAN_UPSAMPLES:
+        phase_lamino_slices(device, upsample, "gaussian", "gaussian-slice")
+    launches_gaussian_mesh = phase_gaussian_mesh(device, card, problem, dist_gaussian_costs)
+    log(f"[gaussian] phase 25 took {time.perf_counter() - gaussian_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
@@ -4625,6 +4897,20 @@ def main() -> None:
             **lanczos_timings[name],
         }
         for name in INTERP_KERNELS
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/usfft.cu",
+            "replaces": GAUSSIAN_KERNELS[name],
+            "launches": gaussian_run["launches"][name],
+            "launches_lamino_gaussian_cgrad": gaussian_run["launches"][name],
+            "launches_lamino_gaussian_cgls": gaussian_run["launches_cgls"][name],
+            "launches_gaussian_mesh": launches_gaussian_mesh[name],
+            **later(name),
+            **gaussian_timings[name],
+        }
+        for name in GAUSSIAN_KERNELS
     ]
     log(env["nvidia_smi"])
     log(json.dumps({"kernels": report}))

@@ -43,6 +43,8 @@ SCENARIOS = [
     ("striped_lstsq_opr_pos", "striped", "lstsq", {"eigen": True, "positions": True}),
     ("lamino_cgrad_theta", "lamino", "cgrad", {}),
     ("lamino_cgls_theta", "lamino", "cgls", {}),
+    ("lamino_cgrad_theta_gaussian", "lamino", "cgrad", {"kernel": "gaussian", "cg_iter": 1}),
+    ("lamino_cgls_theta_gaussian", "lamino", "cgls", {"kernel": "gaussian", "cg_iter": 1}),
     ("lamino_bucket_volsplit", "bucket", "bucket", {}),
 ]
 NAMES = {s[0]: s for s in SCENARIOS}
@@ -174,17 +176,19 @@ def _volume(n):
     )
 
 
-def _lamino(mesh, device, single, processes, algorithm, n=16, ntheta=8):
+def _lamino(mesh, device, single, processes, algorithm, n=16, ntheta=8, kernel="kb",
+            **options):
     import tike_tpu_torch.lamino as tl
     import tike_tpu_torch.parallel.distributed as dist
 
     theta = np.linspace(0, np.pi, ntheta, endpoint=False).astype(np.float32)
-    data = tl.simulate(_volume(n), theta, np.pi / 3, eps=1e-3, upsample=2, device=device)
+    data = tl.simulate(_volume(n), theta, np.pi / 3, eps=1e-3, upsample=2, kernel=kernel,
+                       device=device)
     if not single:
         data, theta = dist.split_for_process(data, theta, num_processes=processes)
     result = tl.reconstruct(
-        data, theta, np.pi / 3, algorithm, num_iter=4, eps=1e-3, upsample=2, mesh=mesh,
-        device=device,
+        data, theta, np.pi / 3, algorithm, num_iter=4, eps=1e-3, upsample=2, kernel=kernel,
+        mesh=mesh, device=device, **options,
     )
     return {"psi": result["obj"], "costs": np.asarray(result["cost"], np.float64)}
 
@@ -210,7 +214,7 @@ def run_scenario(name, mesh, device, single, processes=2, random_probe=False):
     across them. Returns its arrays and costs."""
     _, layout, algo, feat = NAMES[name]
     if layout == "lamino":
-        return _lamino(mesh, device, single, processes, algo)
+        return _lamino(mesh, device, single, processes, algo, **feat)
     if layout == "bucket":
         return _bucket(mesh, device)
     return _ptycho(layout, algo, feat, mesh, device, single, random_probe)

@@ -1,11 +1,13 @@
-"""The KB kernels' checks, inputs, bounds and einsum yardstick.
+"""The USFFT kernels' checks, inputs, bounds and einsum yardstick, for the
+Kaiser-Bessel and the Gaussian window.
 
 ``chip_smoke.py`` holds the CUDA kernels of ``tike_tpu_torch/csrc/usfft.cu``
 to their plain PyTorch versions with these, ``tests/test_torch_usfft_cuda.py``
-does the same on the card, and ``tests/test_torch_usfft.py`` checks the
-inputs, the bounds and the einsum formulation on the CPU (against
-``tike_tpu``'s ``gather_kb_rows``/``scatter_kb_rows``). Nothing here imports
-JAX.
+and ``tests/test_torch_usfft_gaussian_cuda.py`` do the same on the card, and
+``tests/test_torch_usfft.py``, ``test_torch_usfft_plan.py`` and
+``test_torch_usfft_gaussian.py`` check the inputs, the plans, the bounds and
+the einsum formulation on the CPU (against ``tike_tpu``). Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ ADJOINT_TOL = 1e-5
 # The einsum yardstick against the kernels: the dense rows sum n products
 # per axis (most of them zero) in cuBLAS's order, TF32 off.
 EINSUM_TOL = 1e-4
-# NVIDIA's data sheet for the H100 SXM at 700 W.
+# NVIDIA's data sheet for the H100 SXM at 700 W: 67e12 float32 operations a
+# second outside the tensor cores, a fused multiply-add counted as two, so
+# 33.45e12 FP32 instructions.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FP32_INSTRUCTIONS_PER_S = 33.45e12
 
 # bench_all.py's laminography (lamino_cgrad, lamino_cgls): a 128^3 volume,
 # 64 angles over [0, pi), tilt pi/3, eps 1e-3, upsample 1.
@@ -68,6 +73,12 @@ def window_for(n_volume: int, eps: float, upsample: float):
     return upsampled, m, beta
 
 
+def gaussian_window_for(n_volume: int, eps: float, upsample: float):
+    """(grid size, m, mu) of the Gaussian window of a transform."""
+    upsampled, _, mu, m = usfft.usfft_parameters(n_volume, eps, upsample)
+    return upsampled, m, mu
+
+
 def max_rel(a, b) -> float:
     scale = float(torch.max(torch.abs(b))) if b.numel() else 0.0
     return float(torch.max(torch.abs(a - b))) / scale if scale else 0.0
@@ -78,35 +89,36 @@ def inner64(a, b) -> complex:
     return complex(torch.sum(torch.conj(a.to(torch.complex128)) * b.to(torch.complex128)))
 
 
-def check_kb_kernels(grid, x, f, n, m, beta, name) -> dict:
-    """Both CUDA kernels against their plain versions on these inputs
-    (grid (n, n, n), points x (N, 3), values f (N,)), each launched twice
-    on one prebuilt plan with bitwise-equal results and once more building
-    its own plan, again bitwise equal, and <gather(grid), f> = <grid,
-    scatter(f)>. Raises on a difference; returns the relative errors (by
-    kernel name and ``adjoint``) and the absolute ones (``<name>_abs``)."""
-    plan = usfft.kb_plan(x, n, m, beta)
-    got = usfft.gather_kb_cuda(grid, x, n, m, beta, plan)
-    spread = usfft.scatter_kb_cuda(f, x, n, m, beta, plan)
+# Each window's (CUDA gather, CUDA scatter, plain gather, plain scatter).
+WINDOW_CALLS = {
+    "kb": (usfft.gather_kb_cuda, usfft.scatter_kb_cuda,
+           usfft.gather_kb_plain, usfft.scatter_kb_plain),
+    "gaussian": (usfft.gather_gaussian_cuda, usfft.scatter_gaussian_cuda,
+                 usfft.gather_gaussian_plain, usfft.scatter_gaussian_plain),
+}
+
+
+def check_kernels(grid, x, f, n, m, param, name, window="kb") -> dict:
+    """Both CUDA kernels on ``window``'s plans against their plain versions
+    on these inputs (grid (n, n, n), points x (N, 3), values f (N,)), each
+    launched twice on one prebuilt plan with bitwise-equal results and once
+    more building its own plan, again bitwise equal, and <gather(grid), f>
+    = <grid, scatter(f)>. Raises on a difference; returns the relative
+    errors (by kernel name and ``adjoint``) and the absolute ones
+    (``<name>_abs``)."""
+    gather, scatter, gather_plain, scatter_plain = WINDOW_CALLS[window]
+    gather_name, scatter_name = usfft._COUNTS[window]
+    plan = usfft.geometry_plan(x, n, m, param, window=window)
+    got = gather(grid, x, n, m, param, plan)
+    spread = scatter(f, x, n, m, param, plan)
     repeats = {
-        "usfft_gather_kb": (
-            got,
-            usfft.gather_kb_cuda(grid, x, n, m, beta, plan),
-            usfft.gather_kb_cuda(grid, x, n, m, beta),
-        ),
-        "usfft_scatter_kb": (
-            spread,
-            usfft.scatter_kb_cuda(f, x, n, m, beta, plan),
-            usfft.scatter_kb_cuda(f, x, n, m, beta),
-        ),
+        gather_name: (got, gather(grid, x, n, m, param, plan), gather(grid, x, n, m, param)),
+        scatter_name: (spread, scatter(f, x, n, m, param, plan), scatter(f, x, n, m, param)),
     }
-    want = usfft.gather_kb_plain(grid, x, n, m, beta)
-    spread_want = usfft.scatter_kb_plain(f, x, n, m, beta)
+    want = gather_plain(grid, x, n, m, param)
+    spread_want = scatter_plain(f, x, n, m, param)
     torch.cuda.synchronize()
-    out = {
-        "usfft_gather_kb": max_rel(got, want),
-        "usfft_scatter_kb": max_rel(spread, spread_want),
-    }
+    out = {gather_name: max_rel(got, want), scatter_name: max_rel(spread, spread_want)}
     for key, value in out.items():
         if not value <= KB_TOL:
             raise AssertionError(f"{key} ({name}): relative error {value:.3e} > {KB_TOL:g}")
@@ -120,8 +132,8 @@ def check_kb_kernels(grid, x, f, n, m, beta, name) -> dict:
         raise AssertionError(
             f"adjointness ({name}): <gather(G), f> = {lhs} vs <G, scatter(f)> = {rhs}"
         )
-    out["usfft_gather_kb_abs"] = float(torch.max(torch.abs(got - want))) if x.shape[0] else 0.0
-    out["usfft_scatter_kb_abs"] = float(torch.max(torch.abs(spread - spread_want)))
+    out[f"{gather_name}_abs"] = float(torch.max(torch.abs(got - want))) if x.shape[0] else 0.0
+    out[f"{scatter_name}_abs"] = float(torch.max(torch.abs(spread - spread_want)))
     return out
 
 
@@ -201,6 +213,30 @@ def roofline(name: str, x, n: int, m: int) -> dict:
         "bound_flops": ops,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "touched_cells": cells,
+    }
+
+
+def gaussian_roofline(name: str, x, n: int, m: int) -> dict:
+    """The least time the card could take for a Gaussian gather or scatter
+    of the points x (N, 3) on an n^3 grid, pipe by pipe: the bytes it must
+    move (``usfft.roofline_bytes``; the gather's grid bytes from the cells
+    the Gaussian's taps touch) at the HBM rate, and the FP32 instructions of
+    ``usfft.fp32_instructions`` at the card's FP32 instruction rate; the
+    bound is the larger."""
+    npoints = x.shape[0]
+    cells = usfft.touched_cells(x, n, m, "gaussian") if "gather" in name else None
+    nbytes = usfft.roofline_bytes(name, npoints, n, cells)
+    instructions = usfft.fp32_instructions(npoints, m)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    fp32_ms = 1e3 * instructions / FP32_INSTRUCTIONS_PER_S
+    return {
+        "bound_bytes": nbytes,
+        "bound_bytes_ms": bytes_ms,
+        "bound_fp32_instructions": instructions,
+        "bound_fp32_ms": fp32_ms,
+        "bound_ms": max(bytes_ms, fp32_ms),
+        "bound_by": "bytes" if bytes_ms >= fp32_ms else "operations",
         "touched_cells": cells,
     }
 

@@ -1,8 +1,9 @@
 """Laminography across two processes.
 
 Two gloo processes of ``tests/_torch_dist_worker.py`` (two CPU shards each,
-started once for the file) run theta-split USFFT cgrad and CGLS, each
-process from its contiguous run of the angles and projections
+started once for the file) run theta-split USFFT cgrad and CGLS, with the
+Kaiser-Bessel window and (at cg_iter 1) the Gaussian, each process from its
+contiguous run of the angles and projections
 (``distributed.split_for_process``), and Bucket laminography with the
 volume's x-slabs over both processes' shards. Each process's volume and
 costs equal the other's and those of one process holding the 4 shards, bit
@@ -17,7 +18,10 @@ import tike_tpu_torch.parallel as tpar
 from . import _torch_parity  # noqa: F401  (one intra-op thread)
 from ._torch_dist_worker import launch, run_scenario
 
-LAMINO = ["lamino_cgrad_theta", "lamino_cgls_theta", "lamino_bucket_volsplit"]
+LAMINO = [
+    "lamino_cgrad_theta", "lamino_cgls_theta", "lamino_cgrad_theta_gaussian",
+    "lamino_cgls_theta_gaussian", "lamino_bucket_volsplit",
+]
 
 
 @pytest.fixture(scope="module")

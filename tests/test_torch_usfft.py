@@ -176,8 +176,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_m():
         with pytest.raises(ValueError, match=f"m = {m}"):
             tu.gather_kb_cuda(Fe, x, N_GRID, m, 2.0)
         with pytest.raises(ValueError, match=f"m = {m}"):
-            tu.kb_plan(x, N_GRID, m, 2.0)
-    assert tu.LAUNCHES == {"usfft_gather_kb": 0, "usfft_scatter_kb": 0}
+            tu.geometry_plan(x, N_GRID, m, 2.0)
+    assert tu.LAUNCHES == {
+        "usfft_gather_kb": 0, "usfft_scatter_kb": 0,
+        "usfft_gather_gaussian": 0, "usfft_scatter_gaussian": 0,
+    }
 
 
 def test_touched_cells_and_bounds():

@@ -42,7 +42,7 @@ WINDOWS = [(32, 1e-3, 1), (16, 1e-3, 2), (16, 1e-6, 2), (16, 1e-12, 2)]
 def test_kb_kernels_match_plain(card, n_volume, eps, upsample, layout):
     """Both kernels against their plain versions and adjointness; three
     launches of each (two on one plan, one building its own) must be
-    bitwise equal, or ``check_kb_kernels`` raises."""
+    bitwise equal, or ``check_kernels`` raises."""
     n, m, beta = cases.window_for(n_volume, eps, upsample)
     gen = np.random.default_rng(0)
     if layout == "rows":
@@ -51,7 +51,7 @@ def test_kb_kernels_match_plain(card, n_volume, eps, upsample, layout):
         x = cases.flat_points(gen, 20_000, card)
     grid = cases.crandn(gen, n, n, n, device=card)
     f = cases.crandn(gen, x.shape[0], device=card)
-    cases.check_kb_kernels(grid, x, f, n, m, beta, f"{layout}, m = {m}")
+    cases.check_kernels(grid, x, f, n, m, beta, f"{layout}, m = {m}")
 
 
 @pytest.mark.parametrize("m, beta", [(1, 2.0), (2, 5.0), (4, 9.0)])
@@ -63,7 +63,7 @@ def test_kb_kernels_take_no_points_and_one(card, m, beta):
     assert spread.shape == (8, 8, 8) and torch.count_nonzero(spread) == 0
     gen = np.random.default_rng(3)
     x = cases.flat_points(gen, 1, card)
-    cases.check_kb_kernels(
+    cases.check_kernels(
         cases.crandn(gen, 8, 8, 8, device=card), x, cases.crandn(gen, 1, device=card),
         8, m, beta, f"one point, m = {m}",
     )
@@ -77,7 +77,7 @@ def test_scatter_is_bitwise_repeatable_on_piled_points(card):
     x = cases.flat_points(gen, 40_000, card)
     x[:20_000] = 0.01 + 0.02 * x[:20_000]
     f = cases.crandn(gen, x.shape[0], device=card)
-    plan = usfft.kb_plan(x, n, m, beta)
+    plan = usfft.geometry_plan(x, n, m, beta)
     first = usfft.scatter_kb_cuda(f, x, n, m, beta, plan)
     for _ in range(9):
         again = usfft.scatter_kb_cuda(f, x, n, m, beta, plan)
@@ -93,7 +93,7 @@ def test_kernels_run_in_a_cuda_graph_on_a_prebuilt_plan(card):
     x = cases.lamino_rows(16, 8, card).reshape(-1, 3)
     grid = cases.crandn(gen, n, n, n, device=card)
     f = cases.crandn(gen, x.shape[0], device=card)
-    plan = usfft.kb_plan(x, n, m, beta)
+    plan = usfft.geometry_plan(x, n, m, beta)
     want = usfft.gather_kb_cuda(grid, x, n, m, beta, plan), usfft.scatter_kb_cuda(f, x, n, m, beta, plan)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -109,7 +109,7 @@ def test_scatter_refuses_a_plan_sorted_by_tiles(card):
     x = cases.flat_points(np.random.default_rng(6), 10, card)
     f = torch.zeros(10, dtype=torch.complex64, device=card)
     with pytest.raises(ValueError, match="bin order"):
-        usfft.scatter_kb_cuda(f, x, 8, 1, 2.0, usfft.kb_plan(x, 8, 1, 2.0, (2, 2)))
+        usfft.scatter_kb_cuda(f, x, 8, 1, 2.0, usfft.geometry_plan(x, 8, 1, 2.0, (2, 2)))
 
 
 def test_einsum_yardstick_matches_the_kernels(card):

@@ -1,4 +1,4 @@
-"""The KB kernels' geometry plan (``tike_tpu_torch.ops.usfft.kb_plan``) on
+"""The KB kernels' geometry plan (``tike_tpu_torch.ops.usfft.geometry_plan``) on
 the CPU (laminography's ``LaminoPlan`` is in ``test_torch_lamino_plan.py``).
 
 The CUDA kernels of ``csrc/usfft.cu`` cannot run here; what they read can
@@ -44,8 +44,8 @@ def _cells(x, n):
 @pytest.mark.parametrize("n, m, beta", WINDOWS)
 def test_kb_plan_sorts_points_into_bins(n, m, beta, span, npoints):
     x = _points(npoints, span)
-    plan = tu.kb_plan(x, n, m, beta)
-    assert (plan.n, plan.m, plan.beta, plan.npoints, plan.tile) == (n, m, beta, npoints, None)
+    plan = tu.geometry_plan(x, n, m, beta)
+    assert (plan.n, plan.m, plan.param, plan.npoints, plan.tile) == (n, m, beta, npoints, None)
     order, bins, start = plan.order.long(), plan.bins.long(), plan.bin_start.long()
     assert plan.order.dtype == plan.bins.dtype == plan.bin_start.dtype == torch.int32
     # order is a permutation, and every sorted point lies in its bin.
@@ -79,7 +79,7 @@ def test_kb_plan_sorts_points_into_bins(n, m, beta, span, npoints):
 @pytest.mark.parametrize("n, m, beta", WINDOWS[:2])
 def test_kb_plan_by_tiles_serves_the_gather(n, m, beta):
     x = _points(300, 0.7)
-    plan = tu.kb_plan(x, n, m, beta, tile=(4, 2))
+    plan = tu.geometry_plan(x, n, m, beta, tile=(4, 2))
     assert plan.bin_start is None and plan.tile == (4, 2)
     order = plan.order.long()
     assert torch.equal(torch.sort(order)[0], torch.arange(300))
@@ -104,7 +104,7 @@ def test_cell_owned_scatter_and_sorted_gather_match_plain(n, m, beta, span):
     x = _points(npoints, span, seed=2)
     gen = rng(3)
     f, Fe = t(crandn(gen, npoints)), t(crandn(gen, n, n, n))
-    plan = tu.kb_plan(x, n, m, beta)
+    plan = tu.geometry_plan(x, n, m, beta)
     got = cases.scatter_owned_plain(f, plan)
     assert cases.max_rel(got, tu.scatter_kb_plain(f, x, n, m, beta)) < OWNED_TOL
     assert torch.equal(torch.view_as_real(got), torch.view_as_real(cases.scatter_owned_plain(f, plan)))
@@ -121,7 +121,7 @@ def test_cell_owned_scatter_of_piled_points():
     gen = rng(4)
     x = torch.as_tensor((0.01 + 0.1 * gen.uniform(0, 1, (150, 3)) / n).astype(np.float32))
     f = t(crandn(gen, 150))
-    plan = tu.kb_plan(x, n, m, beta)
+    plan = tu.geometry_plan(x, n, m, beta)
     assert int(torch.count_nonzero(plan.bin_start[1:] - plan.bin_start[:-1])) == 1
     got = cases.scatter_owned_plain(f, plan)
     assert cases.max_rel(got, tu.scatter_kb_plain(f, x, n, m, beta)) < OWNED_TOL
@@ -137,7 +137,7 @@ def test_wrappers_take_a_plan(layout):
     gen = rng(5)
     x = _points(96, 0.7, seed=6)
     Fe, f = t(crandn(gen, n, n, n)), t(crandn(gen, 96))
-    plan = tu.kb_plan(x, n, m, beta)
+    plan = tu.geometry_plan(x, n, m, beta)
     if layout == "flat":
         gather, scatter = tu.gather_kb, tu.scatter_kb
     else:
@@ -154,11 +154,11 @@ def test_wrappers_take_a_plan(layout):
 def test_kb_plan_refuses_bad_inputs():
     x = _points(5, 0.4)
     with pytest.raises(ValueError, match="float32"):
-        tu.kb_plan(x.double(), 8, 1, 2.0)
+        tu.geometry_plan(x.double(), 8, 1, 2.0)
     with pytest.raises(ValueError, match=r"\(N, 3\)"):
-        tu.kb_plan(x[:, :2], 8, 1, 2.0)
+        tu.geometry_plan(x[:, :2], 8, 1, 2.0)
     with pytest.raises(ValueError, match="2 m <= n"):
-        tu.kb_plan(x, 8, 5, 2.0)
+        tu.geometry_plan(x, 8, 5, 2.0)
 
 
 @pytest.mark.parametrize("span", [0.49, 0.7], ids=["inside", "wrapped"])
@@ -177,7 +177,7 @@ def test_half_support_7_matches_jax(span):
     want_scatter = ju.scatter_kb(f, x, n, m, beta)
     assert_close(tu.gather_kb(t(Fe), t(x), n, m, beta), want_gather, **close)
     assert_close(tu.scatter_kb(t(f), t(x), n, m, beta), want_scatter, **close)
-    plan = tu.kb_plan(t(x), n, m, beta)
+    plan = tu.geometry_plan(t(x), n, m, beta)
     assert_close(cases.gather_sorted_plain(t(Fe), plan), want_gather, **close)
     assert_close(cases.scatter_owned_plain(t(f), plan), want_scatter, **close)
 

@@ -1,7 +1,9 @@
-// Kaiser-Bessel interpolation between a uniform n^3 grid and non-uniform
-// points (kb_gather) and its adjoint, spreading onto the grid (kb_scatter),
-// for NVIDIA Hopper, built for sm_90a with nvcc into a shared library with a
-// plain C interface (loaded by tike_tpu_torch/kernels.py through ctypes).
+// Interpolation with a separable window between a uniform n^3 grid and
+// non-uniform points (kb_gather) and its adjoint, spreading onto the grid
+// (kb_scatter), for NVIDIA Hopper, built for sm_90a with nvcc into a shared
+// library with a plain C interface (loaded by tike_tpu_torch/kernels.py
+// through ctypes). The window is the plan's: Kaiser-Bessel, or the Gaussian
+// of the original tike's usfft.cu gather/scatter.
 //
 // What they replace. The JAX package has no Pallas kernel for these: it
 // writes the interpolation as XLA code shaped for the TPU. gather_kb and
@@ -9,20 +11,28 @@
 // batched gather or scatter-add of all N points per tap; gather_kb_rows and
 // scatter_kb_rows (:330-397), which laminography runs, spread each axis's
 // 2m taps into dense length-n rows and contract them with einsums on the
-// matrix unit.
+// matrix unit; gather and scatter (:400-457), the Gaussian window, scan the
+// taps as gather_kb and scatter_kb do, with an exp per 3-D tap.
 //
 // Semantics (tike_tpu/ops/usfft.py). The grid is the centred, fftshifted
 // transform, n^3 complex64 seen as float2. Point i has frequencies x[i] (3
 // float32, any real value: laminography's plane corners lie outside
-// [-0.5, 0.5) and wrap). On each axis, v = n x (rounded once), its base cell
-// is b = (n/2 + floor(v)) mod n, and the 2m taps are the cells b + 1 - m ...
-// b + m (mod n), tap j with the weight
-//     phi(d) = I0(beta sqrt(1 - (d/m)^2)) / I0(beta),   d = v - floor(v) - (j + 1 - m).
-// A 3-D tap's weight is (w0 w1) w2, in that order, as in the JAX package.
+// [-0.5, 0.5) and wrap). On each axis, v = n x (rounded once); the plan
+// gives the point a base cell b, and its 2m taps are the cells b + 1 - m ...
+// b + m (mod n), tap j with the plan's axis weight w[j]. A 3-D tap's weight
+// is (w0 w1) w2, in that order, as in the JAX package. The windows:
+//   Kaiser-Bessel: b = (n/2 + floor(v)) mod n and
+//     w[j] = I0(beta sqrt(1 - (d/m)^2)) / I0(beta),   d = v - floor(v) - (j + 1 - m);
+//   Gaussian: b = (n/2 + floor(v) - 1) mod n, so the taps are floor(v) - m
+//     ... floor(v) + m - 1 as in the JAX package, and
+//     w[j] = exp(-pi^2/mu d^2) (axis 0's times (pi/mu)^(3/2)),
+//     d = (floor(v) - m + j) / n - x:
+//   the JAX package's cons0 exp(cons1 |d|^2) split into its three axis
+//   factors, so no exp is left per 3-D tap.
 //
 // The geometry plan. Everything above depends on the points alone, and
 // laminography's points never change within a reconstruction. So the
-// kernels read a plan that tike_tpu_torch/ops/usfft.py::kb_plan builds once
+// kernels read a plan that tike_tpu_torch/ops/usfft.py::geometry_plan builds once
 // per set of points: the points sorted by the linear index of their base
 // cell ("bin", axis 2 fastest; ties in ascending point index), and for the
 // sorted point p
@@ -32,7 +42,7 @@
 //                  stored [axis][tap][point], so a warp's loads coalesce),
 //     bin_start[c] for each of the n^3 cells c (and n^3 itself), where the
 //                  points of bin c start in the sorted list.
-// No Bessel function, division or floor is left in the kernels. The gather
+// No Bessel function, exp, division or floor is left in the kernels. The gather
 // takes the points in any order (it reads no bin_start); for m = 1 its
 // plan sorts them by 8 x 8 tiles of cells on axes 1 and 2 instead, ties
 // again in ascending index.
@@ -95,9 +105,20 @@
 // the rows taking turns at the shared-memory adds) were each measured and
 // moved it by a few percent at most, or made it slower.
 //
-// m is a template parameter for m = 1 and 2 (every path of the package so
-// far; the tap loops unroll) and a run-time value in one generic
-// instantiation that unrolls nothing, for any m >= 1 with 2m <= n.
+// m is a template parameter for m = 1 and 2 (KB at upsample 1 and 2, the
+// Gaussian at upsample 1) and for m = 4 (the Gaussian at upsample 2, eps
+// 1e-3), where the tap loops unroll and the scatter keeps a point's axis-2
+// weights in registers; a run-time value in one generic instantiation that
+// unrolls nothing, for any m >= 1 with 2m <= n. On the Gaussian's plans at
+// 128^3 / 64 angles (python -m tike_tpu_torch.kernel_sweep --source
+// gaussian, H100 SXM at 700 W) the generic instantiation took, for the
+// gather and the scatter, 0.552 and 2.012 ms at m = 4 and 1.716 and 6.056 ms
+// at m = 6, unrolled ones 0.419 and 1.406, 1.330 and 4.190 ms. No path runs
+// m = 6 (the Gaussian at eps 1e-5, upsample 2), so it takes the generic
+// instantiation; the sweep's "m = 6 unrolled" variant brings it back.
+// Above m = 2 the gather unrolls the (2m)^2 taps of one axis-0 tap, not all
+// (2m)^3: unrolled whole, it took 0.456 and 1.587 ms, and nvcc 52 s for this
+// file against 4.5.
 //
 // Each launcher allocates nothing, launches on the stream it is given, and
 // returns a cudaError_t; the Python wrapper raises if that is not 0.
@@ -147,22 +168,28 @@ __global__ void __launch_bounds__(kGatherThreads)
   const float* __restrict__ w2 = w1 + taps * npoints;
   float2 acc = make_float2(0.0f, 0.0f);
   if constexpr (M > 0) {
+    // Above m = 2 the axis-0 loop stays a loop around its unrolled (2m)^2
+    // taps (see the header).
+    constexpr int kUnroll0 = M <= 2 ? 2 * M : 1;
     float r0[2 * M], r1[2 * M], r2[2 * M];
     int g2[2 * M];
 #pragma unroll
     for (int j = 0; j < 2 * M; ++j) {
-      r0[j] = __ldcs(w0 + j * npoints);
+      if constexpr (kUnroll0 > 1) r0[j] = __ldcs(w0 + j * npoints);
       r1[j] = __ldcs(w1 + j * npoints);
       r2[j] = __ldcs(w2 + j * npoints);
       g2[j] = s2 + j >= n ? s2 + j - n : s2 + j;
     }
-#pragma unroll
+#pragma unroll kUnroll0
     for (int j0 = 0; j0 < 2 * M; ++j0) {
       const int g0 = s0 + j0 >= n ? s0 + j0 - n : s0 + j0;
+      float a0;
+      if constexpr (kUnroll0 > 1) a0 = r0[j0];
+      else a0 = __ldcs(w0 + j0 * npoints);
 #pragma unroll
       for (int j1 = 0; j1 < 2 * M; ++j1) {
         const int g1 = s1 + j1 >= n ? s1 + j1 - n : s1 + j1;
-        const float w01 = __fmul_rn(r0[j0], r1[j1]);
+        const float w01 = __fmul_rn(a0, r1[j1]);
         const float2* __restrict__ row =
             grid + (static_cast<long long>(g0) * n + g1) * n;
 #pragma unroll
@@ -408,6 +435,7 @@ extern "C" int tike_kb_gather(const void* grid, const void* bins,
   switch (m) {
     case 1: return static_cast<int>(launch_gather<1>(grid, b, o, w, out, npoints, n, m, s));
     case 2: return static_cast<int>(launch_gather<2>(grid, b, o, w, out, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_gather<4>(grid, b, o, w, out, npoints, n, m, s));
     default: return static_cast<int>(launch_gather<0>(grid, b, o, w, out, npoints, n, m, s));
   }
 }
@@ -428,6 +456,7 @@ extern "C" int tike_kb_scatter(const void* values, const void* bins,
   switch (m) {
     case 1: return static_cast<int>(launch_scatter<1>(values, b, o, bs, w, grid, npoints, n, m, s));
     case 2: return static_cast<int>(launch_scatter<2>(values, b, o, bs, w, grid, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_scatter<4>(values, b, o, bs, w, grid, npoints, n, m, s));
     default: return static_cast<int>(launch_scatter<0>(values, b, o, bs, w, grid, npoints, n, m, s));
   }
 }

@@ -6,7 +6,7 @@ with a few text substitutions (a tuning constant, a load instruction, a
 loop), built by its own ``nvcc`` (as many at once as the host has cores, a
 few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|probe|bucket|interp] [--variants FILE] [--parent FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|gaussian|probe|bucket|interp] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -15,6 +15,15 @@ the gather of the source as it stands is timed on plans sorted by tiles of
 several sizes. A variant that computes something else (``values_sorted``
 reads the values as if a first pass had sorted them) shows its error and is
 there for its time alone.
+
+``--source gaussian``, the same ``csrc/usfft.cu`` on the Gaussian window's
+plans at 128^3 / 64 angles (eps 1e-3 at upsample 1 and 2, m = 2 and 4; eps
+1e-5 at upsample 2, m = 6): the source as it stands beside its unrolled m =
+4 left to the generic instantiation, beside an unrolled m = 6 (which the
+source leaves to the generic one) and beside its gather with the axis-0
+loop unrolled too above m = 2, each held
+to the plain Gaussian versions and timed as above. Every sweep prints each
+variant's nvcc time (the variants build at once, one nvcc each).
 
 ``--source probe``, ``csrc/probe.cu``: the element-window kernel in its
 two forms, (a) the rows' spans staged in shared memory by bulk copies on
@@ -83,6 +92,7 @@ import re
 import statistics
 import subprocess
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -124,6 +134,10 @@ VARIANTS = {
 # axes 1 and 2; None: bin order) the gather's plan is sorted by in turn.
 CASES = {"128^3 / 64": (128, 64, 1), "upsample 2": (128, 64, 2), "256^3 / 128": (256, 128, 1)}
 TILES = (None, (4, 4), (8, 8), (16, 16), (8, 32))
+# (eps, upsample) of the Gaussian window's timed cases at 128^3 / 64 angles:
+# m = 2, 4 and 6.
+GAUSSIAN_CASES = {"eps 1e-3, upsample 1": (1e-3, 1), "eps 1e-3, upsample 2": (1e-3, 2),
+                  "eps 1e-5, upsample 2": (1e-5, 2)}
 
 
 def variant_source(source: str, substitutions) -> str:
@@ -220,8 +234,10 @@ def start_builds(name: str, sources: dict, directory) -> dict:
             f.write(text)
         command = [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o", path[:-3] + ".so", path]
 
-        def build(command=command):
+        def build(command=command, tag=tag):
+            start = time.perf_counter()
             done = subprocess.run(command, capture_output=True, text=True)
+            print(f"[build] {name} {tag}: nvcc {time.perf_counter() - start:.1f} s", flush=True)
             return command[-2], (done.stderr[-2000:] if done.returncode else None)
 
         builds[tag] = pool.submit(build)
@@ -314,6 +330,26 @@ def _launchers(lib, grid, f, plan, out, G):
     return gather, scatter
 
 
+def _time_variants(libs: dict, name: str, grid, f, plan, want_gather, want_scatter) -> None:
+    """Each library's gather and scatter on ``plan`` in a CUDA graph, beside
+    its errors against the plain versions and whether two scatters agree."""
+    from tests import _torch_usfft_cases as cases
+
+    out, G = torch.empty_like(f), torch.empty_like(grid)
+    for tag, lib in libs.items():
+        gather, scatter = _launchers(lib, grid, f, plan, out, G)
+        scatter_ms, gather_ms = graph_ms(scatter), graph_ms(gather)
+        scatter()
+        first = G.clone()
+        scatter()
+        torch.cuda.synchronize()
+        same = torch.equal(torch.view_as_real(G), torch.view_as_real(first))
+        print(f"{name:12s} {tag:22s} scatter {scatter_ms:.4f} ms (err "
+              f"{cases.max_rel(G, want_scatter):.1e}, two launches bitwise equal: {same})"
+              f"  gather in bin order {gather_ms:.4f} ms (err "
+              f"{cases.max_rel(out, want_gather):.1e})", flush=True)
+
+
 def _sweep_usfft(libs: dict, device) -> None:
     from tests import _torch_usfft_cases as cases
 
@@ -325,27 +361,50 @@ def _sweep_usfft(libs: dict, device) -> None:
         f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=generator)
         want_gather = usfft.gather_kb_plain(grid, x, n, m, beta)
         want_scatter = usfft.scatter_kb_plain(f, x, n, m, beta)
+        _time_variants(libs, name, grid, f, usfft.geometry_plan(x, n, m, beta), want_gather, want_scatter)
         out, G = torch.empty_like(f), torch.empty_like(grid)
-        plan = usfft.kb_plan(x, n, m, beta)
-        for tag, lib in libs.items():
-            gather, scatter = _launchers(lib, grid, f, plan, out, G)
-            scatter_ms, gather_ms = graph_ms(scatter), graph_ms(gather)
-            scatter()
-            first = G.clone()
-            scatter()
-            torch.cuda.synchronize()
-            same = torch.equal(torch.view_as_real(G), torch.view_as_real(first))
-            print(f"{name:12s} {tag:22s} scatter {scatter_ms:.4f} ms (err "
-                  f"{cases.max_rel(G, want_scatter):.1e}, two launches bitwise equal: {same})"
-                  f"  gather in bin order {gather_ms:.4f} ms (err "
-                  f"{cases.max_rel(out, want_gather):.1e})", flush=True)
         for tile in TILES:
-            tiled = usfft.kb_plan(x, n, m, beta, tile)
+            tiled = usfft.geometry_plan(x, n, m, beta, tile)
             gather, _ = _launchers(libs["as it stands"], grid, f, tiled, out, G)
             ms = graph_ms(gather)
             order = "bin order" if tile is None else f"tiles of {tile[0]} x {tile[1]}"
             print(f"{name:12s} gather as it stands, plan in {order}: {ms:.4f} ms (err "
                   f"{cases.max_rel(out, want_gather):.1e})", flush=True)
+
+
+def gaussian_variants(source: str) -> dict:
+    """The source as it stands, with m = 4 left to the generic
+    instantiation, with m = 6 unrolled too, and with the gather above m = 2
+    unrolling its axis-0 loop too."""
+    variants = {"as it stands": []}
+    lines = [line + "\n" for line in source.splitlines() if line.strip().startswith("case 4:")]
+    if lines:
+        variants["m = 4 generic"] = [(line, "") for line in lines]
+        variants["m = 6 unrolled"] = [
+            (line, line + line.replace("case 4:", "case 6:").replace("<4>", "<6>"))
+            for line in lines
+        ]
+    unroll0 = "constexpr int kUnroll0 = M <= 2 ? 2 * M : 1;"
+    if unroll0 in source:
+        variants["gather fully unrolled"] = [(unroll0, "constexpr int kUnroll0 = 2 * M;")]
+    return variants
+
+
+def _sweep_gaussian(libs: dict, device) -> None:
+    """The Gaussian window at laminography's 128^3 / 64 angles, at each of
+    ``GAUSSIAN_CASES``."""
+    from tests import _torch_usfft_cases as cases
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    x = cases.lamino_rows(cases.LAMINO_N, cases.LAMINO_NTHETA, device).reshape(-1, 3)
+    for name, (eps, upsample) in GAUSSIAN_CASES.items():
+        n, _, mu, m = usfft.usfft_parameters(cases.LAMINO_N, eps, upsample)
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=generator)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=generator)
+        want_gather = usfft.gather_gaussian_plain(grid, x, n, m, mu)
+        want_scatter = usfft.scatter_gaussian_plain(f, x, n, m, mu)
+        plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
+        _time_variants(libs, f"{name} m = {m}", grid, f, plan, want_gather, want_scatter)
 
 
 PROBES_SWEPT = ("element_static", "element_prefetch", "static_dma", "gridded", "prefetch")
@@ -607,6 +666,7 @@ def _sweep_interp(libs: dict, device) -> None:
 
 SWEEPS = {
     "usfft": (SOURCE, _sweep_usfft),
+    "gaussian": (SOURCE, _sweep_gaussian),
     "probe": (PROBE_SOURCE, _sweep_probe),
     "bucket": (BUCKET_SOURCE, _sweep_bucket),
     "interp": (INTERP_SOURCE, _sweep_interp),
@@ -623,7 +683,7 @@ def main(argv=None) -> None:
     path, sweep = SWEEPS[args.source]
     with open(path) as f:
         source = f.read()
-    variants = {"usfft": lambda s: VARIANTS, "probe": probe_variants,
+    variants = {"usfft": lambda s: VARIANTS, "gaussian": gaussian_variants, "probe": probe_variants,
                 "bucket": bucket_variants, "interp": interp_variants}[args.source](source)
     if args.variants:
         with open(args.variants) as f:
@@ -638,7 +698,8 @@ def main(argv=None) -> None:
     ).stdout.strip())
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as directory:
-        libs, failed = finish_builds(args.source, start_builds(args.source, sources, directory))
+        name = "usfft" if args.source == "gaussian" else args.source
+        libs, failed = finish_builds(name, start_builds(name, sources, directory))
         for tag, error in failed.items():
             print(f"{tag}: build failed\n{error}")
         sweep(libs, device)

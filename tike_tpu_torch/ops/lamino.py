@@ -4,14 +4,14 @@ Counterpart of :mod:`tike_tpu.ops.lamino`. The forward transform maps a
 cubic volume u (n,n,n) to complex projections (ntheta, n, n): the volume's
 3D Fourier transform is evaluated on planes tilted by ``tilt`` and rotated
 by each theta (Fourier slice theorem), then each plane is inverse 2D FFTed.
-The non-uniform interpolation runs the KB kernels of ``csrc/usfft.cu`` on
-CUDA tensors (:mod:`.usfft`); the FFTs are ``torch.fft`` (cuFFT on the
-card).
+The non-uniform interpolation runs the kernels of ``csrc/usfft.cu`` on
+CUDA tensors with either window, Kaiser-Bessel or Gaussian (:mod:`.usfft`);
+the FFTs are ``torch.fft`` (cuFFT on the card).
 
 The tilted planes' frequencies depend on the angles alone, so a caller
 that transforms many volumes at one set of angles (a reconstruction)
 builds a :class:`LaminoPlan` once and hands it to every function here as
-``plan=``: the frequencies, the KB kernels' geometry plans and the
+``plan=``: the frequencies, the kernels' geometry plans and the
 deapodization then stay on the device between calls. Without one, each
 call builds what it needs.
 
@@ -36,7 +36,9 @@ import torch
 from .. import linalg
 from ..parallel import Mesh, all_reduce, batch_sharding, put_process_local
 from ..parallel._mesh import gather_objects
-from .usfft import _parameters, deapodization, eq2us, gather_tile, kb_plan, spread, us2eq
+from .usfft import (
+    _parameters, deapodization, eq2us, gather_tile, geometry_plan, spread, us2eq,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +49,8 @@ class LaminoConfig:
     tilt: float
     eps: float = 1e-3
     upsample: float = 1.0
-    # Spreading window: "kb" (Kaiser-Bessel) or "gaussian" (the reference's
-    # window, kept as a cross-check).
+    # Spreading window: "kb" (Kaiser-Bessel) or "gaussian" (the original
+    # tike's window, which needs more taps at the same eps).
     kernel: str = "kb"
 
 
@@ -95,8 +97,9 @@ class LaminoPlan:
     """What the transforms of one geometry (``cfg``, ``theta``) share, each
     part built at its first use and kept on theta's device: the rows of
     frequencies at +x (forward, exact adjoint) and -x (:func:`lamino_adj`),
-    the KB kernels' plans for them (on CUDA tensors with the KB window;
-    ``None`` otherwise) and the deapodization array. ``LaminoPlan.built``
+    the kernels' geometry plans for them in ``cfg.kernel``'s window (on
+    CUDA tensors; ``None`` on the CPU, whose plain versions read none) and
+    the deapodization array. ``LaminoPlan.built``
     counts the plans made, so that a caller can show it kept one."""
 
     built = 0
@@ -106,13 +109,13 @@ class LaminoPlan:
         self.cfg = cfg
         self.theta = theta
 
-    def _kb_plan(self, x, tile=None):
-        if self.cfg.kernel != "kb" or not x.is_cuda:
+    def _geometry_plan(self, x, tile=None):
+        """The geometry plan of the points x in the window of ``cfg``."""
+        if not x.is_cuda:
             return None
-        upsampled, _, m, beta = _parameters(
-            self.cfg.n, self.cfg.eps, self.cfg.upsample, self.cfg.kernel
-        )
-        return kb_plan(x.reshape(-1, 3), upsampled, m, beta, tile)
+        c = self.cfg
+        upsampled, _, m, param = _parameters(c.n, c.eps, c.upsample, c.kernel)
+        return geometry_plan(x.reshape(-1, 3), upsampled, m, param, tile, c.kernel)
 
     @functools.cached_property
     def rows(self):
@@ -125,21 +128,21 @@ class LaminoPlan:
 
     @functools.cached_property
     def scatter(self):
-        """The KB plan of the scatter at +x (:func:`lamino_adj_exact`)."""
-        return self._kb_plan(self.rows)
+        """The plan of the scatter at +x (:func:`lamino_adj_exact`)."""
+        return self._geometry_plan(self.rows)
 
     @functools.cached_property
     def scatter_negated(self):
-        """The KB plan of the scatter at -x (:func:`lamino_adj`)."""
-        return self._kb_plan(self.rows_negated)
+        """The plan of the scatter at -x (:func:`lamino_adj`)."""
+        return self._geometry_plan(self.rows_negated)
 
     @functools.cached_property
     def gather(self):
-        """The KB plan of the gather at +x (:func:`lamino_fwd`): the
+        """The plan of the gather at +x (:func:`lamino_fwd`): the
         scatter's where the gather takes bin order too."""
         _, _, m, _ = _parameters(self.cfg.n, self.cfg.eps, self.cfg.upsample, self.cfg.kernel)
         tile = gather_tile(m)
-        return self.scatter if tile is None else self._kb_plan(self.rows, tile)
+        return self.scatter if tile is None else self._geometry_plan(self.rows, tile)
 
     @functools.cached_property
     def deapod(self):

@@ -6,29 +6,35 @@ the non-uniform points) and the same conventions: uniform grids are
 zero-centred, non-uniform frequencies x lie about [-0.5, 0.5) and wrap
 periodically outside it, and ``eq2us(f)(x) ~ sum_k f[k] exp(-2 pi i x . k)``.
 
-The Kaiser-Bessel interpolation has two implementations:
+The interpolation has two windows, Kaiser-Bessel (``gather_kb``,
+``scatter_kb``) and the original tike's Gaussian (``gather``, ``scatter``),
+and each has two implementations:
 
-- a plain PyTorch version (``gather_kb_plain``, ``scatter_kb_plain``): the
-  tap scan of ``tike_tpu``'s ``gather_kb``/``scatter_kb``, one indexed
-  gather (or ``index_add_``) of all points per 3-D tap;
-- hand-written CUDA kernels (``csrc/usfft.cu``, ``gather_kb_cuda``,
-  ``scatter_kb_cuda``) that read a geometry plan (:func:`kb_plan`): the
+- a plain PyTorch version (``gather_kb_plain``, ``scatter_kb_plain``,
+  ``gather_gaussian_plain``, ``scatter_gaussian_plain``): the tap scans of
+  ``tike_tpu``'s ``gather_kb``/``scatter_kb`` and ``gather``/``scatter``,
+  one indexed gather (or ``index_add_``) of all points per 3-D tap;
+- the hand-written CUDA kernels of ``csrc/usfft.cu`` (``gather_kb_cuda``,
+  ``scatter_kb_cuda``, ``gather_gaussian_cuda``, ``scatter_gaussian_cuda``),
+  which read a geometry plan (:func:`geometry_plan`): the
   points sorted by the grid cell they fall in, with their axis weights in a
-  table. The gather walks the points in that order; the scatter gives each
-  row of the grid one block that adds the points reaching it in a fixed
-  order, with no atomics, so two launches agree to the bit. ``tike_tpu`` has no
-  Pallas kernel here: its ``gather_kb_rows``/``scatter_kb_rows`` are einsum
-  chains over dense rows, shaped for the TPU's matrix unit, and the kernels
-  replace them too.
+  table. Both windows are separable, so one table of per-axis factors
+  holds either, and the plan's base cell puts each window's 2m taps where
+  the kernels look for them. The gather walks the points in that order; the
+  scatter gives each row of the grid one block that adds the points
+  reaching it in a fixed order, with no atomics, so two launches agree to
+  the bit. ``tike_tpu`` has no Pallas kernel here: its tap scans and its
+  ``gather_kb_rows``/``scatter_kb_rows`` (einsum chains over dense rows,
+  shaped for the TPU's matrix unit) are XLA code, and the kernels replace
+  them.
 
-``gather_kb`` and ``scatter_kb`` dispatch on the device of the tensors they
-are given: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise. Both take an optional ``plan=``; without one they build it
-for the call. A plan depends on the points and the window alone, so a
-caller whose points stay (laminography) builds it once. The row-structured
-layout (``(R, C, 3)`` points, ``gather_kb_rows``/``scatter_kb_rows``) is the
-flat one reshaped. The Gaussian window (``gather``/``scatter``) is the
-reference's cross-check and stays plain PyTorch on every device.
+Each dispatching function takes the device of the tensors it is given:
+CPU tensors take the plain version, CUDA tensors launch the kernel or
+raise. Each takes an optional ``plan=``; without one it is built for the
+call. A plan depends on the points and the window alone, so a caller whose
+points stay (laminography) builds it once. The row-structured layout
+(``(R, C, 3)`` points, ``gather_kb_rows``/``scatter_kb_rows``) is the flat
+one reshaped.
 """
 
 from __future__ import annotations
@@ -41,9 +47,19 @@ import torch
 from .. import kernels
 from .patch import _on_cpu, _raise_on_error
 
-LAUNCHES = {"usfft_gather_kb": 0, "usfft_scatter_kb": 0}
-"""How many times each CUDA kernel has been launched in this process.
-Incremented only by a successful launch; callers may reset them to 0."""
+LAUNCHES = {
+    "usfft_gather_kb": 0, "usfft_scatter_kb": 0,
+    "usfft_gather_gaussian": 0, "usfft_scatter_gaussian": 0,
+}
+"""How many times each CUDA kernel has been launched in this process, by
+window. Incremented only by a successful launch; callers may reset them to
+0."""
+
+# Each window's launch counts, (gather, scatter).
+_COUNTS = {
+    "kb": ("usfft_gather_kb", "usfft_scatter_kb"),
+    "gaussian": ("usfft_gather_gaussian", "usfft_scatter_gaussian"),
+}
 
 MAX_N = 1290
 """The largest grid the kernels take: they index its n^3 cells in int32."""
@@ -236,31 +252,41 @@ GATHER_TILE = (8, 8)
 """The tile of cells, on axes 1 and 2, that the gather's own plan sorts the
 points by at m = 1 (see :func:`gather_tile`)."""
 
+# How far a window's first tap lies below floor(n x) + 1 - m: the plan's base
+# cell is (n // 2 + floor(n x) - shift) % n, and the kernels take the taps
+# base + 1 - m ... base + m. The KB window's taps are floor(n x) + [1 - m, m],
+# the Gaussian's floor(n x) + [-m, m - 1].
+_SHIFT = {"kb": 0, "gaussian": 1}
+
 
 @dataclasses.dataclass(frozen=True)
-class KBPlan:
-    """What a KB gather or scatter needs of its points, built once by
-    :func:`kb_plan` and read by the kernels of ``csrc/usfft.cu``.
+class GeometryPlan:
+    """What a gather or scatter of ``csrc/usfft.cu`` needs of its points,
+    built once by :func:`geometry_plan` and read by the kernels.
 
-    A point's bin is its base cell ``(n // 2 + floor(n x)) % n`` on each
-    axis, linearised with axis 2 fastest. ``order`` (N,) int32 lists the
-    points sorted by bin (or by ``tile``), ties in ascending point index;
-    ``bins`` (N,) int32 is the bin of each sorted point; ``weights``
+    ``window`` is "kb" (Kaiser-Bessel) or "gaussian" and ``param`` its
+    parameter (the KB window's beta, the Gaussian's mu). A point's bin is
+    its base cell ``(n // 2 + floor(n x) - shift) % n`` on each axis (shift
+    0 for KB, 1 for the Gaussian, so that the 2m taps are the cells base + 1
+    - m ... base + m), linearised with axis 2 fastest. ``order`` (N,) int32
+    lists the points sorted by bin (or by ``tile``), ties in ascending point
+    index; ``bins`` (N,) int32 is the bin of each sorted point; ``weights``
     (3, 2m, N) float32 holds each sorted point's axis weights (the point
-    index last, so that a warp's loads of one tap are contiguous);
-    ``bin_start`` (n^3 + 1,) int32 is where each bin's points start in the
-    sorted list. A plan sorted by tiles has no ``bin_start`` and serves the
-    gather alone.
+    index last, so that a warp's loads of one tap are contiguous); a 3-D
+    tap's weight is their product. ``bin_start`` (n^3 + 1,) int32 is where
+    each bin's points start in the sorted list. A plan sorted by tiles has
+    no ``bin_start`` and serves the gather alone.
     """
 
     n: int
     m: int
-    beta: float
+    param: float
     order: torch.Tensor
     bins: torch.Tensor
     weights: torch.Tensor
     bin_start: torch.Tensor | None = None
     tile: tuple | None = None
+    window: str = "kb"
 
     @property
     def npoints(self) -> int:
@@ -276,7 +302,7 @@ class KBPlan:
 def _check_window(n: int, m: int) -> None:
     if not (m >= 1 and 2 * m <= n <= MAX_N):
         raise ValueError(
-            f"the KB window needs m >= 1 and 2 m <= n <= {MAX_N}; got m = {m}, n = {n}"
+            f"the window needs m >= 1 and 2 m <= n <= {MAX_N}; got m = {m}, n = {n}"
         )
 
 
@@ -289,22 +315,36 @@ def gather_tile(m: int):
     return GATHER_TILE if m == 1 else None
 
 
-def kb_plan(x, n: int, m: int, beta: float, tile=None) -> KBPlan:
+def _gaussian_axis_weights(x_axis, ell_axis, m: int, mu: float, n: int):
+    """(..., 2m) factors ``exp(-pi^2 / mu d^2)`` of one axis's taps ell +
+    [-m, m - 1], d = (ell + tap) / n - x in float32 as the plain version
+    computes it; their product over the axes, times (pi / mu)^(3/2), is the
+    Gaussian weight of a 3-D tap."""
+    offs = torch.arange(-m, m, device=x_axis.device)
+    idx = (ell_axis.to(torch.int64)[..., None] + offs).to(x_axis.dtype)
+    d = idx / n - x_axis[..., None]
+    return torch.exp(float(-np.pi**2 / mu) * d**2)
+
+
+def geometry_plan(x, n: int, m: int, param: float, tile=None, window: str = "kb") -> GeometryPlan:
     """The geometry plan of the points x (N, 3) float32 on an n^3 grid with
-    the 2m-tap window of parameter beta, on x's device.
+    ``window``'s 2m taps, on x's device: "kb", the Kaiser-Bessel window of
+    parameter beta, or "gaussian", the Gaussian of parameter mu, whose base
+    cell lies one below the KB window's.
 
     Set-up, like an FFT plan: a stable sort of the points by bin, a count of
-    each bin, and the axis weights of :func:`_kb_axis_weights` (so the
+    each bin, and the axis weights (:func:`_kb_axis_weights`, so the KB
     kernels blend with the plain version's weights, and ``n x`` and its
-    floor round as they do there). Plain PyTorch calls on either device.
-    With ``tile = (t1, t2)`` the points are sorted by the t1 x t2 tile of
-    cells (axes 1 and 2) their base cell lies in, and no bins are counted:
-    a plan for the gather alone.
+    floor round as they do there; :func:`_gaussian_axis_weights`, the
+    constant (pi / mu)^(3/2) folded into axis 0's). Plain PyTorch calls on
+    either device. With ``tile = (t1, t2)`` the points are sorted by the t1
+    x t2 tile of cells (axes 1 and 2) their base cell lies in, and no bins
+    are counted: a plan for the gather alone.
     """
     _check_window(n, m)
     if x.ndim != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be (N, 3) float32; got {x.dtype} {tuple(x.shape)}")
-    cell = torch.remainder(n // 2 + torch.floor(n * x).to(torch.int64), n)
+    cell = torch.remainder(n // 2 - _SHIFT[window] + torch.floor(n * x).to(torch.int64), n)
     bins = (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]
     bin_start = None
     if tile is None:
@@ -316,13 +356,16 @@ def kb_plan(x, n: int, m: int, beta: float, tile=None) -> KBPlan:
         order = torch.sort(key, stable=True)[1]
         bins = bins[order]
     xs = x[order]
+    axis_weights = _kb_axis_weights if window == "kb" else _gaussian_axis_weights
     weights = torch.stack(
-        [_kb_axis_weights(xs[:, a], torch.floor(n * xs[:, a]), m, beta, n).T for a in range(3)]
+        [axis_weights(xs[:, a], torch.floor(n * xs[:, a]), m, param, n).T for a in range(3)]
     )
-    return KBPlan(
-        n=n, m=m, beta=float(beta), order=order.to(torch.int32),
+    if window == "gaussian":
+        weights[0] *= float(np.sqrt(np.pi / param) ** 3)
+    return GeometryPlan(
+        n=n, m=m, param=float(param), order=order.to(torch.int32),
         bins=bins.to(torch.int32), weights=weights.contiguous(), bin_start=bin_start,
-        tile=None if tile is None else tuple(tile),
+        tile=None if tile is None else tuple(tile), window=window,
     )
 
 
@@ -338,32 +381,32 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be 8-byte aligned")
 
 
-def _plan_for(plan, x, n: int, m: int, beta: float, tile=None, build=True):
+def _plan_for(plan, x, n: int, m: int, param: float, window: str, tile=None, build=True):
     """``plan`` checked against the call it is given to, or (with
-    ``build``) a new one, sorted by ``tile``."""
+    ``build``) a new one of ``window``, sorted by ``tile``."""
     if plan is None:
-        return kb_plan(x, n, m, beta, tile) if build else None
-    if (plan.n, plan.m, plan.beta, plan.npoints) != (n, m, float(beta), x.shape[0]):
+        return geometry_plan(x, n, m, param, tile, window) if build else None
+    if (plan.window, plan.n, plan.m, plan.param, plan.npoints) != (
+        window, n, m, float(param), x.shape[0]
+    ):
         raise ValueError(
-            f"the plan is for n = {plan.n}, m = {plan.m}, beta = {plan.beta}, "
-            f"{plan.npoints} points; the call has n = {n}, m = {m}, beta = {beta}, "
-            f"{x.shape[0]} points"
+            f"the plan is for the {plan.window} window, n = {plan.n}, m = {plan.m}, "
+            f"parameter {plan.param}, {plan.npoints} points; the call has the {window} "
+            f"window, n = {n}, m = {m}, parameter {param}, {x.shape[0]} points"
         )
     if plan.order.device != x.device:
         raise ValueError(f"the plan is on {plan.order.device}, x on {x.device}")
     return plan
 
 
-def gather_kb_cuda(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
-    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
-    points of ``plan`` (built here from x if not given)."""
+def _gather_cuda(Fe, x, n: int, m: int, param: float, plan, window: str):
     _check_window(n, m)
     npoints = x.shape[0]
     _check("Fe", Fe, torch.complex64, (n, n, n))
     _check("x", x, torch.float32, (npoints, 3))
     if Fe.device != x.device:
         raise ValueError(f"Fe is on {Fe.device}, x on {x.device}")
-    plan = _plan_for(plan, x, n, m, beta, gather_tile(m))
+    plan = _plan_for(plan, x, n, m, param, window, gather_tile(m))
     out = torch.empty(npoints, dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
@@ -374,26 +417,20 @@ def gather_kb_cuda(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = Non
         )
     _raise_on_error("kb_gather", rc)
     if npoints:
-        LAUNCHES["usfft_gather_kb"] += 1
+        LAUNCHES[_COUNTS[window][0]] += 1
     return out
 
 
-def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
-    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``) on the
-    points of ``plan`` (built here from x if not given).
-
-    The kernel writes every value of a fresh grid once, each the sum of
-    its points in the plan's order: two launches agree to the bit.
-    """
+def _scatter_cuda(f, x, n: int, m: int, param: float, plan, window: str):
     _check_window(n, m)
     npoints = x.shape[0]
     _check("f", f, torch.complex64, (npoints,))
     _check("x", x, torch.float32, (npoints, 3))
     if f.device != x.device:
         raise ValueError(f"f is on {f.device}, x on {x.device}")
-    plan = _plan_for(plan, x, n, m, beta)
+    plan = _plan_for(plan, x, n, m, param, window)
     if plan.bin_start is None:
-        raise ValueError("the scatter needs a plan in bin order (kb_plan with tile=None)")
+        raise ValueError("the scatter needs a plan in bin order (tile=None)")
     G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
@@ -403,29 +440,45 @@ def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: KBPlan | None = Non
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("kb_scatter", rc)
-    LAUNCHES["usfft_scatter_kb"] += 1
+    LAUNCHES[_COUNTS[window][1]] += 1
     return G
 
 
-def gather_kb(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+def gather_kb_cuda(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
+    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
+    points of ``plan`` (built here from x if not given)."""
+    return _gather_cuda(Fe, x, n, m, beta, plan, "kb")
+
+
+def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
+    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``) on the
+    points of ``plan`` (built here from x if not given).
+
+    The kernel writes every value of a fresh grid once, each the sum of
+    its points in the plan's order: two launches agree to the bit.
+    """
+    return _scatter_cuda(f, x, n, m, beta, plan, "kb")
+
+
+def gather_kb(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """KB-window interpolation of Fe (n,n,n) at frequencies x (N,3).
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    on ``plan`` (:func:`kb_plan` of the same x and window) if given."""
+    on ``plan`` (:func:`geometry_plan` of the same x and window) if given."""
     if _on_cpu(Fe, x):
-        _plan_for(plan, x, n, m, beta, build=False)
+        _plan_for(plan, x, n, m, beta, "kb", build=False)
         return gather_kb_plain(Fe, x, n, m, beta)
     return gather_kb_cuda(Fe, x, n, m, beta, plan)
 
 
-def scatter_kb(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+def scatter_kb(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """Adjoint of :func:`gather_kb`: spread f (N,) onto an (n,n,n) grid."""
     if _on_cpu(f, x):
-        _plan_for(plan, x, n, m, beta, build=False)
+        _plan_for(plan, x, n, m, beta, "kb", build=False)
         return scatter_kb_plain(f, x, n, m, beta)
     return scatter_kb_cuda(f, x, n, m, beta, plan)
 
 
-def gather_kb_rows(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+def gather_kb_rows(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """KB interpolation of Fe (n,n,n) at row-structured points x (R, C, 3).
 
     Returns (R, C). ``tike_tpu`` contracts dense rows on the matrix unit
@@ -435,7 +488,7 @@ def gather_kb_rows(Fe, x, n: int, m: int, beta: float, plan: KBPlan | None = Non
     return gather_kb(Fe, x.reshape(R * C, 3), n, m, beta, plan).reshape(R, C)
 
 
-def scatter_kb_rows(f, x, n: int, m: int, beta: float, plan: KBPlan | None = None):
+def scatter_kb_rows(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """Adjoint of :func:`gather_kb_rows`: spread f (R, C) onto (n,n,n)."""
     R, C = f.shape
     return scatter_kb(f.reshape(R * C), x.reshape(R * C, 3), n, m, beta, plan)
@@ -460,8 +513,12 @@ def _gaussian_taps(x, n: int, m: int, mu: float):
         yield cons0 * torch.exp(cons1 * delta), (g[:, 0] * n + g[:, 1]) * n + g[:, 2]
 
 
-def gather(Fe, x, n: int, m: int, mu: float):
-    """Gaussian-window interpolation of Fe (n,n,n) at x (N,3) -> (N,)."""
+def gather_gaussian_plain(Fe, x, n: int, m: int, mu: float):
+    """Plain ``gather``: the tap scan of ``tike_tpu``'s, one indexed gather
+    of all points per 3-D tap, each weight ``cons0 exp(cons1 |d|^2)``.
+
+    Fe (n, n, n) complex64, x (N, 3) float32. Returns (N,) complex64.
+    """
     Fe_flat = torch.view_as_real(Fe.contiguous()).reshape(-1, 2)
     acc = torch.zeros((x.shape[0], 2), dtype=Fe_flat.dtype, device=x.device)
     for w, flat in _gaussian_taps(x, n, m, mu):
@@ -469,8 +526,11 @@ def gather(Fe, x, n: int, m: int, mu: float):
     return torch.view_as_complex(acc)
 
 
-def scatter(f, x, n: int, m: int, mu: float):
-    """Adjoint of :func:`gather`: spread f (N,) onto an (n,n,n) grid."""
+def scatter_gaussian_plain(f, x, n: int, m: int, mu: float):
+    """Plain ``scatter``: the tap scan of ``index_add_``s.
+
+    f (N,) complex64, x (N, 3) float32. Returns (n, n, n) complex64.
+    """
     f2 = torch.view_as_real(f.contiguous())
     G = torch.zeros((n * n * n, 2), dtype=f2.dtype, device=f.device)
     for w, flat in _gaussian_taps(x, n, m, mu):
@@ -478,16 +538,48 @@ def scatter(f, x, n: int, m: int, mu: float):
     return torch.view_as_complex(G).reshape(n, n, n)
 
 
+def gather_gaussian_cuda(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
+    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
+    points of a Gaussian ``plan`` (:func:`geometry_plan` with ``window=
+    "gaussian"``, built here from x if not given)."""
+    return _gather_cuda(Fe, x, n, m, mu, plan, "gaussian")
+
+
+def scatter_gaussian_cuda(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
+    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``) on the
+    points of a Gaussian ``plan`` (built here from x if not given): every
+    grid value written once, two launches equal to the bit."""
+    return _scatter_cuda(f, x, n, m, mu, plan, "gaussian")
+
+
+def gather(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
+    """Gaussian-window interpolation of Fe (n,n,n) at x (N,3) -> (N,).
+    CPU tensors take the plain version; CUDA tensors launch the kernel, on
+    ``plan`` (:func:`geometry_plan` of the same x and window) if given."""
+    if _on_cpu(Fe, x):
+        _plan_for(plan, x, n, m, mu, "gaussian", build=False)
+        return gather_gaussian_plain(Fe, x, n, m, mu)
+    return gather_gaussian_cuda(Fe, x, n, m, mu, plan)
+
+
+def scatter(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
+    """Adjoint of :func:`gather`: spread f (N,) onto an (n,n,n) grid."""
+    if _on_cpu(f, x):
+        _plan_for(plan, x, n, m, mu, "gaussian", build=False)
+        return scatter_gaussian_plain(f, x, n, m, mu)
+    return scatter_gaussian_cuda(f, x, n, m, mu, plan)
+
+
 # The names of the Gaussian-window gather and scatter in the numpy test
 # oracles of the original tike.
-def vector_gather(Fe, x, n: int, m: int, mu: float):
+def vector_gather(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
     """:func:`gather`."""
-    return gather(Fe, x, n, m, mu)
+    return gather(Fe, x, n, m, mu, plan)
 
 
-def vector_scatter(f, x, n: int, m: int, mu: float):
+def vector_scatter(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
     """:func:`scatter`."""
-    return scatter(f, x, n, m, mu)
+    return scatter(f, x, n, m, mu, plan)
 
 
 def _centered_fftn(x):
@@ -515,11 +607,11 @@ def deapodization(n: int, eps: float, upsample: float, kernel: str, dtype, devic
 def spread(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb", plan=None):
     """f (N,) at x (N, 3), or f (R, C) at rows x (R, C, 3), spread onto the
     centred (upsampled,)^3 grid: the first step of :func:`us2eq`. ``plan``
-    is the KB window's :func:`kb_plan` of x, if the caller keeps one."""
+    is the window's plan of x (:func:`geometry_plan`), if
+    the caller keeps one."""
     upsampled, _, m, param = _parameters(n, eps, upsample, kernel)
-    if kernel == "kb":
-        return scatter_kb(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param, plan)
-    return scatter(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param)
+    spread_with = scatter_kb if kernel == "kb" else scatter
+    return spread_with(f.reshape(-1), x.reshape(-1, 3), upsampled, m, param, plan)
 
 
 def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
@@ -528,8 +620,9 @@ def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
 
     f (n,n,n) complex64; x (N,3), or row-structured (R, C, 3), float32.
     Returns (N,), or (R, C). ``kernel`` is "kb" (Kaiser-Bessel) or
-    "gaussian" (the reference's window). A caller that keeps them hands in
-    the :func:`kb_plan` of x and the :func:`deapodization` array.
+    "gaussian" (the original tike's window). A caller that keeps them hands
+    in the window's plan of x (:func:`geometry_plan`) and
+    the :func:`deapodization` array.
     """
     upsampled, pad, m, param = _parameters(n, eps, upsample, kernel)
     end = pad + n
@@ -538,11 +631,8 @@ def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
     fe = torch.zeros((upsampled,) * 3, dtype=f.dtype, device=f.device)
     fe[pad:end, pad:end, pad:end] = f / deapod
     Fe = _centered_fftn(fe)
-    if kernel == "kb":
-        out = gather_kb(Fe, x.reshape(-1, 3), upsampled, m, param, plan)
-    else:
-        out = gather(Fe, x.reshape(-1, 3), upsampled, m, param)
-    return out.reshape(x.shape[:-1])
+    gather_with = gather_kb if kernel == "kb" else gather
+    return gather_with(Fe, x.reshape(-1, 3), upsampled, m, param, plan).reshape(x.shape[:-1])
 
 
 def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
@@ -560,10 +650,13 @@ def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
     return F[pad:end, pad:end, pad:end] / deapod
 
 
-def touched_cells(x, n: int, m: int) -> int:
-    """How many grid values the (2m)^3 taps of the points x (N, 3) touch:
-    all that a gather must read. Counted on the points' device."""
-    (_, g0), (_, g1), (_, g2) = _kb_axis_taps(x, n, m, 1.0)
+def touched_cells(x, n: int, m: int, window: str = "kb") -> int:
+    """How many grid values the (2m)^3 taps of the points x (N, 3) touch
+    with ``window``'s tap range: all that a gather must read. Counted on
+    the points' device."""
+    ell = torch.floor(n * x).to(torch.int64)
+    offs = torch.arange(1 - m, m + 1, device=x.device) - _SHIFT[window]
+    g0, g1, g2 = (torch.remainder(n // 2 + ell[:, a, None] + offs, n) for a in range(3))
     mask = torch.zeros(n * n * n, dtype=torch.bool, device=x.device)
     for j0 in range(2 * m):
         for j1 in range(2 * m):
@@ -574,18 +667,18 @@ def touched_cells(x, n: int, m: int) -> int:
 
 
 def roofline_bytes(name: str, npoints: int, n: int, grid_values: int | None = None) -> int:
-    """The bytes a KB gather or scatter must move at the least.
+    """The bytes a gather or scatter of either window must move at the least.
 
-    ``usfft_gather_kb``: the grid values its points touch (``grid_values``,
+    ``usfft_gather_*``: the grid values its points touch (``grid_values``,
     from :func:`touched_cells`; at most the whole grid), 12 bytes of x and 8
-    of output per point. ``usfft_scatter_kb``: 8 bytes of input and 12 of x
+    of output per point. ``usfft_scatter_*``: 8 bytes of input and 12 of x
     per point, and the whole n^3 complex64 grid written once.
     """
     per_point = 12 + 8
-    if name == "usfft_gather_kb":
+    if name in ("usfft_gather_kb", "usfft_gather_gaussian"):
         cells = n**3 if grid_values is None else grid_values
         return cells * 8 + npoints * per_point
-    if name == "usfft_scatter_kb":
+    if name in ("usfft_scatter_kb", "usfft_scatter_gaussian"):
         return n**3 * 8 + npoints * per_point
     raise ValueError(f"no such kernel: {name!r}")
 
@@ -595,3 +688,14 @@ def flops(npoints: int, m: int) -> int:
     weights (about 20 operations each with the Bessel series) and, per 3-D
     tap, two products of weights and a complex times real multiply-add."""
     return npoints * (6 * m * 20 + (2 * m) ** 3 * 6)
+
+
+def fp32_instructions(npoints: int, m: int) -> int:
+    """The FP32 instructions a gather or scatter of a separable window must
+    issue at the least, its axis weights given: per point, a sum over each
+    of the (2m)^2 rows of taps of w2 times the complex value (two
+    multiply-adds a tap), each row's sum folded in with w1 (two a row), and
+    each plane's with w0 (two a plane); the scatter's adjoint takes the same
+    steps backwards."""
+    taps = 2 * m
+    return npoints * 2 * (taps**3 + taps**2 + taps)
