@@ -11,6 +11,7 @@ without printing the final ``ok`` line:
 
 1. environment: torch, CUDA, card, power limit and nvcc versions;
 2. build: compile ``tike_tpu_torch/csrc/patch.cu``, ``usfft.cu``,
+   ``usfft_gaussian.cu`` (the Gaussian window's kernels),
    ``probe.cu``, ``bucket.cu``, ``bucket_first_form.cu`` (the Bucket
    kernels' first form, a yardstick), ``interp.cu`` and
    ``interp_first_form.cu`` (the Lanczos kernels' first form) for sm_90a, and ``probe.cu`` with its
@@ -304,13 +305,15 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     Each run's seconds are logged beside the card's name.
 
 25. The Gaussian window (``kernel="gaussian"``, the original tike's only
-    window) through ``csrc/usfft.cu`` on Gaussian plans, at bench_all.py's
-    laminography geometry (128^3, 64 angles, tilt pi/3, eps 1e-3): (a) the
-    gather and scatter at upsample 1 (m = 2) and 2 (m = 4) against their
-    plain versions at 1e-5 of the largest value, adjointness, three
-    launches of each bitwise equal; their times in CUDA graphs in turns with
-    the KB kernel at the same upsample, the plain version's, the plan's ms
-    and bytes, and the bound pipe by pipe (bytes at 3.35 TB/s, FP32
+    window) through ``csrc/usfft_gaussian.cu`` on Gaussian plans, at
+    bench_all.py's laminography geometry (128^3, 64 angles, tilt pi/3, eps
+    1e-3): (a) the gather and scatter at upsample 1 (m = 2) and 2 (m = 4)
+    against their plain versions at 1e-5 of the largest value and against
+    their first form (the KB kernels of ``csrc/usfft.cu`` on the same plan,
+    their yardstick), adjointness, three launches of each bitwise equal;
+    their times in CUDA graphs in turns with the first form and the KB
+    kernel at the same upsample, the plain version's, the plan's ms and
+    bytes, and the bound pipe by pipe (bytes at 3.35 TB/s, FP32
     instructions at 33.45e12 a second); (b) ``reconstruct(kernel=
     "gaussian")`` on phase 11's problem: cgrad at cg_iter 4, one warm-up
     and 5 timed outer iterations with every kernel count set to 0 before
@@ -318,7 +321,12 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     the Gaussian kernels' launches equal to what the iterations and the
     line search's trials predict and the KB kernels' 0; then CGLS at
     cg_iter 1, 5 outer iterations, 10 launches of each; (c) phase 10's
-    slice with the Gaussian window at upsample 1 and 2, card against CPU;
+    slice with the Gaussian window at upsample 1 and 2, card against CPU
+    (at upsample 1 CGLS at cg_iter 4 for one outer iteration and at cg_iter
+    1 for three: ``GAUSSIAN_SLICE_RUNS``), and, for the record, CGLS at
+    cg_iter 4 for three outer iterations at upsample 1 on the card and on
+    the CPU in the plain version's, the first form's and the kernels'
+    order and on data changed by 1e-7, each pair's distance logged;
     (d) cgrad at cg_iter 1 with the angles over ``[cuda:0, cuda:0]``
     against one device, and phase 23's two processes against it.
 
@@ -359,7 +367,8 @@ their bounds; the Gaussian pair, ``usfft_gather_gaussian`` and
 ``launches_lamino_gaussian_cgrad``, its CGLS run's as
 ``launches_lamino_gaussian_cgls`` and 25d's as ``launches_gaussian_mesh``,
 25a's times at upsample 1 and, suffixed ``_upsample2``, at upsample 2,
-with the KB kernel's beside them as ``kb_ms`` and the bound pipe by pipe
+with the first form's beside them as ``first_form_ms`` (its difference as
+``first_form_err``), the KB kernel's as ``kb_ms`` and the bound pipe by pipe
 as ``bound_bytes_ms`` and ``bound_fp32_ms``); its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
@@ -462,10 +471,12 @@ USFFT_KERNELS = {
     "usfft_gather_kb": "tike_tpu/ops/usfft.py:330",
     "usfft_scatter_kb": "tike_tpu/ops/usfft.py:364",
 }
-# The Gaussian window (phase 25) runs the same kernels on Gaussian plans,
-# counted under names of their own; they replace XLA code with no Pallas
-# kernel, tike_tpu's Gaussian tap scans (the original tike's usfft.cu gather
-# and scatter; also vector_gather :461 and vector_scatter :465).
+# The Gaussian window (phase 25) runs kernels of its own
+# (csrc/usfft_gaussian.cu), counted under names of their own; they replace
+# XLA code with no Pallas kernel, tike_tpu's Gaussian tap scans (the original
+# tike's usfft.cu gather and scatter; also vector_gather :461 and
+# vector_scatter :465). Their first form, the KB kernels on a Gaussian plan,
+# is timed beside them in 25a; no path runs it.
 GAUSSIAN_KERNELS = {
     "usfft_gather_gaussian": "tike_tpu/ops/usfft.py:401",
     "usfft_scatter_gaussian": "tike_tpu/ops/usfft.py:431",
@@ -497,7 +508,8 @@ INTERP_KERNELS = {
     "lanczos_adj": "tike_tpu/ops/interp.py:71",
 }
 # So are the Lanczos kernels' (csrc/interp_first_form.cu) in phase 19a.
-SOURCES = ("patch", "usfft", "probe", "bucket", "bucket_first_form", "interp", "interp_first_form")
+SOURCES = ("patch", "usfft", "usfft_gaussian", "probe", "bucket", "bucket_first_form", "interp",
+           "interp_first_form")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -516,6 +528,18 @@ LAMINO_ROUNDS = 3
 # pocketfft; CGLS carries that forward (relative, costs and volume).
 LAMINO_SLICE = dict(n=16, ntheta=8, upsample=2, num_iter=3)
 LAMINO_SLICE_CG_ITER = {"cgrad": 1, "cgls": 4}
+# 25c's runs, (algorithm, cg_iter, outer iterations), at each upsample. At
+# upsample 1 the Gaussian slice's CGLS carries any rounding forward a
+# thousandfold past its eighth CG step: the data changed by 1e-7 of itself,
+# or another summation order of the interpolation, moves its costs at cg_iter
+# 4 after three outer iterations by about 1e-4 (phase_gaussian_slice_orders
+# logs both), so a card-against-CPU check there reads rounding, not the
+# port. CGLS takes cg_iter 4 for one outer iteration (every CG step's
+# kernels) and cg_iter 1 for three (the outer loop, costs falling).
+GAUSSIAN_SLICE_RUNS = {
+    1: (("cgrad", 1, 3), ("cgls", 4, 1), ("cgls", 1, 3)),
+    2: tuple((a, cg, LAMINO_SLICE["num_iter"]) for a, cg in LAMINO_SLICE_CG_ITER.items()),
+}
 LAMINO_SLICE_TOL = 1e-4
 # simulate at full width, card against CPU, relative to the largest value:
 # the same taps (make_grids is the same bits on both), other FFT libraries.
@@ -1587,10 +1611,75 @@ def _max_rel(a, b) -> float:
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
+@contextlib.contextmanager
+def gaussian_in_order(gather, scatter):
+    """Inside the block the CPU's Gaussian gather and scatter are
+    ``gather(Fe, plan)`` and ``scatter(f, plan)`` on a Gaussian plan of
+    their points (``tests/_torch_usfft_cases.py`` writes out the kernels'
+    orders), in place of the plain versions' tap scans."""
+    plain = usfft.gather_gaussian_plain, usfft.scatter_gaussian_plain
+
+    def plan(x, n, m, mu):
+        return usfft.geometry_plan(x, n, m, mu, window="gaussian")
+
+    usfft.gather_gaussian_plain = lambda Fe, x, n, m, mu: gather(Fe, plan(x, n, m, mu))
+    usfft.scatter_gaussian_plain = lambda f, x, n, m, mu: scatter(f, plan(x, n, m, mu))
+    try:
+        yield
+    finally:
+        usfft.gather_gaussian_plain, usfft.scatter_gaussian_plain = plain
+
+
+# The orders 25c's CGLS at upsample 1 is run in on the CPU, for the record:
+# the plain version's tap scans, the first form's (the KB kernels' order on
+# a Gaussian plan) and the new kernels'.
+GAUSSIAN_SLICE_ORDERS = {
+    "plain": contextlib.nullcontext,
+    "first form": lambda: gaussian_in_order(cases_usfft.gather_sorted_plain,
+                                            cases_usfft.scatter_owned_plain),
+    "kernels": lambda: gaussian_in_order(cases_usfft.gather_gaussian_kernel_order,
+                                         cases_usfft.scatter_gaussian_kernel_order),
+}
+
+
+def phase_gaussian_slice_orders(device) -> dict:
+    """25c, for the record: CGLS at cg_iter 4, three outer iterations, on
+    phase 10's slice with the Gaussian window at upsample 1, on the card
+    and on the CPU in each of ``GAUSSIAN_SLICE_ORDERS`` and, in the plain
+    order, on the data changed by 1e-7 of itself (seeds 25-27); each pair's
+    largest relative cost difference and volume difference. Nothing is
+    checked here (``GAUSSIAN_SLICE_RUNS`` says why)."""
+    c = LAMINO_SLICE
+    _, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], 1, "gaussian")
+    kwargs = dict(num_iter=c["num_iter"], eps=cases_usfft.LAMINO_EPS, upsample=1,
+                  cg_iter=LAMINO_SLICE_CG_ITER["cgls"], kernel="gaussian")
+    runs = {"card": tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgls", device=device,
+                                   **kwargs)}
+    for name, order in GAUSSIAN_SLICE_ORDERS.items():
+        with order():
+            runs[f"cpu, {name}"] = tl.reconstruct(data, theta, cases_usfft.LAMINO_TILT, "cgls",
+                                                  device="cpu", **kwargs)
+    for seed in (25, 26, 27):
+        noise = np.random.default_rng(seed).standard_normal(data.shape)
+        runs[f"cpu, plain, data x (1 + 1e-7 noise {seed})"] = tl.reconstruct(
+            (data * (1 + 1e-7 * noise)).astype(np.complex64), theta, cases_usfft.LAMINO_TILT,
+            "cgls", device="cpu", **kwargs)
+    names = list(runs)
+    gaps = {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            cost = float(np.max(np.abs(runs[a]["cost"] - runs[b]["cost"]) / np.abs(runs[b]["cost"])))
+            gaps[f"{a} / {b}"] = (cost, _max_rel(runs[a]["obj"], runs[b]["obj"]))
+            log(f"[gaussian-slice] CGLS cg_iter {kwargs['cg_iter']}, {c['num_iter']} outer "
+                f"iterations, upsample 1: {a} vs {b}: costs {cost:.2e} apart, volume "
+                f"{gaps[f'{a} / {b}'][1]:.2e}")
+    return gaps
+
+
 def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
-                        tag="lamino-slice") -> None:
+                        tag="lamino-slice", runs=GAUSSIAN_SLICE_RUNS[2]) -> None:
     """cgrad and CGLS on a small problem with the ``kernel`` window, card
-    against CPU."""
+    against CPU, each of ``runs`` (algorithm, cg_iter, outer iterations)."""
     c = LAMINO_SLICE
     volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], upsample, kernel)
     data_card = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
@@ -1598,10 +1687,10 @@ def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
     err = _max_rel(data_card, data)
     if not err <= LAMINO_SIM_TOL:
         raise AssertionError(f"{tag}: simulate on the card differs by {err:.3e}")
-    for algorithm, cg_iter in LAMINO_SLICE_CG_ITER.items():
+    for algorithm, cg_iter, num_iter in runs:
         results = {
             str(dev): tl.reconstruct(
-                data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=c["num_iter"],
+                data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=num_iter,
                 eps=cases_usfft.LAMINO_EPS, upsample=upsample, cg_iter=cg_iter, kernel=kernel,
                 device=dev,
             )
@@ -1615,7 +1704,7 @@ def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
         if not obj_err <= LAMINO_SLICE_TOL:
             raise AssertionError(f"{tag} {algorithm}: volume differs by {obj_err:.3e}")
         log(f"[{tag}] {algorithm} (cg_iter {cg_iter}), {c['n']}^3, {c['ntheta']} "
-            f"angles, {kernel} window, upsample {upsample}, {c['num_iter']} outer iterations on {device} "
+            f"angles, {kernel} window, upsample {upsample}, {num_iter} outer iterations on {device} "
             f"vs cpu: costs {got['cost'].tolist()} vs {ref['cost'].tolist()} (rtol "
             f"{LAMINO_SLICE_TOL:g}); volume max|err| / max|value| {obj_err:.2e}; simulate "
             f"{err:.2e}")
@@ -4493,11 +4582,12 @@ def phase_examples(device, card: str) -> dict:
 def phase_gaussian_parity(device, card: str) -> dict:
     """25a: the Gaussian window's gather and scatter on laminography's
     points at bench_all.py's 128^3 / 64 angles, at upsample 1 (m = 2) and 2
-    (m = 4): each against its plain version at ``KB_TOL`` of the largest
-    value, adjointness, three launches of each bitwise equal (two on one
-    plan, one building its own); times in CUDA graphs in turns with the KB
-    kernel at the same upsample, the plain version's, the plan's build and
-    bytes, beside the bound pipe by pipe."""
+    (m = 4): each against its plain version and its first form (the KB
+    kernels on the same plan) at ``KB_TOL`` of the largest value,
+    adjointness, three launches of each bitwise equal (two on one plan, one
+    building its own); times in CUDA graphs in turns with the first form and
+    the KB kernel at the same upsample, the plain version's, the plan's
+    build and bytes, beside the bound pipe by pipe."""
     gen = torch.Generator(device=device).manual_seed(25)
     x = cases_usfft.lamino_rows(cases_usfft.LAMINO_N, cases_usfft.LAMINO_NTHETA, device)
     x = x.reshape(-1, 3)
@@ -4516,28 +4606,43 @@ def phase_gaussian_parity(device, card: str) -> dict:
         plan, plan_ms = _timed_plan(x, n, m, mu, window="gaussian")
         kb_gather_plan = usfft.geometry_plan(x, n, m_kb, beta, usfft.gather_tile(m_kb))
         kb_plan = usfft.geometry_plan(x, n, m_kb, beta)
+        first_errs = {
+            "usfft_gather_gaussian": cases_usfft.max_rel(
+                usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan),
+                cases_usfft.first_form_gather(grid, plan)),
+            "usfft_scatter_gaussian": cases_usfft.max_rel(
+                usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan),
+                cases_usfft.first_form_scatter(f, plan)),
+        }
+        for name, err in first_errs.items():
+            if not err <= cases_usfft.KB_TOL:
+                raise AssertionError(f"{name} ({case}): {err:.3e} from its first form")
         log(f"[gaussian] {case}: grid {n}^3, m = {m} (KB m = {m_kb}), {x.shape[0]} points: "
             f"gather max|err| {errs['usfft_gather_gaussian_abs']:.3e} "
             f"({errs['usfft_gather_gaussian']:.2e} of max|value|), scatter "
             f"{errs['usfft_scatter_gaussian_abs']:.3e} ({errs['usfft_scatter_gaussian']:.2e}; tol "
             f"{cases_usfft.KB_TOL:g}); adjointness {errs['adjoint']:.2e} (tol "
             f"{cases_usfft.ADJOINT_TOL:g}); three gathers and three scatters (two on one plan, "
-            "one building its own) bitwise equal")
+            f"one building its own) bitwise equal; against the first form "
+            f"{first_errs['usfft_gather_gaussian']:.2e} / {first_errs['usfft_scatter_gaussian']:.2e}"
+            f" of max|value| ({len(plan.blocks)} scatter blocks)")
         calls = {
             "usfft_gather_gaussian": (
                 lambda: usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan),
+                lambda: cases_usfft.first_form_gather(grid, plan),
                 lambda: usfft.gather_kb_cuda(grid, x, n, m_kb, beta, kb_gather_plan),
                 lambda: usfft.gather_gaussian_plain(grid, x, n, m, mu),
             ),
             "usfft_scatter_gaussian": (
                 lambda: usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan),
+                lambda: cases_usfft.first_form_scatter(f, plan),
                 lambda: usfft.scatter_kb_cuda(f, x, n, m_kb, beta, kb_plan),
                 lambda: usfft.scatter_gaussian_plain(f, x, n, m, mu),
             ),
         }
         suffix = "" if upsample == 1 else f"_upsample{upsample}"
-        for name, (kernel, kb, plain) in calls.items():
-            ms = graph_ms_in_turns({"gaussian": kernel, "kb": kb})
+        for name, (kernel, first, kb, plain) in calls.items():
+            ms = graph_ms_in_turns({"gaussian": kernel, "first_form": first, "kb": kb})
             plain_ms = median_ms_in_turns({"plain": plain}, reps=1, rounds=1)["plain"]
             bound = cases_usfft.gaussian_roofline(name, x, n, m)
             out[name].update({
@@ -4545,6 +4650,8 @@ def phase_gaussian_parity(device, card: str) -> dict:
                 f"max_rel_err{suffix}": errs[name],
                 f"adjoint_err{suffix}": errs["adjoint"],
                 f"ms{suffix}": ms["gaussian"],
+                f"first_form_ms{suffix}": ms["first_form"],
+                f"first_form_err{suffix}": first_errs[name],
                 f"kb_ms{suffix}": ms["kb"],
                 f"plain_ms{suffix}": plain_ms,
                 f"plan_ms{suffix}": plan_ms,
@@ -4559,8 +4666,9 @@ def phase_gaussian_parity(device, card: str) -> dict:
                 "deterministic": True,
             })
             log(f"[gaussian] {name} at {case} (m = {m}): kernel {ms['gaussian']:.4f} ms (CUDA "
-                f"graph, plan built beforehand: {plan_ms:.3f} ms, {plan.nbytes} bytes), the KB "
-                f"kernel at m = {m_kb} {ms['kb']:.4f} ms in the same turns, plain "
+                f"graph, plan built beforehand: {plan_ms:.3f} ms, {plan.nbytes} bytes), its first "
+                f"form {ms['first_form']:.4f} ms ({ms['first_form'] / ms['gaussian']:.2f}x) and the "
+                f"KB kernel at m = {m_kb} {ms['kb']:.4f} ms in the same turns, plain "
                 f"{plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
                 f"{bound['bound_bytes']} bytes {bound['bound_bytes_ms']:.4f} ms at "
                 f"{cases_usfft.HBM_BYTES_PER_S:g} B/s"
@@ -4802,7 +4910,9 @@ def main() -> None:
     gaussian_timings = phase_gaussian_parity(device, card)
     gaussian_run = phase_gaussian_lamino(device, card, problem, lamino_runs["cgrad"])
     for upsample in GAUSSIAN_UPSAMPLES:
-        phase_lamino_slices(device, upsample, "gaussian", "gaussian-slice")
+        phase_lamino_slices(device, upsample, "gaussian", "gaussian-slice",
+                            GAUSSIAN_SLICE_RUNS[upsample])
+    phase_gaussian_slice_orders(device)
     launches_gaussian_mesh = phase_gaussian_mesh(device, card, problem, dist_gaussian_costs)
     log(f"[gaussian] phase 25 took {time.perf_counter() - gaussian_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
@@ -4901,7 +5011,7 @@ def main() -> None:
         {
             "name": name,
             "route": "cuda",
-            "source": "tike_tpu_torch/csrc/usfft.cu",
+            "source": "tike_tpu_torch/csrc/usfft_gaussian.cu",
             "replaces": GAUSSIAN_KERNELS[name],
             "launches": gaussian_run["launches"][name],
             "launches_lamino_gaussian_cgrad": gaussian_run["launches"][name],

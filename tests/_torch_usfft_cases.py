@@ -6,8 +6,12 @@ to their plain PyTorch versions with these, ``tests/test_torch_usfft_cuda.py``
 and ``tests/test_torch_usfft_gaussian_cuda.py`` do the same on the card, and
 ``tests/test_torch_usfft.py``, ``test_torch_usfft_plan.py`` and
 ``test_torch_usfft_gaussian.py`` check the inputs, the plans, the bounds and
-the einsum formulation on the CPU (against ``tike_tpu``). Nothing here
-imports JAX.
+the einsum formulation on the CPU (against ``tike_tpu``). The Gaussian
+kernels of ``csrc/usfft_gaussian.cu`` are written out in plain code in
+their own summation order (``gather_gaussian_kernel_order``,
+``scatter_gaussian_kernel_order``), and their yardstick, the first form
+(the KB kernels of ``csrc/usfft.cu`` on a Gaussian plan), is launched by
+``first_form_gather`` and ``first_form_scatter``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tike_tpu_torch import kernels
 from tike_tpu_torch.ops import lamino, usfft
 
 # Kernel against plain version, relative to the largest |value|: the same
@@ -90,6 +95,12 @@ def inner64(a, b) -> complex:
 
 
 # Each window's (CUDA gather, CUDA scatter, plain gather, plain scatter).
+# Each window's launch counts in usfft.LAUNCHES, (gather, scatter).
+COUNTS = {
+    "kb": ("usfft_gather_kb", "usfft_scatter_kb"),
+    "gaussian": ("usfft_gather_gaussian", "usfft_scatter_gaussian"),
+}
+
 WINDOW_CALLS = {
     "kb": (usfft.gather_kb_cuda, usfft.scatter_kb_cuda,
            usfft.gather_kb_plain, usfft.scatter_kb_plain),
@@ -107,7 +118,7 @@ def check_kernels(grid, x, f, n, m, param, name, window="kb") -> dict:
     errors (by kernel name and ``adjoint``) and the absolute ones
     (``<name>_abs``)."""
     gather, scatter, gather_plain, scatter_plain = WINDOW_CALLS[window]
-    gather_name, scatter_name = usfft._COUNTS[window]
+    gather_name, scatter_name = COUNTS[window]
     plan = usfft.geometry_plan(x, n, m, param, window=window)
     got = gather(grid, x, n, m, param, plan)
     spread = scatter(f, x, n, m, param, plan)
@@ -194,6 +205,173 @@ def gather_sorted_plain(Fe, plan) -> torch.Tensor:
     out = torch.empty_like(acc)
     out[plan.order.long()] = acc
     return out
+
+
+# csrc/usfft_gaussian.cu's kThreadGatherMaxM (a thread a point in the
+# gather up to this m): tests/test_torch_usfft_gaussian_kernels.py holds it to
+# the source.
+THREAD_GATHER_MAX_M = 2
+
+
+def _group_width(taps: int) -> int:
+    """The lanes a Gaussian kernel gives a point along axis 2: 2m rounded
+    up to a power of two."""
+    return 1 << (taps - 1).bit_length()
+
+
+def gather_gaussian_kernel_order(Fe, plan) -> torch.Tensor:
+    """The gather as ``csrc/usfft_gaussian.cu`` computes it, in float32 (the
+    kernels fuse each multiply-add, which rounds once where this rounds
+    twice), written through ``order``. Up to ``THREAD_GATHER_MAX_M``
+    (``gaussian_gather_thread_kernel``): sum over j0 of w0[j0] times the sum
+    over j1 of w1[j1] times the sum over j2 of w2[j2] G[j0, j1, j2], each in
+    ascending order. Above (``gaussian_gather_kernel``), for each axis-2 tap
+    j (a lane): sum over j0 of w0[j0] times the sum over j1 of w1[j1] G[j0,
+    j1, j], in ascending order; times w2[j]; then the lanes added by a
+    butterfly (at 2m = 8 ((t0 + t4) + (t2 + t6)) + ((t1 + t5) + (t3 +
+    t7)))."""
+    n, m = plan.n, plan.m
+    taps = 2 * m
+    width = _group_width(taps)
+    bins = plan.bins.long()
+    base = torch.stack([bins // (n * n), (bins // n) % n, bins % n], dim=1)
+    cells = torch.remainder(base[:, :, None] + torch.arange(1 - m, m + 1, device=bins.device), n)
+    w = plan.weights.permute(2, 0, 1)  # (N, 3, 2m) views of the (3, 2m, N) table
+    grid = torch.view_as_real(Fe.contiguous())
+    npoints = plan.npoints
+    if m <= THREAD_GATHER_MAX_M:
+        acc = torch.zeros((npoints, 2), dtype=grid.dtype, device=grid.device)
+        for j0 in range(taps):
+            sum1 = torch.zeros_like(acc)
+            for j1 in range(taps):
+                sum2 = torch.zeros_like(acc)
+                for j2 in range(taps):
+                    v = grid[cells[:, 0, j0], cells[:, 1, j1], cells[:, 2, j2]]
+                    sum2 = sum2 + w[:, 2, j2, None] * v
+                sum1 = sum1 + w[:, 1, j1, None] * sum2
+            acc = acc + w[:, 0, j0, None] * sum1
+        out = torch.empty_like(acc)
+        out[plan.order.long()] = acc
+        return torch.view_as_complex(out)
+    acc = torch.zeros((npoints, taps, 2), dtype=grid.dtype, device=grid.device)
+    for j0 in range(taps):
+        s = torch.zeros_like(acc)
+        for j1 in range(taps):
+            v = grid[cells[:, 0, j0, None], cells[:, 1, j1, None], cells[:, 2, :]]
+            s = s + w[:, 1, j1, None, None] * v
+        acc = acc + w[:, 0, j0, None, None] * s
+    t = acc * w[:, 2, :, None]
+    t = torch.cat([t, torch.zeros((npoints, width - taps, 2), dtype=t.dtype, device=t.device)], 1)
+    offset = width // 2
+    while offset:
+        t = t + t[:, torch.arange(width, device=t.device) ^ offset]
+        offset //= 2
+    out = torch.empty((npoints, 2), dtype=t.dtype, device=t.device)
+    out[plan.order.long()] = t[:, 0]
+    return torch.view_as_complex(out)
+
+
+# csrc/usfft_gaussian.cu's kScatterWarps: the warps of a scatter block, each
+# with its copy of the band.
+SCATTER_WARPS = 4
+
+
+def _scan_runs(t, key):
+    """The segmented inclusive scan of the scatter's chunk over its lanes
+    (t (..., lanes, 2) float32; runs of equal ``key``), by the same shuffle
+    steps: at step d a lane d or more past its run's start adds the value d
+    lanes below, all lanes at once."""
+    lanes = len(key)
+    heads = np.ones(lanes, bool)
+    heads[1:] = key[1:] != key[:-1]
+    dist = np.arange(lanes) - np.maximum.accumulate(np.where(heads, np.arange(lanes), 0))
+    d = 1
+    while d <= dist.max():
+        below = np.zeros_like(t)
+        below[..., d:, :] = t[..., :-d, :]
+        t = np.where((dist >= d)[:, None], (t + below).astype(np.float32), t)
+        d *= 2
+    return t
+
+
+def scatter_gaussian_kernel_order(f, plan) -> torch.Tensor:
+    """The scatter as ``gaussian_scatter_kernel`` computes it, in float32 on
+    the host: each block, rows c1 ... c1 + rows - 1 of a plane c0 (the
+    plan's ``blocks``), walks the rows of bins that reach it, axis-0 tap j0
+    outermost, then along axis 1, 32 rows of bins at a time; their points in
+    the plan's order 32 at a time are the batch's items, item k going to
+    warp k mod ``SCATTER_WARPS``, which adds it to its own copy of the band
+    tap by tap and row by row, each run of equal b2 summed by the scan's
+    tree (``_scan_runs``), each term w1 (w2 (w0 v)); the copies are added
+    in the warps' order. For small grids."""
+    n, m = plan.n, plan.m
+    taps = 2 * m
+    bins, order = plan.bins.cpu().numpy().astype(np.int64), plan.order.cpu().numpy()
+    start = plan.bin_start.cpu().numpy().astype(np.int64)
+    w = plan.weights.cpu().numpy()
+    values = f.cpu().numpy()[order]
+    v = np.stack([values.real, values.imag], -1).astype(np.float32)
+    grid = np.zeros((n, n, n, 2), np.float32)
+    for first_row, rows in plan.blocks.cpu().tolist():
+        c0, c1 = divmod(first_row, n)
+        span1 = rows + taps - 1
+        copies = np.zeros((SCATTER_WARPS, rows * n, 2), np.float32)
+        item = 0  # the chunk's place among its batch's items
+        for place in range(taps * span1):
+            if place % 32 == 0:
+                item = 0
+            j0, h1 = divmod(place, span1)
+            bin_row = (((c0 + m - 1 - j0) % n) * n + (c1 - m + h1) % n) * n
+            t1 = np.arange(max(0, h1 - taps + 1), min(rows - 1, h1) + 1)
+            for chunk in range(start[bin_row], start[bin_row + n], 32):
+                p = np.arange(chunk, min(chunk + 32, start[bin_row + n]))
+                b2 = bins[p] - bin_row
+                tail = np.ones(len(p), bool)
+                tail[:-1] = b2[1:] != b2[:-1]
+                u = (w[0, j0, p, None] * v[p]).astype(np.float32)
+                wu = (w[2, :, p].T[:, :, None] * u).astype(np.float32)  # (taps, lanes, 2)
+                # (rows, taps, lanes, 2): every term.
+                a = w[1, t1[:, None] - h1 + taps - 1, p]
+                term = (a[:, None, :, None] * wu).astype(np.float32)
+                copy = copies[item % SCATTER_WARPS]
+                item += 1
+                total = _scan_runs(term, b2)[:, :, tail]
+                for tap in range(taps):
+                    index = t1[:, None] * n + (b2[tail] + 1 - m + tap) % n
+                    copy[index] = (copy[index] + total[:, tap]).astype(np.float32)
+        band = copies[0]
+        for more in copies[1:]:
+            band = (band + more).astype(np.float32)
+        grid[c0, c1:c1 + rows] = band.reshape(rows, n, 2)
+    return torch.view_as_complex(torch.as_tensor(grid))
+
+
+def first_form_gather(grid, plan) -> torch.Tensor:
+    """The first form's gather (``kb_gather_kernel`` of ``csrc/usfft.cu``)
+    on a Gaussian plan: the yardstick, counted nowhere."""
+    out = torch.empty(plan.npoints, dtype=torch.complex64, device=grid.device)
+    rc = kernels.load("usfft").tike_kb_gather(
+        grid.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(), plan.weights.data_ptr(),
+        out.data_ptr(), plan.npoints, plan.n, plan.m, torch.cuda.current_stream().cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"kb_gather: CUDA error {rc}")
+    return out
+
+
+def first_form_scatter(f, plan) -> torch.Tensor:
+    """The first form's scatter (``kb_scatter_kernel``) on a Gaussian plan
+    in bin order, counted nowhere."""
+    n = plan.n
+    grid = torch.empty((n, n, n), dtype=torch.complex64, device=f.device)
+    rc = kernels.load("usfft").tike_kb_scatter(
+        f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(), plan.bin_start.data_ptr(),
+        plan.weights.data_ptr(), grid.data_ptr(), plan.npoints, n, plan.m,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"kb_scatter: CUDA error {rc}")
+    return grid
 
 
 def roofline(name: str, x, n: int, m: int) -> dict:

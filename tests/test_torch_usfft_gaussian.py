@@ -1,16 +1,17 @@
 """The Gaussian window's geometry plan (``tike_tpu_torch.ops.usfft.
 geometry_plan(..., window="gaussian")``) and the Gaussian laminography solvers on the CPU.
 
-The CUDA kernels of ``csrc/usfft.cu`` cannot run here; what they read can
-be held. The Gaussian plan's shifted bins and its table of axis factors,
-contracted in the kernels' own order by ``tests/_torch_usfft_cases.py``'s
-``gather_sorted_plain`` and ``scatter_owned_plain``, must equal
-``tike_tpu.ops.usfft.gather``/``scatter`` at the USFFT's 1e-5 of the
-largest value: the same taps, each weight the product of three float32
-axis factors where ``tike_tpu`` takes one exp of their summed exponents
-(about 1e-6 apart), summed in another order. The solvers at n = 16 are
-held to ``tike_tpu``'s at ``cg_iter=1``, where cgrad's line search does
-not tie (``tests/test_torch_lamino_solvers.py``).
+The CUDA kernels of ``csrc/usfft_gaussian.cu`` cannot run here; what they
+read can be held. The Gaussian plan's shifted bins and its table of axis
+factors, contracted in the kernels' own order by
+``tests/_torch_usfft_cases.py``'s ``gather_gaussian_kernel_order`` and
+``scatter_gaussian_kernel_order``, must equal ``tike_tpu.ops.usfft.gather``/
+``scatter`` and the plain versions at the USFFT's 1e-5 of the largest
+value: the same taps, each weight the product of three float32 axis factors
+where ``tike_tpu`` takes one exp of their summed exponents (about 1e-6
+apart), summed in another order. The solvers at n = 16 are held to
+``tike_tpu``'s at ``cg_iter=1``, where cgrad's line search does not tie
+(``tests/test_torch_lamino_solvers.py``).
 """
 
 import numpy as np
@@ -57,10 +58,14 @@ def test_plan_contracted_in_kernel_order_matches_jax(n_volume, eps, upsample, sp
     Fe, f = crandn(rng(1), n, n, n), crandn(rng(2), npoints)
     plan = tu.geometry_plan(t(x), n, m, mu, window="gaussian")
     assert (plan.window, plan.n, plan.m, plan.param) == ("gaussian", n, m, mu)
-    assert_close(cases.gather_sorted_plain(t(Fe), plan), ju.gather(Fe, x.numpy(), n, m, mu),
-                 rtol=TOL, atol=TOL, scale=True)
-    assert_close(cases.scatter_owned_plain(t(f), plan), ju.scatter(f, x.numpy(), n, m, mu),
-                 rtol=TOL, atol=TOL, scale=True)
+    gathered = cases.gather_gaussian_kernel_order(t(Fe), plan)
+    spread = cases.scatter_gaussian_kernel_order(t(f), plan)
+    for got, jax_version, plain in (
+        (gathered, ju.gather(Fe, x.numpy(), n, m, mu), tu.gather_gaussian_plain(t(Fe), x, n, m, mu)),
+        (spread, ju.scatter(f, x.numpy(), n, m, mu), tu.scatter_gaussian_plain(t(f), x, n, m, mu)),
+    ):
+        assert_close(got, jax_version, rtol=TOL, atol=TOL, scale=True)
+        assert_close(got, plain, rtol=TOL, atol=TOL, scale=True)
 
 
 @pytest.mark.parametrize("n_volume, eps, upsample", WINDOWS)
@@ -108,8 +113,8 @@ def test_tiled_plan_serves_the_gather():
     Fe = crandn(rng(6), n, n, n)
     plan = tu.geometry_plan(x, n, m, mu, tile=(4, 2), window="gaussian")
     assert plan.bin_start is None and plan.tile == (4, 2)
-    assert_close(cases.gather_sorted_plain(t(Fe), plan), ju.gather(Fe, x.numpy(), n, m, mu),
-                 rtol=TOL, atol=TOL, scale=True)
+    assert_close(cases.gather_gaussian_kernel_order(t(Fe), plan),
+                 ju.gather(Fe, x.numpy(), n, m, mu), rtol=TOL, atol=TOL, scale=True)
 
 
 def test_dispatch_takes_the_plain_version_on_the_cpu():

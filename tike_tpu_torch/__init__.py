@@ -5,9 +5,10 @@ A port of :mod:`tike_tpu` (the JAX package beside this one, which stays the
 reference) to eager PyTorch. Module paths mirror ``tike_tpu``'s, so each
 function's counterpart sits at the same relative path. The bilinear patch
 gather and scatter, which ``tike_tpu`` wrote as Pallas kernels for the TPU,
-and the USFFT's Kaiser-Bessel gather and scatter, which it wrote as XLA
-einsums for the TPU's matrix unit, are hand-written CUDA kernels here
-(``csrc/patch.cu``, ``csrc/usfft.cu``), as is the Bucket laminography
+and the USFFT's gather and scatter, which it wrote as XLA einsums for the
+TPU's matrix unit (Kaiser-Bessel) and as tap scans (Gaussian), are
+hand-written CUDA kernels here (``csrc/patch.cu``, ``csrc/usfft.cu``,
+``csrc/usfft_gaussian.cu``), as is the Bucket laminography
 operator's voxel projection and its adjoint, XLA scatter and gather code
 there (``csrc/bucket.cu``), and so is the alignment's Lanczos remap and its
 adjoint, XLA tap scans there (``csrc/interp.cu``, under the flow warp and the

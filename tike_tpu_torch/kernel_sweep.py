@@ -16,14 +16,20 @@ several sizes. A variant that computes something else (``values_sorted``
 reads the values as if a first pass had sorted them) shows its error and is
 there for its time alone.
 
-``--source gaussian``, the same ``csrc/usfft.cu`` on the Gaussian window's
+``--source gaussian``, ``csrc/usfft_gaussian.cu`` on the Gaussian window's
 plans at 128^3 / 64 angles (eps 1e-3 at upsample 1 and 2, m = 2 and 4; eps
-1e-5 at upsample 2, m = 6): the source as it stands beside its unrolled m =
-4 left to the generic instantiation, beside an unrolled m = 6 (which the
-source leaves to the generic one) and beside its gather with the axis-0
-loop unrolled too above m = 2, each held
-to the plain Gaussian versions and timed as above. Every sweep prints each
-variant's nvcc time (the variants build at once, one nvcc each).
+1e-5 at upsample 2, m = 6): first how many points a brick of 8^3 bins
+holds; then the source as it stands beside its scatter with bands of 1, 2,
+4 and 8 rows at every m (each with its own bands, busiest first) and 1, 2
+and 8 warps a band, and its gather with groups of lanes in place of a
+thread a point (m <= 2), 256 threads a block of threads a point and the
+axis-0 loop unrolled 1 and 4 deep (``gaussian_variants``); each variant's pair held to the plain
+Gaussian versions (and two scatters bitwise equal) and timed in a CUDA
+graph in three rounds beside the first form (the KB kernels of
+``csrc/usfft.cu`` on the same plan, the kernels' yardstick); then the
+scatter of the source as it stands with its bands in the grid's order, not
+the plan's. Every sweep prints each variant's nvcc time (the variants
+build at once, one nvcc each).
 
 ``--source probe``, ``csrc/probe.cu``: the element-window kernel in its
 two forms, (a) the rows' spans staged in shared memory by bulk copies on
@@ -84,6 +90,7 @@ from __future__ import annotations
 import argparse
 import ast
 import concurrent.futures
+import dataclasses
 import contextlib
 import ctypes
 import functools
@@ -101,6 +108,7 @@ from . import kernels, toolchain_probe
 from .ops import usfft
 
 SOURCE = os.path.join(kernels.CSRC, "usfft.cu")
+GAUSSIAN_SOURCE = os.path.join(kernels.CSRC, "usfft_gaussian.cu")
 PROBE_SOURCE = os.path.join(kernels.CSRC, "probe.cu")
 BUCKET_SOURCE = os.path.join(kernels.CSRC, "bucket.cu")
 INTERP_SOURCE = os.path.join(kernels.CSRC, "interp.cu")
@@ -138,8 +146,6 @@ TILES = (None, (4, 4), (8, 8), (16, 16), (8, 32))
 # m = 2, 4 and 6.
 GAUSSIAN_CASES = {"eps 1e-3, upsample 1": (1e-3, 1), "eps 1e-3, upsample 2": (1e-3, 2),
                   "eps 1e-5, upsample 2": (1e-5, 2)}
-
-
 def variant_source(source: str, substitutions) -> str:
     """``source`` with each (old, new) applied; raises if an ``old`` is not
     there, so a variant never silently measures the unchanged source."""
@@ -373,26 +379,28 @@ def _sweep_usfft(libs: dict, device) -> None:
 
 
 def gaussian_variants(source: str) -> dict:
-    """The source as it stands, with m = 4 left to the generic
-    instantiation, with m = 6 unrolled too, and with the gather above m = 2
-    unrolling its axis-0 loop too."""
+    """The default variants of ``csrc/usfft_gaussian.cu`` (``source``): see
+    the module's docstring."""
     variants = {"as it stands": []}
-    lines = [line + "\n" for line in source.splitlines() if line.strip().startswith("case 4:")]
-    if lines:
-        variants["m = 4 generic"] = [(line, "") for line in lines]
-        variants["m = 6 unrolled"] = [
-            (line, line + line.replace("case 4:", "case 6:").replace("<4>", "<6>"))
-            for line in lines
-        ]
-    unroll0 = "constexpr int kUnroll0 = M <= 2 ? 2 * M : 1;"
-    if unroll0 in source:
-        variants["gather fully unrolled"] = [(unroll0, "constexpr int kUnroll0 = 2 * M;")]
+    for rows in (1, 2, 4, 8):
+        variants[f"scatter, bands of {rows} rows"] = [
+            _constant(source, name, rows) for name in ("kBandRowsSmallM", "kBandRowsLargeM")]
+    for warps in (1, 2, 8):
+        variants[f"scatter, {warps} warps a band"] = [_constant(source, "kScatterWarps", warps)]
+    variants["gather, groups of lanes in place of a thread a point"] = [
+        _constant(source, "kThreadGatherMaxM", 0)]
+    variants["gather, 256 threads a block of threads a point"] = [
+        _constant(source, "kThreadGatherThreads", 256)]
+    for unroll in (1, 4):
+        variants[f"gather axis-0 unroll {unroll}"] = [_constant(source, "kGatherUnroll0", unroll)]
     return variants
 
 
 def _sweep_gaussian(libs: dict, device) -> None:
     """The Gaussian window at laminography's 128^3 / 64 angles, at each of
-    ``GAUSSIAN_CASES``."""
+    ``GAUSSIAN_CASES``: every variant's gather and scatter and the first
+    form's in three rounds, then the scatter with its bands in the grid's
+    order."""
     from tests import _torch_usfft_cases as cases
 
     generator = torch.Generator(device=device).manual_seed(0)
@@ -403,8 +411,75 @@ def _sweep_gaussian(libs: dict, device) -> None:
         f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=generator)
         want_gather = usfft.gather_gaussian_plain(grid, x, n, m, mu)
         want_scatter = usfft.scatter_gaussian_plain(f, x, n, m, mu)
+        start = time.perf_counter()
         plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
-        _time_variants(libs, f"{name} m = {m}", grid, f, plan, want_gather, want_scatter)
+        torch.cuda.synchronize()
+        print(f"{name} m = {m}: plan {1e3 * (time.perf_counter() - start):.2f} ms "
+              f"(first call), {plan.nbytes} bytes", flush=True)
+        # How many points a brick of 8^3 bins holds: what a gather that
+        # staged a brick and its halo in shared memory would serve a brick.
+        bricks = torch.stack([plan.bins // (n * n), plan.bins // n % n, plan.bins % n]) // 8
+        per_brick = torch.bincount(((bricks[0] * (n // 8)) + bricks[1]) * (n // 8) + bricks[2],
+                                   minlength=(n // 8) ** 3).double()
+        held = per_brick[per_brick > 0]
+        print(f"{name} m = {m}: points a brick of 8^3 bins holds: {(per_brick == 0).sum()} of "
+              f"{per_brick.numel()} bricks empty, the others {held.mean():.1f} on average, "
+              f"median {held.median():.0f}, most {held.max():.0f}; a brick and its halo "
+              f"{(8 + 2 * m - 1) ** 3} cells", flush=True)
+        calls = {}
+        # A variant with bands of another height takes its own bands,
+        # busiest first.
+        unordered = dataclasses.replace(
+            plan, blocks=usfft._scatter_blocks(plan.bin_start, n, m, busiest_first=False))
+        plans = {}
+        for tag in libs:
+            rows = re.search(r"bands of (\d+) rows", tag)
+            plans[tag] = plan if rows is None else dataclasses.replace(
+                plan, blocks=usfft._scatter_blocks(plan.bin_start, n, m, int(rows.group(1))))
+        reference = None
+        for tag, lib in libs.items():
+            with loaded("usfft_gaussian", lib):
+                got_gather = usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)
+                got_scatter = usfft.scatter_gaussian_cuda(f, x, n, m, mu, plans[tag])
+                same = torch.equal(torch.view_as_real(got_scatter), torch.view_as_real(
+                    usfft.scatter_gaussian_cuda(f, x, n, m, mu, plans[tag])))
+            reference = got_scatter if reference is None else reference
+            print(f"{name} m = {m}: {tag:34s} gather err {cases.max_rel(got_gather, want_gather):.1e}, "
+                  f"scatter err {cases.max_rel(got_scatter, want_scatter):.1e}, two scatters "
+                  f"bitwise equal: {same}, to the source as it stands: "
+                  f"{torch.equal(torch.view_as_real(got_scatter), torch.view_as_real(reference))}",
+                  flush=True)
+            calls[tag] = lib
+        calls["first form"] = None
+        times = {tag: {"gather": [], "scatter": []} for tag in calls}
+        for turn in (list(calls), list(calls)[::-1], list(calls)):
+            for tag in turn:
+                if calls[tag] is None:
+                    pair = {"gather": lambda: cases.first_form_gather(grid, plan),
+                            "scatter": lambda: cases.first_form_scatter(f, plan)}
+                    for kind, fn in pair.items():
+                        times[tag][kind].append(graph_ms(fn))
+                    continue
+                with loaded("usfft_gaussian", calls[tag]):
+                    times[tag]["gather"].append(
+                        graph_ms(lambda: usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)))
+                    times[tag]["scatter"].append(graph_ms(lambda: usfft.scatter_gaussian_cuda(
+                        f, x, n, m, mu, plans[tag])))
+        for tag in calls:
+            line = "; ".join(
+                f"{kind} " + ", ".join(f"{t:.4f}" for t in ts)
+                + f" ms (median {statistics.median(ts):.4f})"
+                for kind, ts in times[tag].items()
+            )
+            print(f"{name} m = {m}: {tag:34s} {line}", flush=True)
+        with loaded("usfft_gaussian", libs["as it stands"]):
+            got = usfft.scatter_gaussian_cuda(f, x, n, m, mu, unordered)
+            ms = graph_ms(lambda: usfft.scatter_gaussian_cuda(f, x, n, m, mu, unordered))
+            print(f"{name} m = {m}: scatter as it stands, bands in the grid's order: {ms:.4f} ms "
+                  f"(err {cases.max_rel(got, want_scatter):.1e}, bitwise equal to the busiest "
+                  f"first: {torch.equal(torch.view_as_real(got), torch.view_as_real(reference))})",
+                  flush=True)
+        del grid, f, plan, unordered, plans, want_gather, want_scatter
 
 
 PROBES_SWEPT = ("element_static", "element_prefetch", "static_dma", "gridded", "prefetch")
@@ -666,7 +741,7 @@ def _sweep_interp(libs: dict, device) -> None:
 
 SWEEPS = {
     "usfft": (SOURCE, _sweep_usfft),
-    "gaussian": (SOURCE, _sweep_gaussian),
+    "gaussian": (GAUSSIAN_SOURCE, _sweep_gaussian),
     "probe": (PROBE_SOURCE, _sweep_probe),
     "bucket": (BUCKET_SOURCE, _sweep_bucket),
     "interp": (INTERP_SOURCE, _sweep_interp),
@@ -698,7 +773,7 @@ def main(argv=None) -> None:
     ).stdout.strip())
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as directory:
-        name = "usfft" if args.source == "gaussian" else args.source
+        name = "usfft_gaussian" if args.source == "gaussian" else args.source
         libs, failed = finish_builds(name, start_builds(name, sources, directory))
         for tag, error in failed.items():
             print(f"{tag}: build failed\n{error}")

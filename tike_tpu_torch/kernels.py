@@ -52,6 +52,14 @@ SIGNATURES = {
         # (values, bins, order, bin_start, weights, grid, npoints, n, m, stream)
         "tike_kb_scatter": ([_PTR] * 6 + [_LL, _INT, _INT, _PTR], _INT),
     },
+    # The Gaussian window's gather and scatter.
+    "usfft_gaussian": {
+        # (grid, bins, order, weights, out, npoints, n, m, stream)
+        "tike_gaussian_gather": ([_PTR] * 5 + [_LL, _INT, _INT, _PTR], _INT),
+        # (values, bins, order, bin_start, weights, block table, blocks,
+        # grid, npoints, n, m, stream)
+        "tike_gaussian_scatter": ([_PTR] * 6 + [_INT, _PTR, _LL, _INT, _INT, _PTR], _INT),
+    },
     "probe": {
         # (x, o, count, stream)
         "tike_probe_trivial": ([_PTR, _PTR, _INT, _PTR], _INT),

@@ -3,8 +3,9 @@
 Counterpart of :mod:`tike_tpu.lamino.lamino`. The volume, data and theta
 cross in and out as numpy arrays (:func:`reconstruct` given tensors
 returns tensors instead); everything between runs on ``device`` (the card
-unless the caller asks for the CPU), where the USFFT's KB interpolation is
-the hand-written kernels of ``csrc/usfft.cu``.
+unless the caller asks for the CPU), where the USFFT's interpolation is
+the hand-written kernels of ``csrc/usfft.cu`` (Kaiser-Bessel) and
+``csrc/usfft_gaussian.cu`` (Gaussian).
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ Counterpart of :mod:`tike_tpu.ops.lamino`. The forward transform maps a
 cubic volume u (n,n,n) to complex projections (ntheta, n, n): the volume's
 3D Fourier transform is evaluated on planes tilted by ``tilt`` and rotated
 by each theta (Fourier slice theorem), then each plane is inverse 2D FFTed.
-The non-uniform interpolation runs the kernels of ``csrc/usfft.cu`` on
-CUDA tensors with either window, Kaiser-Bessel or Gaussian (:mod:`.usfft`);
-the FFTs are ``torch.fft`` (cuFFT on the card).
+The non-uniform interpolation runs hand-written kernels on CUDA tensors
+with either window, Kaiser-Bessel (``csrc/usfft.cu``) or Gaussian
+(``csrc/usfft_gaussian.cu``; :mod:`.usfft`); the FFTs are ``torch.fft``
+(cuFFT on the card).
 
 The tilted planes' frequencies depend on the angles alone, so a caller
 that transforms many volumes at one set of angles (a reconstruction)

@@ -14,16 +14,21 @@ and each has two implementations:
   ``gather_gaussian_plain``, ``scatter_gaussian_plain``): the tap scans of
   ``tike_tpu``'s ``gather_kb``/``scatter_kb`` and ``gather``/``scatter``,
   one indexed gather (or ``index_add_``) of all points per 3-D tap;
-- the hand-written CUDA kernels of ``csrc/usfft.cu`` (``gather_kb_cuda``,
-  ``scatter_kb_cuda``, ``gather_gaussian_cuda``, ``scatter_gaussian_cuda``),
-  which read a geometry plan (:func:`geometry_plan`): the
-  points sorted by the grid cell they fall in, with their axis weights in a
-  table. Both windows are separable, so one table of per-axis factors
-  holds either, and the plan's base cell puts each window's 2m taps where
-  the kernels look for them. The gather walks the points in that order; the
-  scatter gives each row of the grid one block that adds the points
-  reaching it in a fixed order, with no atomics, so two launches agree to
-  the bit. ``tike_tpu`` has no Pallas kernel here: its tap scans and its
+- hand-written CUDA kernels, which read a geometry plan
+  (:func:`geometry_plan`): the points sorted by the grid cell they fall in,
+  with their axis weights in a table. Both windows are separable, so a
+  table of per-axis factors holds either, and the plan's base cell puts
+  each window's 2m taps where the kernels look for them. ``csrc/usfft.cu``
+  (``gather_kb_cuda``, ``scatter_kb_cuda``) for the KB window: the gather
+  walks the points in that order, the scatter gives each row of the grid one
+  block; ``csrc/usfft_gaussian.cu`` (``gather_gaussian_cuda``,
+  ``scatter_gaussian_cuda``) for the Gaussian: the gather gives each point a
+  thread (m <= 2) or a group of 2m lanes that load its rows of taps
+  together, the scatter gives each block a band of :func:`band_rows` rows of
+  one plane, whose warps add each point reaching it, loaded once, to their
+  copies of the band in shared memory. Both scatters add the points
+  reaching a cell in an order the plan fixes, with no atomics, so two
+  launches agree to the bit. ``tike_tpu`` has no Pallas kernel here: its tap scans and its
   ``gather_kb_rows``/``scatter_kb_rows`` (einsum chains over dense rows,
   shaped for the TPU's matrix unit) are XLA code, and the kernels replace
   them.
@@ -55,14 +60,18 @@ LAUNCHES = {
 window. Incremented only by a successful launch; callers may reset them to
 0."""
 
-# Each window's launch counts, (gather, scatter).
-_COUNTS = {
-    "kb": ("usfft_gather_kb", "usfft_scatter_kb"),
-    "gaussian": ("usfft_gather_gaussian", "usfft_scatter_gaussian"),
-}
-
 MAX_N = 1290
 """The largest grid the kernels take: they index its n^3 cells in int32."""
+
+GAUSSIAN_MAX_M = 16
+"""The largest half-support the Gaussian kernels take: a lane a tap along
+axis 2, 2m <= 32."""
+
+def band_rows(m: int) -> int:
+    """Rows along axis 1 of one plane that a block of the Gaussian scatter
+    owns at half-support m, whole along axis 2 (``csrc/usfft_gaussian.cu``'s
+    ``band_rows``): 4 up to m = 2, else 2."""
+    return 4 if m <= 2 else 2
 
 
 def usfft_parameters(n: int, eps: float, upsample: float = 1):
@@ -261,8 +270,9 @@ _SHIFT = {"kb": 0, "gaussian": 1}
 
 @dataclasses.dataclass(frozen=True)
 class GeometryPlan:
-    """What a gather or scatter of ``csrc/usfft.cu`` needs of its points,
-    built once by :func:`geometry_plan` and read by the kernels.
+    """What a gather or scatter of ``csrc/usfft.cu`` (KB) or
+    ``csrc/usfft_gaussian.cu`` (Gaussian) needs of its points, built once
+    by :func:`geometry_plan` and read by the kernels.
 
     ``window`` is "kb" (Kaiser-Bessel) or "gaussian" and ``param`` its
     parameter (the KB window's beta, the Gaussian's mu). A point's bin is
@@ -275,7 +285,10 @@ class GeometryPlan:
     index last, so that a warp's loads of one tap are contiguous); a 3-D
     tap's weight is their product. ``bin_start`` (n^3 + 1,) int32 is where
     each bin's points start in the sorted list. A plan sorted by tiles has
-    no ``bin_start`` and serves the gather alone.
+    no ``bin_start`` and serves the gather alone. A Gaussian plan in bin
+    order also holds ``blocks`` (B, 2) int32, the Gaussian scatter's blocks
+    (:func:`_scatter_blocks`): (c0 n + c1, rows), rows c1 ... c1 + rows - 1
+    of plane c0, in the order they are launched.
     """
 
     n: int
@@ -287,6 +300,7 @@ class GeometryPlan:
     bin_start: torch.Tensor | None = None
     tile: tuple | None = None
     window: str = "kb"
+    blocks: torch.Tensor | None = None
 
     @property
     def npoints(self) -> int:
@@ -295,7 +309,7 @@ class GeometryPlan:
     @property
     def nbytes(self) -> int:
         """The bytes of the plan's tensors."""
-        tensors = (self.order, self.bins, self.weights, self.bin_start)
+        tensors = (self.order, self.bins, self.weights, self.bin_start, self.blocks)
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
@@ -342,6 +356,8 @@ def geometry_plan(x, n: int, m: int, param: float, tile=None, window: str = "kb"
     are counted: a plan for the gather alone.
     """
     _check_window(n, m)
+    if window not in _SHIFT:
+        raise ValueError(f"window must be 'kb' or 'gaussian'; got {window!r}")
     if x.ndim != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be (N, 3) float32; got {x.dtype} {tuple(x.shape)}")
     cell = torch.remainder(n // 2 - _SHIFT[window] + torch.floor(n * x).to(torch.int64), n)
@@ -362,11 +378,42 @@ def geometry_plan(x, n: int, m: int, param: float, tile=None, window: str = "kb"
     )
     if window == "gaussian":
         weights[0] *= float(np.sqrt(np.pi / param) ** 3)
+    blocks = None
+    if window == "gaussian" and tile is None:
+        blocks = _scatter_blocks(bin_start, n, m)
     return GeometryPlan(
         n=n, m=m, param=float(param), order=order.to(torch.int32),
         bins=bins.to(torch.int32), weights=weights.contiguous(), bin_start=bin_start,
-        tile=None if tile is None else tuple(tile), window=window,
+        tile=None if tile is None else tuple(tile), window=window, blocks=blocks,
     )
+
+
+def _scatter_blocks(bin_start, n: int, m: int, rows: int | None = None,
+                    busiest_first: bool = True) -> torch.Tensor:
+    """The Gaussian scatter's blocks, each plane in bands of ``rows`` rows
+    (:func:`band_rows` unless given; fewer in its last), as (c0 n + c1,
+    rows) int32 pairs. With ``busiest_first``, by the points in the 2m x
+    (rows + 2m - 1) rows of bins that reach them, most first (ties in
+    ascending c0 n + c1): the order they are launched in, so that the
+    busiest bands, near laminography's rotation axis, do not start last and
+    end the launch alone; else in the grid's order."""
+    band = band_rows(m) if rows is None else rows
+    per_row = (bin_start[n::n] - bin_start[:-1:n]).reshape(n, n).to(torch.int64)
+    device = per_row.device
+    starts = torch.arange(0, n, band, device=device)
+    rows = torch.clamp(n - starts, max=band)
+    # Box sums on the torus: planes c0 - m ... c0 + m - 1, rows c1 - m ...
+    # c1 + rows + m - 2.
+    planes = sum(torch.roll(per_row, -d, dims=0) for d in range(-m, m))
+    wide = torch.cat([planes, planes], dim=1)
+    sums = torch.cumsum(torch.cat([torch.zeros_like(wide[:, :1]), wide], dim=1), dim=1)
+    first = (starts - m) % n
+    points = (sums[:, first + rows + 2 * m - 1] - sums[:, first]).reshape(-1)
+    blocks = torch.stack([(torch.arange(n, device=device)[:, None] * n + starts).reshape(-1),
+                          rows.repeat(n)], dim=1)
+    if busiest_first:
+        blocks = blocks[torch.sort(points, descending=True, stable=True)[1]]
+    return blocks.to(torch.int32).contiguous()
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -399,14 +446,15 @@ def _plan_for(plan, x, n: int, m: int, param: float, window: str, tile=None, bui
     return plan
 
 
-def _gather_cuda(Fe, x, n: int, m: int, param: float, plan, window: str):
+def _gather_cuda(Fe, x, n: int, m: int, param: float, plan):
+    """The KB gather kernel of ``csrc/usfft.cu`` on ``plan``."""
     _check_window(n, m)
     npoints = x.shape[0]
     _check("Fe", Fe, torch.complex64, (n, n, n))
     _check("x", x, torch.float32, (npoints, 3))
     if Fe.device != x.device:
         raise ValueError(f"Fe is on {Fe.device}, x on {x.device}")
-    plan = _plan_for(plan, x, n, m, param, window, gather_tile(m))
+    plan = _plan_for(plan, x, n, m, param, "kb", gather_tile(m))
     out = torch.empty(npoints, dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
@@ -417,18 +465,19 @@ def _gather_cuda(Fe, x, n: int, m: int, param: float, plan, window: str):
         )
     _raise_on_error("kb_gather", rc)
     if npoints:
-        LAUNCHES[_COUNTS[window][0]] += 1
+        LAUNCHES["usfft_gather_kb"] += 1
     return out
 
 
-def _scatter_cuda(f, x, n: int, m: int, param: float, plan, window: str):
+def _scatter_cuda(f, x, n: int, m: int, param: float, plan):
+    """The KB scatter kernel of ``csrc/usfft.cu`` on ``plan``."""
     _check_window(n, m)
     npoints = x.shape[0]
     _check("f", f, torch.complex64, (npoints,))
     _check("x", x, torch.float32, (npoints, 3))
     if f.device != x.device:
         raise ValueError(f"f is on {f.device}, x on {x.device}")
-    plan = _plan_for(plan, x, n, m, param, window)
+    plan = _plan_for(plan, x, n, m, param, "kb")
     if plan.bin_start is None:
         raise ValueError("the scatter needs a plan in bin order (tile=None)")
     G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
@@ -440,14 +489,14 @@ def _scatter_cuda(f, x, n: int, m: int, param: float, plan, window: str):
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("kb_scatter", rc)
-    LAUNCHES[_COUNTS[window][1]] += 1
+    LAUNCHES["usfft_scatter_kb"] += 1
     return G
 
 
 def gather_kb_cuda(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
     points of ``plan`` (built here from x if not given)."""
-    return _gather_cuda(Fe, x, n, m, beta, plan, "kb")
+    return _gather_cuda(Fe, x, n, m, beta, plan)
 
 
 def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
@@ -457,7 +506,7 @@ def scatter_kb_cuda(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None
     The kernel writes every value of a fresh grid once, each the sum of
     its points in the plan's order: two launches agree to the bit.
     """
-    return _scatter_cuda(f, x, n, m, beta, plan, "kb")
+    return _scatter_cuda(f, x, n, m, beta, plan)
 
 
 def gather_kb(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
@@ -538,18 +587,73 @@ def scatter_gaussian_plain(f, x, n: int, m: int, mu: float):
     return torch.view_as_complex(G).reshape(n, n, n)
 
 
+def _check_gaussian(n: int, m: int) -> None:
+    """The Gaussian kernels' limits."""
+    _check_window(n, m)
+    if m > GAUSSIAN_MAX_M:
+        raise ValueError(
+            f"the Gaussian kernels take m <= {GAUSSIAN_MAX_M} (a lane a tap along axis 2); "
+            f"got m = {m}"
+        )
+
+
 def gather_gaussian_cuda(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
-    """Launch the CUDA ``kb_gather`` kernel (``csrc/usfft.cu``) on the
-    points of a Gaussian ``plan`` (:func:`geometry_plan` with ``window=
-    "gaussian"``, built here from x if not given)."""
-    return _gather_cuda(Fe, x, n, m, mu, plan, "gaussian")
+    """Launch the CUDA ``gaussian_gather`` kernel (``csrc/usfft_gaussian.cu``)
+    on the points of a Gaussian ``plan`` (:func:`geometry_plan` with
+    ``window="gaussian"``, in bin order or by tiles; built here from x if not
+    given)."""
+    _check_gaussian(n, m)
+    plan = _plan_for(plan, x, n, m, mu, "gaussian", build=False)
+    npoints = x.shape[0]
+    _check("Fe", Fe, torch.complex64, (n, n, n))
+    _check("x", x, torch.float32, (npoints, 3))
+    if Fe.device != x.device:
+        raise ValueError(f"Fe is on {Fe.device}, x on {x.device}")
+    if plan is None:
+        plan = geometry_plan(x, n, m, mu, gather_tile(m), "gaussian")
+    out = torch.empty(npoints, dtype=torch.complex64, device=x.device)
+    lib = kernels.load("usfft_gaussian")
+    with torch.cuda.device(x.device):
+        rc = lib.tike_gaussian_gather(
+            Fe.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            plan.weights.data_ptr(), out.data_ptr(), npoints, n, m,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("gaussian_gather", rc)
+    if npoints:
+        LAUNCHES["usfft_gather_gaussian"] += 1
+    return out
 
 
 def scatter_gaussian_cuda(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
-    """Launch the CUDA ``kb_scatter`` kernel (``csrc/usfft.cu``) on the
-    points of a Gaussian ``plan`` (built here from x if not given): every
-    grid value written once, two launches equal to the bit."""
-    return _scatter_cuda(f, x, n, m, mu, plan, "gaussian")
+    """Launch the CUDA ``gaussian_scatter`` kernel (``csrc/usfft_gaussian.cu``)
+    on the points of a Gaussian ``plan`` in bin order (built here from x if
+    not given) by the plan's ``blocks``: every grid value written once, the
+    sum of its points in an order that the plan fixes (its bands' heights,
+    not their order), so two launches agree to the bit."""
+    _check_gaussian(n, m)
+    plan = _plan_for(plan, x, n, m, mu, "gaussian", build=False)
+    npoints = x.shape[0]
+    _check("f", f, torch.complex64, (npoints,))
+    _check("x", x, torch.float32, (npoints, 3))
+    if f.device != x.device:
+        raise ValueError(f"f is on {f.device}, x on {x.device}")
+    if plan is None:
+        plan = geometry_plan(x, n, m, mu, window="gaussian")
+    if plan.bin_start is None or plan.blocks is None:
+        raise ValueError("the scatter needs a plan in bin order (tile=None) with its blocks")
+    G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
+    lib = kernels.load("usfft_gaussian")
+    with torch.cuda.device(x.device):
+        rc = lib.tike_gaussian_scatter(
+            f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            plan.bin_start.data_ptr(), plan.weights.data_ptr(), plan.blocks.data_ptr(),
+            plan.blocks.shape[0], G.data_ptr(), npoints, n, m,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("gaussian_scatter", rc)
+    LAUNCHES["usfft_scatter_gaussian"] += 1
+    return G
 
 
 def gather(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
