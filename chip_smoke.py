@@ -330,6 +330,26 @@ After phase 20, the mesh (``tike_tpu_torch.parallel``) on the one card:
     (d) cgrad at cg_iter 1 with the angles over ``[cuda:0, cuda:0]``
     against one device, and phase 23's two processes against it.
 
+26. Grids past 2^31 cells and the Gaussian window above m = 16: (a) both
+    windows' gather and scatter on laminography's 26,708,224 points of a
+    646^3 volume, 64 angles, tilt pi/3, eps 1e-3, upsample 2 (a 1292^3
+    grid, 2,156,689,088 cells; KB m = 2, Gaussian m = 4), checked against
+    the plain versions on 65,536 of the points and 8,192 points in cells
+    past the 2^31-th (the scatter's grid compared 64 planes at a time),
+    three launches of each bitwise equal and adjointness there, the times
+    on all the points (the gather in a CUDA graph, the scatter by CUDA events) beside
+    the bound pipe by pipe, the plain versions' once, the plan's ms and
+    bytes and the peak memory; (b) the Gaussian pair at upsample 3 / eps
+    1e-10, 4 / 1e-8 and 4 / 1e-10 (m = 17, 18, 22) on phase 25a's points,
+    against the plain versions on 16,384 of them, adjointness and repeats
+    there, times on all of them beside the first form's gather (a thread a
+    point) and the bound; (c) ``reconstruct`` at 646^3, 64 angles, upsample 2,
+    cgrad at cg_iter 2 with both windows (one warm-up outer iteration, then
+    two timed), with the memory of its stages (plans, a forward, an
+    adjoint) and its peak, or, where it does not fit, where the memory went
+    until then; and a slice at upsample 4, eps 1e-8 (m = 18) with
+    the Gaussian window on a 10^3 volume and 4 angles, card against CPU.
+
 The line before the last lists each kernel (its launches in phase 14's
 first timed run as ``launches_admm`` and in phase 15's epoch as
 ``launches_stream``, in phase 16's timed run as ``launches_bucket`` and,
@@ -369,7 +389,12 @@ their bounds; the Gaussian pair, ``usfft_gather_gaussian`` and
 25a's times at upsample 1 and, suffixed ``_upsample2``, at upsample 2,
 with the first form's beside them as ``first_form_ms`` (its difference as
 ``first_form_err``), the KB kernel's as ``kb_ms`` and the bound pipe by pipe
-as ``bound_bytes_ms`` and ``bound_fp32_ms``); its error against the plain version, its time, the
+as ``bound_bytes_ms`` and ``bound_fp32_ms``); both windows' kernels give
+26a's numbers suffixed ``_n1292`` and 26c's launches as
+``launches_lamino_646``, the Gaussian pair 26b's suffixed ``_m17``,
+``_m18`` and ``_m22``, and ``usfft_gather_gaussian_wide`` (the gather's
+form above 32 taps) 26c's slice launches at m = 18 as ``launches`` and
+26b's m = 17 numbers as its own; its error against the plain version, its time, the
 plain version's and the library call's, its bound in bytes and ms and its
 share of that bound, the same on the compact batch, whether it is
 deterministic; each probe's launch floor ``floor_ms``, for gridded and
@@ -417,6 +442,7 @@ from tike_tpu_torch import (
 from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import alignment as ops_alignment
 from tike_tpu_torch.ops import bucket, interp, patch, shift, usfft
+from tike_tpu_torch.ops import lamino as ops_lamino
 from tike_tpu_torch.ops.lamino import LaminoPlan
 from tike_tpu_torch.ops.ptycho import PtychoConfig
 from tike_tpu_torch.parallel import distributed
@@ -483,6 +509,28 @@ GAUSSIAN_KERNELS = {
 }
 # 25a's upsamples at bench_all.py's 128^3 / 64 angles, eps 1e-3: m = 2 and 4.
 GAUSSIAN_UPSAMPLES = (1, 2)
+# Phase 26a: laminography's points for a 646^3 volume, 64 angles, tilt
+# pi/3, eps 1e-3, upsample 2: a 1292^3 grid, 2,156,689,088 cells, and
+# 26,708,224 points (KB m = 2, Gaussian m = 4). At tilt pi/3 no point's base
+# cell lies past the 2^31-th (|x0| <= 0.433), so the parity sample adds
+# LARGE_HIGH points there to LARGE_SAMPLE of laminography's.
+LARGE = dict(n=646, ntheta=64, upsample=2)
+LARGE_SAMPLE, LARGE_HIGH, LARGE_REPEATS = 65_536, 8_192, 5
+# 26b: phase 25a's points at (eps, upsample) of m = 17, 18 and 22, held to
+# the plain versions on WIDE_SAMPLE of them (the plain loop is (2m)^3
+# indexed passes); WIDE_REPEATS launches timed.
+WIDE_CASES = ((1e-10, 3), (1e-8, 4), (1e-10, 4))
+WIDE_SAMPLE, WIDE_REPEATS = 16_384, 5
+# 26c: cgrad at 646^3 with both windows, one warm-up outer iteration, then
+# LARGE_TIMED; and a slice at m = 18 (upsample 4, eps 1e-8), card against
+# CPU, in 25c's runs at upsample 1: a 10^3 volume and 4 angles (a 40^3 grid,
+# the least that holds 2m = 36 taps a little more), as the CPU's plain loop
+# makes (2m)^3 = 46,656 passes a transform.
+LARGE_CG_ITER, LARGE_TIMED = 2, 2
+WIDE_SLICE = dict(n=10, ntheta=4, upsample=4, eps=1e-8)
+# The Gaussian gather's form above 32 taps (gaussian_gather_wide_kernel), a
+# kernel of its own in usfft_gaussian.cu behind the same entry point.
+WIDE_GATHER = "usfft_gather_gaussian_wide"
 # The feature probes' pl.pallas_call lines.
 PROBE_KERNELS = {
     "trivial": "scripts/pallas_probe.py:45",
@@ -1597,12 +1645,12 @@ def lamino_volume(n: int) -> np.ndarray:
 
 
 def lamino_problem(device, n=cases_usfft.LAMINO_N, ntheta=cases_usfft.LAMINO_NTHETA,
-                   upsample=1, kernel="kb"):
+                   upsample=1, kernel="kb", eps=cases_usfft.LAMINO_EPS):
     """(volume, theta, data) numpy: bench_all.py's volume and angles, the
     data simulated on ``device`` with the ``kernel`` window."""
     volume = lamino_volume(n)
     theta = cases_usfft.lamino_theta(ntheta).numpy()
-    data = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
+    data = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=eps,
                        upsample=upsample, kernel=kernel, device=device)
     return volume, theta, data
 
@@ -1677,12 +1725,14 @@ def phase_gaussian_slice_orders(device) -> dict:
 
 
 def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
-                        tag="lamino-slice", runs=GAUSSIAN_SLICE_RUNS[2]) -> None:
-    """cgrad and CGLS on a small problem with the ``kernel`` window, card
-    against CPU, each of ``runs`` (algorithm, cg_iter, outer iterations)."""
-    c = LAMINO_SLICE
-    volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], upsample, kernel)
-    data_card = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=cases_usfft.LAMINO_EPS,
+                        tag="lamino-slice", runs=GAUSSIAN_SLICE_RUNS[2],
+                        eps=cases_usfft.LAMINO_EPS, size=LAMINO_SLICE) -> None:
+    """cgrad and CGLS on a small problem (``size``'s n and angles) with the
+    ``kernel`` window, card against CPU, each of ``runs`` (algorithm,
+    cg_iter, outer iterations)."""
+    c = size
+    volume, theta, data = lamino_problem("cpu", c["n"], c["ntheta"], upsample, kernel, eps)
+    data_card = tl.simulate(volume, theta, cases_usfft.LAMINO_TILT, eps=eps,
                             upsample=upsample, kernel=kernel, device=device)
     err = _max_rel(data_card, data)
     if not err <= LAMINO_SIM_TOL:
@@ -1691,8 +1741,7 @@ def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
         results = {
             str(dev): tl.reconstruct(
                 data, theta, cases_usfft.LAMINO_TILT, algorithm, num_iter=num_iter,
-                eps=cases_usfft.LAMINO_EPS, upsample=upsample, cg_iter=cg_iter, kernel=kernel,
-                device=dev,
+                eps=eps, upsample=upsample, cg_iter=cg_iter, kernel=kernel, device=dev,
             )
             for dev in ("cpu", device)
         }
@@ -1704,7 +1753,8 @@ def phase_lamino_slices(device, upsample=LAMINO_SLICE["upsample"], kernel="kb",
         if not obj_err <= LAMINO_SLICE_TOL:
             raise AssertionError(f"{tag} {algorithm}: volume differs by {obj_err:.3e}")
         log(f"[{tag}] {algorithm} (cg_iter {cg_iter}), {c['n']}^3, {c['ntheta']} "
-            f"angles, {kernel} window, upsample {upsample}, {num_iter} outer iterations on {device} "
+            f"angles, {kernel} window, eps {eps:g}, upsample {upsample}, {num_iter} outer "
+            f"iterations on {device} "
             f"vs cpu: costs {got['cost'].tolist()} vs {ref['cost'].tolist()} (rtol "
             f"{LAMINO_SLICE_TOL:g}); volume max|err| / max|value| {obj_err:.2e}; simulate "
             f"{err:.2e}")
@@ -4805,6 +4855,253 @@ def phase_gaussian_mesh(device, card: str, problem, dist_costs) -> dict:
     return {name: launches[name] for name in GAUSSIAN_KERNELS}
 
 
+def _window_of(window: str, n_volume: int, eps: float, upsample: float):
+    """(grid n, m, beta or mu) of ``window`` for a transform."""
+    if window == "kb":
+        return cases_usfft.window_for(n_volume, eps, upsample)
+    return cases_usfft.gaussian_window_for(n_volume, eps, upsample)
+
+
+def phase_large_grid(device, card: str) -> dict:
+    """26a: both windows' gather and scatter on laminography's points of a
+    646^3 volume at upsample 2, a 1292^3 grid past 2^31 cells: against the
+    plain versions on LARGE_SAMPLE of the points and LARGE_HIGH points in
+    cells past the 2^31-th, with their repeats and adjointness
+    (``check_kernels``); on all the points the times (the gather in a CUDA
+    graph, the scatter, whose 17.25 GB grid a graph's pool would hold once a
+    launch, by CUDA events) beside the bound pipe by pipe, the plain
+    versions' once, the plan's ms and bytes, and the peak memory. Returns
+    each kernel's record, suffixed ``_n1292``."""
+    c = LARGE
+    eps = cases_usfft.LAMINO_EPS
+    x = cases_usfft.lamino_rows(c["n"], c["ntheta"], device).reshape(-1, 3)
+    gen, torch_gen = np.random.default_rng(26), torch.Generator(device=device).manual_seed(26)
+    step = x.shape[0] // LARGE_SAMPLE
+    out = {}
+    for window in ("kb", "gaussian"):
+        n, m, param = _window_of(window, c["n"], eps, c["upsample"])
+        gather, scatter, gather_plain, scatter_plain = cases_usfft.WINDOW_CALLS[window]
+        gather_name, scatter_name = cases_usfft.COUNTS[window]
+        case = f"{c['n']}^3 / {c['ntheta']} angles, upsample {c['upsample']}, {window}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=torch_gen)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=torch_gen)
+        sample = torch.cat([x[::step][:LARGE_SAMPLE], cases_usfft.high_cell_points(
+            gen, LARGE_HIGH, n, usfft._SHIFT[window], device)])
+        errs = cases_usfft.check_kernels(grid, sample, f[:sample.shape[0]].contiguous(), n, m,
+                                         param, case, window)
+        plan, plan_ms = _timed_plan(x, n, m, param, window=window)
+        ms = {gather_name: graph_ms_per_call(lambda: gather(grid, x, n, m, param, plan)),
+              scatter_name: _events_ms(lambda: scatter(f, x, n, m, param, plan), LARGE_REPEATS)}
+        plain_ms = {gather_name: cases_usfft._timed(gather_plain, grid, x, n, m, param)[1],
+                    scatter_name: cases_usfft._timed(scatter_plain, f, x, n, m, param)[1]}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[large] {case}: grid {n}^3 ({n**3} cells, {n**3 * 8} bytes), m = {m}, "
+            f"{x.shape[0]} points; on {sample.shape[0]} of them ({LARGE_HIGH} in cells past the "
+            f"2^31-th) gather max|err| {errs[f'{gather_name}_abs']:.3e} ({errs[gather_name]:.2e} "
+            f"of max|value|), scatter {errs[f'{scatter_name}_abs']:.3e} "
+            f"({errs[scatter_name]:.2e}; tol {cases_usfft.KB_TOL:g}), adjointness "
+            f"{errs['adjoint']:.2e}, three launches of each bitwise equal; plan "
+            f"{plan_ms:.2f} ms, {plan.nbytes} bytes; peak {peak} bytes ({card})")
+        for name in (gather_name, scatter_name):
+            bound = cases_usfft.gaussian_roofline(name, x, n, m, window)
+            out[name] = {
+                "max_abs_err_n1292": errs[f"{name}_abs"], "max_rel_err_n1292": errs[name],
+                "adjoint_err_n1292": errs["adjoint"], "ms_n1292": ms[name],
+                "plain_ms_n1292": plain_ms[name], "plan_ms_n1292": plan_ms,
+                "plan_bytes_n1292": plan.nbytes, "bound_ms_n1292": bound["bound_ms"],
+                "bound_by_n1292": bound["bound_by"],
+                "bound_bytes_ms_n1292": bound["bound_bytes_ms"],
+                "bound_fp32_ms_n1292": bound["bound_fp32_ms"],
+                "roofline_share_n1292": bound["bound_ms"] / ms[name],
+                "peak_bytes_n1292": peak, "m_n1292": m, "npoints_n1292": x.shape[0],
+            }
+            log(f"[large] {name} at {case}: {ms[name]:.4f} ms ("
+                + ("CUDA graph" if name == gather_name else f"CUDA events, {LARGE_REPEATS} launches")
+                + f"), plain {plain_ms[name]:.1f} ms once; bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}: {bound['bound_bytes']} bytes {bound['bound_bytes_ms']:.4f} "
+                f"ms at {cases_usfft.HBM_BYTES_PER_S:g} B/s"
+                + (f", {bound['touched_cells']} grid values touched" if bound["touched_cells"]
+                   else "")
+                + f"; {bound['bound_fp32_instructions']} FP32 instructions "
+                f"{bound['bound_fp32_ms']:.4f} ms at {cases_usfft.FP32_INSTRUCTIONS_PER_S:g}/s), "
+                f"{100 * bound['bound_ms'] / ms[name]:.1f}% of it ({card})")
+        del grid, f, plan, sample
+    return out
+
+
+def phase_wide_window(device, card: str) -> dict:
+    """26b: the Gaussian gather and scatter at m = 17, 18 and 22 (2m above
+    a warp's lanes: the gather's wide form) on phase 25a's points, against
+    the plain versions on WIDE_SAMPLE of them (three launches of each
+    bitwise equal, adjointness), times on all of them by CUDA events beside
+    the first form's gather (a thread a point), the plain versions' on the
+    sample (the gather's also on all the points at m = 17), the plan's and
+    the bound. Returns each kernel's record suffixed ``_m<m>``, and
+    ``WIDE_GATHER``'s at m = 17."""
+    x = cases_usfft.lamino_rows(cases_usfft.LAMINO_N, cases_usfft.LAMINO_NTHETA, device)
+    x = x.reshape(-1, 3)
+    step = x.shape[0] // WIDE_SAMPLE
+    sample = x[::step][:WIDE_SAMPLE].contiguous()
+    torch_gen = torch.Generator(device=device).manual_seed(27)
+    out = {name: {} for name in (*GAUSSIAN_KERNELS, WIDE_GATHER)}
+    gather_name, scatter_name = GAUSSIAN_KERNELS
+    for eps, upsample in WIDE_CASES:
+        n, m, mu = cases_usfft.gaussian_window_for(cases_usfft.LAMINO_N, eps, upsample)
+        case = f"128^3 / 64 angles, eps {eps:g}, upsample {upsample}"
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=torch_gen)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=torch_gen)
+        errs = cases_usfft.check_kernels(grid, sample, f[::step][:WIDE_SAMPLE].contiguous(), n, m,
+                                         mu, case, "gaussian")
+        plan, plan_ms = _timed_plan(x, n, m, mu, window="gaussian")
+        ms = {gather_name: _events_ms(lambda: usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan),
+                                      WIDE_REPEATS),
+              scatter_name: _events_ms(lambda: usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan),
+                                       WIDE_REPEATS)}
+        first_form_ms = _events_ms(lambda: cases_usfft.first_form_gather(grid, plan), 2)
+        if (eps, upsample) == WIDE_CASES[0]:
+            plain_all_ms = cases_usfft._timed(usfft.gather_gaussian_plain, grid, x, n, m, mu)[1]
+            log(f"[wide] {gather_name} at {case}: the plain version on all {x.shape[0]} points "
+                f"{plain_all_ms:.1f} ms, once ({card})")
+        for name in GAUSSIAN_KERNELS:
+            bound = cases_usfft.gaussian_roofline(name, x, n, m)
+            record = {
+                f"max_abs_err_m{m}": errs[f"{name}_abs"], f"max_rel_err_m{m}": errs[name],
+                f"adjoint_err_m{m}": errs["adjoint"], f"ms_m{m}": ms[name],
+                f"plain_ms_sample_m{m}": errs[f"{name}_plain_ms"], f"plan_ms_m{m}": plan_ms,
+                f"plan_bytes_m{m}": plan.nbytes, f"bound_ms_m{m}": bound["bound_ms"],
+                f"bound_by_m{m}": bound["bound_by"],
+                f"roofline_share_m{m}": bound["bound_ms"] / ms[name], f"grid_m{m}": n,
+            }
+            if name == gather_name:
+                record[f"first_form_ms_m{m}"] = first_form_ms
+            out[name].update(record)
+            if name == gather_name and (eps, upsample) == WIDE_CASES[0]:
+                out[WIDE_GATHER].update({
+                    "max_abs_err": errs[f"{name}_abs"], "ms": ms[name], "plain_ms": plain_all_ms,
+                    "first_form_ms": first_form_ms, "bound_ms": bound["bound_ms"],
+                    "bound_by": bound["bound_by"], "m": m, "grid": n,
+                })
+            log(f"[wide] {name} at {case} (m = {m}, grid {n}^3, {x.shape[0]} points): "
+                f"{ms[name]:.4f} ms (CUDA events, {WIDE_REPEATS} launches)"
+                + (f", the first form (a thread a point) {first_form_ms:.4f} ms"
+                   if name == gather_name else "")
+                + f"; on {WIDE_SAMPLE} of the points max|err| {errs[f'{name}_abs']:.3e} "
+                f"({errs[name]:.2e} of max|value|, tol {cases_usfft.KB_TOL:g}), plain "
+                f"{errs[f'{name}_plain_ms']:.1f} ms there; three launches bitwise equal there, "
+                f"adjointness {errs['adjoint']:.2e}; "
+                f"plan {plan_ms:.2f} ms, {plan.nbytes} bytes; bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}), {100 * bound['bound_ms'] / ms[name]:.1f}% of it ({card})")
+        del grid, f, plan
+    return out
+
+
+def _stage(stages: list, tag: str) -> None:
+    """Logs and records the memory allocated now and at the most since the
+    last stage."""
+    torch.cuda.synchronize()
+    now, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    stages.append((tag, now, peak))
+    log(f"[large-lamino] stage {tag}: {now} bytes allocated, peak {peak} bytes since the last "
+        f"stage")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_large_lamino(device, card: str) -> dict:
+    """26c: ``reconstruct`` at 646^3, 64 angles, upsample 2, cgrad at
+    cg_iter LARGE_CG_ITER with each window, every kernel count set to 0
+    just before and read just after: first its stages alone, with the
+    memory each holds (the plans, a forward, an adjoint), then one warm-up
+    outer iteration and LARGE_TIMED timed ones (costs finite and falling,
+    set-up s, s/iteration, peak memory). Where the card's memory does not
+    hold it, the stages logged until then say where the memory went, and
+    the run is logged as not fitting. Then a slice at m = 18 with the
+    Gaussian window, card against CPU (``WIDE_SLICE``), its wide gather's
+    launches counted. Returns each window's launches and the slice's."""
+    c = LARGE
+    n, eps, tilt = c["n"], cases_usfft.LAMINO_EPS, cases_usfft.LAMINO_TILT
+    theta = cases_usfft.lamino_theta(c["ntheta"]).numpy()
+    # bench_all.py's volume at this size, drawn on the card: a Gaussian-
+    # windowed random complex volume.
+    gen = torch.Generator(device=device).manual_seed(26)
+    r2 = (torch.arange(n, device=device, dtype=torch.float32) - n / 2) ** 2
+    volume = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=gen)
+    volume *= torch.exp(-(r2[:, None, None] + r2[None, :, None] + r2[None, None, :]) / (n / 3) ** 2)
+    volume = volume.cpu().numpy()
+    out = {}
+    for window in ("kb", "gaussian"):
+        tag = f"large-lamino {window}"
+        kwargs = dict(eps=eps, upsample=c["upsample"], kernel=window, device=device)
+        stages = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _stage(stages, f"{window}: start")
+            data = tl.simulate(volume, theta, tilt, **kwargs)
+            _stage(stages, f"{window}: simulate ({data.nbytes} bytes of data)")
+            cfg = ops_lamino.LaminoConfig(n=n, tilt=float(tilt), eps=eps, upsample=c["upsample"],
+                                          kernel=window)
+            th = torch.as_tensor(theta, device=device)
+            plan = LaminoPlan(cfg, th)
+            plans = {id(p): p for p in (plan.gather, plan.scatter, plan.scatter_negated)}
+            _stage(stages, f"{window}: plans ({sum(p.nbytes for p in plans.values() if p)} bytes)")
+            u = torch.as_tensor(volume, device=device)
+            d = ops_lamino.lamino_fwd(cfg, u, th, plan)
+            _stage(stages, f"{window}: a forward")
+            ops_lamino.lamino_adj(cfg, d, th, plan)
+            _stage(stages, f"{window}: an adjoint")
+            del plan, plans, u, d
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            start = time.perf_counter()
+            warm = tl.reconstruct(data, theta, tilt, "cgrad", num_iter=1,
+                                  cg_iter=LARGE_CG_ITER, **kwargs)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - start
+            start = time.perf_counter()
+            result = tl.reconstruct(data, theta, tilt, "cgrad", num_iter=LARGE_TIMED,
+                                    cg_iter=LARGE_CG_ITER, **kwargs)
+            torch.cuda.synchronize()
+            timed_s = time.perf_counter() - start
+            launches = _read_launches(tag)
+            peak = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError as error:
+            log(f"[{tag}] {n}^3 at upsample {c['upsample']} does not fit the card: "
+                f"{str(error).splitlines()[0]}; the stages until then: {stages}; "
+                f"{torch.cuda.memory_allocated()} bytes allocated, "
+                f"{torch.cuda.memory_reserved()} reserved ({card})")
+            out[window] = None
+            torch.cuda.empty_cache()
+            continue
+        costs = result["cost"]
+        if not (len(costs) == LARGE_TIMED and np.all(np.isfinite(costs))
+                and np.all(np.diff(costs) < 0)):
+            raise AssertionError(f"{tag}: costs {costs} are not {LARGE_TIMED} finite falling values")
+        if not np.all(np.isfinite(result["obj"])) or result["obj"].shape != volume.shape:
+            raise AssertionError(f"{tag}: the volume is not finite or has the wrong shape")
+        names = cases_usfft.COUNTS[window]
+        if not all(launches[name] > 0 for name in names):
+            raise AssertionError(f"{tag}: launched no {names} kernel: {launches}")
+        per_iter = timed_s / LARGE_TIMED
+        log(f"[{tag}] cgrad (cg_iter {LARGE_CG_ITER}) at {n}^3, {c['ntheta']} angles, upsample "
+            f"{c['upsample']}: costs {costs.tolist()} (warm-up {warm['cost'].tolist()}); "
+            f"{LARGE_TIMED} outer iterations in {timed_s:.3f} s = {per_iter:.3f} s/iteration; "
+            f"first call {first_s:.3f} s, so set-up {first_s - per_iter:.3f} s; peak {peak} bytes; "
+            f"launches { {k: launches[k] for k in usfft.LAUNCHES} } ({card})")
+        out[window] = {name: launches[name] for name in names}
+        del data, result, warm
+    _reset_launches()
+    phase_lamino_slices(device, WIDE_SLICE["upsample"], "gaussian", "wide-slice",
+                        GAUSSIAN_SLICE_RUNS[1], WIDE_SLICE["eps"], WIDE_SLICE)
+    wide = usfft.LAUNCHES["usfft_gather_gaussian"]
+    if not wide > 0:
+        raise AssertionError(f"wide-slice: launched no Gaussian gather: {usfft.LAUNCHES}")
+    out["wide"] = wide
+    return out
+
+
 def _events_ms(fn, repeats: int = 20) -> float:
     """The mean time of ``fn`` on the card over ``repeats`` calls after
     one warm-up, from CUDA events."""
@@ -4916,6 +5213,14 @@ def main() -> None:
     launches_gaussian_mesh = phase_gaussian_mesh(device, card, problem, dist_gaussian_costs)
     log(f"[gaussian] phase 25 took {time.perf_counter() - gaussian_start:.1f} s of the script's "
         f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    large_start = time.perf_counter()
+    large_timings = phase_large_grid(device, card)
+    wide_timings = phase_wide_window(device, card)
+    large_lamino = phase_large_lamino(device, card)
+    log(f"[large] phase 26 took {time.perf_counter() - large_start:.1f} s of the script's "
+        f"{time.perf_counter() - SCRIPT_START:.1f} s ({card})")
+    large_launches = lambda window, name: dict(
+        launches_lamino_646=None if large_lamino[window] is None else large_lamino[window][name])
     later = lambda name: dict(
         launches_multislice=launches_multislice[name], launches_align=launches_align[name],
         launches_api=launches_api[name], launches_mesh=launches_mesh[name],
@@ -4965,6 +5270,8 @@ def main() -> None:
             "launches_bucket": launches_bucket[name],
             **later(name),
             **timings[name],
+            **large_timings[name],
+            **large_launches("kb", name),
         }
         for name in USFFT_KERNELS
     ] + [
@@ -5019,8 +5326,23 @@ def main() -> None:
             "launches_gaussian_mesh": launches_gaussian_mesh[name],
             **later(name),
             **gaussian_timings[name],
+            **large_timings[name],
+            **wide_timings[name],
+            **large_launches("gaussian", name),
         }
         for name in GAUSSIAN_KERNELS
+    ] + [
+        {
+            "name": WIDE_GATHER,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/usfft_gaussian.cu",
+            "replaces": GAUSSIAN_KERNELS["usfft_gather_gaussian"],
+            "launches": large_lamino["wide"],
+            "launches_wide_slice": large_lamino["wide"],
+            "library_ms": None,
+            "card": card,
+            **wide_timings[WIDE_GATHER],
+        }
     ]
     log(env["nvidia_smi"])
     log(json.dumps({"kernels": report}))

@@ -16,6 +16,8 @@ their own summation order (``gather_gaussian_kernel_order``,
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -109,43 +111,81 @@ WINDOW_CALLS = {
 }
 
 
+def _timed(fn, *args):
+    """fn(*args) and its host ms, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn(*args)
+    torch.cuda.synchronize()
+    return result, 1e3 * (time.perf_counter() - start)
+
+
 def check_kernels(grid, x, f, n, m, param, name, window="kb") -> dict:
     """Both CUDA kernels on ``window``'s plans against their plain versions
     on these inputs (grid (n, n, n), points x (N, 3), values f (N,)), each
     launched twice on one prebuilt plan with bitwise-equal results and once
     more building its own plan, again bitwise equal, and <gather(grid), f>
-    = <grid, scatter(f)>. Raises on a difference; returns the relative
-    errors (by kernel name and ``adjoint``) and the absolute ones
-    (``<name>_abs``)."""
+    = <grid, scatter(f)>. Grids are compared and summed 64 planes at a time,
+    and at most three are held at once (the input, a scatter's and one
+    more), so that a 1292^3 grid fits the card. Raises on a difference;
+    returns the relative errors (by kernel name and ``adjoint``), the
+    absolute ones (``<name>_abs``) and the plain versions' host ms
+    (``<name>_plain_ms``)."""
     gather, scatter, gather_plain, scatter_plain = WINDOW_CALLS[window]
     gather_name, scatter_name = COUNTS[window]
     plan = usfft.geometry_plan(x, n, m, param, window=window)
     got = gather(grid, x, n, m, param, plan)
+    gathers = (gather(grid, x, n, m, param, plan), gather(grid, x, n, m, param))
+    want, gather_ms = _timed(gather_plain, grid, x, n, m, param)
+    out = {gather_name: max_rel(got, want),
+           f"{gather_name}_abs": float(torch.max(torch.abs(got - want))) if x.shape[0] else 0.0,
+           f"{gather_name}_plain_ms": gather_ms}
+    del want
     spread = scatter(f, x, n, m, param, plan)
-    repeats = {
-        gather_name: (got, gather(grid, x, n, m, param, plan), gather(grid, x, n, m, param)),
-        scatter_name: (spread, scatter(f, x, n, m, param, plan), scatter(f, x, n, m, param)),
-    }
-    want = gather_plain(grid, x, n, m, param)
-    spread_want = scatter_plain(f, x, n, m, param)
-    torch.cuda.synchronize()
-    out = {gather_name: max_rel(got, want), scatter_name: max_rel(spread, spread_want)}
-    for key, value in out.items():
-        if not value <= KB_TOL:
-            raise AssertionError(f"{key} ({name}): relative error {value:.3e} > {KB_TOL:g}")
-    for key, (first, *others) in repeats.items():
-        for other in others:
-            if not torch.equal(torch.view_as_real(first), torch.view_as_real(other)):
-                raise AssertionError(f"{key} ({name}): two launches differ")
-    lhs, rhs = inner64(got, f), inner64(grid, spread)
+    plain, out[f"{scatter_name}_plain_ms"] = _timed(scatter_plain, f, x, n, m, param)
+    worst = max(float(torch.max(torch.abs(a - b))) for a, b in _planes(spread, plain))
+    scale = max(float(torch.max(torch.abs(b))) for _, b in _planes(spread, plain))
+    del plain
+    out[scatter_name], out[f"{scatter_name}_abs"] = worst / scale if scale else 0.0, worst
+    for key in (gather_name, scatter_name):
+        if not out[key] <= KB_TOL:
+            raise AssertionError(f"{key} ({name}): relative error {out[key]:.3e} > {KB_TOL:g}")
+    if not all(torch.equal(torch.view_as_real(got), torch.view_as_real(g)) for g in gathers):
+        raise AssertionError(f"{gather_name} ({name}): two launches differ")
+    for again in (lambda: scatter(f, x, n, m, param, plan), lambda: scatter(f, x, n, m, param)):
+        other = again()
+        if not all(torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+                   for a, b in _planes(spread, other)):
+            raise AssertionError(f"{scatter_name} ({name}): two launches differ")
+        del other
+    lhs = inner64(got, f)
+    rhs = sum(inner64(a, b) for a, b in _planes(grid, spread))
     out["adjoint"] = abs(lhs - rhs) / max(abs(lhs), abs(rhs), 1e-300)
     if not out["adjoint"] <= ADJOINT_TOL:
         raise AssertionError(
             f"adjointness ({name}): <gather(G), f> = {lhs} vs <G, scatter(f)> = {rhs}"
         )
-    out[f"{gather_name}_abs"] = float(torch.max(torch.abs(got - want))) if x.shape[0] else 0.0
-    out[f"{scatter_name}_abs"] = float(torch.max(torch.abs(spread - spread_want)))
     return out
+
+
+def _planes(a, b, planes: int = 64):
+    """(a, b) views of the same ``planes`` planes of two grids, in turn."""
+    for i in range(0, a.shape[0], planes):
+        yield a[i:i + planes], b[i:i + planes]
+
+
+def high_cell_points(gen: np.random.Generator, npoints: int, n: int, shift: int = 0,
+                     device=None) -> torch.Tensor:
+    """(npoints, 3) float32 points whose base cells (shift 0 for KB, 1 for
+    the Gaussian) lie in the planes c0 >= 2^31 / n^2 of an n^3 grid, past
+    its 2^31-th cell (in its last plane on a grid of fewer cells), at
+    random places within their cells; half of them a period away."""
+    first = min(-(-(2**31) // (n * n)), n - 1)
+    cells = np.stack([gen.integers(first, n, npoints), gen.integers(0, n, npoints),
+                      gen.integers(0, n, npoints)], 1)
+    x = ((cells - n // 2 + shift) % n + gen.uniform(0.05, 0.95, (npoints, 3))) / n
+    x = np.where(x >= 0.5, x - 1.0, x) + (np.arange(npoints) % 2)[:, None]
+    return torch.as_tensor(x.astype(np.float32), device=device)
 
 
 def _wrap(i: int, n: int) -> int:
@@ -161,11 +201,13 @@ def scatter_owned_plain(f, plan) -> torch.Tensor:
     terms). For small grids."""
     n, m = plan.n, plan.m
     taps = 2 * m
-    bins, order = plan.bins.cpu().numpy(), plan.order.cpu().numpy()
-    start, w = plan.bin_start.cpu().numpy(), plan.weights.cpu().numpy()
+    cols, order = plan.cols.cpu().numpy().astype(np.int64), plan.order.cpu().numpy()
+    start, w = plan.row_start.cpu().numpy(), plan.weights.cpu().numpy()
     values = f.cpu().numpy()
     grid = np.zeros((n, n, n), np.complex64)
     for c0, c1, c2 in np.ndindex(n, n, n):
+        # The columns of bins that reach cell c2: c2 - m ... c2 + m - 1,
+        # (two runs where they wrap).
         lo, hi = c2 - m, c2 + m
         a0 = lo + n if lo < 0 else lo
         a1 = n if (lo < 0 or hi > n) else hi
@@ -174,12 +216,13 @@ def scatter_owned_plain(f, plan) -> torch.Tensor:
         for j0 in range(taps):
             r0 = _wrap(c0 + m - 1 - j0, n)
             for j1 in range(taps):
-                row_bin = (r0 * n + _wrap(c1 + m - 1 - j1, n)) * n
-                if start[row_bin] == start[row_bin + n]:
-                    continue
+                row = r0 * n + _wrap(c1 + m - 1 - j1, n)
+                run = np.arange(start[row], start[row + 1])
                 for first, last in ((a0, a1), (0, b1)):
-                    for p in range(start[row_bin + first], start[row_bin + last]):
-                        j2 = _wrap(c2 + m - 1 - (bins[p] - row_bin), n)
+                    # The run's points whose column lies in [first, last),
+                    # in the plan's order.
+                    for p in run[(cols[run] >= first) & (cols[run] < last)]:
+                        j2 = _wrap(c2 + m - 1 - cols[p], n)
                         wgt = np.float32(w[0, j0, p] * w[1, j1, p]) * w[2, j2, p]
                         acc = np.complex64(acc + values[order[p]] * wgt)
         grid[c0, c1, c2] = acc
@@ -208,9 +251,15 @@ def gather_sorted_plain(Fe, plan) -> torch.Tensor:
 
 
 # csrc/usfft_gaussian.cu's kThreadGatherMaxM (a thread a point in the
-# gather up to this m): tests/test_torch_usfft_gaussian_kernels.py holds it to
-# the source.
+# gather up to this m), kGroupMaxTaps (a group of 2m lanes a point up to
+# these taps), kWideLanes (above them, a group of these lanes a point, a
+# slot of taps a lane) and kWideInnerSlots (the most slots a lane holds at
+# once; the same sums either way): tests/test_torch_usfft_gaussian_kernels.py
+# holds them to the source.
 THREAD_GATHER_MAX_M = 2
+GROUP_MAX_TAPS = 32
+WIDE_LANES = 16
+WIDE_INNER_SLOTS = 4
 
 
 def _group_width(taps: int) -> int:
@@ -229,10 +278,14 @@ def gather_gaussian_kernel_order(Fe, plan) -> torch.Tensor:
     j (a lane): sum over j0 of w0[j0] times the sum over j1 of w1[j1] G[j0,
     j1, j], in ascending order; times w2[j]; then the lanes added by a
     butterfly (at 2m = 8 ((t0 + t4) + (t2 + t6)) + ((t1 + t5) + (t3 +
-    t7)))."""
+    t7))). Above ``GROUP_MAX_TAPS`` taps (``gaussian_gather_wide_kernel``),
+    lane j of ``WIDE_LANES`` holds taps j + ``WIDE_LANES`` k, each tap's
+    product with its w2 added to the lane's total in ascending k, and the
+    same butterfly over the lanes."""
     n, m = plan.n, plan.m
     taps = 2 * m
-    width = _group_width(taps)
+    width = _group_width(taps) if taps <= GROUP_MAX_TAPS else WIDE_LANES
+    slots = -(-taps // width)
     bins = plan.bins.long()
     base = torch.stack([bins // (n * n), (bins // n) % n, bins % n], dim=1)
     cells = torch.remainder(base[:, :, None] + torch.arange(1 - m, m + 1, device=bins.device), n)
@@ -261,7 +314,13 @@ def gather_gaussian_kernel_order(Fe, plan) -> torch.Tensor:
             s = s + w[:, 1, j1, None, None] * v
         acc = acc + w[:, 0, j0, None, None] * s
     t = acc * w[:, 2, :, None]
-    t = torch.cat([t, torch.zeros((npoints, width - taps, 2), dtype=t.dtype, device=t.device)], 1)
+    t = torch.cat([t, torch.zeros((npoints, slots * width - taps, 2), dtype=t.dtype,
+                                  device=t.device)], 1)
+    # Each lane's slots, taps j, j + width, ..., added in ascending order.
+    lanes = t[:, :width]
+    for k in range(1, slots):
+        lanes = lanes + t[:, k * width:(k + 1) * width]
+    t = lanes
     offset = width // 2
     while offset:
         t = t + t[:, torch.arange(width, device=t.device) ^ offset]
@@ -306,8 +365,8 @@ def scatter_gaussian_kernel_order(f, plan) -> torch.Tensor:
     in the warps' order. For small grids."""
     n, m = plan.n, plan.m
     taps = 2 * m
-    bins, order = plan.bins.cpu().numpy().astype(np.int64), plan.order.cpu().numpy()
-    start = plan.bin_start.cpu().numpy().astype(np.int64)
+    cols, order = plan.cols.cpu().numpy().astype(np.int64), plan.order.cpu().numpy()
+    start = plan.row_start.cpu().numpy().astype(np.int64)
     w = plan.weights.cpu().numpy()
     values = f.cpu().numpy()[order]
     v = np.stack([values.real, values.imag], -1).astype(np.float32)
@@ -316,16 +375,20 @@ def scatter_gaussian_kernel_order(f, plan) -> torch.Tensor:
         c0, c1 = divmod(first_row, n)
         span1 = rows + taps - 1
         copies = np.zeros((SCATTER_WARPS, rows * n, 2), np.float32)
-        item = 0  # the chunk's place among its batch's items
-        for place in range(taps * span1):
-            if place % 32 == 0:
-                item = 0
+        # The walk's rows of bins, 32 places a batch; the empty ones add
+        # nothing.
+        places = np.arange(taps * span1)
+        walk = ((c0 + m - 1 - places // span1) % n) * n + (c1 - m + places % span1) % n
+        batch = -1
+        for place in places[start[walk] < start[walk + 1]].tolist():
+            if place // 32 != batch:
+                batch, item = place // 32, 0  # the chunk's place among its batch's items
             j0, h1 = divmod(place, span1)
-            bin_row = (((c0 + m - 1 - j0) % n) * n + (c1 - m + h1) % n) * n
+            row = walk[place]
             t1 = np.arange(max(0, h1 - taps + 1), min(rows - 1, h1) + 1)
-            for chunk in range(start[bin_row], start[bin_row + n], 32):
-                p = np.arange(chunk, min(chunk + 32, start[bin_row + n]))
-                b2 = bins[p] - bin_row
+            for chunk in range(start[row], start[row + 1], 32):
+                p = np.arange(chunk, min(chunk + 32, start[row + 1]))
+                b2 = cols[p]
                 tail = np.ones(len(p), bool)
                 tail[:-1] = b2[1:] != b2[:-1]
                 u = (w[0, j0, p, None] * v[p]).astype(np.float32)
@@ -336,9 +399,11 @@ def scatter_gaussian_kernel_order(f, plan) -> torch.Tensor:
                 copy = copies[item % SCATTER_WARPS]
                 item += 1
                 total = _scan_runs(term, b2)[:, :, tail]
-                for tap in range(taps):
-                    index = t1[:, None] * n + (b2[tail] + 1 - m + tap) % n
-                    copy[index] = (copy[index] + total[:, tap]).astype(np.float32)
+                # Tap by tap, each run's total to its cell of each band row:
+                # within a tap no two go to one cell.
+                index = t1[None, :, None] * n + (
+                    b2[tail][None, None, :] + 1 - m + np.arange(taps)[:, None, None]) % n
+                np.add.at(copy, index.reshape(-1), total.transpose(1, 0, 2, 3).reshape(-1, 2))
         band = copies[0]
         for more in copies[1:]:
             band = (band + more).astype(np.float32)
@@ -351,8 +416,9 @@ def first_form_gather(grid, plan) -> torch.Tensor:
     on a Gaussian plan: the yardstick, counted nowhere."""
     out = torch.empty(plan.npoints, dtype=torch.complex64, device=grid.device)
     rc = kernels.load("usfft").tike_kb_gather(
-        grid.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(), plan.weights.data_ptr(),
-        out.data_ptr(), plan.npoints, plan.n, plan.m, torch.cuda.current_stream().cuda_stream,
+        grid.data_ptr(), plan.rows.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
+        plan.weights.data_ptr(), out.data_ptr(), plan.npoints, plan.n, plan.m,
+        torch.cuda.current_stream().cuda_stream,
     )
     if rc:
         raise RuntimeError(f"kb_gather: CUDA error {rc}")
@@ -365,7 +431,7 @@ def first_form_scatter(f, plan) -> torch.Tensor:
     n = plan.n
     grid = torch.empty((n, n, n), dtype=torch.complex64, device=f.device)
     rc = kernels.load("usfft").tike_kb_scatter(
-        f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(), plan.bin_start.data_ptr(),
+        f.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(), plan.row_start.data_ptr(),
         plan.weights.data_ptr(), grid.data_ptr(), plan.npoints, n, plan.m,
         torch.cuda.current_stream().cuda_stream,
     )
@@ -395,15 +461,16 @@ def roofline(name: str, x, n: int, m: int) -> dict:
     }
 
 
-def gaussian_roofline(name: str, x, n: int, m: int) -> dict:
-    """The least time the card could take for a Gaussian gather or scatter
-    of the points x (N, 3) on an n^3 grid, pipe by pipe: the bytes it must
-    move (``usfft.roofline_bytes``; the gather's grid bytes from the cells
-    the Gaussian's taps touch) at the HBM rate, and the FP32 instructions of
+def gaussian_roofline(name: str, x, n: int, m: int, window: str = "gaussian") -> dict:
+    """The least time the card could take for a gather or scatter of a
+    separable window (the Gaussian unless ``window`` is "kb") of the points
+    x (N, 3) on an n^3 grid, pipe by pipe: the bytes it must move
+    (``usfft.roofline_bytes``; the gather's grid bytes from the cells the
+    window's taps touch) at the HBM rate, and the FP32 instructions of
     ``usfft.fp32_instructions`` at the card's FP32 instruction rate; the
     bound is the larger."""
     npoints = x.shape[0]
-    cells = usfft.touched_cells(x, n, m, "gaussian") if "gather" in name else None
+    cells = usfft.touched_cells(x, n, m, window) if "gather" in name else None
     nbytes = usfft.roofline_bytes(name, npoints, n, cells)
     instructions = usfft.fp32_instructions(npoints, m)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S

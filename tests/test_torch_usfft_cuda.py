@@ -54,6 +54,37 @@ def test_kb_kernels_match_plain(card, n_volume, eps, upsample, layout):
     cases.check_kernels(grid, x, f, n, m, beta, f"{layout}, m = {m}")
 
 
+def test_kb_kernels_past_2_31_cells(card):
+    """At n = 1292 (646^3 at upsample 2, m = 2: 2,156,689,088 cells) both
+    kernels against the plain versions on points spread over the grid and
+    points in cells past the 2^31-th, the scatter's grid (its 4 copies of a
+    row of 1292 cells in 41 KB of shared memory) compared plane by plane;
+    adjoint; two launches of each bitwise equal."""
+    n, m, beta = cases.window_for(646, 1e-3, 2)
+    assert n**3 > 2**31 and m == 2
+    gen = np.random.default_rng(15)
+    x = torch.cat([cases.flat_points(gen, 16_384, card),
+                   cases.high_cell_points(gen, 4_096, n, 0, card)])
+    grid = torch.randn((n, n, n), dtype=torch.complex64, device=card)
+    f = cases.crandn(gen, x.shape[0], device=card)
+    cases.check_kernels(grid, x, f, n, m, beta, f"n = {n}")
+
+
+def test_kb_scatter_asks_for_shared_memory_above_n_1536(card):
+    """n = 1540: four copies of a row, 49,280 bytes, pass the 48 KB a block
+    gets unasked; the scatter asks for more and matches the plain version."""
+    n, m, beta = 1540, 2, 5.0
+    gen = np.random.default_rng(16)
+    x = cases.flat_points(gen, 8_000, card)
+    f = cases.crandn(gen, 8_000, device=card)
+    plan = usfft.geometry_plan(x, n, m, beta)
+    spread = usfft.scatter_kb_cuda(f, x, n, m, beta, plan)
+    plain = usfft.scatter_kb_plain(f, x, n, m, beta)
+    worst = max(float(torch.max(torch.abs(a - b))) for a, b in cases._planes(spread, plain))
+    scale = max(float(torch.max(torch.abs(b))) for _, b in cases._planes(spread, plain))
+    assert worst / scale < cases.KB_TOL
+
+
 @pytest.mark.parametrize("m, beta", [(1, 2.0), (2, 5.0), (4, 9.0)])
 def test_kb_kernels_take_no_points_and_one(card, m, beta):
     grid = torch.ones((8, 8, 8), dtype=torch.complex64, device=card)
@@ -144,7 +175,7 @@ def test_wrappers_count_launches_and_lamino_runs_through_them(card):
                            torch.view_as_real(d))
         assert torch.equal(torch.view_as_real(lamino.lamino_adj_exact(cfg, d, theta, plan)),
                            torch.view_as_real(back))
-    assert plan.scatter.bin_start is not None and plan.gather is plan.scatter  # m = 2
+    assert plan.scatter.row_start is not None and plan.gather is plan.scatter  # m = 2
 
 
 def test_transforms_at_half_support_7(card):

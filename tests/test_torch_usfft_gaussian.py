@@ -73,19 +73,20 @@ def test_plan_sorts_points_into_shifted_bins(n_volume, eps, upsample):
     n, m, mu = _window(n_volume, eps, upsample)
     x = cases.flat_points(rng(3), 400, span=0.7)
     plan = tu.geometry_plan(x, n, m, mu, window="gaussian")
-    order, bins, start = plan.order.long(), plan.bins.long(), plan.bin_start.long()
+    order, bins, start = plan.order.long(), plan.bins, plan.row_start.long()
     assert torch.equal(torch.sort(order)[0], torch.arange(400))
     cell = _cells(x, n)
     assert torch.equal(bins, ((cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2])[order])
     assert bool(torch.all(bins[1:] >= bins[:-1]))
     tied = bins[1:] == bins[:-1]
     assert bool(torch.all(order[1:][tied] > order[:-1][tied]))
-    # bin_start counts each bin's points, and bin c's points are sorted
-    # points bin_start[c] ... bin_start[c + 1] - 1.
-    assert start[0] == 0 and start[-1] == 400 and start.shape == (n**3 + 1,)
-    assert torch.equal(start[1:] - start[:-1], torch.bincount(bins, minlength=n**3))
-    for c in torch.unique(bins).tolist():
-        assert bool(torch.all(bins[start[c]:start[c + 1]] == c))
+    # row_start counts each row of bins' points, and row r's points are the
+    # sorted points row_start[r] ... row_start[r + 1] - 1.
+    rows = bins // n
+    assert start[0] == 0 and start[-1] == 400 and start.shape == (n**2 + 1,)
+    assert torch.equal(start[1:] - start[:-1], torch.bincount(rows, minlength=n**2))
+    for r in torch.unique(rows).tolist():
+        assert bool(torch.all(rows[start[r]:start[r + 1]] == r))
 
 
 @pytest.mark.parametrize("n_volume, eps, upsample", WINDOWS)
@@ -112,7 +113,7 @@ def test_tiled_plan_serves_the_gather():
     x = cases.flat_points(rng(5), 200, span=0.7)
     Fe = crandn(rng(6), n, n, n)
     plan = tu.geometry_plan(x, n, m, mu, tile=(4, 2), window="gaussian")
-    assert plan.bin_start is None and plan.tile == (4, 2)
+    assert plan.row_start is None and plan.tile == (4, 2)
     assert_close(cases.gather_gaussian_kernel_order(t(Fe), plan),
                  ju.gather(Fe, x.numpy(), n, m, mu), rtol=TOL, atol=TOL, scale=True)
 

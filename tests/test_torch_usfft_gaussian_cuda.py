@@ -120,7 +120,7 @@ def test_gaussian_scatter_in_either_block_order(card, n_volume, eps, upsample):
     f = cases.crandn(gen, x.shape[0], device=card)
     plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
     first = usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan)
-    for blocks in (plan.blocks, usfft._scatter_blocks(plan.bin_start, n, m, busiest_first=False)):
+    for blocks in (plan.blocks, usfft._scatter_blocks(plan.row_start, n, m, busiest_first=False)):
         again = usfft.scatter_gaussian_cuda(f, x, n, m, mu,
                                             dataclasses.replace(plan, blocks=blocks))
         assert torch.equal(torch.view_as_real(first), torch.view_as_real(again))
@@ -165,14 +165,76 @@ def test_gaussian_kernels_take_no_points_one_and_a_cuda_graph(card):
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
 
 
+# (volume n, eps, upsample): m = 17 and 18 (the Gaussian at upsample 3, eps
+# 1e-10 and upsample 4, eps 1e-8), 2m above a warp's lanes: the wide
+# gather's three slots a lane, held at once.
+WIDE_WINDOWS = [(14, 1e-10, 3), (11, 1e-8, 4)]
+
+
+@pytest.mark.parametrize("n_volume, eps, upsample", WIDE_WINDOWS)
+def test_gaussian_kernels_above_32_taps_match_plain(card, n_volume, eps, upsample):
+    """Both kernels at m = 17 and 18 against the plain versions, adjoint,
+    and three launches of each bitwise equal; the gather within 1e-6 of its
+    written-out order."""
+    n, m, mu = cases.gaussian_window_for(n_volume, eps, upsample)
+    assert 2 * m > cases.GROUP_MAX_TAPS
+    gen = np.random.default_rng(12)
+    x = cases.flat_points(gen, 4_000, card)
+    grid, f = cases.crandn(gen, n, n, n, device=card), cases.crandn(gen, 4_000, device=card)
+    cases.check_kernels(grid, x, f, n, m, mu, f"m = {m}", "gaussian")
+    plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
+    assert cases.max_rel(usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan),
+                         cases.gather_gaussian_kernel_order(grid, plan)) < 1e-6
+
+
+def test_gaussian_kernels_above_64_taps(card):
+    """m = 33 (upsample 6, eps 1e-10; five slots a lane, more than a lane
+    holds at once, so one after another): both kernels against the first
+    form on one plan, the gather against its written-out order, adjoint, two
+    launches of each bitwise equal."""
+    n, m, mu = cases.gaussian_window_for(12, 1e-10, 6)
+    assert m == 33 and 2 * m > cases.WIDE_INNER_SLOTS * cases.WIDE_LANES
+    gen = np.random.default_rng(13)
+    x = cases.flat_points(gen, 2_000, card)
+    grid, f = cases.crandn(gen, n, n, n, device=card), cases.crandn(gen, 2_000, device=card)
+    plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
+    got = usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)
+    spread = usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan)
+    assert cases.max_rel(got, cases.first_form_gather(grid, plan)) < cases.KB_TOL
+    assert cases.max_rel(got, cases.gather_gaussian_kernel_order(grid, plan)) < 1e-6
+    assert cases.max_rel(spread, cases.first_form_scatter(f, plan)) < cases.KB_TOL
+    for a, b in ((got, usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)),
+                 (spread, usfft.scatter_gaussian_cuda(f, x, n, m, mu, plan))):
+        assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+    lhs, rhs = cases.inner64(got, f), cases.inner64(grid, spread)
+    assert abs(lhs - rhs) / abs(lhs) < cases.ADJOINT_TOL
+
+
+def test_gaussian_kernels_past_2_31_cells(card):
+    """At n = 1292 (646^3 at upsample 2, m = 4: 2,156,689,088 cells) both
+    kernels against the plain versions on points spread over the grid and
+    points in cells past the 2^31-th, the scatter's grid compared plane by
+    plane; adjoint; two launches of each bitwise equal."""
+    n, m, mu = cases.gaussian_window_for(646, 1e-3, 2)
+    assert n**3 > 2**31 and m == 4
+    gen = np.random.default_rng(14)
+    x = torch.cat([cases.flat_points(gen, 16_384, card),
+                   cases.high_cell_points(gen, 4_096, n, 1, card)])
+    grid = torch.randn((n, n, n), dtype=torch.complex64, device=card)
+    f = cases.crandn(gen, x.shape[0], device=card)
+    cases.check_kernels(grid, x, f, n, m, mu, f"n = {n}", "gaussian")
+
+
 def test_dispatch_refuses_a_kb_plan(card):
     n, m, mu = cases.gaussian_window_for(16, 1e-3, 1)
     x = cases.flat_points(np.random.default_rng(6), 10, card)
     f = torch.zeros(10, dtype=torch.complex64, device=card)
     with pytest.raises(ValueError, match="kb window"):
         usfft.scatter(f, x, n, m, mu, usfft.geometry_plan(x, n, m, mu))
-    with pytest.raises(ValueError, match="m <= 16"):
-        usfft.gather(torch.zeros((40, 40, 40), dtype=torch.complex64, device=card), x, 40, 17, mu)
+    # m = 17, once refused, takes the wide gather.
+    grid = cases.crandn(np.random.default_rng(6), 40, 40, 40, device=card)
+    assert cases.max_rel(usfft.gather(grid, x, 40, 17, mu),
+                         usfft.gather_gaussian_plain(grid, x, 40, 17, mu)) < cases.KB_TOL
 
 
 @pytest.mark.parametrize("upsample", [1, 2])

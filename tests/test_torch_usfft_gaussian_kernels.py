@@ -22,8 +22,9 @@ from .test_torch_usfft_gaussian import TOL, WINDOWS, _cells, _window
 
 
 def test_gaussian_entry_points_refuse_other_plans_and_large_m():
-    """The Gaussian kernels' entry points refuse a KB plan and m > 16,
-    before anything runs; the KB dispatch refuses a Gaussian plan."""
+    """The Gaussian kernels' entry points refuse a KB plan before anything
+    runs, and the KB dispatch a Gaussian plan; m = 17 (2m above a warp's
+    lanes) is refused only for its CPU tensors, as any m is."""
     n, m, mu = _window(8, 1e-3, 2)
     x = cases.flat_points(rng(13), 40, span=0.7)
     Fe, f = t(crandn(rng(14), n, n, n)), t(crandn(rng(15), 40))
@@ -31,7 +32,7 @@ def test_gaussian_entry_points_refuse_other_plans_and_large_m():
     for entry, data in ((tu.gather_gaussian_cuda, Fe), (tu.scatter_gaussian_cuda, f)):
         with pytest.raises(ValueError, match="kb window"):
             entry(data, x, n, m, mu, tu.geometry_plan(x, n, m, mu))
-        with pytest.raises(ValueError, match="m <= 16"):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
             entry(data, x, 40, 17, mu)
     with pytest.raises(ValueError, match="gaussian window"):
         tu.gather_kb(Fe, x, n, m, mu, gaussian)
@@ -42,26 +43,42 @@ def test_gaussian_entry_points_refuse_other_plans_and_large_m():
 
 def test_source_limits_and_orders_are_the_package_s():
     """csrc/usfft_gaussian.cu's limits, its scatter's bands and warps and its
-    gathers' split are the package's and the written-out orders' (every
-    block's copies of its band within the shared memory a block may ask
-    for, up to the largest grid)."""
-    with open(tu.__file__.replace("ops/usfft.py", "csrc/usfft_gaussian.cu")) as file:
-        source = file.read()
-    constant = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", source).group(1))
-    assert constant("kMaxTaps") == 2 * tu.GAUSSIAN_MAX_M and constant("kMaxN") == tu.MAX_N
-    assert constant("kBandRowsSmallM") == tu.band_rows(1) == tu.band_rows(2)
-    assert constant("kBandRowsLargeM") == tu.band_rows(3) == tu.band_rows(4) == tu.band_rows(
-        tu.GAUSSIAN_MAX_M)
-    assert constant("kScatterWarps") == cases.SCATTER_WARPS
+    gathers' split are the package's and the written-out orders', and
+    csrc/usfft.cu's limits the package's. Every block's copies of its band
+    lie within the shared memory a block may ask for at every n where each
+    band height is used, and each height is the most that fits."""
+    def constants(name):
+        with open(tu.__file__.replace("ops/usfft.py", f"csrc/{name}.cu")) as file:
+            source = file.read()
+        return lambda key: int(re.search(rf"constexpr int {key} = (\d+);", source).group(1))
+
+    constant, kb = constants("usfft_gaussian"), constants("usfft")
+    assert constant("kMaxN") == kb("kMaxN") == tu.MAX_N
+    assert constant("kMaxShared") == kb("kMaxShared") == tu.MAX_SHARED
+    assert constant("kGroupMaxTaps") == cases.GROUP_MAX_TAPS
+    assert constant("kWideLanes") == cases.WIDE_LANES
+    assert constant("kBandRowsSmallM") == tu.band_rows(1, 64) == tu.band_rows(2, 64)
+    assert constant("kBandRowsLargeM") == tu.band_rows(3, 64) == tu.band_rows(22, 64)
+    assert constant("kWideInnerSlots") == cases.WIDE_INNER_SLOTS
+    assert constant("kScatterWarps") == cases.SCATTER_WARPS == tu._SCATTER_WARPS
     assert constant("kThreadGatherMaxM") == cases.THREAD_GATHER_MAX_M
-    for m in (1, 2, 3, 4, tu.GAUSSIAN_MAX_M):
-        assert cases.SCATTER_WARPS * tu.band_rows(m) * tu.MAX_N * 8 <= constant("kMaxShared")
+    copies = lambda rows, n: cases.SCATTER_WARPS * rows * n * 8
+    for m in (1, 2, 3, 4, 17, 22, 40):
+        for n in range(2 * m, 7265):
+            rows = tu.band_rows(m, n)
+            assert copies(rows, n) <= tu.MAX_SHARED
+            assert rows == tu.band_rows(m, 64) or copies(rows + 1, n) > tu.MAX_SHARED
+    # Where each height starts: 4 rows up to n = 1816 at m <= 2, 2 up to 3632.
+    assert [tu.band_rows(2, n) for n in (1816, 1817, 2421, 2422, 3632, 3633)] == [4, 3, 3, 2, 2, 1]
+    assert [tu.band_rows(4, n) for n in (1292, 3632, 3633, 7264)] == [2, 2, 1, 1]
+    # The KB scatter's copies of a row: within 48 KB up to n = 1536.
+    assert 4 * 1536 * 8 <= 48 * 1024 < 4 * 1537 * 8
 
 
 @pytest.mark.parametrize("n_volume", [8, 7])
 def test_plan_orders_the_scatter_bands(n_volume):
     """A Gaussian plan in bin order covers every row of the grid once with
-    the scatter's blocks, bands of band_rows(m) rows of a plane (fewer in its
+    the scatter's blocks, bands of band_rows(m, n) rows of a plane (fewer in its
     last), those whose rows of bins hold the most points first (or, asked
     for, in the grid's order); a plan sorted by tiles of the gather and a KB
     plan hold none."""
@@ -69,7 +86,7 @@ def test_plan_orders_the_scatter_bands(n_volume):
     x = cases.flat_points(rng(19), 500, span=0.3)
     plan = tu.geometry_plan(x, n, m, mu, window="gaussian")
     cell = _cells(x, n)
-    band = tu.band_rows(m)
+    band = tu.band_rows(m, n)
     assert plan.blocks.dtype == torch.int32 and plan.blocks.shape == (n * -(-n // band), 2)
     covered = torch.zeros(n * n, dtype=torch.int64)
     held = []
@@ -85,7 +102,7 @@ def test_plan_orders_the_scatter_bands(n_volume):
         held.append(int((near0 * near1).sum()))
     assert bool(torch.all(covered == 1))
     assert held == sorted(held, reverse=True) and held[0] > held[-1]
-    in_order = tu._scatter_blocks(plan.bin_start, n, m, busiest_first=False)
+    in_order = tu._scatter_blocks(plan.row_start, n, m, busiest_first=False)
     assert in_order[:, 0].tolist() == sorted(plan.blocks[:, 0].tolist())
     assert tu.geometry_plan(x, n, m, mu, tile=(8, 8), window="gaussian").blocks is None
     assert tu.geometry_plan(x, n, m, mu).blocks is None

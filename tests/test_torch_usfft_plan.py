@@ -46,26 +46,29 @@ def test_kb_plan_sorts_points_into_bins(n, m, beta, span, npoints):
     x = _points(npoints, span)
     plan = tu.geometry_plan(x, n, m, beta)
     assert (plan.n, plan.m, plan.param, plan.npoints, plan.tile) == (n, m, beta, npoints, None)
-    order, bins, start = plan.order.long(), plan.bins.long(), plan.bin_start.long()
-    assert plan.order.dtype == plan.bins.dtype == plan.bin_start.dtype == torch.int32
+    order, bins, start = plan.order.long(), plan.bins, plan.row_start.long()
+    assert plan.order.dtype == plan.rows.dtype == plan.row_start.dtype == torch.int32
+    assert plan.cols.dtype == torch.int16 and bins.dtype == torch.int64
     # order is a permutation, and every sorted point lies in its bin.
     assert torch.equal(torch.sort(order)[0], torch.arange(npoints))
     cell = _cells(x, n)
     want_bins = (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]
     assert torch.equal(bins, want_bins[order])
+    assert torch.equal(plan.rows.long(), want_bins[order] // n)
+    assert torch.equal(plan.cols.long(), cell[order][:, 2])
     # Sorted by bin, ties in ascending point index: a stable sort.
     assert bool(torch.all(bins[1:] >= bins[:-1]))
     tied = bins[1:] == bins[:-1]
     assert bool(torch.all(order[1:][tied] > order[:-1][tied]))
-    # bin_start: n^3 + 1 monotone offsets from 0 to N; bin c's points are
+    # row_start: n^2 + 1 monotone offsets from 0 to N; row r's points are
     # exactly those between its two offsets.
-    assert start.shape == (n**3 + 1,)
+    assert start.shape == (n**2 + 1,)
     assert start[0] == 0 and start[-1] == npoints
     assert bool(torch.all(start[1:] >= start[:-1]))
-    assert torch.equal(start[1:] - start[:-1], torch.bincount(want_bins, minlength=n**3))
+    assert torch.equal(start[1:] - start[:-1], torch.bincount(want_bins // n, minlength=n**2))
     if npoints:
-        p = torch.arange(npoints)
-        assert bool(torch.all((start[bins] <= p) & (p < start[bins + 1])))
+        p, rows = torch.arange(npoints), plan.rows.long()
+        assert bool(torch.all((start[rows] <= p) & (p < start[rows + 1])))
     # The weights are the plain version's, to the bit, point index last.
     assert plan.weights.shape == (3, 2 * m, npoints) and plan.weights.is_contiguous()
     taps = tu._kb_axis_taps(x[order], n, m, beta)
@@ -73,14 +76,14 @@ def test_kb_plan_sorts_points_into_bins(n, m, beta, span, npoints):
         assert torch.equal(plan.weights[a], w.T)
         # The taps start m - 1 cells below the base cell.
         assert torch.equal(g[:, m - 1], cell[order][:, a])
-    assert plan.nbytes == 4 * (2 * npoints + 6 * m * npoints + n**3 + 1)
+    assert plan.nbytes == 4 * (2 * npoints + 6 * m * npoints + n**2 + 1) + 2 * npoints
 
 
 @pytest.mark.parametrize("n, m, beta", WINDOWS[:2])
 def test_kb_plan_by_tiles_serves_the_gather(n, m, beta):
     x = _points(300, 0.7)
     plan = tu.geometry_plan(x, n, m, beta, tile=(4, 2))
-    assert plan.bin_start is None and plan.tile == (4, 2)
+    assert plan.row_start is None and plan.tile == (4, 2)
     order = plan.order.long()
     assert torch.equal(torch.sort(order)[0], torch.arange(300))
     cell = _cells(x, n)[order]
@@ -88,7 +91,7 @@ def test_kb_plan_by_tiles_serves_the_gather(n, m, beta):
     assert bool(torch.all(key[1:] >= key[:-1]))
     tied = key[1:] == key[:-1]
     assert bool(torch.all(order[1:][tied] > order[:-1][tied]))
-    assert torch.equal(plan.bins.long(), (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2])
+    assert torch.equal(plan.bins, (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2])
     Fe = t(crandn(rng(1), n, n, n))
     want = tu.gather_kb_plain(Fe, x, n, m, beta)
     assert cases.max_rel(cases.gather_sorted_plain(Fe, plan), want) < OWNED_TOL
@@ -122,7 +125,7 @@ def test_cell_owned_scatter_of_piled_points():
     x = torch.as_tensor((0.01 + 0.1 * gen.uniform(0, 1, (150, 3)) / n).astype(np.float32))
     f = t(crandn(gen, 150))
     plan = tu.geometry_plan(x, n, m, beta)
-    assert int(torch.count_nonzero(plan.bin_start[1:] - plan.bin_start[:-1])) == 1
+    assert int(torch.count_nonzero(plan.row_start[1:] - plan.row_start[:-1])) == 1
     got = cases.scatter_owned_plain(f, plan)
     assert cases.max_rel(got, tu.scatter_kb_plain(f, x, n, m, beta)) < OWNED_TOL
     assert int(torch.count_nonzero(got)) == 8

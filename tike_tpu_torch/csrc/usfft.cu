@@ -36,16 +36,22 @@
 // per set of points: the points sorted by the linear index of their base
 // cell ("bin", axis 2 fastest; ties in ascending point index), and for the
 // sorted point p
-//     bins[p]      its bin,
+//     rows[p]      its row of bins c0 n + c1 (int32),
+//     cols[p]      its column c2 (int16),
 //     order[p]     its index in the caller's arrays,
 //     weights[..p] its 3 x 2m axis weights (the plain version's, to the bit;
 //                  stored [axis][tap][point], so a warp's loads coalesce),
-//     bin_start[c] for each of the n^3 cells c (and n^3 itself), where the
-//                  points of bin c start in the sorted list.
-// No Bessel function, exp, division or floor is left in the kernels. The gather
-// takes the points in any order (it reads no bin_start); for m = 1 its
-// plan sorts them by 8 x 8 tiles of cells on axes 1 and 2 instead, ties
-// again in ascending index.
+//     row_start[r] for each of the n^2 rows of bins r (and n^2 itself), where
+//                  the points of row r start in the sorted list.
+// No index of a cell is formed in 32 bits beyond a row c0 n + c1 (n^2 < 2^31
+// for any grid a card holds; n^3 passes 2^31 above n = 1290): a grid
+// offset is (long long)(c0 n + c1) n + c2. The scatters read the sort only
+// at the starts of rows of bins, so the plan holds n^2 + 1 of them, not a
+// start per cell (8.6 GB at n = 1292). No Bessel function, exp, division or
+// floor is left in the kernels but one division by n a point in the
+// gather. The gather takes the points in any order (it reads no
+// row_start); for m = 1 its plan sorts them by 8 x 8 tiles of cells on axes
+// 1 and 2 instead, ties again in ascending index.
 //
 // What bounds them on this card: bytes. A gather must read the grid values
 // its points touch (at laminography's 128^3 grid and 64 angles, 60% of the
@@ -69,7 +75,7 @@
 // taps a point). At m = 1 the tile order wins: within a tile the points
 // keep their order along laminography's lines, so runs of neighbouring
 // lanes store neighbouring outputs, and their taps still share a few rows.
-// What it moves is the plan, 32 bytes a point at m = 1 against x's 12: at
+// What it moves is the plan, 34 bytes a point at m = 1 against x's 12: at
 // 128^3 / 64 angles that, not the taps, is most of its traffic, and with
 // the grid and the output it is a little more than the 50 MB L2 holds. So
 // the plan is read with streaming loads and the output written with
@@ -81,7 +87,7 @@
 // owns one row of the grid, the n cells (c0, c1, .) along axis 2. The row
 // receives from the points whose base cell lies in the rows (c0 + m - 1 -
 // j0, c1 + m - 1 - j1) of bins, j0, j1 = 0 ... 2m - 1, and each such row's
-// points are one run of the sorted list, between two bin_start reads. The
+// points are one run of the sorted list, between two row_start reads. The
 // runs, 32 points to a chunk, are dealt to the block's warps in turn. A
 // warp takes a chunk one point per lane (whole coalesced loads of the
 // table; the values come through order[p] from L2). The base cells b2 of
@@ -131,6 +137,9 @@ constexpr int kGatherThreads = 256;
 // Warps per scatter block, which share the points of one row of the grid.
 constexpr int kScatterWarps = 4;
 constexpr unsigned kFullWarp = 0xffffffffu;
+// Shared memory a block may use on sm_90 once it opts in: the scatter's
+// copies of a row, kScatterWarps n float2, up to n = 7264.
+constexpr int kMaxShared = 232448;
 
 // i in [-n, 2n) brought into [0, n).
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -141,7 +150,8 @@ __device__ __forceinline__ int wrap(int i, int n) {
 template <int M>
 __global__ void __launch_bounds__(kGatherThreads)
     kb_gather_kernel(const float2* __restrict__ grid,
-                     const int* __restrict__ bins,
+                     const int* __restrict__ rows,
+                     const short* __restrict__ cols,
                      const int* __restrict__ order,
                      const float* __restrict__ weights,
                      float2* __restrict__ out, long long npoints, int n,
@@ -151,10 +161,10 @@ __global__ void __launch_bounds__(kGatherThreads)
   const long long p =
       static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
   if (p >= npoints) return;
-  const int bin = __ldcs(bins + p);
-  const int b2 = bin % n;
-  const int b1 = (bin / n) % n;
-  const int b0 = bin / n / n;
+  const int cell_row = __ldcs(rows + p);
+  const int b2 = __ldcs(cols + p);
+  const int b0 = cell_row / n;
+  const int b1 = cell_row - b0 * n;
   // The first tap's cell on each axis; the others follow, wrapping at n.
   const int s0 = wrap(b0 + 1 - m, n);
   const int s1 = wrap(b1 + 1 - m, n);
@@ -243,13 +253,13 @@ struct Chunk {
 // chunks of the (up to 32) rows of bins whose starts and ends the lanes
 // hold in my_first and my_last (chunks_through: the chunks of rows 0 ...
 // lane). Loads the points of item (< the rows' chunks in all), one per
-// lane.
+// lane; a point's column is its base cell along axis 2.
 template <int M>
 __device__ __forceinline__ Chunk<M> load_chunk(
-    int item, int chunks_through, int my_chunks, int my_bin,
+    int item, int chunks_through, int my_chunks,
     int my_first, int my_last, int first_row, int lane, int taps,
     long long npoints, const float2* __restrict__ values,
-    const int* __restrict__ bins, const int* __restrict__ order,
+    const short* __restrict__ cols, const int* __restrict__ order,
     const float* __restrict__ weights) {
   Chunk<M> c;
   c.b2 = -1 - lane;
@@ -257,14 +267,13 @@ __device__ __forceinline__ Chunk<M> load_chunk(
   c.w01 = 0.0f;
   // The row of bins this item lies in: the first whose chunks reach it.
   const int k = __ffs(__ballot_sync(kFullWarp, chunks_through > item)) - 1;
-  const int row_bin = __shfl_sync(kFullWarp, my_bin, k);
   const int last = __shfl_sync(kFullWarp, my_last, k);
   const int chunk = item - __shfl_sync(kFullWarp, chunks_through - my_chunks, k);
   c.p = __shfl_sync(kFullWarp, my_first, k) + 32 * chunk + lane;
   c.valid = c.p < last;
   if (c.valid) {
     const float* __restrict__ w = weights + c.p;
-    c.b2 = __ldg(bins + c.p) - row_bin;
+    c.b2 = __ldg(cols + c.p);
     c.v = __ldg(values + __ldg(order + c.p));
     c.w01 = __fmul_rn(__ldg(w + ((first_row + k) / taps) * npoints),
                       __ldg(w + (taps + (first_row + k) % taps) * npoints));
@@ -329,19 +338,19 @@ __device__ __forceinline__ void add_chunk(const Chunk<M>& c,
 template <int M>
 __global__ void __launch_bounds__(32 * kScatterWarps)
     kb_scatter_kernel(const float2* __restrict__ values,
-                      const int* __restrict__ bins,
+                      const short* __restrict__ cols,
                       const int* __restrict__ order,
-                      const int* __restrict__ bin_start,
+                      const int* __restrict__ row_start,
                       const float* __restrict__ weights,
                       float2* __restrict__ grid, long long npoints, int n,
                       int m_runtime) {
-  extern __shared__ float2 rows[];
+  extern __shared__ float2 copies[];
   const int m = M ? M : m_runtime;
   const int taps = 2 * m;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int out_row = blockIdx.x;
-  float2* __restrict__ acc = rows + warp * n;
+  float2* __restrict__ acc = copies + warp * n;
   for (int c = lane; c < n; c += 32) acc[c] = make_float2(0.0f, 0.0f);
   __syncwarp();
   const int c0 = out_row / n, c1 = out_row % n;
@@ -350,13 +359,13 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
   // and ends in the sorted list. The rows' points, 32 to a chunk, are the
   // items of work, dealt to the block's warps in turn.
   for (int first_row = 0; first_row < taps * taps; first_row += 32) {
-    int my_bin = 0, my_first = 0, my_last = 0;
+    int my_first = 0, my_last = 0;
     if (first_row + lane < taps * taps) {
       const int r0 = wrap(c0 + m - 1 - (first_row + lane) / taps, n);
       const int r1 = wrap(c1 + m - 1 - (first_row + lane) % taps, n);
-      my_bin = (r0 * n + r1) * n;
-      my_first = __ldg(bin_start + my_bin);
-      my_last = __ldg(bin_start + my_bin + n);
+      const int my_row = r0 * n + r1;
+      my_first = __ldg(row_start + my_row);
+      my_last = __ldg(row_start + my_row + 1);
     }
     const int my_chunks = (my_last - my_first + 31) / 32;
     int chunks_through = my_chunks;  // of rows 0 ... lane
@@ -368,95 +377,118 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
     const int items = __shfl_sync(kFullWarp, chunks_through, 31);
     for (int item = warp; item < items; item += kScatterWarps) {
       const Chunk<M> c = load_chunk<M>(
-          item, chunks_through, my_chunks, my_bin, my_first, my_last,
-          first_row, lane, taps, npoints, values, bins, order, weights);
+          item, chunks_through, my_chunks, my_first, my_last,
+          first_row, lane, taps, npoints, values, cols, order, weights);
       add_chunk<M>(c, acc, lane, m, n, weights, npoints);
     }
   }
   __syncthreads();
   float2* __restrict__ out = grid + static_cast<long long>(out_row) * n;
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float2 sum = rows[c];
+    float2 sum = copies[c];
 #pragma unroll
     for (int w = 1; w < kScatterWarps; ++w) {
-      sum.x += rows[w * n + c].x;
-      sum.y += rows[w * n + c].y;
+      sum.x += copies[w * n + c].x;
+      sum.y += copies[w * n + c].y;
     }
     out[c] = sum;
   }
 }
 
 template <int M>
-cudaError_t launch_gather(const void* grid, const int* bins, const int* order,
-                          const float* weights, void* out, long long npoints,
-                          int n, int m, cudaStream_t stream) {
+cudaError_t launch_gather(const void* grid, const int* rows, const short* cols,
+                          const int* order, const float* weights, void* out,
+                          long long npoints, int n, int m, cudaStream_t stream) {
   const long long blocks = (npoints + kGatherThreads - 1) / kGatherThreads;
   kb_gather_kernel<M><<<static_cast<unsigned>(blocks), kGatherThreads, 0,
-                        stream>>>(static_cast<const float2*>(grid), bins,
+                        stream>>>(static_cast<const float2*>(grid), rows, cols,
                                   order, weights, static_cast<float2*>(out),
                                   npoints, n, m);
   return cudaGetLastError();
 }
 
 template <int M>
-cudaError_t launch_scatter(const void* values, const int* bins,
-                           const int* order, const int* bin_start,
+cudaError_t launch_scatter(const void* values, const short* cols,
+                           const int* order, const int* row_start,
                            const float* weights, void* grid, long long npoints,
                            int n, int m, cudaStream_t stream) {
-  // Each warp's copy of the row, n float2 in shared memory: for n <= kMaxN
-  // within the 48 KB a block gets without asking for more.
+  // Each warp's copy of the row, n float2 in shared memory: within the 48
+  // KB a block gets without asking up to n = 1536; above, the block asks
+  // for it, once a device.
+  const long long bytes = static_cast<long long>(kScatterWarps) * n * sizeof(float2);
+  if (bytes > kMaxShared) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    static bool opted[64] = {};
+    int device = 0;
+    cudaError_t rc = cudaGetDevice(&device);
+    if (rc != cudaSuccess) return rc;
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (!opted[device]) {
+      rc = cudaFuncSetAttribute(kb_scatter_kernel<M>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+      if (rc != cudaSuccess) return rc;
+      opted[device] = true;
+    }
+  }
   kb_scatter_kernel<M><<<static_cast<unsigned>(n) * n, 32 * kScatterWarps,
-                         kScatterWarps * n * sizeof(float2), stream>>>(
-      static_cast<const float2*>(values), bins, order, bin_start, weights,
+                         static_cast<size_t>(bytes), stream>>>(
+      static_cast<const float2*>(values), cols, order, row_start, weights,
       static_cast<float2*>(grid), npoints, n, m);
   return cudaGetLastError();
 }
 
-// The kernels index bins and bin_start with 32-bit integers.
-constexpr int kMaxN = 1290;
-static_assert(kScatterWarps * kMaxN * sizeof(float2) <= 48 * 1024);
+// A row of bins c0 n + c1 is an int32 and a column an int16
+// (tike_tpu_torch/ops/usfft.py's MAX_N): a grid of 2^45 cells, far past any
+// card's memory.
+constexpr int kMaxN = 32767;
 bool valid(int n, int m) { return m >= 1 && 2 * m <= n && n <= kMaxN; }
 
 }  // namespace
 
 // out (npoints) complex64 = the grid (n^3 complex64, centred) interpolated
-// at the points of a plan (bins, order: npoints int32; weights: 3 x 2m x
-// npoints float32) with the 2m-tap window.
-extern "C" int tike_kb_gather(const void* grid, const void* bins,
+// at the points of a plan (rows, order: npoints int32; cols: npoints int16;
+// weights: 3 x 2m x npoints float32) with the 2m-tap window.
+extern "C" int tike_kb_gather(const void* grid, const void* rows, const void* cols,
                               const void* order, const void* weights,
                               void* out, long long npoints, int n, int m,
                               void* stream) {
-  if (!valid(n, m) || npoints < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(n, m) || npoints < 0 || npoints >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (npoints == 0) return static_cast<int>(cudaGetLastError());
-  const int* b = static_cast<const int*>(bins);
+  const int* r = static_cast<const int*>(rows);
+  const short* c = static_cast<const short*>(cols);
   const int* o = static_cast<const int*>(order);
   const float* w = static_cast<const float*>(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return static_cast<int>(launch_gather<1>(grid, b, o, w, out, npoints, n, m, s));
-    case 2: return static_cast<int>(launch_gather<2>(grid, b, o, w, out, npoints, n, m, s));
-    case 4: return static_cast<int>(launch_gather<4>(grid, b, o, w, out, npoints, n, m, s));
-    default: return static_cast<int>(launch_gather<0>(grid, b, o, w, out, npoints, n, m, s));
+    case 1: return static_cast<int>(launch_gather<1>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 2: return static_cast<int>(launch_gather<2>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_gather<4>(grid, r, c, o, w, out, npoints, n, m, s));
+    default: return static_cast<int>(launch_gather<0>(grid, r, c, o, w, out, npoints, n, m, s));
   }
 }
 
 // grid (n^3 complex64), every value written = the values (npoints complex64,
-// in the caller's order) spread at the points of a plan (as above, and
-// bin_start: n^3 + 1 int32); the adjoint of tike_kb_gather.
-extern "C" int tike_kb_scatter(const void* values, const void* bins,
-                               const void* order, const void* bin_start,
+// in the caller's order) spread at the points of a plan (cols, order and
+// weights as above, and row_start: n^2 + 1 int32); the adjoint of
+// tike_kb_gather.
+extern "C" int tike_kb_scatter(const void* values, const void* cols,
+                               const void* order, const void* row_start,
                                const void* weights, void* grid,
                                long long npoints, int n, int m, void* stream) {
-  if (!valid(n, m) || npoints < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int* b = static_cast<const int*>(bins);
+  if (!valid(n, m) || npoints < 0 || npoints >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const short* c = static_cast<const short*>(cols);
   const int* o = static_cast<const int*>(order);
-  const int* bs = static_cast<const int*>(bin_start);
+  const int* rs = static_cast<const int*>(row_start);
   const float* w = static_cast<const float*>(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return static_cast<int>(launch_scatter<1>(values, b, o, bs, w, grid, npoints, n, m, s));
-    case 2: return static_cast<int>(launch_scatter<2>(values, b, o, bs, w, grid, npoints, n, m, s));
-    case 4: return static_cast<int>(launch_scatter<4>(values, b, o, bs, w, grid, npoints, n, m, s));
-    default: return static_cast<int>(launch_scatter<0>(values, b, o, bs, w, grid, npoints, n, m, s));
+    case 1: return static_cast<int>(launch_scatter<1>(values, c, o, rs, w, grid, npoints, n, m, s));
+    case 2: return static_cast<int>(launch_scatter<2>(values, c, o, rs, w, grid, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_scatter<4>(values, c, o, rs, w, grid, npoints, n, m, s));
+    default: return static_cast<int>(launch_scatter<0>(values, c, o, rs, w, grid, npoints, n, m, s));
   }
 }

@@ -26,9 +26,13 @@
 // weight is w0 w1 w2. The geometry plan (tike_tpu_torch/ops/usfft.py::
 // geometry_plan(..., window="gaussian")) holds the points sorted by the
 // linear index of their base cell ("bin", axis 2 fastest; ties in ascending
-// point index): bins[p], order[p] (the index in the caller's arrays),
-// weights[axis][tap][p], bin_start[c] for every cell c (and n^3), where bin
-// c's points start in the sorted list, and the scatter's blocks. The weights
+// point index): rows[p] (int32, the row of bins c0 n + c1) and cols[p]
+// (int16, the column c2), order[p] (the index in the caller's arrays),
+// weights[axis][tap][p], row_start[r] for every row of bins r (and n^2),
+// where row r's points start in the sorted list, and the scatter's blocks.
+// No index of a cell is formed in 32 bits beyond a row c0 n + c1: a grid
+// offset is (long long)(c0 n + c1) n + c2, so the kernels take any grid the
+// card holds (n^3 passes 2^31 above n = 1290). The weights
 // carry no product order that has to be kept (the JAX function takes one
 // exp a 3-D tap), so each kernel sums in an order of its own, fixed by the
 // plan: tests/_torch_usfft_cases.py (gather_gaussian_kernel_order,
@@ -46,9 +50,9 @@
 //
 // gaussian_gather_thread_kernel (m <= kThreadGatherMaxM): a thread a point,
 // its weights in registers, its (2m)^3 taps unrolled, the sum factored with
-// axis 2 innermost. gaussian_gather_kernel (above): a group of 2m lanes
-// (rounded up to a power of two) a point, lane j the point's axis-2 tap j,
-// in the plan's order. For each of the point's (2m)^2 rows of taps the group
+// axis 2 innermost. gaussian_gather_kernel (above, 2m <= kGroupMaxTaps): a
+// group of 2m lanes (rounded up to a power of two) a point, lane j the
+// point's axis-2 tap j, in the plan's order. For each of the point's (2m)^2 rows of taps the group
 // loads the row's 2m cells, one float2 a lane: one load instruction covers
 // 32 / 2m rows of neighbouring points, 2 or 3 sectors a row, where a thread
 // a point covered up to 32 sectors for 32 taps. The sum is factored: per
@@ -56,13 +60,30 @@
 // (w0 and w1 broadcast in the group by shuffles), times w2[j]; then a
 // butterfly of shuffles adds the group's lanes ((t0 + t4) + (t2 + t6)) +
 // ((t1 + t5) + (t3 + t7)) at 2m = 8, and lane 0 writes out[order[p]].
-// Both read the plan with streaming loads and write the output with
+// gaussian_gather_wide_kernel (2m > kGroupMaxTaps: m >= 17, the Gaussian at
+// upsample 3 and eps 1e-10, or upsample 4): a group of kWideLanes = 16 lanes
+// a point, lane j its axis-2 taps j, j + 16, ... (a slot each: three at m =
+// 17-24), all its slots a row of taps at a time (up to kWideInnerSlots; above,
+// one slot after another); w0 and w1 of each tap are loads of one word the
+// group's lanes share, not shuffles, as a lane holds more than one tap of
+// them. Per slot the lane's sum is the group kernel's, times w2; the
+// slots' products are added in ascending order, then the butterfly. Chosen
+// by python -m tike_tpu_torch.kernel_sweep --source gaussian_wide (128^3 / 64
+// angles, 1,048,576 points; H100 SXM at 700 W) at m = 17 / 18 / 22: 42.6 /
+// 55.7 / 84.4 ms, where a thread a point (the first form) took 79.4 / 178.8 /
+// 340.1, a warp a point with two slots one after another 96.1 / 129.6 / 216.0,
+// 16 lanes with the slots one after another 63.6 / 80.3 / 125.6, 8 lanes 57.1
+// / 74.5 / 138.3, and the axis-1 loop unrolled 4 deep 87.6 / 103.5 / 155.9.
+// Each point reads its (2m)^3 taps from L2 (the grid is 0.45-1 GB): holding
+// the slots at once reads a row's 2m cells together, once.
+// All of them read the plan with streaming loads and write the output with
 // streaming stores, so that they do not push the grid out of the L2.
 //
 // gaussian_scatter_kernel: owned bands, no atomics. A block owns a band of
-// rows (along axis 1) of one plane c0 (band_rows: 4 up to m = 2, else 2),
-// whole along axis 2, and each of its kScatterWarps warps a copy of the
-// band in shared memory; it adds the copies in the warps' order and writes
+// rows (along axis 1) of one plane c0 (band_height: 4 up to m = 2, else 2,
+// fewer where the copies would pass kMaxShared: above n = 1816 at m <= 2,
+// n = 3632 above), whole along axis 2, and each of its kScatterWarps warps a
+// copy of the band in shared memory; it adds the copies in the warps' order and writes
 // the band once, zeros where nothing landed: every cell of the grid written
 // exactly once, no memset. The block walks the 2m x (rows + 2m - 1) rows
 // of bins that reach the band, 32 at a time held by the lanes, and their
@@ -89,7 +110,7 @@
 // m is a template parameter for m = 1, 2 and 4 (the Gaussian at upsample 1
 // and 2, eps 1e-3) and, in the gather, 3 and 6 (eps 1e-5), where the loops
 // unroll; a run-time value in one generic instantiation for any other m with
-// 2m <= 32 and 2m <= n.
+// 2m <= n (the scatter's and the group gather's) and in the wide gather.
 //
 // Each launcher allocates nothing, launches on the stream it is given, and
 // returns a cudaError_t; the Python wrapper raises if that is not 0.
@@ -106,22 +127,42 @@ constexpr int kGatherUnroll0 = 2;
 // kernel); above it, a group of lanes a point (gaussian_gather_kernel).
 constexpr int kThreadGatherMaxM = 2;
 constexpr int kThreadGatherThreads = 128;
-// Rows (along axis 1) of one plane a scatter block owns (band_rows): for m
-// <= 2, kBandRowsSmallM; above, kBandRowsLargeM.
+// Rows (along axis 1) of one plane a scatter block owns (band_height): for
+// m <= 2, kBandRowsSmallM; above, kBandRowsLargeM; fewer where the copies
+// would pass kMaxShared.
 constexpr int kBandRowsSmallM = 4;
 constexpr int kBandRowsLargeM = 2;
 // A scatter block's warps, each with its copy of the band.
 constexpr int kScatterWarps = 4;
-// A lane a tap along axis 2: 2m <= 32.
-constexpr int kMaxTaps = 32;
-// The kernels index bins and bin_start with 32-bit integers.
-constexpr int kMaxN = 1290;
+// The group gather's lanes a tap along axis 2: 2m <= 32; above, the wide
+// gather's groups of kWideLanes lanes, a slot of taps a lane.
+constexpr int kGroupMaxTaps = 32;
+constexpr int kWideLanes = 16;
+// The wide gather's axis-1 loop unrolled so deep, and the most slots a lane
+// holds at once (3 and 4 instantiated: m = 17-32; above, one slot after
+// another).
+constexpr int kWideUnroll1 = 1;
+constexpr int kWideInnerSlots = 4;
+// A row of bins c0 n + c1 is an int32 and a column an int16
+// (tike_tpu_torch/ops/usfft.py's MAX_N): a grid of 2^45 cells, far past any
+// card's memory.
+constexpr int kMaxN = 32767;
 // Shared memory a block may use on sm_90 once it opts in.
 constexpr int kMaxShared = 232448;
 
-// M: the instantiation's half-support (0: generic, m > 2).
+// M: the instantiation's half-support (0: generic, m > 2); the most band
+// rows it holds.
 __host__ __device__ constexpr int band_rows(int M) {
   return M != 0 && M <= 2 ? kBandRowsSmallM : kBandRowsLargeM;
+}
+
+// The band rows of the scatter at half-support m on an n^3 grid
+// (tike_tpu_torch/ops/usfft.py's band_rows): band_rows, less a row while
+// the warps' copies pass kMaxShared.
+int band_height(int m, int n) {
+  int rows = m <= 2 ? kBandRowsSmallM : kBandRowsLargeM;
+  while (rows > 1 && static_cast<long long>(kScatterWarps) * rows * n * 8 > kMaxShared) --rows;
+  return rows;
 }
 
 // i in [-n, 2n) brought into [0, n).
@@ -140,7 +181,8 @@ __host__ __device__ constexpr int group_width(int taps) {
 template <int M>
 __global__ void __launch_bounds__(kGatherThreads)
     gaussian_gather_kernel(const float2* __restrict__ grid,
-                           const int* __restrict__ bins,
+                           const int* __restrict__ rows,
+                           const short* __restrict__ cols,
                            const int* __restrict__ order,
                            const float* __restrict__ weights,
                            float2* __restrict__ out, long long npoints, int n,
@@ -156,10 +198,10 @@ __global__ void __launch_bounds__(kGatherThreads)
   const bool live = point < npoints;
   const long long p = live ? point : npoints - 1;
   const bool tap = j < taps;
-  const int bin = __ldcs(bins + p);
-  const int b2 = bin % n;
-  const int b1 = (bin / n) % n;
-  const int b0 = bin / n / n;
+  const int cell_row = __ldcs(rows + p);
+  const int b2 = __ldcs(cols + p);
+  const int b0 = cell_row / n;
+  const int b1 = cell_row - b0 * n;
   const int s0 = wrap(b0 + 1 - m, n);
   const int s1 = wrap(b1 + 1 - m, n);
   const int g2 = wrap(wrap(b2 + 1 - m, n) + (tap ? j : 0), n);
@@ -218,6 +260,119 @@ __global__ void __launch_bounds__(kGatherThreads)
   if (live && j == 0) __stcs(out + __ldcs(order + p), t);
 }
 
+// 2m > kGroupMaxTaps: a group of kWideLanes lanes a point, lane j its axis-2
+// taps j + kWideLanes k (slot k). For each slot: sum_j0 w0[j0] sum_j1 w1[j1]
+// G[j0, j1, tap], in ascending order, times w2[tap], added to the lane's
+// total in ascending slot order; then the lanes added by a butterfly, and
+// lane 0 writes out[order[p]]. SLOTS > 0: the slots at compile time, all of
+// them a row of taps at a time (w0 and w1 loaded once for them); SLOTS = 0:
+// any number, one slot after another. Both add the same terms in the same
+// order.
+template <int SLOTS>
+__global__ void __launch_bounds__(kGatherThreads)
+    gaussian_gather_wide_kernel(const float2* __restrict__ grid,
+                                const int* __restrict__ rows,
+                                const short* __restrict__ cols,
+                                const int* __restrict__ order,
+                                const float* __restrict__ weights,
+                                float2* __restrict__ out, long long npoints, int n, int m) {
+  const int taps = 2 * m;
+  const int slots = SLOTS ? SLOTS : (taps + kWideLanes - 1) / kWideLanes;
+  const int j = threadIdx.x & (kWideLanes - 1);
+  const long long point =
+      (static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) / kWideLanes;
+  // Every lane runs the loops (the butterfly needs them all); a group past
+  // the end repeats the last point and stores nothing.
+  const bool live = point < npoints;
+  const long long p = live ? point : npoints - 1;
+  const int cell_row = __ldcs(rows + p);
+  const int b2 = __ldcs(cols + p);
+  const int b0 = cell_row / n;
+  const int b1 = cell_row - b0 * n;
+  const int s0 = wrap(b0 + 1 - m, n);
+  const int s1 = wrap(b1 + 1 - m, n);
+  const int s2 = wrap(b2 + 1 - m, n);
+  const float* __restrict__ w0 = weights + p;
+  const float* __restrict__ w1 = w0 + taps * npoints;
+  const float* __restrict__ w2 = w1 + taps * npoints;
+  float2 t = make_float2(0.0f, 0.0f);
+  if constexpr (SLOTS > 0) {
+    // This lane's column of the grid in each slot: cell s2 + tap of every row.
+    const float2* __restrict__ column[SLOTS];
+    bool on[SLOTS];
+    float2 acc[SLOTS];
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      on[k] = j + k * kWideLanes < taps;
+      column[k] = grid + wrap(s2 + (on[k] ? j + k * kWideLanes : 0), n);
+      acc[k] = make_float2(0.0f, 0.0f);
+    }
+#pragma unroll 1
+    for (int j0 = 0; j0 < taps; ++j0) {
+      const float w0j = __ldg(w0 + j0 * npoints);
+      const int g0n = wrap(s0 + j0, n) * n;
+      float2 s[SLOTS];
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) s[k] = make_float2(0.0f, 0.0f);
+#pragma unroll kWideUnroll1
+      for (int j1 = 0; j1 < taps; ++j1) {
+        const float w1j = __ldg(w1 + j1 * npoints);
+        const long long row = static_cast<long long>(g0n + wrap(s1 + j1, n)) * n;
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) {
+          float2 v = make_float2(0.0f, 0.0f);
+          if (on[k]) v = __ldg(column[k] + row);
+          s[k].x = fmaf(w1j, v.x, s[k].x);
+          s[k].y = fmaf(w1j, v.y, s[k].y);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) {
+        acc[k].x = fmaf(w0j, s[k].x, acc[k].x);
+        acc[k].y = fmaf(w0j, s[k].y, acc[k].y);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const float w2j = on[k] ? __ldcs(w2 + (j + k * kWideLanes) * npoints) : 0.0f;
+      t.x = fmaf(acc[k].x, w2j, t.x);
+      t.y = fmaf(acc[k].y, w2j, t.y);
+    }
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < slots; ++k) {
+      const int tap = j + k * kWideLanes;
+      const bool on = tap < taps;
+      const float2* __restrict__ column = grid + wrap(s2 + (on ? tap : 0), n);
+      float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll 1
+      for (int j0 = 0; j0 < taps; ++j0) {
+        const float w0j = __ldg(w0 + j0 * npoints);
+        const int g0n = wrap(s0 + j0, n) * n;
+        float2 s = make_float2(0.0f, 0.0f);
+#pragma unroll kWideUnroll1
+        for (int j1 = 0; j1 < taps; ++j1) {
+          const float w1j = __ldg(w1 + j1 * npoints);
+          float2 v = make_float2(0.0f, 0.0f);
+          if (on) v = __ldg(column + static_cast<long long>(g0n + wrap(s1 + j1, n)) * n);
+          s.x = fmaf(w1j, v.x, s.x);
+          s.y = fmaf(w1j, v.y, s.y);
+        }
+        acc.x = fmaf(w0j, s.x, acc.x);
+        acc.y = fmaf(w0j, s.y, acc.y);
+      }
+      const float w2j = on ? __ldcs(w2 + tap * npoints) : 0.0f;
+      t.x = fmaf(acc.x, w2j, t.x);
+      t.y = fmaf(acc.y, w2j, t.y);
+    }
+  }
+  for (int offset = kWideLanes / 2; offset > 0; offset >>= 1) {
+    t.x += __shfl_xor_sync(kFullWarp, t.x, offset, kWideLanes);
+    t.y += __shfl_xor_sync(kFullWarp, t.y, offset, kWideLanes);
+  }
+  if (live && j == 0) __stcs(out + __ldcs(order + p), t);
+}
+
 // A thread a point for m <= kThreadGatherMaxM: the point's weights in
 // registers, its (2m)^3 taps unrolled, the sum factored with axis 2
 // innermost, sum_j0 w0[j0] sum_j1 w1[j1] sum_j2 w2[j2] G[j0, j1, j2], in
@@ -225,17 +380,18 @@ __global__ void __launch_bounds__(kGatherThreads)
 template <int M>
 __global__ void __launch_bounds__(kThreadGatherThreads)
     gaussian_gather_thread_kernel(const float2* __restrict__ grid,
-                                  const int* __restrict__ bins,
+                                  const int* __restrict__ rows,
+                                  const short* __restrict__ cols,
                                   const int* __restrict__ order,
                                   const float* __restrict__ weights,
                                   float2* __restrict__ out, long long npoints, int n) {
   constexpr int kTaps = 2 * M;
   const long long p = static_cast<long long>(blockIdx.x) * kThreadGatherThreads + threadIdx.x;
   if (p >= npoints) return;
-  const int bin = __ldcs(bins + p);
-  const int b2 = bin % n;
-  const int b1 = (bin / n) % n;
-  const int b0 = bin / n / n;
+  const int cell_row = __ldcs(rows + p);
+  const int b2 = __ldcs(cols + p);
+  const int b0 = cell_row / n;
+  const int b1 = cell_row - b0 * n;
   const int s0 = wrap(b0 + 1 - M, n);
   const int s1 = wrap(b1 + 1 - M, n);
   const int s2 = wrap(b2 + 1 - M, n);
@@ -292,12 +448,13 @@ struct Chunk {
 // of the (up to 32) rows of bins whose starts and ends, taps j0 and places
 // h1 along axis 1 the lanes hold in my_first, my_last, my_j0 and my_h1
 // (chunks_through: the chunks of rows 0 ... lane). Loads the points of item
-// (< the rows' chunks in all), one a lane, and the h1 of its row.
+// (< the rows' chunks in all), one a lane, and the h1 of its row; a point's
+// column is its base cell along axis 2.
 template <int M>
 __device__ __forceinline__ Chunk<M> load_chunk(
-    int item, int chunks_through, int my_chunks, int my_bin, int my_first, int my_last,
+    int item, int chunks_through, int my_chunks, int my_first, int my_last,
     int my_j0, int my_h1, int lane, int taps, int rows, long long npoints,
-    const float2* __restrict__ values, const int* __restrict__ bins,
+    const float2* __restrict__ values, const short* __restrict__ cols,
     const int* __restrict__ order, const float* __restrict__ weights, int* h1) {
   constexpr int kRows = band_rows(M);
   Chunk<M> c;
@@ -305,7 +462,6 @@ __device__ __forceinline__ Chunk<M> load_chunk(
   c.u = make_float2(0.0f, 0.0f);
   // The row of bins this item lies in: the first whose chunks reach it.
   const int k = __ffs(__ballot_sync(kFullWarp, chunks_through > item)) - 1;
-  const int row_bin = __shfl_sync(kFullWarp, my_bin, k);
   const int last = __shfl_sync(kFullWarp, my_last, k);
   const int chunk = item - __shfl_sync(kFullWarp, chunks_through - my_chunks, k);
   const int j0 = __shfl_sync(kFullWarp, my_j0, k);
@@ -316,7 +472,7 @@ __device__ __forceinline__ Chunk<M> load_chunk(
   for (int t1 = 0; t1 < kRows; ++t1) c.w1[t1] = 0.0f;
   if (c.valid) {
     const float* __restrict__ w = weights + c.p;
-    c.b2 = __ldg(bins + c.p) - row_bin;
+    c.b2 = __ldg(cols + c.p);
     const float2 v = __ldg(values + __ldg(order + c.p));
     const float w0 = __ldg(w + j0 * npoints);
     c.u = make_float2(__fmul_rn(w0, v.x), __fmul_rn(w0, v.y));
@@ -395,15 +551,14 @@ __device__ __forceinline__ void add_chunk(const Chunk<M>& c, int h1, float2* __r
 template <int M>
 __global__ void __launch_bounds__(32 * kScatterWarps)
     gaussian_scatter_kernel(const float2* __restrict__ values,
-                            const int* __restrict__ bins,
+                            const short* __restrict__ cols,
                             const int* __restrict__ order,
-                            const int* __restrict__ bin_start,
+                            const int* __restrict__ row_start,
                             const float* __restrict__ weights,
                             const int2* __restrict__ block_table,
                             float2* __restrict__ grid, long long npoints, int n,
-                            int m_runtime) {
+                            int m_runtime, int height) {
   extern __shared__ float2 band[];
-  constexpr int kRows = band_rows(M);
   const int m = M ? M : m_runtime;
   const int taps = 2 * m;
   const int lane = threadIdx.x % 32;
@@ -413,9 +568,10 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
   const int c0 = entry.x / n;
   const int c1 = entry.x % n;
   const int rows = entry.y;
-  // Each warp's copy of the band, kRows rows of n cells.
-  float2* __restrict__ acc = band + warp * kRows * n;
-  for (int c = lane; c < kRows * n; c += 32) acc[c] = make_float2(0.0f, 0.0f);
+  // Each warp's copy of the band, height (band_height, at most the
+  // instantiation's band_rows) rows of n cells.
+  float2* __restrict__ acc = band + warp * height * n;
+  for (int c = lane; c < height * n; c += 32) acc[c] = make_float2(0.0f, 0.0f);
   __syncwarp();
   // The rows of bins that reach the band, axis-0 tap j0 outermost, then
   // their place h1 along axis 1, up to 32 at a time: lane k reads where row
@@ -424,13 +580,13 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
   const int span1 = rows + taps - 1;
   const int walk = taps * span1;
   for (int first_row = 0; first_row < walk; first_row += 32) {
-    int my_bin = 0, my_first = 0, my_last = 0, my_j0 = 0, my_h1 = 0;
+    int my_first = 0, my_last = 0, my_j0 = 0, my_h1 = 0;
     if (first_row + lane < walk) {
       my_j0 = (first_row + lane) / span1;
       my_h1 = (first_row + lane) - my_j0 * span1;
-      my_bin = (wrap(c0 + m - 1 - my_j0, n) * n + wrap(c1 - m + my_h1, n)) * n;
-      my_first = __ldg(bin_start + my_bin);
-      my_last = __ldg(bin_start + my_bin + n);
+      const int my_row = wrap(c0 + m - 1 - my_j0, n) * n + wrap(c1 - m + my_h1, n);
+      my_first = __ldg(row_start + my_row);
+      my_last = __ldg(row_start + my_row + 1);
     }
     const int my_chunks = (my_last - my_first + 31) / 32;
     int chunks_through = my_chunks;  // of rows 0 ... lane
@@ -442,9 +598,9 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
     const int items = __shfl_sync(kFullWarp, chunks_through, 31);
     for (int item = warp; item < items; item += kScatterWarps) {
       int h1;
-      const Chunk<M> c = load_chunk<M>(item, chunks_through, my_chunks, my_bin, my_first,
+      const Chunk<M> c = load_chunk<M>(item, chunks_through, my_chunks, my_first,
                                        my_last, my_j0, my_h1, lane, taps, rows, npoints,
-                                       values, bins, order, weights, &h1);
+                                       values, cols, order, weights, &h1);
       add_chunk<M>(c, h1, acc, n, lane, m, n, rows, weights, npoints);
     }
   }
@@ -455,7 +611,7 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
     float2 sum = band[i];
 #pragma unroll
     for (int w = 1; w < kScatterWarps; ++w) {
-      const float2 more = band[w * kRows * n + i];
+      const float2 more = band[w * height * n + i];
       sum.x += more.x;
       sum.y += more.y;
     }
@@ -463,38 +619,54 @@ __global__ void __launch_bounds__(32 * kScatterWarps)
   }
 }
 
-bool valid(int n, int m) {
-  return m >= 1 && 2 * m <= n && 2 * m <= kMaxTaps && n <= kMaxN;
-}
+bool valid(int n, int m) { return m >= 1 && 2 * m <= n && n <= kMaxN; }
 
 template <int M>
-cudaError_t launch_gather(const void* grid, const int* bins, const int* order,
-                          const float* weights, void* out, long long npoints,
-                          int n, int m, cudaStream_t stream) {
+cudaError_t launch_gather(const void* grid, const int* rows, const short* cols,
+                          const int* order, const float* weights, void* out,
+                          long long npoints, int n, int m, cudaStream_t stream) {
   if constexpr (M > 0 && M <= kThreadGatherMaxM) {
     const long long blocks = (npoints + kThreadGatherThreads - 1) / kThreadGatherThreads;
     gaussian_gather_thread_kernel<M><<<static_cast<unsigned>(blocks), kThreadGatherThreads, 0,
-                                       stream>>>(static_cast<const float2*>(grid), bins,
+                                       stream>>>(static_cast<const float2*>(grid), rows, cols,
                                                  order, weights,
                                                  static_cast<float2*>(out), npoints, n);
+    return cudaGetLastError();
+  }
+  if (2 * m > kGroupMaxTaps) {
+    const long long blocks = (npoints * kWideLanes + kGatherThreads - 1) / kGatherThreads;
+    const int slots = (2 * m + kWideLanes - 1) / kWideLanes;
+    const auto* g = static_cast<const float2*>(grid);
+    auto* o = static_cast<float2*>(out);
+    const unsigned b = static_cast<unsigned>(blocks);
+    switch (slots <= kWideInnerSlots ? slots : 0) {
+      case 3: gaussian_gather_wide_kernel<3><<<b, kGatherThreads, 0, stream>>>(
+                  g, rows, cols, order, weights, o, npoints, n, m); break;
+      case 4: gaussian_gather_wide_kernel<4><<<b, kGatherThreads, 0, stream>>>(
+                  g, rows, cols, order, weights, o, npoints, n, m); break;
+      default: gaussian_gather_wide_kernel<0><<<b, kGatherThreads, 0, stream>>>(
+                  g, rows, cols, order, weights, o, npoints, n, m);
+    }
     return cudaGetLastError();
   }
   const long long threads = npoints * group_width(2 * m);
   const long long blocks = (threads + kGatherThreads - 1) / kGatherThreads;
   gaussian_gather_kernel<M><<<static_cast<unsigned>(blocks), kGatherThreads, 0,
-                              stream>>>(static_cast<const float2*>(grid), bins,
+                              stream>>>(static_cast<const float2*>(grid), rows, cols,
                                         order, weights,
                                         static_cast<float2*>(out), npoints, n, m);
   return cudaGetLastError();
 }
 
 template <int M>
-cudaError_t launch_scatter(const void* values, const int* bins, const int* order,
-                           const int* bin_start, const float* weights,
+cudaError_t launch_scatter(const void* values, const short* cols, const int* order,
+                           const int* row_start, const float* weights,
                            const int* block_table, int blocks, void* grid,
                            long long npoints, int n, int m, cudaStream_t stream) {
   // Each warp's copy of the band.
-  const long long bytes = static_cast<long long>(kScatterWarps) * band_rows(M) * n * 8;
+  const int height = band_height(m, n);
+  if (height > band_rows(M)) return cudaErrorInvalidValue;
+  const long long bytes = static_cast<long long>(kScatterWarps) * height * n * 8;
   if (bytes > kMaxShared) return cudaErrorInvalidValue;
   // Above 48 KB a block asks for its shared memory: once a device.
   if (bytes > 48 * 1024) {
@@ -512,60 +684,64 @@ cudaError_t launch_scatter(const void* values, const int* bins, const int* order
   }
   gaussian_scatter_kernel<M><<<static_cast<unsigned>(blocks), 32 * kScatterWarps,
                                static_cast<size_t>(bytes), stream>>>(
-      static_cast<const float2*>(values), bins, order, bin_start, weights,
-      reinterpret_cast<const int2*>(block_table), static_cast<float2*>(grid), npoints, n, m);
+      static_cast<const float2*>(values), cols, order, row_start, weights,
+      reinterpret_cast<const int2*>(block_table), static_cast<float2*>(grid), npoints, n, m,
+      height);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // out (npoints) complex64 = the grid (n^3 complex64, centred) interpolated
-// at the points of a Gaussian plan (bins, order: npoints int32; weights:
-// 3 x 2m x npoints float32) with the 2m-tap window.
-extern "C" int tike_gaussian_gather(const void* grid, const void* bins,
+// at the points of a Gaussian plan (rows, order: npoints int32; cols:
+// npoints int16; weights: 3 x 2m x npoints float32) with the 2m-tap window.
+extern "C" int tike_gaussian_gather(const void* grid, const void* rows, const void* cols,
                                     const void* order, const void* weights,
                                     void* out, long long npoints, int n, int m,
                                     void* stream) {
-  if (!valid(n, m) || npoints < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(n, m) || npoints < 0 || npoints >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (npoints == 0) return static_cast<int>(cudaGetLastError());
-  const int* b = static_cast<const int*>(bins);
+  const int* r = static_cast<const int*>(rows);
+  const short* c = static_cast<const short*>(cols);
   const int* o = static_cast<const int*>(order);
   const float* w = static_cast<const float*>(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return static_cast<int>(launch_gather<1>(grid, b, o, w, out, npoints, n, m, s));
-    case 2: return static_cast<int>(launch_gather<2>(grid, b, o, w, out, npoints, n, m, s));
-    case 3: return static_cast<int>(launch_gather<3>(grid, b, o, w, out, npoints, n, m, s));
-    case 4: return static_cast<int>(launch_gather<4>(grid, b, o, w, out, npoints, n, m, s));
-    case 6: return static_cast<int>(launch_gather<6>(grid, b, o, w, out, npoints, n, m, s));
-    default: return static_cast<int>(launch_gather<0>(grid, b, o, w, out, npoints, n, m, s));
+    case 1: return static_cast<int>(launch_gather<1>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 2: return static_cast<int>(launch_gather<2>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 3: return static_cast<int>(launch_gather<3>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_gather<4>(grid, r, c, o, w, out, npoints, n, m, s));
+    case 6: return static_cast<int>(launch_gather<6>(grid, r, c, o, w, out, npoints, n, m, s));
+    default: return static_cast<int>(launch_gather<0>(grid, r, c, o, w, out, npoints, n, m, s));
   }
 }
 
 // grid (n^3 complex64), every value written = the values (npoints complex64,
-// in the caller's order) spread at the points of a Gaussian plan (as above,
-// and bin_start: n^3 + 1 int32) by the bands of block_table (blocks pairs
-// (c0 n + c1, rows): rows 1 ... band_rows(m) rows of plane c0 from row c1,
-// covering the grid once, launched in the table's order); the adjoint of
-// tike_gaussian_gather.
-extern "C" int tike_gaussian_scatter(const void* values, const void* bins,
-                                     const void* order, const void* bin_start,
+// in the caller's order) spread at the points of a Gaussian plan (cols,
+// order and weights as above, and row_start: n^2 + 1 int32) by the bands of
+// block_table (blocks pairs (c0 n + c1, rows): rows 1 ... band_height(m, n)
+// rows of plane c0 from row c1, covering the grid once, launched in the
+// table's order); the adjoint of tike_gaussian_gather.
+extern "C" int tike_gaussian_scatter(const void* values, const void* cols,
+                                     const void* order, const void* row_start,
                                      const void* weights, const void* block_table,
                                      int blocks, void* grid, long long npoints, int n,
                                      int m, void* stream) {
-  if (!valid(n, m) || npoints < 0 || !block_table || blocks < 1) {
+  if (!valid(n, m) || npoints < 0 || npoints >= (1LL << 31) || !block_table || blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int* b = static_cast<const int*>(bins);
+  const short* c = static_cast<const short*>(cols);
   const int* o = static_cast<const int*>(order);
-  const int* bs = static_cast<const int*>(bin_start);
+  const int* rs = static_cast<const int*>(row_start);
   const float* w = static_cast<const float*>(weights);
   const int* t = static_cast<const int*>(block_table);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: return static_cast<int>(launch_scatter<1>(values, b, o, bs, w, t, blocks, grid, npoints, n, m, s));
-    case 2: return static_cast<int>(launch_scatter<2>(values, b, o, bs, w, t, blocks, grid, npoints, n, m, s));
-    case 4: return static_cast<int>(launch_scatter<4>(values, b, o, bs, w, t, blocks, grid, npoints, n, m, s));
-    default: return static_cast<int>(launch_scatter<0>(values, b, o, bs, w, t, blocks, grid, npoints, n, m, s));
+    case 1: return static_cast<int>(launch_scatter<1>(values, c, o, rs, w, t, blocks, grid, npoints, n, m, s));
+    case 2: return static_cast<int>(launch_scatter<2>(values, c, o, rs, w, t, blocks, grid, npoints, n, m, s));
+    case 4: return static_cast<int>(launch_scatter<4>(values, c, o, rs, w, t, blocks, grid, npoints, n, m, s));
+    default: return static_cast<int>(launch_scatter<0>(values, c, o, rs, w, t, blocks, grid, npoints, n, m, s));
   }
 }

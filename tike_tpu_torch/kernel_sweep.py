@@ -6,7 +6,7 @@ with a few text substitutions (a tuning constant, a load instruction, a
 loop), built by its own ``nvcc`` (as many at once as the host has cores, a
 few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|gaussian|probe|bucket|interp] [--variants FILE] [--parent FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|gaussian|gaussian_wide|probe|bucket|interp] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -28,8 +28,15 @@ Gaussian versions (and two scatters bitwise equal) and timed in a CUDA
 graph in three rounds beside the first form (the KB kernels of
 ``csrc/usfft.cu`` on the same plan, the kernels' yardstick); then the
 scatter of the source as it stands with its bands in the grid's order, not
-the plan's. Every sweep prints each variant's nvcc time (the variants
-build at once, one nvcc each).
+the plan's. Then, at eps 1e-10 / upsample 3, 1e-8 / 4 and 1e-10 / 4 (m =
+17, 18, 22: 2m above a warp's lanes), the source as it stands held to the
+plain versions on 16,384 of the points; the wide gather's variants (groups
+of 32 or 8 lanes a point in place of 16, a lane's slots of taps one after
+another, the axis-1 loop unrolled 4 deep) and the scatter's (bands and
+warps as above) held to it on all of them, and all timed in three rounds
+beside the first form's (``_sweep_gaussian_wide``; ``--source
+gaussian_wide`` runs it alone). Every sweep prints each
+variant's nvcc time (the variants build at once, one nvcc each).
 
 ``--source probe``, ``csrc/probe.cu``: the element-window kernel in its
 two forms, (a) the rows' spans staged in shared memory by bulk copies on
@@ -120,17 +127,16 @@ VARIANTS = {
     "values_sorted": [("c.v = __ldg(values + __ldg(order + c.p));", "c.v = __ldg(values + c.p);")],
     "scatter_warps_2": [("constexpr int kScatterWarps = 4;", "constexpr int kScatterWarps = 2;")],
     "scatter_warps_3": [("constexpr int kScatterWarps = 4;", "constexpr int kScatterWarps = 3;")],
-    # Eight copies of a row of kMaxN cells do not fit the 48 KB.
-    "scatter_warps_8": [
-        ("constexpr int kScatterWarps = 4;", "constexpr int kScatterWarps = 8;"),
-        ("constexpr int kMaxN = 1290;", "constexpr int kMaxN = 768;"),
-    ],
+    # Eight copies of a row: above n = 768 the block asks for more than the
+    # 48 KB.
+    "scatter_warps_8": [("constexpr int kScatterWarps = 4;", "constexpr int kScatterWarps = 8;")],
     "gather_threads_128": [
         ("constexpr int kGatherThreads = 256;", "constexpr int kGatherThreads = 128;")
     ],
     # The gather's plan loads and output stores through the ordinary path.
     "gather_not_streaming": [
-        ("const int bin = __ldcs(bins + p);", "const int bin = __ldg(bins + p);"),
+        ("const int cell_row = __ldcs(rows + p);", "const int cell_row = __ldg(rows + p);"),
+        ("const int b2 = __ldcs(cols + p);", "const int b2 = __ldg(cols + p);"),
         ("r0[j] = __ldcs(w0 + j * npoints);", "r0[j] = __ldg(w0 + j * npoints);"),
         ("r1[j] = __ldcs(w1 + j * npoints);", "r1[j] = __ldg(w1 + j * npoints);"),
         ("r2[j] = __ldcs(w2 + j * npoints);", "r2[j] = __ldg(w2 + j * npoints);"),
@@ -146,6 +152,13 @@ TILES = (None, (4, 4), (8, 8), (16, 16), (8, 32))
 # m = 2, 4 and 6.
 GAUSSIAN_CASES = {"eps 1e-3, upsample 1": (1e-3, 1), "eps 1e-3, upsample 2": (1e-3, 2),
                   "eps 1e-5, upsample 2": (1e-5, 2)}
+# (eps, upsample) of the wide gather's cases (2m above a warp's lanes), at
+# the same points: m = 17, 18 and 22, on 384^3, 512^3 and 512^3 grids.
+WIDE_CASES = {"eps 1e-10, upsample 3": (1e-10, 3), "eps 1e-8, upsample 4": (1e-8, 4),
+              "eps 1e-10, upsample 4": (1e-10, 4)}
+# Points of a wide case held to the plain versions (every so many): the
+# plain loop is (2m)^3 indexed passes, 85,184 at m = 22.
+WIDE_SAMPLE = 16_384
 def variant_source(source: str, substitutions) -> str:
     """``source`` with each (old, new) applied; raises if an ``old`` is not
     there, so a variant never silently measures the unchanged source."""
@@ -317,7 +330,7 @@ def _launchers(lib, grid, f, plan, out, G):
 
     def gather():
         rc = lib.tike_kb_gather(
-            grid.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            grid.data_ptr(), plan.rows.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
             plan.weights.data_ptr(), out.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -326,8 +339,8 @@ def _launchers(lib, grid, f, plan, out, G):
 
     def scatter():
         rc = lib.tike_kb_scatter(
-            f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
-            plan.bin_start.data_ptr(), plan.weights.data_ptr(), G.data_ptr(), npoints, n, m,
+            f.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
+            plan.row_start.data_ptr(), plan.weights.data_ptr(), G.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
         if rc:
@@ -393,7 +406,24 @@ def gaussian_variants(source: str) -> dict:
         _constant(source, "kThreadGatherThreads", 256)]
     for unroll in (1, 4):
         variants[f"gather axis-0 unroll {unroll}"] = [_constant(source, "kGatherUnroll0", unroll)]
+    # The wide gather (2m > 32), timed at WIDE_CASES alone: groups of 32 or
+    # 8 lanes (two, or five or six slots: one after another), a lane's three
+    # slots one after another, the axis-1 loop unrolled 4 deep.
+    for lanes in (32, 8):
+        variants[f"wide gather, groups of {lanes} lanes"] = [_constant(source, "kWideLanes", lanes)]
+    variants["wide gather, slots one after another"] = [_constant(source, "kWideInnerSlots", 0)]
+    variants["wide gather, axis-1 loop unrolled 4 deep"] = [_constant(source, "kWideUnroll1", 4)]
     return variants
+
+
+def _wide(tag: str) -> bool:
+    """Whether variant ``tag`` changes the wide gather alone."""
+    return tag.startswith("wide gather")
+
+
+def _scatter_variant(tag: str) -> bool:
+    """Whether variant ``tag`` changes the scatter alone."""
+    return tag.startswith("scatter")
 
 
 def _sweep_gaussian(libs: dict, device) -> None:
@@ -405,6 +435,7 @@ def _sweep_gaussian(libs: dict, device) -> None:
 
     generator = torch.Generator(device=device).manual_seed(0)
     x = cases.lamino_rows(cases.LAMINO_N, cases.LAMINO_NTHETA, device).reshape(-1, 3)
+    libs = {tag: lib for tag, lib in libs.items() if not _wide(tag)}
     for name, (eps, upsample) in GAUSSIAN_CASES.items():
         n, _, mu, m = usfft.usfft_parameters(cases.LAMINO_N, eps, upsample)
         grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=generator)
@@ -430,12 +461,12 @@ def _sweep_gaussian(libs: dict, device) -> None:
         # A variant with bands of another height takes its own bands,
         # busiest first.
         unordered = dataclasses.replace(
-            plan, blocks=usfft._scatter_blocks(plan.bin_start, n, m, busiest_first=False))
+            plan, blocks=usfft._scatter_blocks(plan.row_start, n, m, busiest_first=False))
         plans = {}
         for tag in libs:
             rows = re.search(r"bands of (\d+) rows", tag)
             plans[tag] = plan if rows is None else dataclasses.replace(
-                plan, blocks=usfft._scatter_blocks(plan.bin_start, n, m, int(rows.group(1))))
+                plan, blocks=usfft._scatter_blocks(plan.row_start, n, m, int(rows.group(1))))
         reference = None
         for tag, lib in libs.items():
             with loaded("usfft_gaussian", lib):
@@ -480,6 +511,82 @@ def _sweep_gaussian(libs: dict, device) -> None:
                   f"first: {torch.equal(torch.view_as_real(got), torch.view_as_real(reference))})",
                   flush=True)
         del grid, f, plan, unordered, plans, want_gather, want_scatter
+
+
+def _sweep_gaussian_wide(libs: dict, device) -> None:
+    """The Gaussian gather above 32 taps at laminography's 128^3 / 64
+    angles, at each of ``WIDE_CASES``: the source as it stands held to the
+    plain versions on every WIDE_SAMPLE-th point (gather and scatter), each
+    wide variant's gather to the source's on all points; then the gathers of
+    the source, the wide variants and the first form (a thread a point) in
+    three rounds, and the scatter beside the first form's."""
+    from tests import _torch_usfft_cases as cases
+
+    libs = {tag: lib for tag, lib in libs.items()
+            if tag == "as it stands" or _wide(tag) or _scatter_variant(tag)}
+    gathers = [tag for tag in libs if not _scatter_variant(tag)]
+    scatters = [tag for tag in libs if not _wide(tag)]
+    generator = torch.Generator(device=device).manual_seed(0)
+    x = cases.lamino_rows(cases.LAMINO_N, cases.LAMINO_NTHETA, device).reshape(-1, 3)
+    step = max(1, x.shape[0] // WIDE_SAMPLE)
+    sample = x[::step].contiguous()
+    for name, (eps, upsample) in WIDE_CASES.items():
+        n, _, mu, m = usfft.usfft_parameters(cases.LAMINO_N, eps, upsample)
+        grid = torch.randn((n, n, n), dtype=torch.complex64, device=device, generator=generator)
+        f = torch.randn(x.shape[0], dtype=torch.complex64, device=device, generator=generator)
+        plan = usfft.geometry_plan(x, n, m, mu, window="gaussian")
+        fs = f[::step].contiguous()
+        with loaded("usfft_gaussian", libs["as it stands"]):
+            errs = (cases.max_rel(usfft.gather_gaussian_cuda(grid, sample, n, m, mu),
+                                  usfft.gather_gaussian_plain(grid, sample, n, m, mu)),
+                    cases.max_rel(usfft.scatter_gaussian_cuda(fs, sample, n, m, mu),
+                                  usfft.scatter_gaussian_plain(fs, sample, n, m, mu)))
+            reference = usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)
+        print(f"{name} m = {m}: grid {n}^3, {x.shape[0]} points; as it stands on "
+              f"{sample.shape[0]} of them against the plain versions: gather err {errs[0]:.1e}, "
+              f"scatter err {errs[1]:.1e}", flush=True)
+        spread = None
+        plans = {}
+        for tag in libs:
+            rows = re.search(r"bands of (\d+) rows", tag)
+            plans[tag] = plan if rows is None else dataclasses.replace(
+                plan, blocks=usfft._scatter_blocks(plan.row_start, n, m, int(rows.group(1))))
+        for tag, lib in libs.items():
+            with loaded("usfft_gaussian", lib):
+                if tag in gathers:
+                    got = usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan)
+                    print(f"{name} m = {m}: {tag:60s} gather err to the source as it stands "
+                          f"{cases.max_rel(got, reference):.1e}", flush=True)
+                if tag in scatters:
+                    got = usfft.scatter_gaussian_cuda(f, x, n, m, mu, plans[tag])
+                    spread = got if spread is None else spread
+                    print(f"{name} m = {m}: {tag:60s} scatter err to the source as it stands "
+                          f"{cases.max_rel(got, spread):.1e}", flush=True)
+        times = {tag: [] for tag in [*gathers, "first form"]}
+        for turn in (list(times), list(times)[::-1], list(times)):
+            for tag in turn:
+                if tag == "first form":
+                    times[tag].append(graph_ms(lambda: cases.first_form_gather(grid, plan), reps=2))
+                    continue
+                with loaded("usfft_gaussian", libs[tag]):
+                    times[tag].append(graph_ms(
+                        lambda: usfft.gather_gaussian_cuda(grid, x, n, m, mu, plan), reps=2))
+        for tag, ts in times.items():
+            print(f"{name} m = {m}: gather {tag:60s} " + ", ".join(f"{t:.4f}" for t in ts)
+                  + f" ms (median {statistics.median(ts):.4f})", flush=True)
+        times = {tag: [] for tag in [*scatters, "first form"]}
+        for turn in (list(times), list(times)[::-1], list(times)):
+            for tag in turn:
+                if tag == "first form":
+                    times[tag].append(graph_ms(lambda: cases.first_form_scatter(f, plan), reps=2))
+                    continue
+                with loaded("usfft_gaussian", libs[tag]):
+                    times[tag].append(graph_ms(
+                        lambda: usfft.scatter_gaussian_cuda(f, x, n, m, mu, plans[tag]), reps=2))
+        for tag, ts in times.items():
+            print(f"{name} m = {m}: scatter {tag:60s} " + ", ".join(f"{t:.4f}" for t in ts)
+                  + f" ms (median {statistics.median(ts):.4f})", flush=True)
+        del grid, f, plan, reference, plans, spread
 
 
 PROBES_SWEPT = ("element_static", "element_prefetch", "static_dma", "gridded", "prefetch")
@@ -741,7 +848,9 @@ def _sweep_interp(libs: dict, device) -> None:
 
 SWEEPS = {
     "usfft": (SOURCE, _sweep_usfft),
-    "gaussian": (GAUSSIAN_SOURCE, _sweep_gaussian),
+    "gaussian": (GAUSSIAN_SOURCE, lambda libs, device: (_sweep_gaussian(libs, device),
+                                                        _sweep_gaussian_wide(libs, device))),
+    "gaussian_wide": (GAUSSIAN_SOURCE, _sweep_gaussian_wide),
     "probe": (PROBE_SOURCE, _sweep_probe),
     "bucket": (BUCKET_SOURCE, _sweep_bucket),
     "interp": (INTERP_SOURCE, _sweep_interp),
@@ -758,7 +867,8 @@ def main(argv=None) -> None:
     path, sweep = SWEEPS[args.source]
     with open(path) as f:
         source = f.read()
-    variants = {"usfft": lambda s: VARIANTS, "gaussian": gaussian_variants, "probe": probe_variants,
+    variants = {"usfft": lambda s: VARIANTS, "gaussian": gaussian_variants,
+                "gaussian_wide": gaussian_variants, "probe": probe_variants,
                 "bucket": bucket_variants, "interp": interp_variants}[args.source](source)
     if args.variants:
         with open(args.variants) as f:
@@ -773,7 +883,7 @@ def main(argv=None) -> None:
     ).stdout.strip())
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as directory:
-        name = "usfft_gaussian" if args.source == "gaussian" else args.source
+        name = "usfft_gaussian" if args.source.startswith("gaussian") else args.source
         libs, failed = finish_builds(name, start_builds(name, sources, directory))
         for tag, error in failed.items():
             print(f"{tag}: build failed\n{error}")

@@ -47,16 +47,16 @@ SIGNATURES = {
         "tike_patch_adj": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
     },
     "usfft": {
-        # (grid, bins, order, weights, out, npoints, n, m, stream)
-        "tike_kb_gather": ([_PTR] * 5 + [_LL, _INT, _INT, _PTR], _INT),
-        # (values, bins, order, bin_start, weights, grid, npoints, n, m, stream)
+        # (grid, rows, cols, order, weights, out, npoints, n, m, stream)
+        "tike_kb_gather": ([_PTR] * 6 + [_LL, _INT, _INT, _PTR], _INT),
+        # (values, cols, order, row_start, weights, grid, npoints, n, m, stream)
         "tike_kb_scatter": ([_PTR] * 6 + [_LL, _INT, _INT, _PTR], _INT),
     },
     # The Gaussian window's gather and scatter.
     "usfft_gaussian": {
-        # (grid, bins, order, weights, out, npoints, n, m, stream)
-        "tike_gaussian_gather": ([_PTR] * 5 + [_LL, _INT, _INT, _PTR], _INT),
-        # (values, bins, order, bin_start, weights, block table, blocks,
+        # (grid, rows, cols, order, weights, out, npoints, n, m, stream)
+        "tike_gaussian_gather": ([_PTR] * 6 + [_LL, _INT, _INT, _PTR], _INT),
+        # (values, cols, order, row_start, weights, block table, blocks,
         # grid, npoints, n, m, stream)
         "tike_gaussian_scatter": ([_PTR] * 6 + [_INT, _PTR, _LL, _INT, _INT, _PTR], _INT),
     },

@@ -38,7 +38,8 @@ from .. import linalg
 from ..parallel import Mesh, all_reduce, batch_sharding, put_process_local
 from ..parallel._mesh import gather_objects
 from .usfft import (
-    _parameters, deapodization, eq2us, gather_tile, geometry_plan, spread, us2eq,
+    _fftn, _parameters, _shift, deapodization, eq2us, gather_tile, geometry_plan, spread,
+    us2eq,
 )
 
 
@@ -264,9 +265,9 @@ def lamino_adj_exact(cfg: LaminoConfig, data, theta, plan=None):
     F = _centered_fft2(data).reshape(theta.shape[0] * n, n) / (n * n)
     G = spread(F, plan.rows, n, cfg.eps, cfg.upsample, cfg.kernel, plan.scatter)
     # Adjoint of the centered unnormalized fftn: upsampled^3 * ifftn.
-    fe = torch.fft.fftshift(torch.fft.ifftn(torch.fft.ifftshift(G))) * (upsampled**3)
+    fe = _shift(_fftn(_shift(G), inverse=True))
     end = pad + n
-    return fe[pad:end, pad:end, pad:end] / plan.deapod
+    return fe[pad:end, pad:end, pad:end] * (upsampled**3) / plan.deapod
 
 
 def lamino_cost(cfg: LaminoConfig, data, theta, obj, plan=None):

@@ -13,7 +13,8 @@ and each has two implementations:
 - a plain PyTorch version (``gather_kb_plain``, ``scatter_kb_plain``,
   ``gather_gaussian_plain``, ``scatter_gaussian_plain``): the tap scans of
   ``tike_tpu``'s ``gather_kb``/``scatter_kb`` and ``gather``/``scatter``,
-  one indexed gather (or ``index_add_``) of all points per 3-D tap;
+  one indexed gather (or ``index_add_``) of all points per 3-D tap (for
+  the Gaussian, per row of 2m taps, added tap after tap);
 - hand-written CUDA kernels, which read a geometry plan
   (:func:`geometry_plan`): the points sorted by the grid cell they fall in,
   with their axis weights in a table. Both windows are separable, so a
@@ -23,10 +24,13 @@ and each has two implementations:
   walks the points in that order, the scatter gives each row of the grid one
   block; ``csrc/usfft_gaussian.cu`` (``gather_gaussian_cuda``,
   ``scatter_gaussian_cuda``) for the Gaussian: the gather gives each point a
-  thread (m <= 2) or a group of 2m lanes that load its rows of taps
-  together, the scatter gives each block a band of :func:`band_rows` rows of
-  one plane, whose warps add each point reaching it, loaded once, to their
-  copies of the band in shared memory. Both scatters add the points
+  thread (m <= 2), a group of 2m lanes that load its rows of taps together
+  (2m <= 32), or above that a group of 16 lanes with a slot of taps a lane;
+  the scatter gives each block a band of :func:`band_rows` rows of one
+  plane, whose warps add each point reaching it, loaded once, to their
+  copies of the band in shared memory. The kernels take any grid the card's memory holds (a
+  cell is a row ``c0 n + c1`` and a column, never a 32-bit flat index) and
+  any half-support with 2m <= n. Both scatters add the points
   reaching a cell in an order the plan fixes, with no atomics, so two
   launches agree to the bit. ``tike_tpu`` has no Pallas kernel here: its tap scans and its
   ``gather_kb_rows``/``scatter_kb_rows`` (einsum chains over dense rows,
@@ -35,7 +39,8 @@ and each has two implementations:
 
 Each dispatching function takes the device of the tensors it is given:
 CPU tensors take the plain version, CUDA tensors launch the kernel or
-raise. Each takes an optional ``plan=``; without one it is built for the
+raise; nothing falls back to the plain version on the card. Each takes an
+optional ``plan=``; without one it is built for the
 call. A plan depends on the points and the window alone, so a caller whose
 points stay (laminography) builds it once. The row-structured layout
 (``(R, C, 3)`` points, ``gather_kb_rows``/``scatter_kb_rows``) is the flat
@@ -45,6 +50,7 @@ one reshaped.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -60,18 +66,28 @@ LAUNCHES = {
 window. Incremented only by a successful launch; callers may reset them to
 0."""
 
-MAX_N = 1290
-"""The largest grid the kernels take: they index its n^3 cells in int32."""
+MAX_N = 32767
+"""The largest grid a plan indexes: each point's row of cells ``c0 n + c1``
+is an int32 and its column ``c2`` an int16. That grid is 2^45 cells, 281
+TB of complex64: the card's memory ends far below it."""
 
-GAUSSIAN_MAX_M = 16
-"""The largest half-support the Gaussian kernels take: a lane a tap along
-axis 2, 2m <= 32."""
+# csrc/usfft_gaussian.cu's scatter: its warps, each with its copy of the
+# band, the band's rows at m <= 2 and above, and the shared memory a block
+# may use on sm_90 once it opts in.
+_SCATTER_WARPS = 4
+_BAND_ROWS_SMALL_M, _BAND_ROWS_LARGE_M = 4, 2
+MAX_SHARED = 232448
 
-def band_rows(m: int) -> int:
+
+def band_rows(m: int, n: int) -> int:
     """Rows along axis 1 of one plane that a block of the Gaussian scatter
-    owns at half-support m, whole along axis 2 (``csrc/usfft_gaussian.cu``'s
-    ``band_rows``): 4 up to m = 2, else 2."""
-    return 4 if m <= 2 else 2
+    owns at half-support m on an n^3 grid, whole along axis 2
+    (``csrc/usfft_gaussian.cu``'s ``band_height``): 4 up to m = 2, else 2,
+    fewer while the warps' copies of the band pass ``MAX_SHARED``."""
+    rows = _BAND_ROWS_SMALL_M if m <= 2 else _BAND_ROWS_LARGE_M
+    while rows > 1 and _SCATTER_WARPS * rows * n * 8 > MAX_SHARED:
+        rows -= 1
+    return rows
 
 
 def usfft_parameters(n: int, eps: float, upsample: float = 1):
@@ -275,29 +291,34 @@ class GeometryPlan:
     by :func:`geometry_plan` and read by the kernels.
 
     ``window`` is "kb" (Kaiser-Bessel) or "gaussian" and ``param`` its
-    parameter (the KB window's beta, the Gaussian's mu). A point's bin is
-    its base cell ``(n // 2 + floor(n x) - shift) % n`` on each axis (shift
-    0 for KB, 1 for the Gaussian, so that the 2m taps are the cells base + 1
-    - m ... base + m), linearised with axis 2 fastest. ``order`` (N,) int32
-    lists the points sorted by bin (or by ``tile``), ties in ascending point
-    index; ``bins`` (N,) int32 is the bin of each sorted point; ``weights``
-    (3, 2m, N) float32 holds each sorted point's axis weights (the point
-    index last, so that a warp's loads of one tap are contiguous); a 3-D
-    tap's weight is their product. ``bin_start`` (n^3 + 1,) int32 is where
-    each bin's points start in the sorted list. A plan sorted by tiles has
-    no ``bin_start`` and serves the gather alone. A Gaussian plan in bin
-    order also holds ``blocks`` (B, 2) int32, the Gaussian scatter's blocks
-    (:func:`_scatter_blocks`): (c0 n + c1, rows), rows c1 ... c1 + rows - 1
-    of plane c0, in the order they are launched.
+    parameter (the KB window's beta, the Gaussian's mu). A point's base
+    cell is ``(n // 2 + floor(n x) - shift) % n`` on each axis (shift 0 for
+    KB, 1 for the Gaussian, so that the 2m taps are the cells base + 1 - m
+    ... base + m); its bin is that cell linearised with axis 2 fastest, its
+    row of bins ``c0 n + c1``. ``order`` (N,) int32 lists the points sorted
+    by bin (or by ``tile``), ties in ascending point index; ``rows`` (N,)
+    int32 and ``cols`` (N,) int16 are each sorted point's row of bins and
+    column ``c2``, so that no index of a cell passes 32 bits (``bins``, the
+    flat bin in int64, is derived from them); ``weights`` (3, 2m, N) float32
+    holds each sorted point's axis weights (the point index last, so that a
+    warp's loads of one tap are contiguous); a 3-D tap's weight is their
+    product. ``row_start`` (n^2 + 1,) int32 is where each row of bins'
+    points start in the sorted list: all that the scatters read of the
+    sort. A plan sorted by tiles has no ``row_start`` and serves the gather
+    alone. A Gaussian plan in bin order also holds ``blocks`` (B, 2) int32,
+    the Gaussian scatter's blocks (:func:`_scatter_blocks`): (c0 n + c1,
+    rows), rows c1 ... c1 + rows - 1 of plane c0, in the order they are
+    launched.
     """
 
     n: int
     m: int
     param: float
     order: torch.Tensor
-    bins: torch.Tensor
+    rows: torch.Tensor
+    cols: torch.Tensor
     weights: torch.Tensor
-    bin_start: torch.Tensor | None = None
+    row_start: torch.Tensor | None = None
     tile: tuple | None = None
     window: str = "kb"
     blocks: torch.Tensor | None = None
@@ -307,17 +328,20 @@ class GeometryPlan:
         return self.order.shape[0]
 
     @property
+    def bins(self) -> torch.Tensor:
+        """(N,) int64: each sorted point's bin, ``rows n + cols``."""
+        return self.rows.to(torch.int64) * self.n + self.cols.to(torch.int64)
+
+    @property
     def nbytes(self) -> int:
         """The bytes of the plan's tensors."""
-        tensors = (self.order, self.bins, self.weights, self.bin_start, self.blocks)
+        tensors = (self.order, self.rows, self.cols, self.weights, self.row_start, self.blocks)
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _check_window(n: int, m: int) -> None:
-    if not (m >= 1 and 2 * m <= n <= MAX_N):
-        raise ValueError(
-            f"the window needs m >= 1 and 2 m <= n <= {MAX_N}; got m = {m}, n = {n}"
-        )
+    if not (m >= 1 and 2 * m <= n):
+        raise ValueError(f"the window needs m >= 1 and 2 m <= n; got m = {m}, n = {n}")
 
 
 def gather_tile(m: int):
@@ -346,31 +370,40 @@ def geometry_plan(x, n: int, m: int, param: float, tile=None, window: str = "kb"
     parameter beta, or "gaussian", the Gaussian of parameter mu, whose base
     cell lies one below the KB window's.
 
-    Set-up, like an FFT plan: a stable sort of the points by bin, a count of
-    each bin, and the axis weights (:func:`_kb_axis_weights`, so the KB
-    kernels blend with the plain version's weights, and ``n x`` and its
-    floor round as they do there; :func:`_gaussian_axis_weights`, the
-    constant (pi / mu)^(3/2) folded into axis 0's). Plain PyTorch calls on
-    either device. With ``tile = (t1, t2)`` the points are sorted by the t1
-    x t2 tile of cells (axes 1 and 2) their base cell lies in, and no bins
-    are counted: a plan for the gather alone.
+    Set-up, like an FFT plan: a stable sort of the points by bin (an int64
+    key), a count of each row of bins (n^2 of them, never the n^3 cells),
+    and the axis weights (:func:`_kb_axis_weights`, so the KB kernels blend
+    with the plain version's weights, and ``n x`` and its floor round as
+    they do there; :func:`_gaussian_axis_weights`, the constant (pi /
+    mu)^(3/2) folded into axis 0's). Plain PyTorch calls on either device.
+    With ``tile = (t1, t2)`` the points are sorted by the t1 x t2 tile of
+    cells (axes 1 and 2) their base cell lies in, and no rows are counted: a
+    plan for the gather alone.
     """
     _check_window(n, m)
     if window not in _SHIFT:
         raise ValueError(f"window must be 'kb' or 'gaussian'; got {window!r}")
     if x.ndim != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be (N, 3) float32; got {x.dtype} {tuple(x.shape)}")
+    if n > MAX_N or x.shape[0] >= 2**31:
+        raise ValueError(
+            f"a plan indexes rows of cells in int32, columns in int16 and points in int32: "
+            f"n <= {MAX_N} and N < 2^31; got n = {n}, N = {x.shape[0]}"
+        )
     cell = torch.remainder(n // 2 - _SHIFT[window] + torch.floor(n * x).to(torch.int64), n)
-    bins = (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]
-    bin_start = None
+    row = cell[:, 0] * n + cell[:, 1]
+    row_start = None
     if tile is None:
-        bins, order = torch.sort(bins, stable=True)
-        bin_start = torch.zeros(n**3 + 1, dtype=torch.int32, device=x.device)
-        bin_start[1:] = torch.cumsum(torch.bincount(bins, minlength=n**3), 0)
+        order = torch.sort(row * n + cell[:, 2], stable=True)[1]
     else:
         key = (cell[:, 0] * n + cell[:, 1] // tile[0]) * n + cell[:, 2] // tile[1]
         order = torch.sort(key, stable=True)[1]
-        bins = bins[order]
+    rows = row[order]
+    cols = cell[order, 2]
+    del cell, row
+    if tile is None:
+        row_start = torch.zeros(n * n + 1, dtype=torch.int32, device=x.device)
+        row_start[1:] = torch.cumsum(torch.bincount(rows, minlength=n * n), 0)
     xs = x[order]
     axis_weights = _kb_axis_weights if window == "kb" else _gaussian_axis_weights
     weights = torch.stack(
@@ -380,32 +413,33 @@ def geometry_plan(x, n: int, m: int, param: float, tile=None, window: str = "kb"
         weights[0] *= float(np.sqrt(np.pi / param) ** 3)
     blocks = None
     if window == "gaussian" and tile is None:
-        blocks = _scatter_blocks(bin_start, n, m)
+        blocks = _scatter_blocks(row_start, n, m)
     return GeometryPlan(
-        n=n, m=m, param=float(param), order=order.to(torch.int32),
-        bins=bins.to(torch.int32), weights=weights.contiguous(), bin_start=bin_start,
+        n=n, m=m, param=float(param), order=order.to(torch.int32), rows=rows.to(torch.int32),
+        cols=cols.to(torch.int16), weights=weights.contiguous(), row_start=row_start,
         tile=None if tile is None else tuple(tile), window=window, blocks=blocks,
     )
 
 
-def _scatter_blocks(bin_start, n: int, m: int, rows: int | None = None,
+def _scatter_blocks(row_start, n: int, m: int, rows: int | None = None,
                     busiest_first: bool = True) -> torch.Tensor:
     """The Gaussian scatter's blocks, each plane in bands of ``rows`` rows
     (:func:`band_rows` unless given; fewer in its last), as (c0 n + c1,
-    rows) int32 pairs. With ``busiest_first``, by the points in the 2m x
-    (rows + 2m - 1) rows of bins that reach them, most first (ties in
-    ascending c0 n + c1): the order they are launched in, so that the
-    busiest bands, near laminography's rotation axis, do not start last and
-    end the launch alone; else in the grid's order."""
-    band = band_rows(m) if rows is None else rows
-    per_row = (bin_start[n::n] - bin_start[:-1:n]).reshape(n, n).to(torch.int64)
+    rows) int32 pairs, from the plan's ``row_start``. With
+    ``busiest_first``, by the points in the 2m x (rows + 2m - 1) rows of
+    bins that reach them, most first (ties in ascending c0 n + c1): the
+    order they are launched in, so that the busiest bands, near
+    laminography's rotation axis, do not start last and end the launch
+    alone; else in the grid's order."""
+    band = band_rows(m, n) if rows is None else rows
+    per_row = (row_start[1:] - row_start[:-1]).reshape(n, n).to(torch.int64)
     device = per_row.device
     starts = torch.arange(0, n, band, device=device)
     rows = torch.clamp(n - starts, max=band)
     # Box sums on the torus: planes c0 - m ... c0 + m - 1, rows c1 - m ...
     # c1 + rows + m - 2.
     planes = sum(torch.roll(per_row, -d, dims=0) for d in range(-m, m))
-    wide = torch.cat([planes, planes], dim=1)
+    wide = torch.cat([planes] * (2 + (band + 2 * m) // n), dim=1)
     sums = torch.cumsum(torch.cat([torch.zeros_like(wide[:, :1]), wide], dim=1), dim=1)
     first = (starts - m) % n
     points = (sums[:, first + rows + 2 * m - 1] - sums[:, first]).reshape(-1)
@@ -459,7 +493,7 @@ def _gather_cuda(Fe, x, n: int, m: int, param: float, plan):
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
         rc = lib.tike_kb_gather(
-            Fe.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            Fe.data_ptr(), plan.rows.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
             plan.weights.data_ptr(), out.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -478,14 +512,14 @@ def _scatter_cuda(f, x, n: int, m: int, param: float, plan):
     if f.device != x.device:
         raise ValueError(f"f is on {f.device}, x on {x.device}")
     plan = _plan_for(plan, x, n, m, param, "kb")
-    if plan.bin_start is None:
+    if plan.row_start is None:
         raise ValueError("the scatter needs a plan in bin order (tile=None)")
     G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft")
     with torch.cuda.device(x.device):
         rc = lib.tike_kb_scatter(
-            f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
-            plan.bin_start.data_ptr(), plan.weights.data_ptr(), G.data_ptr(), npoints, n, m,
+            f.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
+            plan.row_start.data_ptr(), plan.weights.data_ptr(), G.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("kb_scatter", rc)
@@ -550,51 +584,56 @@ def _tap_offsets(m: int, device=None):
     return torch.stack([i0.ravel(), i1.ravel(), i2.ravel()], dim=-1)
 
 
-def _gaussian_taps(x, n: int, m: int, mu: float):
-    """Yield (weight, flat grid index) of each Gaussian tap of every point."""
+def _gaussian_rows(x, n: int, m: int, mu: float):
+    """Yield, for each of the (2m)^2 rows of Gaussian taps (axis-0 tap
+    outermost), the (N, 2m) weights and flat grid indices of its 2m taps
+    along axis 2, each tap's as ``tike_tpu``'s tap scan computes it: the
+    same three squared distances summed by one ``torch.sum``, from each
+    axis's 2m taps formed once."""
     cons0 = float(np.sqrt(np.pi / mu) ** 3)
     cons1 = float(-np.pi**2 / mu)
     ell = torch.floor(n * x).to(torch.int64)
-    for off in _tap_offsets(m, x.device):
-        idx = ell + off[None, :]
-        delta = torch.sum((idx.to(x.dtype) / n - x) ** 2, dim=-1)
-        g = torch.remainder(n // 2 + idx, n)
-        yield cons0 * torch.exp(cons1 * delta), (g[:, 0] * n + g[:, 1]) * n + g[:, 2]
+    idx = ell[:, :, None] + torch.arange(-m, m, device=x.device)  # (N, 3, 2m)
+    sq = (idx.to(x.dtype) / n - x[:, :, None]) ** 2
+    g = torch.remainder(n // 2 + idx, n)
+    taps = 2 * m
+    for j0 in range(taps):
+        for j1 in range(taps):
+            d = torch.stack([sq[:, 0, j0, None].expand(-1, taps),
+                             sq[:, 1, j1, None].expand(-1, taps), sq[:, 2]], dim=-1)
+            delta = torch.sum(d, dim=-1)
+            row = (g[:, 0, j0] * n + g[:, 1, j1]) * n
+            yield cons0 * torch.exp(cons1 * delta), row[:, None] + g[:, 2]
 
 
 def gather_gaussian_plain(Fe, x, n: int, m: int, mu: float):
-    """Plain ``gather``: the tap scan of ``tike_tpu``'s, one indexed gather
-    of all points per 3-D tap, each weight ``cons0 exp(cons1 |d|^2)``.
+    """Plain ``gather``: the tap scan of ``tike_tpu``'s, each weight ``cons0
+    exp(cons1 |d|^2)`` and each tap's values added to the sum in turn, the
+    indexed gathers made a row of taps at a time.
 
     Fe (n, n, n) complex64, x (N, 3) float32. Returns (N,) complex64.
     """
     Fe_flat = torch.view_as_real(Fe.contiguous()).reshape(-1, 2)
     acc = torch.zeros((x.shape[0], 2), dtype=Fe_flat.dtype, device=x.device)
-    for w, flat in _gaussian_taps(x, n, m, mu):
-        acc = acc + Fe_flat[flat] * w[:, None]
+    for w, flat in _gaussian_rows(x, n, m, mu):
+        terms = Fe_flat[flat] * w[..., None]
+        for j2 in range(2 * m):
+            acc = acc + terms[:, j2]
     return torch.view_as_complex(acc)
 
 
 def scatter_gaussian_plain(f, x, n: int, m: int, mu: float):
-    """Plain ``scatter``: the tap scan of ``index_add_``s.
+    """Plain ``scatter``: the tap scan of ``index_add_``s, a row of taps to
+    a call, tap after tap.
 
     f (N,) complex64, x (N, 3) float32. Returns (n, n, n) complex64.
     """
     f2 = torch.view_as_real(f.contiguous())
     G = torch.zeros((n * n * n, 2), dtype=f2.dtype, device=f.device)
-    for w, flat in _gaussian_taps(x, n, m, mu):
-        G.index_add_(0, flat, f2 * w[:, None])
+    for w, flat in _gaussian_rows(x, n, m, mu):
+        terms = f2[:, None, :] * w[..., None]  # (N, 2m, 2)
+        G.index_add_(0, flat.T.reshape(-1), terms.transpose(0, 1).reshape(-1, 2))
     return torch.view_as_complex(G).reshape(n, n, n)
-
-
-def _check_gaussian(n: int, m: int) -> None:
-    """The Gaussian kernels' limits."""
-    _check_window(n, m)
-    if m > GAUSSIAN_MAX_M:
-        raise ValueError(
-            f"the Gaussian kernels take m <= {GAUSSIAN_MAX_M} (a lane a tap along axis 2); "
-            f"got m = {m}"
-        )
 
 
 def gather_gaussian_cuda(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
@@ -602,7 +641,7 @@ def gather_gaussian_cuda(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | 
     on the points of a Gaussian ``plan`` (:func:`geometry_plan` with
     ``window="gaussian"``, in bin order or by tiles; built here from x if not
     given)."""
-    _check_gaussian(n, m)
+    _check_window(n, m)
     plan = _plan_for(plan, x, n, m, mu, "gaussian", build=False)
     npoints = x.shape[0]
     _check("Fe", Fe, torch.complex64, (n, n, n))
@@ -615,7 +654,7 @@ def gather_gaussian_cuda(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | 
     lib = kernels.load("usfft_gaussian")
     with torch.cuda.device(x.device):
         rc = lib.tike_gaussian_gather(
-            Fe.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
+            Fe.data_ptr(), plan.rows.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
             plan.weights.data_ptr(), out.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -631,7 +670,7 @@ def scatter_gaussian_cuda(f, x, n: int, m: int, mu: float, plan: GeometryPlan | 
     not given) by the plan's ``blocks``: every grid value written once, the
     sum of its points in an order that the plan fixes (its bands' heights,
     not their order), so two launches agree to the bit."""
-    _check_gaussian(n, m)
+    _check_window(n, m)
     plan = _plan_for(plan, x, n, m, mu, "gaussian", build=False)
     npoints = x.shape[0]
     _check("f", f, torch.complex64, (npoints,))
@@ -640,14 +679,14 @@ def scatter_gaussian_cuda(f, x, n: int, m: int, mu: float, plan: GeometryPlan | 
         raise ValueError(f"f is on {f.device}, x on {x.device}")
     if plan is None:
         plan = geometry_plan(x, n, m, mu, window="gaussian")
-    if plan.bin_start is None or plan.blocks is None:
+    if plan.row_start is None or plan.blocks is None:
         raise ValueError("the scatter needs a plan in bin order (tile=None) with its blocks")
     G = torch.empty((n, n, n), dtype=torch.complex64, device=x.device)
     lib = kernels.load("usfft_gaussian")
     with torch.cuda.device(x.device):
         rc = lib.tike_gaussian_scatter(
-            f.data_ptr(), plan.bins.data_ptr(), plan.order.data_ptr(),
-            plan.bin_start.data_ptr(), plan.weights.data_ptr(), plan.blocks.data_ptr(),
+            f.data_ptr(), plan.cols.data_ptr(), plan.order.data_ptr(),
+            plan.row_start.data_ptr(), plan.weights.data_ptr(), plan.blocks.data_ptr(),
             plan.blocks.shape[0], G.data_ptr(), npoints, n, m,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -686,8 +725,47 @@ def vector_scatter(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = 
     return scatter(f, x, n, m, mu, plan)
 
 
-def _centered_fftn(x):
-    return torch.fft.fftshift(torch.fft.fftn(torch.fft.ifftshift(x)))
+LEAN_CELLS = 2**30
+"""Upsampled grids of this many cells (8 GiB of complex64) or more are
+shifted and transformed in place (:func:`_shift`, :func:`_fftn`): at 1292^3
+``torch.fft.fftn`` held four grids (the grid, its transform and cuFFT's work
+area) on the H100, more than the card holds beside a reconstruction."""
+
+_SLAB_CELLS = 2**27
+
+
+def _shift(a):
+    """``fftshift`` (which is ``ifftshift``) of an even-sided (u, u, u) grid;
+    from ``LEAN_CELLS`` on in place, bit for bit: each of the four pairs of
+    opposite octants swapped through a copy of one (an eighth of the grid)."""
+    if a.numel() < LEAN_CELLS:
+        return torch.fft.fftshift(a)
+    h = a.shape[0] // 2
+    low, high = slice(0, h), slice(h, None)
+    for octant in itertools.product((low,), (low, high), (low, high)):
+        opposite = tuple(high if half == low else low for half in octant)
+        kept = a[octant].clone()
+        a[octant] = a[opposite]
+        a[opposite] = kept
+    return a
+
+
+def _fftn(a, inverse: bool = False):
+    """``fftn`` (or ``ifftn``) of a (u, u, u) grid; from ``LEAN_CELLS`` on in
+    place, an axis at a time on slabs of about ``_SLAB_CELLS`` cells (2-D
+    transforms of planes along axes 1 and 2, then 1-D along axis 0), so that
+    it holds one grid and a slab: the same transform, rounded in another
+    order."""
+    if a.numel() < LEAN_CELLS:
+        return torch.fft.ifftn(a) if inverse else torch.fft.fftn(a)
+    plane, line = (torch.fft.ifft2, torch.fft.ifft) if inverse else (torch.fft.fft2, torch.fft.fft)
+    u = a.shape[0]
+    step = max(1, _SLAB_CELLS // (u * u))
+    for i in range(0, u, step):
+        a[i:i + step] = plane(a[i:i + step], dim=(1, 2))
+    for i in range(0, u, step):
+        a[:, i:i + step] = line(a[:, i:i + step], dim=0)
+    return a
 
 
 def _parameters(n: int, eps: float, upsample: float, kernel: str):
@@ -734,7 +812,7 @@ def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
         deapod = deapodization(n, eps, upsample, kernel, f.real.dtype, f.device)
     fe = torch.zeros((upsampled,) * 3, dtype=f.dtype, device=f.device)
     fe[pad:end, pad:end, pad:end] = f / deapod
-    Fe = _centered_fftn(fe)
+    Fe = _shift(_fftn(_shift(fe)))
     gather_with = gather_kb if kernel == "kb" else gather
     return gather_with(Fe, x.reshape(-1, 3), upsampled, m, param, plan).reshape(x.shape[:-1])
 
@@ -747,7 +825,7 @@ def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb",
     Returns (n, n, n). ``plan`` and ``deapod`` as in :func:`eq2us`.
     """
     _, pad, _, _ = _parameters(n, eps, upsample, kernel)
-    F = _centered_fftn(spread(f, x, n, eps, upsample, kernel, plan))
+    F = _shift(_fftn(_shift(spread(f, x, n, eps, upsample, kernel, plan))))
     end = pad + n
     if deapod is None:
         deapod = deapodization(n, eps, upsample, kernel, f.real.dtype, f.device)
@@ -764,9 +842,7 @@ def touched_cells(x, n: int, m: int, window: str = "kb") -> int:
     mask = torch.zeros(n * n * n, dtype=torch.bool, device=x.device)
     for j0 in range(2 * m):
         for j1 in range(2 * m):
-            row = (g0[:, j0] * n + g1[:, j1]) * n
-            for j2 in range(2 * m):
-                mask[row + g2[:, j2]] = True
+            mask[((g0[:, j0] * n + g1[:, j1]) * n)[:, None] + g2] = True
     return int(mask.sum())
 
 
