@@ -80,6 +80,7 @@ PAGES = {
     ],
     "support": [
         "tike_tpu_torch.opt",
+        "tike_tpu_torch.trace",
         "tike_tpu_torch.linalg",
         "tike_tpu_torch.scan",
         "tike_tpu_torch.trajectory",

@@ -126,3 +126,22 @@ def test_rpie_parameters_are_accepted():
     assert np.isfinite(result.algorithm_options.costs[-1][0])
     assert np.all(np.diff(result.probe_options.power[-1]) <= 0)
     assert np.max(np.abs(result.psi)) <= 1 + 1e-6
+
+
+def test_span_rows_list_the_port_spans():
+    """The spans table: one row a ``tike.*`` name, its calls and host
+    milliseconds, no row for the profiler's operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tike_tpu_torch import trace
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("tike.iterate"):
+            for _ in range(3):
+                with trace.span("tike.batch"):
+                    torch.ones(64) * 2
+    rows = profile_epoch.span_rows(prof.key_averages())
+    assert [(name, calls) for name, calls, *_ in rows] == [("tike.iterate", 1), ("tike.batch", 3)]
+    (_, _, outer_ms, outer_kernels, outer_range), (_, _, inner_ms, *_) = rows
+    assert outer_ms >= inner_ms > 0 and outer_kernels == outer_range == 0

@@ -14,8 +14,19 @@ laminography solvers' loops, ``line_search``, ``direction_dy``,
 ``conjugate_gradient`` (``tike_tpu``'s ``conjugate_gradient_traced``) and
 ``cgls`` (``cgls_traced``). ``tike_tpu`` traces those loops into one
 device program; here they are eager, and each trial of the backtracking
-line search reads one comparison back to the host (counted in
-``HOST_READS``).
+line search reads one comparison back to the host.
+
+``HOST_READS`` counts, by what was read, the times this process has read
+device values back to the host: ``line_search``, one per trial step of the
+line search; ``ptycho.costs`` and ``ptycho.powers``, the epochs' costs and
+probe powers that ``Reconstruction.iterate`` reads (once a call on the
+fused path, once an epoch on the per-epoch path, once a chunk of epochs on
+the striped object); ``position.scan`` and ``position.initial_scan``, the
+positions that the affine position fit reads; ``probe.power``, the eigen
+probes' powers that ``constrain_variable_probe`` sorts on the host;
+``solvers.costs``, the batch costs of the per-epoch solver functions.
+Callers may reset a count to 0. Each read of the ptychography path is also
+a ``tike.host_read`` span (:mod:`tike_tpu_torch.trace`).
 """
 
 from __future__ import annotations
@@ -241,9 +252,16 @@ def momentum_checked_traced(
     return d, previous_g, m_new
 
 
-HOST_READS = {"line_search": 0}
-"""How many values the line search has read back to the host in this
-process: one per trial step. Callers may reset it to 0."""
+HOST_READS = {
+    "line_search": 0,
+    "ptycho.costs": 0,
+    "ptycho.powers": 0,
+    "position.scan": 0,
+    "position.initial_scan": 0,
+    "probe.power": 0,
+    "solvers.costs": 0,
+}
+"""Host reads by what was read (the module's docstring); counts from 0."""
 
 
 def line_search(f, x, d, step_length, cost, linesearch_iterations=4):

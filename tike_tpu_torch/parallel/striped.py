@@ -49,7 +49,7 @@ import typing
 import numpy as np
 import torch
 
-from .. import cluster
+from .. import cluster, trace
 from ..ops.ptycho import PtychoConfig
 from ..precision import to_numpy
 from ..ptycho.exitwave import ExitWaveOptions
@@ -569,12 +569,15 @@ def striped_iterate(state: StripedState, n_epochs: int) -> typing.List[float]:
             )
             for k in range(len(state.states))
         ]
-        cost, pwr = run_shards(state.mesh.flat, steps)[0]
+        with trace.span("tike.epoch"):
+            cost, pwr = run_shards(state.mesh.flat, steps)[0]
         costs.append(cost)
         powers.append(pwr)
         state.epochs_done += 1
-    state.last_powers = to_numpy(torch.stack(powers))
-    return [float(c) for c in to_numpy(torch.stack(costs))]
+    with trace.host_read("ptycho.powers"):
+        state.last_powers = to_numpy(torch.stack(powers))
+    with trace.host_read("ptycho.costs"):
+        return [float(c) for c in to_numpy(torch.stack(costs))]
 
 
 def striped_epoch(state: StripedState) -> float:
@@ -600,7 +603,8 @@ def striped_result(state: StripedState) -> typing.Tuple[np.ndarray, np.ndarray]:
 def striped_scan_global(state: StripedState) -> np.ndarray:
     """Scan positions reassembled in the original global order."""
     n_total = sum(len(o) for o in state.order)
-    scan_l = _windows(state, "scan")
+    with trace.host_read("position.scan"):
+        scan_l = _windows(state, "scan")
     scan_g = np.zeros((n_total, 2), np.float32)
     for k, sel in enumerate(state.order):
         local = scan_l[k, : len(sel)].copy()
@@ -622,7 +626,8 @@ def striped_set_scan(state: StripedState, scan_g: np.ndarray) -> None:
     p = cfg.probe_shape
     for k, s in zip(state.own, state.states):
         sel = state.order[k]
-        scan_l = to_numpy(s.scan).copy()
+        with trace.host_read("position.scan"):
+            scan_l = to_numpy(s.scan).copy()
         local = np.asarray(scan_g[sel], np.float32).copy()
         off = state.plan.halo - k * state.plan.stripe_height
         local[:, 0] += off

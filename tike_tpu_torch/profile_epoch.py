@@ -17,7 +17,13 @@ clipping). Then it
    (FFT and gather), after one warm-up epoch each;
 2. traces one epoch with ``torch.profiler`` and prints the device time,
    launch count and share of each kernel class, the device's busy and idle
-   share of the epoch's wall time, and the profiler's table of operators.
+   share of the epoch's wall time, the port's spans (``tike.*``,
+   :mod:`tike_tpu_torch.trace`: the call, the epoch, its beginning, its
+   batches and its end, the host reads, the affine position fit) with their
+   calls, host milliseconds and the device milliseconds that
+   ``key_averages()`` puts on each (the kernels launched inside, and the
+   span's range on the device's timeline), and the profiler's table of
+   operators.
 
 With ``--config lamino_cgrad`` or ``lamino_cgls`` it builds
 ``chip_smoke.py``'s laminography path instead (``bench_all.py``'s 128^3
@@ -58,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 # Kernel classes, tried in order on the lower-cased kernel name.
 CLASSES = (
@@ -102,6 +109,27 @@ def device_breakdown(trace_events: list, wall_us: float) -> dict:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     return {"activities": len(acts), "busy_us": busy, "wall_us": wall_us, "classes": dict(by_class)}
+
+
+def span_rows(averages) -> list:
+    """The port's spans among ``key_averages()``, one row a span name, the
+    longest on the host first: (name, calls, host ms, device ms of the
+    kernels launched inside, device ms of its range on the device's
+    timeline). The last is the profiler's ``gpu_user_annotation`` of the
+    span, from the first of its kernels to the last, idle included (0
+    where the profiler makes none)."""
+    rows = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0])
+    for a in averages:
+        if not a.key.startswith("tike."):
+            continue
+        row = rows[a.key]
+        if a.device_type == DeviceType.CPU:
+            row[0] += a.count
+            row[1] += a.cpu_time_total / 1e3
+            row[2] += a.device_time_total / 1e3
+        else:
+            row[3] += a.device_time_total / 1e3
+    return sorted(((k, *v) for k, v in rows.items()), key=lambda r: -r[2])
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -339,6 +367,12 @@ def main() -> None:
     for name, (us, n) in sorted(b["classes"].items(), key=lambda kv: -kv[1][0]):
         print(f"| {name} | {us / 1e3:.3f} | {n} | {100 * us / device_us:.1f}% |")
     averages = prof.key_averages()
+    spans = span_rows(averages)
+    if spans:
+        print(f"| Span | Calls | Host ms | Device ms, its kernels | Device ms, its range ({card}) |")
+        print("|---|---|---|---|---|")
+        for name, calls, host_ms, kernels_ms, range_ms in spans:
+            print(f"| {name} | {calls} | {host_ms:.3f} | {kernels_ms:.3f} | {range_ms:.3f} |")
     key = (
         "self_device_time_total"
         if hasattr(averages[0], "self_device_time_total")

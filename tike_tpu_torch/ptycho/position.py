@@ -19,7 +19,7 @@ import numpy as np
 import numpy.typing as npt
 import torch
 
-from .. import linalg
+from .. import linalg, trace
 from ..ops import objective
 from ..ops.ptycho import intensity_from_farplane, ptycho_fwd
 from ..precision import as_tensor, floating, to_numpy
@@ -357,13 +357,23 @@ def check_allowed_positions(scan, psi, probe_shape):
         )
 
 
+def _positions_on_host(x, key: str) -> np.ndarray:
+    """``to_numpy(x)``: of a tensor, a host read counted under ``key``."""
+    if not isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    with trace.host_read(key):
+        return to_numpy(x)
+
+
 def _affine_position_helper(scan, position_options, max_error, relax=0.9):
     predicted = position_options.transform(
-        to_numpy(position_options.initial_scan), shift=False
+        _positions_on_host(position_options.initial_scan, "position.initial_scan"),
+        shift=False,
     )
     return scan * (1 - relax) + relax * predicted
 
 
+@trace.spanned("tike.position.affine_fit")
 def affine_position_regularization(
     updated,
     position_options: PositionOptions,
@@ -377,11 +387,12 @@ def affine_position_regularization(
     ``rng``. With ``use_position_regularization`` the positions are then
     relaxed towards the fitted model; otherwise ``updated`` is returned as
     given. Returns ``(positions, position_options)``; a tensor input gives
-    a tensor on its device.
+    a tensor on its device. The whole is a ``tike.position.affine_fit``
+    span (:mod:`tike_tpu_torch.trace`), its reads of tensors host reads.
     """
-    updated_np = to_numpy(updated)
+    updated_np = _positions_on_host(updated, "position.scan")
     new_transform, _ = estimate_global_transformation_ransac(
-        positions0=to_numpy(position_options.initial_scan)
+        positions0=_positions_on_host(position_options.initial_scan, "position.initial_scan")
         - position_options.origin,
         positions1=updated_np - position_options.origin,
         transform=position_options.transform,

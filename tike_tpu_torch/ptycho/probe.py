@@ -21,7 +21,7 @@ import typing
 import numpy as np
 import torch
 
-from .. import linalg
+from .. import linalg, trace
 from ..parallel import Sum, run_local
 from ..precision import as_tensor, cfloating, floating, to_numpy
 from ..utils.ndimage import (
@@ -246,7 +246,8 @@ def constrain_variable_probe(variable_probe, weights):
     variable_probe = linalg.orthogonalize_gs(variable_probe, dim=(-2, -1))
 
     power = linalg.norm(weights[..., 1:, :m], dim=-3, keepdim=True) ** 2
-    power = to_numpy(power)  # one small read: the order is numpy's
+    with trace.host_read("probe.power"):
+        power = to_numpy(power)  # one small read: the order is numpy's
     sorted_weights = weights.clone()
     sorted_probe = variable_probe.clone()
     for i in range(m):

@@ -54,7 +54,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import cluster
+from .. import cluster, trace
 from ..opt import is_converged
 from ..ops.ptycho import (
     PtychoConfig,
@@ -1000,8 +1000,13 @@ class Reconstruction:
         with :func:`~tike_tpu_torch.opt.is_converged` between them. A
         finite ``time_limit``, ``use_position_regularization``, position
         options with rPIE and host-streamed data take the per-epoch loop
-        (:meth:`_iterate_per_epoch`).
+        (:meth:`_iterate_per_epoch`). The call is a ``tike.iterate`` span
+        (:mod:`tike_tpu_torch.trace`).
         """
+        with trace.span("tike.iterate"):
+            self._iterate(num_iter)
+
+    def _iterate(self, num_iter: int) -> None:
         if self.object_sharding == "striped":
             return self._iterate_striped(num_iter)
         if num_iter < 1:
@@ -1058,8 +1063,10 @@ class Reconstruction:
             # Drop the last epoch's tensors as soon as the next exist.
             self._keep_fields(state)
         self._keep_moments(plan, state)
-        costs_host = to_numpy(torch.stack(costs))  # waits for the device
-        powers_host = to_numpy(torch.stack(powers))
+        with trace.host_read("ptycho.costs"):
+            costs_host = to_numpy(torch.stack(costs))  # waits for the device
+        with trace.host_read("ptycho.powers"):
+            powers_host = to_numpy(torch.stack(powers))
         elapsed = time.perf_counter() - start
         if popt is not None:
             # Outside the recorded epoch times, as in the JAX package.
@@ -1113,9 +1120,11 @@ class Reconstruction:
             )
             self._keep_fields(state)
             self._keep_moments(plan, state)
-            algo.costs.append([float(cost)])  # waits for the device
+            with trace.host_read("ptycho.costs"):
+                algo.costs.append([float(cost)])  # waits for the device
             if plan.recover_probe and plan.recover_now(total_e):
-                p.probe_options.power.append(to_numpy(pwr))
+                with trace.host_read("ptycho.powers"):
+                    p.probe_options.power.append(to_numpy(pwr))
             if p.position_options is not None:
                 p.scan, p.position_options = affine_position_regularization(
                     p.scan, p.position_options, rng=self._fit_rng

@@ -61,7 +61,7 @@ import typing
 import numpy as np
 import torch
 
-from ... import opt
+from ... import opt, trace
 from ...ops.ptycho import PtychoConfig
 from ...parallel import Gather, Mesh, Sum, put, batch_sharding, run_local, run_shards
 from ...parallel.halo import cross_fade
@@ -351,6 +351,7 @@ def _probe_constraints_math(plan: EpochPlan, probe):
     return probe, probe_module.power(probe)
 
 
+@trace.spanned("tike.epoch.begin")
 def _epoch_begin_math(
     plan: EpochPlan, state: EpochState, batch_idx, batch_mask, recover_now, total_e,
     shards=None,
@@ -544,6 +545,7 @@ def _batch_steps(
     )
 
 
+@trace.spanned("tike.batch")
 def _batch_update_math(
     plan: EpochPlan,
     data_n,
@@ -748,6 +750,7 @@ def _stripe_rescale_steps(psi, psi_pre, comm: StripeComm):
     return 2 * torch.sqrt(weighted / count)
 
 
+@trace.spanned("tike.epoch.end")
 def _epoch_end_steps(
     plan: EpochPlan,
     state: EpochState,
@@ -972,6 +975,7 @@ def _epoch_steps(
     return epoch_cost, pwr
 
 
+@trace.spanned("tike.epoch")
 def _epoch_math(
     plan: EpochPlan,
     data,
@@ -1149,7 +1153,8 @@ def solver_epoch(
         p.exitwave_options,
         True,
     )
-    algo.costs.append([float(np.mean(to_numpy(costs)))])
+    with trace.host_read("solvers.costs"):
+        algo.costs.append([float(np.mean(to_numpy(costs)))])
     state.errors = [float(c[0]) for c in algo.costs[-3:]]
     _epoch_end_math(
         plan, state, sums, beta_obj_mean, psi_pre, probe_pre, True, epoch, nb
