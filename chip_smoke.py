@@ -113,6 +113,14 @@ After phase 12, the joint-ADMM and host-streamed paths:
     16^2 on a 64^2 image (complex64, and float32 as the ADMM coverage
     weights spread it) and one streamed batch of 10,000 windows of 64^2 on
     4096^2; each kernel's time beside its bound there;
+3d. (with phase 3) the far-field kernel of the Gaussian model
+    (``csrc/farplane.cu``) against its plain version (the solvers' ATen
+    chain) on every case of ``tests/_torch_farplane_cases.py`` and at the
+    main path's 1,000 x 128^2 with 1 and 3 modes, chi written over the
+    farplane and two launches bitwise equal; its time at those shapes, every
+    pixel measured, beside the plain chain's and the bound its bytes set.
+    Phases 6, 7, 8, 18b and 21b check that their timed epochs launched it
+    once a batch (on a mesh, once a batch and shard);
 13. small slices, card against CPU: a streamed rPIE and a streamed LSQML
     run (``store_data_on_device=False``) equal bit for bit to the resident
     run on the card and equal to the CPU's streamed run at phase 5's
@@ -381,6 +389,12 @@ at their own sizes as ``launches_examples_<name>``, and in phase 23's timed runs
 ``launches_distributed_main``, ``_striped``, ``_lamino``, ``_bucket`` and
 ``_lamino_gaussian``,
 a list of one count a rank, each the count that rank read in that run;
+the far-field kernel ``farplane_gaussian`` gives the patch kernels' launch
+counts (phase 6's as ``launches``, 7's, 8's and the later runs') and 3d's
+times at 1 mode (``ms``, ``plain_ms`` for the plain ATen chain,
+``bound_bytes``, ``bound_ms``, ``roofline_share``) and, suffixed
+``_modes_3``, at 3 modes, with the largest gaps over 3d's cases
+(``max_cost_gap``, ``max_chi_gap``);
 the Bucket kernels' slab times come as ``ms_slab0`` / ``ms_slab1`` with
 their bounds; the Gaussian pair, ``usfft_gather_gaussian`` and
 ``usfft_scatter_gaussian``, lists 25b's cgrad launches as ``launches`` and
@@ -430,6 +444,7 @@ import tike_tpu_torch.ptycho as tp
 import tike_tpu_torch.ptycho.ptycho as tpp
 from tests import _torch_bucket_cases as cases_bucket
 from tests import _torch_examples_cases as cases_examples
+from tests import _torch_farplane_cases as cases_farplane
 from tests import _torch_interp_cases as cases_interp
 from tests import _torch_patch_cases as cases
 from tests import _torch_probe_cases as cases_probe
@@ -441,7 +456,7 @@ from tike_tpu_torch import (
 )
 from tike_tpu_torch.constants import wavenumber
 from tike_tpu_torch.ops import alignment as ops_alignment
-from tike_tpu_torch.ops import bucket, interp, patch, shift, usfft
+from tike_tpu_torch.ops import bucket, interp, objective, patch, shift, usfft
 from tike_tpu_torch.ops import lamino as ops_lamino
 from tike_tpu_torch.ops.lamino import LaminoPlan
 from tike_tpu_torch.ops.ptycho import PtychoConfig
@@ -496,6 +511,11 @@ KERNELS = {
 USFFT_KERNELS = {
     "usfft_gather_kb": "tike_tpu/ops/usfft.py:330",
     "usfft_scatter_kb": "tike_tpu/ops/usfft.py:364",
+}
+# The Gaussian model's far-field step replaces XLA code too: the solvers'
+# chain from the intensity to the exit-wave update (also rpie.py:113).
+FARPLANE_KERNELS = {
+    "farplane_gaussian": "tike_tpu/ptycho/solvers/lstsq.py:139",
 }
 # The Gaussian window (phase 25) runs kernels of its own
 # (csrc/usfft_gaussian.cu), counted under names of their own; they replace
@@ -556,8 +576,8 @@ INTERP_KERNELS = {
     "lanczos_adj": "tike_tpu/ops/interp.py:71",
 }
 # So are the Lanczos kernels' (csrc/interp_first_form.cu) in phase 19a.
-SOURCES = ("patch", "usfft", "usfft_gaussian", "probe", "bucket", "bucket_first_form", "interp",
-           "interp_first_form")
+SOURCES = ("patch", "farplane", "usfft", "usfft_gaussian", "probe", "bucket", "bucket_first_form",
+           "interp", "interp_first_form")
 # The probe kernels redesigned last, timed beside their parent's form.
 PARENT_FORM_PROBES = ("gridded", "prefetch")
 
@@ -1231,8 +1251,10 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
     ``iterate(3)``, with every kernel count set to 0 just before the timed
     run and read just after, and, with ``trace``, one more epoch traced
     (``_traced_epoch``). Checks what every path shares: 4 finite,
-    decreasing costs, both patch kernels launched, a finite result of the
-    start's shapes. ``mesh`` runs the Reconstruction data-parallel on it."""
+    decreasing costs, both patch kernels launched, the far-field kernel
+    launched once a batch and shard (every path here runs the Gaussian
+    model), a finite result of the start's shapes. ``mesh`` runs the
+    Reconstruction data-parallel on it."""
     if data is None:
         start = time.perf_counter()
         data = tp.simulate_device(DET, probe, scan, psi, device=device, **optics)
@@ -1280,6 +1302,11 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
     for name in patch.LAUNCHES:
         if not launches[name] > 0:
             raise AssertionError(f"{tag}: iterate(3) launched no {name} kernel: {launches}")
+    shards = 1 if mesh is None else mesh.size
+    far = 3 * context.batches[0].shape[0] * shards
+    if launches["farplane_gaussian"] != far:
+        raise AssertionError(f"{tag}: iterate(3) launched the far-field kernel "
+                             f"{launches['farplane_gaussian']} times, not {far}: {launches}")
     if result.psi.shape != params.psi.shape or not np.all(np.isfinite(result.psi)):
         raise AssertionError(f"{tag}: reconstructed psi is not finite or has the wrong shape")
     if result.probe.shape != probe.shape or not np.all(np.isfinite(result.probe)):
@@ -1291,11 +1318,10 @@ def _drive(tag, device, probe, scan, psi, card, params, *, data=None, trace=Fals
     log(f"[{tag}] set-up {setup_s:.2f} s; peak device memory {peak} bytes "
         f"({peak / 2**30:.3f} GiB) ({card})")
     log(f"[{tag}] kernel launches in iterate(3) "
-        f"{ {k: launches[k] for k in patch.LAUNCHES} }")
+        f"{ {k: launches[k] for k in (*patch.LAUNCHES, *objective.LAUNCHES)} }")
     # Each kernel's bound per launch on this path: the mean, over the
     # batches at their starting positions (each shard's slots of them on a
     # mesh), of what a launch's positions need (cases.roofline).
-    shards = 1 if mesh is None else mesh.size
     batch_scan = torch.as_tensor(scan[context.order[context.batches[0]]], device=device)
     bounds = {
         name: statistics.mean(
@@ -1983,6 +2009,54 @@ def _run_slice(data, params, device, epochs, store=None, history=None):
         return context.get_result()
 
 
+def phase_farplane_parity(device, card: str) -> dict:
+    """3d: the far-field kernel of the Gaussian model against its plain
+    version (``cases_farplane.check_kernel``) on every case and at the main
+    path's 1,000 x 128^2 with 1 and 3 modes; then, with every pixel
+    measured as on the main path, its time and the plain chain's beside the
+    bound its bytes set. The kernel writes chi over the farplane, so each
+    timed call reads the last one's chi: the same bytes, finite values."""
+    gaps = {}
+    for name in cases_farplane.CASES:
+        gaps[name] = cases_farplane.check_kernel(
+            *cases_farplane.case_inputs(name, device, b=24), tag=name)
+    b, d = cases_farplane.MAIN_PATTERNS, cases_farplane.MAIN_D
+    out = dict(deterministic=True, card=card)
+    for mode_axes in ((1, 1), (3,)):
+        k = int(np.prod(mode_axes))
+        data, farplane, mask = cases_farplane.inputs(mode_axes, d, True, b=b, seed=1,
+                                                     device=device)
+        gaps[f"{b} x {d}^2, {k} mode(s), unmeasured"] = cases_farplane.check_kernel(
+            data, farplane, mask, 0.5, tag=str(mode_axes))
+        data, farplane, mask = cases_farplane.inputs(mode_axes, d, False, b=b, seed=2,
+                                                     device=device)
+        ms = median_ms_in_turns(dict(
+            plain=lambda: objective.gaussian_farplane_plain(data, farplane, mask, 1.0),
+            kernel=lambda: objective.gaussian_farplane_cuda(data, farplane, mask, 1.0),
+        ))
+        bound_bytes = cases_farplane.bound_bytes(b, k, d)
+        bound_ms = bound_bytes / cases.HBM_BYTES_PER_S * 1e3
+        suffix = "" if k == 1 else f"_modes_{k}"
+        out.update({
+            f"ms{suffix}": ms["kernel"], f"plain_ms{suffix}": ms["plain"],
+            f"bound_bytes{suffix}": bound_bytes, f"bound_ms{suffix}": bound_ms,
+            f"roofline_share{suffix}": bound_ms / ms["kernel"],
+        })
+        log(f"[parity] farplane_gaussian {b} x {d}^2, {k} mode(s): kernel "
+            f"{ms['kernel']:.4f} ms, plain ATen chain {ms['plain']:.4f} ms "
+            f"({ms['plain'] / ms['kernel']:.1f}x); bound {bound_ms:.4f} ms ({bound_bytes} bytes "
+            f"at {cases.HBM_BYTES_PER_S:g} B/s), {100 * bound_ms / ms['kernel']:.1f}% of it "
+            f"({card})")
+        del data, farplane, mask
+    for name, (cost_gap, chi_gap) in gaps.items():
+        log(f"[parity] farplane_gaussian {name}: costs {cost_gap:.3e}, chi {chi_gap:.3e} of the "
+            f"largest magnitude (tol {cases_farplane.COST_TOL:g} / {cases_farplane.CHI_TOL:g}); "
+            "chi written over the farplane, two launches bitwise equal")
+    out.update(max_cost_gap=max(g[0] for g in gaps.values()),
+               max_chi_gap=max(g[1] for g in gaps.values()))
+    return {"farplane_gaussian": out}
+
+
 def phase_stream_slices(device) -> None:
     """13a: streamed rPIE and LSQML on the card, bit for bit the resident
     run's and within SLICE_TOL of the CPU's streamed run."""
@@ -2160,10 +2234,11 @@ def phase_admm_slice(device) -> None:
 
 
 def _reset_launches() -> None:
-    """Every kernel's count to 0: the patch, the KB, the Bucket, the
-    Lanczos and the probe kernels'."""
+    """Every kernel's count to 0: the patch, the far-field, the KB, the
+    Bucket, the Lanczos and the probe kernels'."""
     for counts in (
-        patch.LAUNCHES, usfft.LAUNCHES, bucket.LAUNCHES, interp.LAUNCHES, toolchain_probe.LAUNCHES
+        patch.LAUNCHES, objective.LAUNCHES, usfft.LAUNCHES, bucket.LAUNCHES, interp.LAUNCHES,
+        toolchain_probe.LAUNCHES,
     ):
         for name in counts:
             counts[name] = 0
@@ -2175,7 +2250,8 @@ def _read_launches(tag) -> dict:
     probes = {f"probe_{name}": count for name, count in toolchain_probe.LAUNCHES.items()}
     if any(probes.values()):
         raise AssertionError(f"{tag} launched probe kernels: {probes}")
-    return {**patch.LAUNCHES, **usfft.LAUNCHES, **bucket.LAUNCHES, **interp.LAUNCHES, **probes}
+    return {**patch.LAUNCHES, **objective.LAUNCHES, **usfft.LAUNCHES, **bucket.LAUNCHES,
+            **interp.LAUNCHES, **probes}
 
 
 def phase_admm(device, card: str) -> dict:
@@ -5121,6 +5197,7 @@ def main() -> None:
     card = env["nvidia_smi"]
     parent_form = phase_build()
     timings = phase_kernel_parity(device, card)
+    farplane_timings = phase_farplane_parity(device, card)
     path_shape_timings = phase_path_shapes(device, card)
     timings.update(phase_usfft_parity(device, card))
     scan, psi, probe = make_inputs(N_PATTERNS)
@@ -5256,6 +5333,19 @@ def main() -> None:
             **timings[name],
         }
         for name in KERNELS
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "tike_tpu_torch/csrc/farplane.cu",
+            "replaces": FARPLANE_KERNELS[name],
+            "launches": launches[name],
+            "launches_config2": launches2[name],
+            "launches_rpie": launches3[name],
+            **later(name),
+            **farplane_timings[name],
+        }
+        for name in FARPLANE_KERNELS
     ] + [
         {
             "name": name,

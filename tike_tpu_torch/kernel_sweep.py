@@ -6,7 +6,7 @@ with a few text substitutions (a tuning constant, a load instruction, a
 loop), built by its own ``nvcc`` (as many at once as the host has cores, a
 few seconds each) and held to the plain PyTorch versions. Run from the root of a checkout:
 
-    python -m tike_tpu_torch.kernel_sweep [--source usfft|gaussian|gaussian_wide|probe|bucket|interp] [--variants FILE] [--parent FILE]
+    python -m tike_tpu_torch.kernel_sweep [--source usfft|gaussian|gaussian_wide|probe|bucket|interp|farplane] [--variants FILE] [--parent FILE]
 
 ``--source usfft`` (the default), ``csrc/usfft.cu``: each variant launched
 twice for a bitwise comparison and timed in a CUDA graph at laminography's
@@ -87,6 +87,14 @@ first form (``csrc/interp_first_form.cu``), at ``chip_smoke.py`` phase
 the golden 128^2, m = 2, and at a rotation by 0.5 rad, where every adjoint
 warp falls back to adding tap by tap.
 
+``--source farplane``, ``csrc/farplane.cu``: blocks of 64 and 256
+threads, 1 and 4 groups of pixels loaded ahead, and ordinary in place of
+streaming loads and stores (``farplane_variants``); each variant held to
+the plain version on every case of ``tests/_torch_farplane_cases.py`` and
+at the main path's shapes, then timed in CUDA graphs in three rounds
+beside the plain ATen chain, at 1,000 x 128^2 with 1 and 3 modes, with its
+share of the bound its bytes set.
+
 ``FILE`` holds a Python literal ``{name: [(old, new), ...]}``; every ``old``
 must occur in the source. Without it the default variants run: the choices
 the source's header comment reports as measured.
@@ -101,6 +109,7 @@ import dataclasses
 import contextlib
 import ctypes
 import functools
+import math
 import os
 import re
 import statistics
@@ -119,6 +128,7 @@ GAUSSIAN_SOURCE = os.path.join(kernels.CSRC, "usfft_gaussian.cu")
 PROBE_SOURCE = os.path.join(kernels.CSRC, "probe.cu")
 BUCKET_SOURCE = os.path.join(kernels.CSRC, "bucket.cu")
 INTERP_SOURCE = os.path.join(kernels.CSRC, "interp.cu")
+FARPLANE_SOURCE = os.path.join(kernels.CSRC, "farplane.cu")
 
 VARIANTS = {
     "as it stands": [],
@@ -846,6 +856,85 @@ def _sweep_interp(libs: dict, device) -> None:
             print(f"{case}: {tag:44s} {line}", flush=True)
 
 
+def farplane_variants(source: str) -> dict:
+    """The default variants of ``csrc/farplane.cu`` (``source``): blocks of
+    64 and 256 threads besides 128 (16 and 4 blocks an SM), 1 and 4 groups
+    of pixels loaded ahead besides 2, and ordinary loads and stores in
+    place of the streaming ones."""
+    variants = {"as it stands": []}
+    for threads, blocks in ((64, 16), (256, 4)):
+        variants[f"{threads} threads, {blocks} blocks an SM"] = [
+            _constant(source, "kThreads", threads), _constant(source, "kMinBlocks", blocks),
+        ]
+    for unroll in (1, 4):
+        variants[f"{unroll} groups ahead"] = [_constant(source, "kUnroll", unroll)]
+    variants["not streaming"] = [_constant(source, "kStreaming", False)]
+    return variants
+
+
+def _sweep_farplane(libs: dict, device) -> None:
+    """Each variant through ``ops.objective``'s own wrapper, held to the
+    plain version on every case of ``tests/_torch_farplane_cases.py``, then
+    timed in CUDA graphs in three rounds beside the plain ATen chain at the
+    main path's 1,000 x 128^2 with 1 and 3 modes (every pixel measured, as
+    the benchmark's cells), with the least time its bytes need."""
+    from tests import _torch_farplane_cases as cases
+
+    from .ops import objective
+
+    kernels.load("farplane")
+    for line in kernels.BUILD_INFO["farplane"]["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[build] {line.strip()}", flush=True)
+    order = []
+    for tag, lib in libs.items():
+        with loaded("farplane", lib):
+            try:
+                worst = [0.0, 0.0]
+                for name in cases.CASES:
+                    found = cases.check_kernel(*cases.case_inputs(name, device, b=24), tag=name)
+                    worst = [max(w, f) for w, f in zip(worst, found)]
+                for modes in ((1, 1), (3,)):
+                    data, farplane, mask = cases.inputs(
+                        modes, cases.MAIN_D, True, b=cases.MAIN_PATTERNS, seed=1, device=device
+                    )
+                    found = cases.check_kernel(data, farplane, mask, 0.5, tag=str(modes))
+                    worst = [max(w, f) for w, f in zip(worst, found)]
+                    del data, farplane, mask
+            except AssertionError as error:
+                print(f"{tag}: WRONG ({error})", flush=True)
+                continue
+        order.append(tag)
+        print(f"{tag}: right; largest gaps over the cases, costs {worst[0]:.2e}, "
+              f"chi {worst[1]:.2e} (of the largest magnitude)", flush=True)
+    for modes in ((1, 1), (3,)):
+        data, farplane, mask = cases.inputs(
+            modes, cases.MAIN_D, False, b=cases.MAIN_PATTERNS, seed=2, device=device
+        )
+        k = math.prod(modes)
+        bound_ms = cases.bound_bytes(cases.MAIN_PATTERNS, k, cases.MAIN_D) / 3.35e12 * 1e3
+        times = {tag: [] for tag in ["plain ATen chain", *order]}
+        for turn in (list(times), list(times)[::-1], list(times)):
+            for tag in turn:
+                if tag == "plain ATen chain":
+                    fn = functools.partial(objective.gaussian_farplane_plain, data, farplane, mask, 1.0)
+                    times[tag].append(graph_ms(fn, reps=5))
+                    continue
+                # Each replay writes chi over the farplane the next reads:
+                # the same bytes, and values that stay finite.
+                with loaded("farplane", libs[tag]):
+                    fn = functools.partial(objective.gaussian_farplane_cuda, data, farplane, mask, 1.0)
+                    times[tag].append(graph_ms(fn, reps=5))
+        for tag, ts in times.items():
+            median = statistics.median(ts)
+            print(f"{cases.MAIN_PATTERNS} x {cases.MAIN_D}^2, {k} mode(s): {tag:36s} "
+                  + ", ".join(f"{t:.4f}" for t in ts)
+                  + f" ms (median {median:.4f}); bound {bound_ms:.4f} ms "
+                  f"({cases.bound_bytes(cases.MAIN_PATTERNS, k, cases.MAIN_D):,} bytes at 3.35 TB/s), "
+                  f"share {100 * bound_ms / median:.1f}%", flush=True)
+        del data, farplane, mask
+
+
 SWEEPS = {
     "usfft": (SOURCE, _sweep_usfft),
     "gaussian": (GAUSSIAN_SOURCE, lambda libs, device: (_sweep_gaussian(libs, device),
@@ -854,6 +943,7 @@ SWEEPS = {
     "probe": (PROBE_SOURCE, _sweep_probe),
     "bucket": (BUCKET_SOURCE, _sweep_bucket),
     "interp": (INTERP_SOURCE, _sweep_interp),
+    "farplane": (FARPLANE_SOURCE, _sweep_farplane),
 }
 
 
@@ -869,7 +959,8 @@ def main(argv=None) -> None:
         source = f.read()
     variants = {"usfft": lambda s: VARIANTS, "gaussian": gaussian_variants,
                 "gaussian_wide": gaussian_variants, "probe": probe_variants,
-                "bucket": bucket_variants, "interp": interp_variants}[args.source](source)
+                "bucket": bucket_variants, "interp": interp_variants,
+                "farplane": farplane_variants}[args.source](source)
     if args.variants:
         with open(args.variants) as f:
             variants = {"as it stands": [], **ast.literal_eval(f.read())}

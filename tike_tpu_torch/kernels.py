@@ -8,6 +8,8 @@ and the flags, so an edited source is rebuilt and an unchanged one is
 reused within a checkout. A missing ``nvcc`` or a failed build raises.
 :func:`build_all` starts one ``nvcc`` per source, all together.
 :class:`CardCounter` keeps the counts that kernels add to on the card.
+:func:`on_cpu` is the operators' rule for where a call goes: CPU tensors
+take a kernel's plain PyTorch version, CUDA tensors launch the kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +47,12 @@ SIGNATURES = {
         # (patches, positions, initial or NULL, image, n, h, w, p, channels,
         # stream); both return a cudaError_t
         "tike_patch_adj": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+    },
+    # The Gaussian model's far-field step.
+    "farplane": {
+        # (farplane, data, mask, chi (may be farplane), costs, patterns,
+        # modes, pixels, unmeasured scale - 1, stream)
+        "tike_farplane_gaussian": ([_PTR] * 5 + [_INT] * 3 + [_FLOAT, _PTR], _INT),
     },
     "usfft": {
         # (grid, rows, cols, order, weights, out, npoints, n, m, stream)
@@ -207,6 +215,18 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = restype
     _LOADED[name] = lib
     return lib
+
+
+def on_cpu(*tensors) -> bool:
+    """True if every tensor given is on the CPU, False if none is; tensors
+    on both raise. Arguments that are not tensors (``None``, numbers) are
+    passed over."""
+    devices = {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
+    if devices == {"cpu"}:
+        return True
+    if "cpu" in devices:
+        raise ValueError(f"tensors must all be on one device; got {sorted(devices)}")
+    return False
 
 
 class CardCounter:

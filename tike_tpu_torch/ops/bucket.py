@@ -426,29 +426,20 @@ def bucket_adj_cuda(cfg: BucketConfig, data, theta, grid=None, trig=None, slab=N
     return _launch("bucket_adj", cfg, data, out, voxels, theta, grid, trig, slab)
 
 
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
-    if devices == {"cpu"}:
-        return True
-    if "cpu" in devices:
-        raise ValueError(f"tensors must all be on one device; got {sorted(devices)}")
-    return False
-
-
 def bucket_fwd(cfg: BucketConfig, u, theta, grid=None, trig=None, slab=None):
     """Forward projection: volume (any shape holding the G voxels of
     ``grid``, or of the lattice's ``slab``, complex64) -> (T, n, n)
     complex64 planes. ``trig`` is :func:`bucket_trig` of ``theta``, if the
     caller keeps it. CPU tensors take the plain version; CUDA tensors launch
     the kernel."""
-    if _on_cpu(u, theta, grid, trig):
+    if kernels.on_cpu(u, theta, grid, trig):
         return bucket_fwd_plain(cfg, u, theta, grid, trig, slab)
     return bucket_fwd_cuda(cfg, u, theta, grid, trig, slab)
 
 
 def bucket_adj(cfg: BucketConfig, data, theta, grid=None, trig=None, slab=None):
     """Adjoint projection: (T, n, n) planes -> (G,) complex64 volume."""
-    if _on_cpu(data, theta, grid, trig):
+    if kernels.on_cpu(data, theta, grid, trig):
         return bucket_adj_plain(cfg, data, theta, grid, trig, slab)
     return bucket_adj_cuda(cfg, data, theta, grid, trig, slab)
 

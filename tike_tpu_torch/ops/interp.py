@@ -253,20 +253,11 @@ def remap_lanczos_adj_cuda(points: torch.Tensor, x: torch.Tensor, m: int, grid_s
     return grid[0] if points.dim() == 1 else grid
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if "cpu" in devices:
-        raise ValueError(f"tensors must all be on one device; got {sorted(devices)}")
-    return False
-
-
 def remap_lanczos_fwd(Fe: torch.Tensor, x: torch.Tensor, m: int, cval=0.0):
     """Sample Fe (H, W) or (I, H, W) at points x (N, 2) or (I, N, 2) with
     Lanczos filtering; returns (N,) or (I, N). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    if _on_cpu(Fe, x):
+    if kernels.on_cpu(Fe, x):
         return remap_lanczos_fwd_plain(Fe, x, m, cval)
     return remap_lanczos_fwd_cuda(Fe, x, m, cval)
 
@@ -275,7 +266,7 @@ def remap_lanczos_adj(points: torch.Tensor, x: torch.Tensor, m: int, grid_shape)
     """Adjoint of :func:`remap_lanczos_fwd` (with cval 0): spread point
     values (N,) or (I, N) onto (H, W) or (I, H, W) grids. CPU tensors take
     the plain version; CUDA tensors launch the kernel."""
-    if _on_cpu(points, x):
+    if kernels.on_cpu(points, x):
         return remap_lanczos_adj_plain(points, x, m, grid_shape)
     return remap_lanczos_adj_cuda(points, x, m, grid_shape)
 

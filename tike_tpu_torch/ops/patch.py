@@ -319,17 +319,6 @@ def needed_values(
     return pixels, int((rows * cols).sum())
 
 
-def _on_cpu(*tensors: torch.Tensor | None) -> bool:
-    devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cpu"}:
-        return True
-    if "cpu" in devices:
-        raise ValueError(
-            f"tensors must all be on one device; got {sorted(devices)}"
-        )
-    return False
-
-
 def patch_fwd(
     images: torch.Tensor, positions: torch.Tensor, patch_width: int
 ) -> torch.Tensor:
@@ -339,7 +328,7 @@ def patch_fwd(
     min-corners. Returns (N, P, P). CPU tensors take the plain version;
     CUDA tensors launch the kernel.
     """
-    if _on_cpu(images, positions):
+    if kernels.on_cpu(images, positions):
         return patch_fwd_plain(images, positions, patch_width)
     return patch_fwd_cuda(images, positions, patch_width)
 
@@ -356,7 +345,7 @@ def patch_adj(
     (H, W) initial image. Returns (H, W). CPU tensors take the plain
     version; CUDA tensors launch the kernel.
     """
-    if _on_cpu(patches, positions, images):
+    if kernels.on_cpu(patches, positions, images):
         return patch_adj_plain(patches, positions, images_shape, images)
     return patch_adj_cuda(patches, positions, images_shape, images)
 

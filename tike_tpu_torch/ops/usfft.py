@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .patch import _on_cpu, _raise_on_error
+from .patch import _raise_on_error
 
 LAUNCHES = {
     "usfft_gather_kb": 0, "usfft_scatter_kb": 0,
@@ -547,7 +547,7 @@ def gather_kb(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = No
     """KB-window interpolation of Fe (n,n,n) at frequencies x (N,3).
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     on ``plan`` (:func:`geometry_plan` of the same x and window) if given."""
-    if _on_cpu(Fe, x):
+    if kernels.on_cpu(Fe, x):
         _plan_for(plan, x, n, m, beta, "kb", build=False)
         return gather_kb_plain(Fe, x, n, m, beta)
     return gather_kb_cuda(Fe, x, n, m, beta, plan)
@@ -555,7 +555,7 @@ def gather_kb(Fe, x, n: int, m: int, beta: float, plan: GeometryPlan | None = No
 
 def scatter_kb(f, x, n: int, m: int, beta: float, plan: GeometryPlan | None = None):
     """Adjoint of :func:`gather_kb`: spread f (N,) onto an (n,n,n) grid."""
-    if _on_cpu(f, x):
+    if kernels.on_cpu(f, x):
         _plan_for(plan, x, n, m, beta, "kb", build=False)
         return scatter_kb_plain(f, x, n, m, beta)
     return scatter_kb_cuda(f, x, n, m, beta, plan)
@@ -699,7 +699,7 @@ def gather(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
     """Gaussian-window interpolation of Fe (n,n,n) at x (N,3) -> (N,).
     CPU tensors take the plain version; CUDA tensors launch the kernel, on
     ``plan`` (:func:`geometry_plan` of the same x and window) if given."""
-    if _on_cpu(Fe, x):
+    if kernels.on_cpu(Fe, x):
         _plan_for(plan, x, n, m, mu, "gaussian", build=False)
         return gather_gaussian_plain(Fe, x, n, m, mu)
     return gather_gaussian_cuda(Fe, x, n, m, mu, plan)
@@ -707,7 +707,7 @@ def gather(Fe, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
 
 def scatter(f, x, n: int, m: int, mu: float, plan: GeometryPlan | None = None):
     """Adjoint of :func:`gather`: spread f (N,) onto an (n,n,n) grid."""
-    if _on_cpu(f, x):
+    if kernels.on_cpu(f, x):
         _plan_for(plan, x, n, m, mu, "gaussian", build=False)
         return scatter_gaussian_plain(f, x, n, m, mu)
     return scatter_gaussian_cuda(f, x, n, m, mu, plan)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ... import linalg
-from ...ops.objective import ELEMENTWISE, GRAD
+from ...ops.objective import ELEMENTWISE, _masked_mean_each_pattern, gaussian_farplane
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import propagation_adj, propagation_fwd
 from ...ops.ptycho import PtychoConfig, _crop_from_detector, _pad_to_detector
@@ -60,15 +60,6 @@ def _masked_trim_mean(x, mask, proportion=0.05):
     keep = slice(k, max(nv - k, k))
     count = max(nv - 2 * k, 1)
     return torch.sum(s[keep], dim=0, keepdim=True) / count
-
-
-def _masked_mean_each_pattern(elem, pixel_mask):
-    """Per-pattern mean over measured pixels only.
-
-    Counterpart of ``tike_tpu.ptycho.solvers.rpie._masked_mean_each_pattern``.
-    """
-    w = pixel_mask.to(elem.dtype)
-    return torch.sum(elem * w, dim=(-2, -1)) / torch.sum(w)
 
 
 def _precondition_object_update(
@@ -150,12 +141,12 @@ def _lstsq_batch_steps(
     patches2d = patch_fwd(psi[0], scan_b, p)  # (B, P, P)
     nearplane = patches2d[:, None, None] * unique_probe  # (B, 1, M, P, P)
     farplane = propagation_fwd(_pad_to_detector(nearplane, cfg))
-    intensity = torch.sum(torch.square(torch.abs(farplane)), dim=(1, 2))
 
-    costs = _masked_mean_each_pattern(
-        ELEMENTWISE[noise_model](data_b, intensity), measured_pixels
-    )
     if noise_model == "poisson":
+        intensity = torch.sum(torch.square(torch.abs(farplane)), dim=(1, 2))
+        costs = _masked_mean_each_pattern(
+            ELEMENTWISE[noise_model](data_b, intensity), measured_pixels
+        )
         xi = (1 - data_b / (intensity + 1e-9))[:, None, None]
         grad_cost = farplane * xi
         step_length = torch.full(
@@ -175,11 +166,15 @@ def _lstsq_batch_steps(
                 measured_pixels, step_length, step_length_weight,
             )
         update = -step_length * grad_cost
+        chi_far = torch.where(
+            measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
+        )
+    elif noise_model == "gaussian":
+        costs, chi_far = gaussian_farplane(
+            data_b, farplane, measured_pixels, unmeasured_pixels_scaling
+        )
     else:
-        update = -GRAD[noise_model](data_b, farplane, intensity)
-    chi_far = torch.where(
-        measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
-    )
+        raise KeyError(f"unknown noise model {noise_model!r}")
     chi = _crop_from_detector(propagation_adj(chi_far), cfg)  # (B,1,M,P,P)
     chi = chi * bmask[:, None, None, None, None]
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ... import linalg
-from ...ops.objective import ELEMENTWISE, GRAD
+from ...ops.objective import ELEMENTWISE, _masked_mean_each_pattern, gaussian_farplane
 from ...ops.patch import patch_adj, patch_fwd
 from ...ops.propagation import fresnel_adj, propagation_adj
 from ...ops.ptycho import (
@@ -34,7 +34,6 @@ from ..exitwave import (
     poisson_steplength_dominant_mode,
 )
 from ..probe import get_varying_probe
-from .lstsq import _masked_mean_each_pattern
 
 
 def _batch_gradients_math(*args, **kwargs):
@@ -90,13 +89,12 @@ def _batch_gradients_steps(
     farplane, slice_probes = ptycho_fwd_with_probes(
         cfg, psi, scan_b, unique_probe
     )  # (B, M, DET, DET), (D, B, M, P, P)
-    intensity = intensity_from_farplane(farplane)
-
-    costs = _masked_mean_each_pattern(
-        ELEMENTWISE[noise_model](data_b, intensity), measured_pixels
-    )
 
     if noise_model == "poisson":
+        intensity = intensity_from_farplane(farplane)
+        costs = _masked_mean_each_pattern(
+            ELEMENTWISE[noise_model](data_b, intensity), measured_pixels
+        )
         xi = (1 - data_b / (intensity + 1e-9))[:, None, :, :]
         grad_cost = farplane * xi
         step_length = torch.full(
@@ -125,12 +123,15 @@ def _batch_gradients_steps(
                 step_length_weight,
             )
         update = -step_length[:, 0] * grad_cost
+        chi = torch.where(
+            measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
+        )
+    elif noise_model == "gaussian":
+        costs, chi = gaussian_farplane(
+            data_b, farplane, measured_pixels, unmeasured_pixels_scaling
+        )
     else:
-        update = -GRAD[noise_model](data_b, farplane, intensity)
-
-    chi = torch.where(
-        measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
-    )
+        raise KeyError(f"unknown noise model {noise_model!r}")
     diff = _crop_from_detector(propagation_adj(chi), cfg)  # (B, M, P, P)
     diff = diff * bmask[:, None, None, None]
 
